@@ -1,0 +1,44 @@
+"""'A Little Is Enough' (ALIE) mean-shift drift attack.
+
+Reference ``DriftAttack`` (malicious.py:30-36): the crafted gradient is the
+malicious cohort's mean shifted down by z standard deviations per
+coordinate, ``mean - z * sigma``.  z is the fixed CLI constant num_std
+(default 1.5, reference main.py:109-110); ``num_std='auto'``
+(beyond-reference) computes the paper's z_max via :func:`paper_z`.
+"""
+
+from __future__ import annotations
+
+from statistics import NormalDist
+
+from attacking_federate_learning_tpu_torch.attacks.base import (
+    Attack, cohort_stats
+)
+
+
+def paper_z(users_count: int, corrupted_count: int) -> float:
+    """The ALIE paper's z_max (Baruch et al., NeurIPS'19 §3.1).  With
+    ``s = floor(n/2 + 1) - f`` honest supporters required,
+
+        z_max = Phi^-1((n - f - s) / (n - f)),
+
+    clamped to [0, z(0.9999)]: p <= 0.5 grants no positive hiding room
+    (z = 0), and an attacker majority drives p past 1, where z_max is
+    unbounded, so it caps at the 0.9999 quantile."""
+    n, f = int(users_count), int(corrupted_count)
+    honest = n - f
+    if honest <= 0:
+        return 0.0
+    s = n // 2 + 1 - f
+    p = (honest - s) / honest
+    if p <= 0.5:
+        return 0.0
+    return float(NormalDist().inv_cdf(min(p, 0.9999)))
+
+
+class DriftAttack(Attack):
+    name = "alie"
+
+    def craft(self, mal_grads):
+        mean, stdev = cohort_stats(mal_grads)
+        return mean - self.num_std * stdev

@@ -1,0 +1,58 @@
+"""Attack framework.
+
+The reference's attack seam is ``Attack.attack(mal_users)`` called once
+per round between client compute and gradient collection (reference
+main.py:66-68, malicious.py:10-27): it computes the mean and population
+std of the malicious cohort's *honest* gradients, asks the subclass for
+one crafted vector, and overwrites every malicious client's gradient with
+it (malicious.py:26-27).  Malicious clients are the first f ids
+(reference main.py:28), so the seam replaces rows [0, f) of the (n, d)
+matrix.  ``num_std == 0`` disables crafting (malicious.py:21-22).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cohort_stats(mal_grads: torch.Tensor):
+    """Mean and population std over the malicious cohort (reference
+    malicious.py:18-19: np.var ** 0.5, i.e. ddof=0)."""
+    mean = mal_grads.mean(0)
+    stdev = torch.sqrt(mal_grads.var(0, correction=0))
+    return mean, stdev
+
+
+class Attack:
+    """Base class; subclasses implement ``craft``."""
+
+    name = "none"
+
+    def __init__(self, num_std: float):
+        self.num_std = num_std
+
+    def craft(self, mal_grads: torch.Tensor) -> torch.Tensor:
+        """(f, d) honest malicious-cohort grads -> (d,) crafted vector."""
+        raise NotImplementedError
+
+    def apply(self, users_grads: torch.Tensor,
+              corrupted_count: int) -> torch.Tensor:
+        """Returns users_grads with the first f rows replaced (in place:
+        the round owns the matrix).  No-op when f == 0 (reference
+        malicious.py:11) or num_std == 0 (malicious.py:21)."""
+        f = corrupted_count
+        if f == 0 or self.num_std == 0:
+            return users_grads
+        crafted = self.craft(users_grads[:f])
+        users_grads[:f] = crafted[None, :]
+        return users_grads
+
+
+class NoAttack(Attack):
+    name = "none"
+
+    def __init__(self):
+        super().__init__(num_std=0.0)
+
+    def apply(self, users_grads, corrupted_count):
+        return users_grads

@@ -1,0 +1,3 @@
+from attacking_federate_learning_tpu_torch.defenses.kernels import (  # noqa: F401
+    DEFENSES, check_defense_args
+)

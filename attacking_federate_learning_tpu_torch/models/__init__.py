@@ -1,0 +1,6 @@
+from attacking_federate_learning_tpu_torch.models.base import (  # noqa: F401
+    MODELS, get_model
+)
+
+# Import for registry side effects.
+from attacking_federate_learning_tpu_torch.models import mnist  # noqa: F401

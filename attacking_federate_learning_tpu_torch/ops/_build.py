@@ -1,0 +1,165 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a) into
+its own shared library with a plain C interface, loaded with ``ctypes``.
+No PyTorch header is compiled, so a build takes seconds.  The libraries
+go into ``_build/`` beside this package (listed in ``.gitignore``), named
+by a hash of the sources and flags, so an edited source is rebuilt and a
+checkout builds from its own sources at first use.  :func:`build_all`
+starts one ``nvcc`` per missing library, all at once.
+
+Nothing here runs at import: the CPU tests import every module, and a
+CPU-only machine has no ``nvcc``.  Each wrapper counts its launches in
+:data:`LAUNCHES`, so a caller can show which kernels a run went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# kernel name -> (source in csrc/, C entry point, its argument types).
+# Every entry point takes the stream last and returns a cudaError_t.
+KERNELS = {
+    "pairwise_distances": ("pairwise_distances.cu", "fl_pairwise_distances",
+                           (_P, _I, _LL, _P, _P, _P)),
+    "krum_scores": ("krum_scores.cu", "fl_krum_scores",
+                    (_P, _I, _LL, _I, _P, _P, _P, _P)),
+    "trimmed_mean": ("trimmed_mean.cu", "fl_trimmed_mean",
+                     (_P, _I, _LL, _I, _P, _P)),
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# Launches per kernel since the last reset: each wrapper adds one where it
+# launches its kernel, and nowhere else.
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> Optional[str]:
+    """The CUDA compiler: $NVCC, else nvcc on PATH, else the toolkit's
+    default install location; None when there is none."""
+    env = os.environ.get("NVCC")
+    if env:
+        return env if os.path.exists(env) else None
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    return default if os.path.exists(default) else None
+
+
+def library_path(name: str) -> Path:
+    """Where kernel ``name``'s library lives, keyed by a hash of its source,
+    the shared headers and the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / KERNELS[name][0]] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every missing library among ``names`` (default: all), one
+    ``nvcc`` process per source, started together.  Returns the seconds
+    each build took (0.0 for one already built); raises RuntimeError with
+    the compiler's output if a build fails or there is no ``nvcc``."""
+    names = list(KERNELS if names is None else names)
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
+    times = {n: 0.0 for n in names}
+    if not todo:
+        return times
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            f"cannot build CUDA kernels {sorted(todo)}: no nvcc found "
+            f"(set $NVCC or put the CUDA toolkit's bin on PATH)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc {KERNELS[name][0]} failed "
+                          f"(rc {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return times
+
+
+def entry_point(name: str):
+    """Kernel ``name``'s C entry point with its argument types declared,
+    building and loading the library first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            _LOADED[name] = lib
+    _, symbol, argtypes = KERNELS[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_status(name: str, status: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError_t {status})")
+
+
+def check_cuda_matrix(G, name: str) -> None:
+    """What every kernel takes: a contiguous 2-D float32 CUDA tensor."""
+    if G.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes a CUDA tensor, "
+                         f"got one on {G.device}")
+    if G.dtype != torch.float32 or G.dim() != 2 or not G.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous 2-D float32 "
+                         f"tensor, got {G.dtype} {tuple(G.shape)} "
+                         f"contiguous={G.is_contiguous()}")
+    if G.shape[0] < 1 or G.shape[1] < 1:
+        raise ValueError(f"{name}: empty matrix {tuple(G.shape)}")
+
+
+def stream_handle(G) -> int:
+    """PyTorch's current stream on G's device, as the raw handle."""
+    return torch.cuda.current_stream(G.device).cuda_stream
+

@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and reported as
+success):
+
+1. device   -- require CUDA; print the card's name and power limit
+               (nvidia-smi); fp32 everywhere (TF32 off for matmul and
+               cuDNN).
+2. build    -- compile every kernel of the flat round from csrc/ with nvcc
+               (one process per source, all started together).
+3. kernels  -- hold each CUDA kernel against its plain PyTorch version on
+               the card, on seeded numpy cohorts: the main path's shapes
+               (mnist_mlp, d = 79,510, n = 100, f = 24), an ALIE cohort of
+               identical crafted rows, ragged n and d, n = 1,000 on four
+               seeds, and trimmed-mean columns with exact +-dev ties at
+               the k-th place.  Distances are also held against an fp64
+               Gram.  Kernel, plain and library times are CUDA-event
+               medians; torch.profiler splits each wrapper's time at
+               the main shape into the kernels it launches.
+4. reference-- three rounds of each defense at a small size on the card;
+               each round's aggregate (kernels) is held against the plain
+               versions on the CPU on the same gradients.
+5. main     -- FederatedExperiment.run() on the card at full width:
+               mnist_mlp on SYNTH_MNIST at MNIST's 60,000/10,000 sizes,
+               n = 100, f = 24 (ALIE z = 1.5), B = 128, lr 0.1, momentum 0.9,
+               rounds 0..20 for NoDefense, Krum, TrimmedMean and Bulyan.
+               Launch counters are zeroed before and read after each run,
+               and every kernel of the defense's path must have launched.
+
+Output: one line per check, a {"kernels": [...]} JSON line, the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+The script imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PKG = "attacking_federate_learning_tpu_torch"
+
+N_MAIN, F_MAIN, D_MLP = 100, 24, 79_510
+ROUNDS = 21                      # rounds 0..20, evaluated at 0, 10 and 20
+TEST_STEP = 10
+
+# Published peaks (NVIDIA data sheets; dense fp32 outside the tensor cores,
+# device memory bandwidth), keyed by a substring of the card's name.  The
+# SXM part is the default.
+PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12),
+         "SXM": (67.0e12, 3.35e12)}
+
+
+def peaks_for(name: str):
+    for key, val in PEAKS.items():
+        if key in name:
+            return key, val
+    return "SXM", PEAKS["SXM"]
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cohort(n, d, f, attack, seed):
+    """Seeded (n, d) f32 cohort: honest normals with the first f rows
+    crafted as the attack would (ALIE: identical rows mean - 1.5 sigma of
+    the honest rows, the tie structure real rounds produce)."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((n, d), dtype=np.float32)
+    if attack == "alie" and f:
+        mu, sigma = G[f:].mean(0), G[f:].std(0)
+        G[:f] = mu - 1.5 * sigma
+    return G
+
+
+def time_ms(fn, reps):
+    """Median of ``reps`` CUDA-event timings of one call (after a warm-up
+    call), in ms.  The input stays in L2 between calls where it fits, as
+    it does on the main path, which reads the gradients it just wrote."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def close(got, want, atol, rtol):
+    err = (got.double() - want.double()).abs()
+    lim = atol + rtol * want.double().abs()
+    return float(err.max()), bool((err <= lim).all())
+
+
+def rel_err(*pairs):
+    """Largest |got - want| / |want| over (got, want) pairs; a nonzero
+    error where want is exactly 0 reads as inf."""
+    import torch
+
+    worst = 0.0
+    for got, want in pairs:
+        diff = (got.double() - want.double()).abs()
+        rel = torch.where(diff == 0, 0.0, diff / want.double().abs())
+        worst = max(worst, float(rel.max()))
+    return worst
+
+
+def kernel_chain(d):
+    """The longest sequential chain of roundings in one Gram output of the
+    distance kernels, whatever the tile plan (csrc/gram_tile.cuh): FMA
+    chains of at most 256 products, at most ceil(d / 256) of them added in
+    order, then at most 8 k-group and 8 cluster-rank partials."""
+    return 256 + -(-d // 256) + 16
+
+
+def d2_band(sq, chain):
+    """Per pair (i, j): how far an fp32 squared distance sq_i + sq_j -
+    2 g_i.g_j may stray when its sums run chains of ``chain`` roundings.
+    A chain of L roundings of a sum S strays by about eps * sqrt(L) * S
+    (rounding errors add up as a random walk); four times that, on the
+    scale sq_i + sq_j of the terms."""
+    eps = float(np.finfo(np.float32).eps)
+    return 4.0 * math.sqrt(chain) * eps * (sq[:, None] + sq[None, :])
+
+
+def tie_cohort(n, d, seed):
+    """(n, d) f32 columns m + dev, where dev is 0 (odd n) and +-j/4 for
+    j = 1 .. n // 2, in a random row order per column, and m a random
+    integer.  Every |dev| but 0 ties exactly with its opposite, so a k that
+    keeps one of a pair keeps the one in the lower row (argsort(stable))
+    and any other order changes the mean."""
+    rng = np.random.default_rng(seed)
+    j = np.arange(1, n // 2 + 1, dtype=np.float32) * 0.25
+    dev = np.concatenate([np.zeros(n % 2, np.float32),
+                          np.stack([j, -j], 1).ravel()])
+    cols = rng.permuted(np.repeat(dev[:, None], d, axis=1), axis=0)
+    return (cols + rng.integers(-16, 17, d)).astype(np.float32)
+
+
+def kernel_split(calls, reps):
+    """Prints the device time of each CUDA kernel the wrappers launch
+    (mean over ``reps`` rounds of ``calls``), from torch.profiler: a
+    wrapper may launch more than one kernel (the distance kernels launch
+    a row-norm pass first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+    for e in rows:
+        print(f"[split] {e.key[:60]:60s} calls={e.count} "
+              f"mean_us={e.device_time_total / e.count:.1f}", flush=True)
+    if not rows:
+        print("[split] not measured: the profiler saw no device time",
+              flush=True)
+
+
+def check_kernels(peaks, failures):
+    """Phase 3.  Returns the kernels line's entries (main-path shapes)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
+        krum_complement, krum_scores, krum_scores_plain, trimmed_mean_of,
+        trimmed_mean_of_plain
+    )
+    from attacking_federate_learning_tpu_torch.ops.distances import (
+        pairwise_distances, pairwise_distances_plain
+    )
+
+    flops_peak, bytes_peak = peaks
+    eps = float(np.finfo(np.float32).eps)
+    entries = {}
+
+    def report(name, label, err, rel, tol, ok, ms, plain_ms, lib_ms,
+               nbytes, nops, entry_for=None):
+        """Print one check; with ``entry_for = (source, replaces, shape)``
+        it is also the kernel's entry in the kernels line."""
+        t_b, t_o = nbytes / bytes_peak * 1e3, nops / flops_peak * 1e3
+        b_ms, b_by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"[kernel] {name:18s} {label:34s} max_abs_err={err:.3e} "
+              f"max_rel_err={rel:.3e} "
+              f"tol: {tol} ok={ok} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"launches={_build.LAUNCHES[name]}", flush=True)
+        if not ok:
+            failures.append(f"{name} {label}: max_abs_err {err:.3e}")
+        if entry_for:
+            source, replaces, shape = entry_for
+            entries[name] = {
+                "name": name, "route": "cuda",
+                "source": f"{PKG}/csrc/{source}",
+                "replaces": f"attacking_federate_learning_tpu/{replaces}",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms, "shape": shape}
+
+    def check_trim(Gt, k, label, reps, entry_for=None):
+        got = trimmed_mean_of(Gt, k)
+        want = trimmed_mean_of_plain(Gt, k)
+        # Same median, same keys, same stable kept set; only the order of
+        # the k-term sum differs: k rounding steps of the largest kept
+        # |dev| (2x margin).
+        atol = k * eps * 2.0 * float(Gt.abs().max())
+        err, ok = close(got, want, atol, 1e-6)
+        ms = time_ms(lambda: trimmed_mean_of(Gt, k), reps)
+        pms = time_ms(lambda: trimmed_mean_of_plain(Gt, k), reps)
+        nt, d = Gt.shape
+        report("trimmed_mean", label, err, rel_err((got, want)), f"atol {atol:.2e} + rtol 1e-6",
+               ok, ms, pms, None, 4 * (nt * d + d), 3 * nt * d, entry_for)
+
+    cases = [  # (n, d, f, attack, seed, reps, main-path?)
+        (N_MAIN, D_MLP, F_MAIN, "alie", 1, 20, True),
+        (N_MAIN, D_MLP, F_MAIN, "none", 2, 5, False),
+        (13, 79, 3, "alie", 3, 5, False),
+        (1000, D_MLP, 240, "alie", 4, 3, False),
+    ] + [(1000, D_MLP, 240, "alie", seed, 1, False) for seed in (5, 6, 7)]
+    for n, d, f, attack, seed, reps, main in cases:
+        G = torch.from_numpy(cohort(n, d, f, attack, seed)).cuda()
+        label = f"n={n} d={d} f={f} {attack} seed={seed}"
+        # fp64 reference: squared distances from an fp64 Gram.
+        G64 = G.double()
+        sq64 = (G64 * G64).sum(1)
+        ref2 = (sq64[:, None] + sq64[None, :] - 2.0 * (G64 @ G64.T)).clamp(
+            min=0.0)
+        del G64
+        band_k = d2_band(sq64, kernel_chain(d))
+        # The plain version's cuBLAS Gram may sum all of d in one chain.
+        band = band_k + d2_band(sq64, d)
+        crafted = slice(0, f if attack == "alie" else 0)
+
+        # -- pairwise distances ------------------------------------------
+        got = pairwise_distances(G)
+        want = pairwise_distances_plain(G)
+        got2, want2 = got.double() ** 2, want.double() ** 2
+        err = float((got - want).abs().max())
+        ok = (bool(((got2 - want2).abs() <= band).all())
+              and bool(((got2 - ref2).abs() <= band_k).all())
+              and bool((got == got.T).all())
+              and bool((got.diagonal() == 0).all())
+              and bool((got[crafted, crafted] == 0).all()))
+        ms = time_ms(lambda: pairwise_distances(G), reps)
+        pms = time_ms(lambda: pairwise_distances_plain(G), reps)
+        lms = time_ms(lambda: torch.cdist(
+            G, G, compute_mode="use_mm_for_euclid_dist"), reps)
+        gram_ops = n * (n - 1) * d + 2 * n * d
+        report("pairwise_distances", label, err, rel_err((got, want)),
+               f"|D^2-plain^2| <= 4(sqrt {kernel_chain(d)} + sqrt {d}) eps "
+               f"(sq_i+sq_j), |D^2-fp64| <= 4 sqrt {kernel_chain(d)} eps "
+               f"(sq_i+sq_j), identical rows exactly 0", ok, ms, pms, lms,
+               4 * (n * d + n * n), gram_ops,
+               main and ("pairwise_distances.cu",
+                         "ops/pallas_distances.py:92", [n, d]))
+
+        # -- fused Krum scores --------------------------------------------
+        comp = krum_complement(n, f)
+        got_s, got_r = krum_scores(G, f)
+        want_s, want_r = krum_scores_plain(G, f)
+        # Each distance may stray by e_ij <= min(sqrt(band), band / D):
+        # a rowsum by their sum, a score by twice that (rowsum and top-c),
+        # plus the rounding of n-term sums in another order.
+        e = torch.minimum(band.sqrt(), band / want.double().clamp(
+            min=1e-30)).fill_diagonal_(0.0).sum(1)
+        sum_tol = 2.0 * n * eps * want_r.double().abs()
+        ok_s = bool(((got_s.double() - want_s.double()).abs()
+                     <= 2.0 * e + sum_tol).all())
+        ok_r = bool(((got_r.double() - want_r.double()).abs()
+                     <= e + sum_tol).all())
+        ga, wa = int(torch.argmin(got_s)), int(torch.argmin(want_s))
+        ok_w = ga == wa or abs(float(want_s[ga] - want_s[wa])) <= float(
+            2.0 * (e[ga] + e[wa]) + sum_tol[ga] + sum_tol[wa])
+        err = max(float((got_s - want_s).abs().max()),
+                  float((got_r - want_r).abs().max()))
+        ms = time_ms(lambda: krum_scores(G, f), reps)
+        pms = time_ms(lambda: krum_scores_plain(G, f), reps)
+        report("krum_scores", label + f" c={comp}", err,
+               rel_err((got_s, want_s), (got_r, want_r)),
+               "rowsum e_i + 2n eps rowsum_i, score 2 e_i + 2n eps rowsum_i,"
+               " e_i = sum_j min(sqrt b_ij, b_ij / D_ij) of the distance "
+               "band b", ok_s and ok_r and ok_w, ms, pms, None,
+               4 * (n * d + 2 * n), gram_ops,
+               main and ("krum_scores.cu", "ops/pallas_defense.py:214",
+                         [n, d]))
+
+        # -- trimmed mean -------------------------------------------------
+        check_trim(G, n - f - 1, f"n={n} d={d} k={n - f - 1} {attack} "
+                   f"seed={seed}", reps,
+                   main and ("trimmed_mean.cu", "ops/pallas_defense.py:274",
+                             [n, d]))
+        if main:
+            # Bulyan's trim tail: set_size = n - 2f rows, keep
+            # set_size - 2f - 1.
+            check_trim(G[:n - 2 * f].contiguous(), n - 4 * f - 1,
+                       f"n={n - 2 * f} d={d} k={n - 4 * f - 1} {attack}",
+                       reps)
+        if main:
+            kernel_split([lambda: pairwise_distances(G),
+                          lambda: krum_scores(G, f),
+                          lambda: trimmed_mean_of(G, n - f - 1)], reps)
+        del G, got, want, got2, want2, ref2, band, band_k
+        torch.cuda.empty_cache()
+
+    # Exact +-dev ties at the k-th place: only the stable kept set (lower
+    # row first) matches, in registers (n <= 256) and in shared memory.
+    for n, k in ((13, 4), (64, 7), (300, 101)):
+        Gt = torch.from_numpy(tie_cohort(n, 4099, n)).cuda()
+        check_trim(Gt, k, f"n={n} d=4099 k={k} +-ties", 3)
+    return entries
+
+
+def check_reference(failures):
+    """Phase 4: a few rounds of each defense on the card at a small size;
+    every round's aggregate is held against the plain versions on the
+    CPU, on the same gradients."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+
+    eps = float(np.finfo(np.float32).eps)
+    ds = load_dataset(C.SYNTH_MNIST_HARD, seed=0, synth_train=2000,
+                      synth_test=500)
+    for defense in C.DEFENSE_NAMES:
+        cfg = ExperimentConfig(dataset=C.SYNTH_MNIST_HARD, users_count=19,
+                               mal_prop=0.22, batch_size=32, epochs=3,
+                               defense=defense, synth_train=2000,
+                               synth_test=500)
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda")
+        inner, errs = exp.defense_fn, []
+
+        def checked(grads, n, f, inner=inner, errs=errs):
+            got = inner(grads, n, f)
+            want = inner(grads.cpu(), n, f)
+            # Krum returns a row of the matrix: it must be the same row.
+            # The means sum at most n terms in another order: n rounding
+            # steps of the largest |g| (2x margin).
+            atol = 0.0 if defense == "Krum" else (
+                2.0 * n * eps * float(grads.abs().max()))
+            err = float((got.cpu() - want).abs().max())
+            errs.append((err, atol))
+            return got
+
+        exp.defense_fn = checked
+        for t in range(cfg.epochs):
+            exp.run_round(t)
+        ok = (all(e <= a for e, a in errs)
+              and bool(torch.isfinite(exp.state.weights).all()))
+        worst = max(errs)
+        print(f"[reference] {defense:11s} n=19 f=4 {cfg.epochs} rounds, "
+              f"aggregate on the card vs plain on the CPU, same gradients: "
+              f"max_abs_err={worst[0]:.3e} tol={worst[1]:.2e} ok={ok}",
+              flush=True)
+        if not ok:
+            failures.append(f"reference {defense}: {errs}")
+
+
+def run_main_path(failures):
+    """Phase 5.  Returns launches per kernel summed over the four runs."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    ds = load_dataset(C.SYNTH_MNIST, seed=0, synth_train=60_000,
+                      synth_test=10_000)
+    print(f"[main] SYNTH_MNIST 60000/10000 made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    needs = {"NoDefense": (), "Krum": ("krum_scores",),
+             "TrimmedMean": ("trimmed_mean",),
+             "Bulyan": ("pairwise_distances", "trimmed_mean")}
+    totals = {name: 0 for name in _build.LAUNCHES}
+    for defense, kernels in needs.items():
+        cfg = ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
+                               mal_prop=0.24, batch_size=128, epochs=ROUNDS,
+                               num_std=1.5, learning_rate=0.1, momentum=0.9,
+                               defense=defense, test_step=TEST_STEP,
+                               synth_train=60_000, synth_test=10_000)
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda")
+        assert exp.flat.dim == D_MLP and exp.f == F_MAIN
+        round_s = []
+        inner = exp.run_round
+
+        def timed_round(t, inner=inner, round_s=round_s):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            state = inner(t)
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - a)
+            return state
+
+        exp.run_round = timed_round
+        lines = []
+        _build.reset_launches()
+        result = exp.run(log=lines.append)
+        launches = dict(_build.LAUNCHES)
+        for name, count in launches.items():
+            totals[name] += count
+        accs = dict(zip(result["epochs"], result["accuracies"]))
+        finite = (all(math.isfinite(a) for a in accs.values())
+                  and bool(torch.isfinite(exp.state.weights).all()))
+        missing = [k for k in kernels if launches[k] == 0]
+        per_round = {k: launches[k] / ROUNDS for k in launches}
+        acc_txt = "/".join(f"{accs[r]:.2f}" if r in accs else "none"
+                           for r in (0, 10, 20))
+        print(f"[main] {defense:11s} acc r0/r10/r20 = {acc_txt} % "
+              f"median_round_ms={1e3 * statistics.median(round_s):.3f} "
+              f"launches={launches} per_round={per_round} "
+              f"finite={finite}", flush=True)
+        for line in lines:
+            if line.startswith("Test set"):
+                print(f"[main]   {line}", flush=True)
+        if missing or not finite or sorted(accs) != [0, 10, 20]:
+            failures.append(f"main {defense}: missing launches {missing}, "
+                            f"finite={finite}, evals={sorted(accs)}")
+    return totals
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke test needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    # -- 1. device ----------------------------------------------------------
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    part, peaks = peaks_for(kind)
+    print(f"[device] {smi}", flush=True)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{kind}; peaks for the {part} part: "
+          f"{peaks[0] / 1e12:.1f} TFLOP/s fp32, {peaks[1] / 1e12:.2f} TB/s",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 2. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    times = _build.build_all()
+    print(f"[build] {json.dumps({k: round(v, 2) for k, v in times.items()})}"
+          f" wall {time.perf_counter() - t0:.1f} s", flush=True)
+
+    failures = []
+    # -- 3. kernels vs plain ----------------------------------------------
+    entries = check_kernels(peaks, failures)
+    # -- 4. small-input reference ------------------------------------------
+    check_reference(failures)
+    # -- 5. main path --------------------------------------------------------
+    totals = run_main_path(failures)
+    for name, e in entries.items():
+        e["launches"] = totals[name]
+
+    if failures:
+        for msg in failures:
+            print(f"FAILED: {msg}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True,
+                      "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,203 @@
+"""Rules the port keeps, checked without a card.
+
+- No module of the port, and not ``chip_smoke.py``, imports JAX or the
+  JAX package (an AST scan: this interpreter may have imported jax before
+  the tests start, so ``sys.modules`` proves nothing).
+- Entry points run on the card by default: without CUDA, constructing an
+  experiment or running the CLI with no device raises instead of running
+  on the CPU.
+- A kernel wrapper given a CUDA tensor launches its kernel or raises; it
+  never takes the plain version.  With no compiler and no built library,
+  it raises.
+"""
+
+import ast
+import inspect
+from pathlib import Path
+
+import pytest
+import torch
+
+import attacking_federate_learning_tpu_torch as port
+from attacking_federate_learning_tpu_torch import cli
+from attacking_federate_learning_tpu_torch import config as C
+from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+from attacking_federate_learning_tpu_torch.core.engine import (
+    FederatedExperiment
+)
+from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
+from attacking_federate_learning_tpu_torch.ops import _build
+from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
+    krum_scores, trimmed_mean_of
+)
+from attacking_federate_learning_tpu_torch.ops.distances import (
+    pairwise_distances
+)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_DIR = Path(port.__file__).resolve().parent
+SOURCES = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+JAX_PACKAGE = "attacking_federate_learning_tpu"
+
+
+def forbidden(module: str) -> bool:
+    """True for jax and for the JAX package or any of its submodules;
+    the port's own name begins with the JAX package's and is allowed."""
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib") or top == JAX_PACKAGE
+
+
+def forbidden_imports(source: str):
+    """Every module the source imports (statements, ``__import__`` and
+    ``importlib.import_module`` with a literal name) that is forbidden."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            fname = (fn.id if isinstance(fn, ast.Name) else
+                     fn.attr if isinstance(fn, ast.Attribute) else "")
+            arg = node.args[0]
+            if (fname in ("__import__", "import_module")
+                    and isinstance(arg, ast.Constant)
+                    and isinstance(arg.value, str)):
+                names = [arg.value]
+        found += [n for n in names if forbidden(n)]
+    return found
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_import(path):
+    assert forbidden_imports(path.read_text()) == []
+
+
+def test_the_scan_sees_every_form_of_import():
+    bad = ("import jax\n"
+           "import jax.numpy as jnp\n"
+           "from jax import lax\n"
+           "import attacking_federate_learning_tpu.config\n"
+           "from attacking_federate_learning_tpu.data import partition\n"
+           "from attacking_federate_learning_tpu import config\n"
+           "importlib.import_module('attacking_federate_learning_tpu.ops')\n"
+           "__import__('jaxlib')\n")
+    assert len(forbidden_imports(bad)) == 8
+    ok = ("import attacking_federate_learning_tpu_torch\n"
+          "from attacking_federate_learning_tpu_torch.config import C\n"
+          "from .ops import _build\n"
+          "import jaxtyping\n")
+    assert forbidden_imports(ok) == []
+
+
+def test_the_scan_covers_the_whole_port():
+    names = {p.relative_to(PORT_DIR).as_posix() for p in SOURCES[:-1]}
+    for module in ("config.py", "cli.py", "core/engine.py",
+                   "ops/_build.py", "ops/distances.py",
+                   "ops/defense_kernels.py", "defenses/kernels.py"):
+        assert module in names
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+
+
+def test_entry_points_default_to_the_card():
+    assert inspect.signature(
+        FederatedExperiment.__init__).parameters["device"].default == "cuda"
+    assert cli.build_parser().parse_args([]).device == "cuda"
+
+
+def test_experiment_without_device_raises_without_cuda():
+    _no_cuda()
+    cfg = ExperimentConfig(dataset=C.SYNTH_MNIST_HARD, users_count=7,
+                           synth_train=100, synth_test=20)
+    ds = load_dataset(C.SYNTH_MNIST_HARD, seed=0, synth_train=100,
+                      synth_test=20)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FederatedExperiment(cfg, dataset=ds)
+    # Asking for the CPU by name runs.
+    exp = FederatedExperiment(cfg, dataset=ds, device="cpu")
+    assert exp.state.weights.device.type == "cpu"
+
+
+def test_cli_without_device_raises_without_cuda():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["-s", C.SYNTH_MNIST_HARD, "-n", "7", "-e", "1",
+                  "--synth-train", "100", "--synth-test", "20"])
+
+
+def test_unknown_device_is_refused():
+    cfg = ExperimentConfig(dataset=C.SYNTH_MNIST_HARD, users_count=7,
+                           synth_train=100, synth_test=20)
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        FederatedExperiment(cfg, device="meta")
+
+
+class _CudaMatrix:
+    """Stands in for a (4, 8) float32 CUDA tensor on a machine that
+    cannot make one: the wrappers read only these attributes before they
+    load their kernel."""
+
+    device = torch.device("cuda", 0)
+    dtype = torch.float32
+    shape = (4, 8)
+
+    def dim(self):
+        return 2
+
+    def is_contiguous(self):
+        return True
+
+
+_WRAPPERS = {
+    "pairwise_distances": lambda G: pairwise_distances(G),
+    "krum_scores": lambda G: krum_scores(G, 2),
+    "trimmed_mean": lambda G: trimmed_mean_of(G, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_wrapper_raises_for_cuda_without_a_kernel(name, tmp_path,
+                                                  monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setenv("NVCC", str(tmp_path / "no-nvcc"))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no nvcc found"):
+        _WRAPPERS[name](_CudaMatrix())
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_wrapper_refuses_what_the_kernel_does_not_take(name):
+    class Double(_CudaMatrix):
+        dtype = torch.float64
+
+    class Strided(_CudaMatrix):
+        def is_contiguous(self):
+            return False
+
+    for bad in (Double(), Strided()):
+        with pytest.raises(ValueError, match="contiguous 2-D float32"):
+            _WRAPPERS[name](bad)
+    with pytest.raises(ValueError, match="takes a CUDA tensor"):
+        _WRAPPERS[name](torch.zeros(4, 8, device="meta"))
+
+
+def test_every_kernel_has_a_source_and_a_counter():
+    assert sorted(_build.KERNELS) == sorted(_build.LAUNCHES) == sorted(
+        _WRAPPERS)
+    for source, symbol, _ in _build.KERNELS.values():
+        text = (_build.CSRC / source).read_text()
+        assert f'extern "C" int {symbol}(' in text
+        assert "Replaces the TPU kernel" in text
+    # The library name follows the sources, so an edited kernel rebuilds.
+    paths = {_build.library_path(n) for n in _build.KERNELS}
+    assert len(paths) == 3 and all(p.parent == _build.BUILD_DIR
+                                   for p in paths)
