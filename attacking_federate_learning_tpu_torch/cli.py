@@ -2,13 +2,15 @@
 
 The flat flags of the JAX package's CLI, with the reference driver's
 short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
--e 300), plus ``--device``.  It prints the same ``Test set: [ N] ...
+-e 300), the ``--fault-*`` flags of the fault model, plus ``--device``.  It prints the same ``Test set: [ N] ...
 Accuracy: x/N`` lines.  The run is on the card unless ``--device cpu``
 asks for the CPU.  Backdoor attacks are not ported yet, so ``-b`` takes
 only ``No``.
 
 Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 100 -m 0.24
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d Median -n 100 -m 0.1 --fault-dropout 0.1 --fault-straggler 0.1
 """
 
 from __future__ import annotations
@@ -51,6 +53,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test-step", default=ExperimentConfig.test_step,
                    type=int, help="evaluate every this many rounds")
     p.add_argument("--data-dir", default="data", type=str)
+    p.add_argument("--fault-dropout", default=0.0, type=float,
+                   metavar="P",
+                   help="per-client per-round dropout probability: the "
+                        "client returns no update; its row is "
+                        "quarantined out of the aggregation "
+                        "(core/faults.py)")
+    p.add_argument("--fault-straggler", default=0.0, type=float,
+                   metavar="P",
+                   help="per-client per-round straggler probability: the "
+                        "client submits its gradient from "
+                        "--fault-straggler-delay rounds ago (stale ring "
+                        "buffer on the device)")
+    p.add_argument("--fault-straggler-delay", default=1, type=int,
+                   metavar="K", help="straggler staleness in rounds")
+    p.add_argument("--fault-corrupt", default=0.0, type=float,
+                   metavar="P",
+                   help="per-HONEST-client per-round corruption "
+                        "probability (distinct from the attack seam, "
+                        "which owns rows [0, f)); see "
+                        "--fault-corrupt-mode")
+    p.add_argument("--fault-corrupt-mode", default="nan",
+                   choices=["nan", "inf", "scale"],
+                   help="corruption flavor: non-finite rows ('nan'/'inf' "
+                        "— caught by the pre-aggregation quarantine) or "
+                        "finite bit-scaled rows ('scale' — what the "
+                        "robust defense / divergence watchdog must "
+                        "absorb)")
+    p.add_argument("--fault-shard-dropout", default=0.0, type=float,
+                   metavar="P",
+                   help="per-SHARD-DOMAIN per-round failure onset "
+                        "probability (hierarchical aggregation only, "
+                        "which the port does not have yet: refused)")
+    p.add_argument("--fault-shard-dropout-dwell", default=1, type=int,
+                   metavar="K",
+                   help="rounds a dead shard domain stays dead after "
+                        "each failure onset (correlated outage width)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the card (default), or the CPU with the kernels' "
                         "plain PyTorch versions")
@@ -58,13 +96,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args) -> ExperimentConfig:
+    faults = None
+    if (args.fault_dropout or args.fault_straggler or args.fault_corrupt
+            or args.fault_shard_dropout):
+        faults = C.FaultConfig(
+            dropout=args.fault_dropout,
+            straggler=args.fault_straggler,
+            corrupt=args.fault_corrupt,
+            straggler_delay=args.fault_straggler_delay,
+            corrupt_mode=args.fault_corrupt_mode,
+            shard_dropout=args.fault_shard_dropout,
+            shard_dropout_dwell=args.fault_shard_dropout_dwell)
     return ExperimentConfig(
         users_count=args.users_count, mal_prop=args.mal_prop,
         dataset=args.dataset, learning_rate=args.learning_rate,
         batch_size=args.batch_size, epochs=args.epochs,
         num_std=args.num_std, defense=args.defense, test_step=args.test_step,
         data_dir=args.data_dir, seed=args.seed,
-        synth_train=args.synth_train, synth_test=args.synth_test)
+        synth_train=args.synth_train, synth_test=args.synth_test,
+        faults=faults)
 
 
 def main(argv=None) -> dict:

@@ -4,8 +4,10 @@ A flat-only subset of the JAX package's ``ExperimentConfig``: the fields
 the flat, synchronous, full-participation round reads, with the same
 defaults, the same derived values (``corrupted_count``, ``'auto'`` z,
 per-dataset fading rate, default model) and the same validation
-messages.  Hierarchical/async aggregation, faults, traffic, secagg,
-backdoor and the observability knobs are later slices of the port.
+messages, plus the JAX package's ``FaultConfig`` (a copy: the port
+imports nothing of the JAX package).  Hierarchical/async aggregation,
+traffic, secagg, backdoor, checkpoints and the observability knobs are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -24,7 +26,84 @@ DATASETS = (MNIST, SYNTH_MNIST, SYNTH_MNIST_HARD)
 FADING_RATES = {MNIST: 10000.0, SYNTH_MNIST: 10000.0,
                 SYNTH_MNIST_HARD: 10000.0}
 
-DEFENSE_NAMES = ("NoDefense", "Krum", "TrimmedMean", "Bulyan")
+DEFENSE_NAMES = ("NoDefense", "Krum", "TrimmedMean", "Bulyan", "Median")
+
+
+@dataclasses.dataclass
+class FaultConfig:
+    """Deterministic client-side fault model (core/faults.py), the JAX
+    package's ``FaultConfig`` field for field.
+
+    Every rate is a per-client, per-round probability drawn from a PRNG
+    keyed on ``(seed, round)``: the schedule is a pure function of the
+    config, and the port draws the JAX package's exact bits
+    (utils/threefry.py), so a port run and a JAX run of one config
+    inject the same faults.
+
+    Fault kinds (applied to the SUBMITTED update matrix, after the
+    attack seam; the attack owns rows [0, f) and corruption is
+    restricted to honest rows):
+
+    - ``dropout``: the client returns no update this round.  Its row is
+      zeroed and excluded from aggregation via the quarantine mask.
+    - ``straggler``: the client submits the gradient it computed
+      ``straggler_delay`` rounds ago (a (delay, n, d) ring buffer on the
+      device).  Stale updates are aggregated, not quarantined.
+    - ``corrupt``: an honest client's row is damaged in flight:
+      ``'nan'``/``'inf'`` make it non-finite (quarantined before
+      aggregation), ``'scale'`` multiplies it by ``corrupt_scale``
+      (finite garbage for the robust aggregation, or failing that the
+      divergence watchdog, to absorb).
+    - ``shard_dropout``: correlated shard-domain death, for hierarchical
+      aggregation only; the port's flat round rejects it.
+
+    The watchdog fields govern server-side graceful degradation
+    (core/engine.py): at each evaluation round a non-finite or
+    norm-exploded server state is rolled back to the last good snapshot
+    instead of aborting, at most ``max_rollbacks`` times.
+    """
+
+    dropout: float = 0.0
+    straggler: float = 0.0
+    corrupt: float = 0.0
+    shard_dropout: float = 0.0   # correlated shard-domain death rate
+    shard_dropout_dwell: int = 1  # rounds a dead domain stays dead
+    straggler_delay: int = 1     # rounds of staleness (ring-buffer depth)
+    corrupt_mode: str = "nan"    # 'nan' | 'inf' | 'scale'
+    corrupt_scale: float = 1e30  # multiplier for corrupt_mode='scale'
+    watchdog: bool = True        # divergence watchdog + rollback
+    watchdog_norm: float = 1e8   # ||weights|| explosion threshold
+    max_rollbacks: int = 3       # rollback attempts before aborting
+    seed: Optional[int] = None   # None -> derived from the experiment seed
+
+    def __post_init__(self):
+        for name in ("dropout", "straggler", "corrupt", "shard_dropout"):
+            v = getattr(self, name)
+            if not (0.0 <= v < 1.0):
+                raise ValueError(
+                    f"fault {name} rate must be in [0, 1), got {v}")
+        if self.shard_dropout_dwell < 1:
+            raise ValueError(
+                f"shard_dropout_dwell must be >= 1, got "
+                f"{self.shard_dropout_dwell}")
+        if self.straggler_delay < 1:
+            raise ValueError(
+                f"straggler_delay must be >= 1, got {self.straggler_delay}")
+        if self.corrupt_mode not in ("nan", "inf", "scale"):
+            raise ValueError(
+                f"corrupt_mode must be 'nan', 'inf' or 'scale', "
+                f"got {self.corrupt_mode!r}")
+        if self.watchdog_norm <= 0:
+            raise ValueError(
+                f"watchdog_norm must be > 0, got {self.watchdog_norm}")
+        if self.max_rollbacks < 0:
+            raise ValueError(
+                f"max_rollbacks must be >= 0, got {self.max_rollbacks}")
+
+    @property
+    def enabled(self) -> bool:
+        return (self.dropout > 0 or self.straggler > 0
+                or self.corrupt > 0 or self.shard_dropout > 0)
 
 
 @dataclasses.dataclass
@@ -64,6 +143,16 @@ class ExperimentConfig:
     partition: str = "iid"           # 'iid' | 'dirichlet'
     dirichlet_alpha: float = 0.5
 
+    # --- faults & recovery (core/faults.py) -----------------------------
+    # None (the default) is the zero-fault round.  A FaultConfig (or an
+    # equivalent dict, coerced below) with any rate > 0 turns on fault
+    # injection, the quarantine mask and the divergence watchdog.
+    faults: Optional[FaultConfig] = None
+    # Auto-checkpoints belong to the lifecycle slice of the port; until
+    # then only 0 (off) is accepted, and the watchdog's rollback target
+    # is the in-memory state at the start of run().
+    checkpoint_every: int = 0
+
     def __post_init__(self):
         if self.dataset not in DATASETS:
             raise ValueError(f"Unknown dataset {self.dataset!r}")
@@ -76,6 +165,14 @@ class ExperimentConfig:
                 f"got {self.defense!r}")
         if self.partition not in ("iid", "dirichlet"):
             raise ValueError(f"Unknown partition {self.partition!r}")
+        if isinstance(self.faults, dict):
+            self.faults = FaultConfig(**self.faults)
+        if self.checkpoint_every != 0:
+            raise ValueError(
+                f"checkpoint_every={self.checkpoint_every}: auto-"
+                f"checkpoints are not ported yet (only 0 is accepted); "
+                f"the fault watchdog rolls back to the in-memory state "
+                f"at the start of run()")
         if self.num_std == "auto":
             from attacking_federate_learning_tpu_torch.attacks.alie import (
                 paper_z

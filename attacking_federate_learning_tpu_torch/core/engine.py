@@ -5,16 +5,25 @@ The reference's round is four host-side phases over one process
 
     grads = vmap(grad(loss))(w, batches)      # deliver: all clients at once
     grads = attack.apply(grads, f)            # craft: first-f-rows overwrite
-    agg   = defense(grads, n, f)              # tier-1 aggregate
+    grads, mask = inject_and_quarantine(...)  # only with cfg.faults
+    agg   = defense(grads, n, f[, mask])      # tier-1 aggregate
     state = momentum_update(state, agg)       # apply
 
 on one device.  Which implementation a defense runs follows the device
-of the gradient matrix alone: on ``cuda`` Krum, TrimmedMean and Bulyan go
-through the hand-written CUDA kernels (Krum through the fused distance ->
-score kernel under its cancellation guard, the route the JAX engine takes
-with ``aggregation_impl='pallas'``), on ``cpu`` the same calls take the
-kernels' plain PyTorch versions.  No option selects the plain versions on
-the card.
+of the gradient matrix alone: on ``cuda`` Krum, TrimmedMean, Bulyan and
+Median go through the hand-written CUDA kernels (unmasked Krum through
+the fused distance -> score kernel under its cancellation guard, the
+route the JAX engine takes with ``aggregation_impl='pallas'``), on
+``cpu`` the same calls take the kernels' plain PyTorch versions.  No
+option selects the plain versions on the card.
+
+With ``cfg.faults`` (core/faults.py) each round injects the scheduled
+dropouts, stragglers and corruptions into the crafted matrix, quarantines
+what the server can see, and hands the effective-cohort mask to the
+defense.  The divergence watchdog checks the weights at every evaluation
+round and rolls back to the state at the start of :meth:`run` instead of
+aborting, at most ``max_rollbacks`` times (the JAX engine's span-boundary
+check, core/engine.py:_diverged/_rollback, without auto-checkpoints).
 
 Evaluation runs on the host's cadence, every ``test_step`` rounds and
 after the last one (reference main.py:73-95), and prints the reference's
@@ -32,6 +41,7 @@ from attacking_federate_learning_tpu_torch.attacks.base import (
     Attack, NoAttack
 )
 from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+from attacking_federate_learning_tpu_torch.core import faults as F
 from attacking_federate_learning_tpu_torch.core.client import (
     make_client_grad_fn
 )
@@ -75,12 +85,17 @@ class FederatedExperiment:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.attacker = attacker or NoAttack()
-        self.dataset = dataset or load_dataset(
-            cfg.dataset, cfg.data_dir, cfg.seed,
-            synth_train=cfg.synth_train, synth_test=cfg.synth_test)
         self.n = cfg.users_count
         self.f = cfg.corrupted_count
         check_defense_args(cfg.defense, self.n, self.f)
+        # A FaultConfig with every rate 0 is the zero-fault round.
+        self.faults = (cfg.faults if cfg.faults is not None
+                       and cfg.faults.enabled else None)
+        if self.faults is not None:
+            F.check_fault_support(cfg)
+        self.dataset = dataset or load_dataset(
+            cfg.dataset, cfg.data_dir, cfg.seed,
+            synth_train=cfg.synth_train, synth_test=cfg.synth_test)
 
         defense = DEFENSES[cfg.defense]
         if cfg.defense == "Krum":
@@ -97,6 +112,13 @@ class FederatedExperiment:
         self.model = get_model(cfg.model, gen).to(self.device)
         self.flat = FlatParams(self.model)
         self.state = init_server_state(self.flat.module_vector(self.model))
+        self.fault_state = None
+        # The latest round's fault counts ('quarantined' a device tensor).
+        self.last_round_faults = None
+        if self.faults is not None:
+            self._fault_key = F.fault_key(cfg)
+            self.fault_state = F.init_fault_state(self.faults, self.n,
+                                                  self.flat.dim, self.device)
 
         shards = make_shards(cfg.partition, self.dataset.train_y, self.n,
                              cfg.seed, cfg.dirichlet_alpha)
@@ -122,36 +144,112 @@ class FederatedExperiment:
         xs, ys = self.gather_batches(t)
         return self._client_grads(self.state.weights, xs, ys).contiguous()
 
+    def inject_and_quarantine(self, grads: torch.Tensor, t: int):
+        """Fault seam: inject the round-t faults into the submitted
+        matrix, then mask and zero what the server can detect.  Returns
+        the aggregable matrix and the (n,) effective-cohort mask, and
+        records the round's counts in ``last_round_faults``."""
+        grads, dropped, self.fault_state, stats = F.apply_faults(
+            grads, t, self._fault_key, self.fault_state, self.faults,
+            self.f)
+        clean, mask, qstats = F.quarantine(grads, dropped)
+        self.last_round_faults = {"round": t, **stats, **qstats}
+        return clean, mask
+
     def run_round(self, t: int) -> ServerState:
         cfg = self.cfg
         grads = self.compute_grads(t)
         grads = self.attacker.apply(grads, self.f)             # craft
-        agg = self.defense_fn(grads, self.n, self.f)           # aggregate
+        if self.faults is None:
+            agg = self.defense_fn(grads, self.n, self.f)       # aggregate
+        else:
+            grads, mask = self.inject_and_quarantine(grads, t)
+            agg = self.defense_fn(grads, self.n, self.f, mask=mask)
         self.state = momentum_update(self.state, agg, cfg.learning_rate,
                                      cfg.momentum)             # apply
         return self.state
+
+    def _snapshot(self):
+        """A copy of the server state and the fault ring: the watchdog's
+        rollback target."""
+        st = self.state
+        return (ServerState(st.weights.clone(), st.velocity.clone(),
+                            st.round),
+                {k: v.clone() for k, v in self.fault_state.items()})
+
+    def _diverged(self) -> bool:
+        """Divergence predicate (one device-to-host read): non-finite
+        weights, or a weight norm beyond FaultConfig.watchdog_norm."""
+        w = self.state.weights
+        return not bool(torch.isfinite(w).all()) or float(
+            torch.linalg.vector_norm(w)) > self.faults.watchdog_norm
+
+    def _rollback(self, log, epoch: int) -> None:
+        """Restore the last good snapshot; raise FloatingPointError once
+        more than max_rollbacks were needed (the state restored first, so
+        a caller that catches it holds a finite state)."""
+        self._rollbacks += 1
+        self.state, self.fault_state = self._last_good
+        self._last_good = self._snapshot()    # the ring is updated in place
+        restored = self.state.round
+        log(f"!! server state diverged after round {epoch}; rolling "
+            f"back to round {restored} "
+            f"(rollback {self._rollbacks}/{self.faults.max_rollbacks})")
+        if self._rollbacks > self.faults.max_rollbacks:
+            raise FloatingPointError(
+                f"server state diverged after round {epoch} and "
+                f"exhausted {self.faults.max_rollbacks} rollbacks "
+                f"(restored to round {restored})")
 
     def run(self, log: Callable[[str], None] = print) -> dict:
         """Full experiment loop (reference main.py:64-95): ``cfg.epochs``
         rounds, evaluated every ``test_step`` rounds and after the last,
         each evaluation reported as the reference's ``Test set:`` line
-        through ``log``."""
+        through ``log``.
+
+        With faults the result also holds ``faults``, one dict of counts
+        per round run (a rolled-back round appears again when it is run
+        again), read to the host at the evaluation rounds only; with the
+        watchdog on, a diverged state at an evaluation round is rolled
+        back before it is evaluated."""
         cfg = self.cfg
         test_size = len(self.dataset.test_y)
-        accuracies, epochs = [], []
+        accuracies, epochs, fault_rows, pending = [], [], [], []
+        watchdog = self.faults is not None and self.faults.watchdog
+        self._rollbacks = 0
+        if watchdog:
+            self._last_good = self._snapshot()
         log("\nStarting Training...")
-        for epoch in range(int(self.state.round), cfg.epochs):
+        epoch = int(self.state.round)
+        while epoch < cfg.epochs:
             self.run_round(epoch)
-            if epoch % cfg.test_step == 0 or epoch == cfg.epochs - 1:
-                test_loss, correct = self.evaluate(self.state.weights)
-                accuracy = 100.0 * float(correct) / test_size
-                accuracies.append(accuracy)
-                epochs.append(epoch)
-                log("Test set: [{:3d}] Average loss: {:.4f}, "
-                    "Accuracy: {}/{} ({:.2f}%)".format(
-                        epoch, float(test_loss), int(correct), test_size,
-                        accuracy))
+            if self.faults is not None:
+                pending.append(self.last_round_faults)
+            if epoch % cfg.test_step and epoch != cfg.epochs - 1:
+                epoch += 1
+                continue
+            if pending:
+                counts = torch.stack([r["quarantined"] for r in pending])
+                fault_rows += [{**row, "quarantined": q}
+                               for row, q in zip(pending, counts.tolist())]
+                pending = []
+            if watchdog and self._diverged():
+                self._rollback(log, epoch)
+                epoch = int(self.state.round)
+                continue
+            test_loss, correct = self.evaluate(self.state.weights)
+            accuracy = 100.0 * float(correct) / test_size
+            accuracies.append(accuracy)
+            epochs.append(epoch)
+            log("Test set: [{:3d}] Average loss: {:.4f}, "
+                "Accuracy: {}/{} ({:.2f}%)".format(
+                    epoch, float(test_loss), int(correct), test_size,
+                    accuracy))
+            epoch += 1
         if accuracies:
             log("Max accuracy: {}".format(max(accuracies)))
-        return {"accuracies": accuracies, "epochs": epochs,
-                "final_weights": self.state.weights}
+        result = {"accuracies": accuracies, "epochs": epochs,
+                  "final_weights": self.state.weights}
+        if self.faults is not None:
+            result["faults"] = fault_rows
+        return result

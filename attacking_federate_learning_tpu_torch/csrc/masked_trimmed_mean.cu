@@ -1,0 +1,35 @@
+// Mask-aware median-anchored trimmed mean: (n, d) f32, (n,) mask, (n,)
+// weights -> (d,).
+//
+// Replaces the TPU kernel attacking_federate_learning_tpu/ops/
+// pallas_defense.py:pallas_masked_trimmed_mean (_masked_trim_kernel,
+// through _masked_coord_call).  Per column, over the alive rows only: med
+// = the alive median (unweighted); dev = x - med; keep the k = max(e -
+// k_delta, 1) alive entries of smallest |dev| in stable row order, e the
+// alive count; return sum(kept dev) / k + med, or with `weighted`
+// sum(w dev) / max(sum w, 1e-12) + med over the same kept set.  k_delta
+// is f + 1 for TrimmedMean and 2f + 1 for Bulyan's tail.  e and k come
+// from the mask inside the kernel: no device-to-host read per call.
+//
+// Bound by bytes on an H100: one read of the (n, d) matrix.  The design
+// is coord_select.cuh's; dead rows never enter a count or a sum, which
+// is what the Pallas kernel's +inf keys achieve (k <= e whenever e >= 1).
+
+#include "coord_select.cuh"
+
+// G: (n, d) f32 row-major; mask: (n,) bytes, nonzero = alive; w: (n,) f32
+// (read only when `weighted`); out: (d,).  k_delta >= 0, n <= 25,600.
+// Launches on `stream`; returns the CUDA error code (0 on success).
+extern "C" int fl_masked_trimmed_mean(const float* G,
+                                      const unsigned char* mask,
+                                      const float* w, int n, long long d,
+                                      int k_delta, int weighted, float* out,
+                                      void* stream) {
+    if (mask == nullptr || k_delta < 0 || (weighted && w == nullptr))
+        return (int)cudaErrorInvalidValue;
+    return (int)(weighted
+        ? fl::coord_select<fl::kTrim, true>(G, mask, w, n, d, k_delta, out,
+                                            stream)
+        : fl::coord_select<fl::kTrim, false>(G, mask, nullptr, n, d, k_delta,
+                                             out, stream));
+}

@@ -8,188 +8,11 @@
 // row, as argsort(..., stable=True) does; ALIE's f identical rows make
 // ties the normal case); return sum(kept dev) / k + med.
 //
-// What bounds it on an H100: in bytes, one read of the (n, d) matrix and
-// one (d,) write (31.8 MB at n = 100, d = 79,510: 9.5 us at 3.35 TB/s).
-// A sort along n per column would cost far more than that read, so the
-// kernel sorts nothing: it selects.  A block stages a (n x C) column block
-// in shared memory once (coalesced along the columns; row stride C + 1,
-// odd, so a warp reading one column down its rows hits 32 banks), and one
-// warp takes a column at a time, its lanes striding over the rows:
-//
-// - the order statistics of the median by radix selection on the float's
-//   order-preserving 32-bit key, one bit per counting pass over n (32
-//   passes, each count a warp reduction), the upper middle value by one
-//   more pass;
-// - the keys are overwritten with the deviations' bits, and the k-th
-//   smallest |dev| = T is selected the same way (31 passes);
-// - one ballot pass keeps every row with |dev| < T and the first
-//   k - #{|dev| < T} rows with |dev| == T in row order, which is exactly
-//   the stable argsort's kept set.
-//
-// About 66 passes of n per column instead of a sort, or the 2 n^2
-// comparisons of a rank count.  The kept deviations are summed per lane
-// and then across the warp, another order than the reference's sorted
-// one, which moves the result by at most k rounding steps of the largest
-// kept |dev|.
+// Bound by bytes on an H100: one read of the (n, d) matrix.  The design
+// (radix selection on order-preserving keys, one warp per column, no
+// sort) is coord_select.cuh's, shared with the median and masked kernels.
 
-#include <cuda_runtime.h>
-
-namespace fl {
-
-constexpr unsigned kFull = 0xffffffffu;
-
-// Order-preserving key of a finite float (-0 taken as +0), and back.
-__device__ __forceinline__ unsigned ordered_key(float x) {
-    const unsigned u = __float_as_uint(x + 0.0f);
-    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ordered_key(unsigned o) {
-    return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-// One lane's share of a column: rows i = lane + 32 j.  With RPL > 0 the
-// lane holds its RPL rows in registers (n <= 32 RPL); with RPL == 0 they
-// stay in shared memory (x[i * stride]).
-template <int RPL>
-struct Column {
-    unsigned r[RPL > 0 ? RPL : 1];
-    unsigned* x;
-    int n, stride, lane;
-
-    __device__ __forceinline__ int slots() const {
-        return RPL > 0 ? RPL : (n + 31) / 32;
-    }
-    __device__ __forceinline__ bool valid(int j) const {
-        return lane + 32 * j < n;
-    }
-    __device__ __forceinline__ unsigned get(int j) const {
-        return RPL > 0 ? r[j] : x[(lane + 32 * j) * stride];
-    }
-    __device__ __forceinline__ void set(int j, unsigned v) {
-        if (RPL > 0) r[j] = v;
-        else x[(lane + 32 * j) * stride] = v;
-    }
-};
-
-// #{i : (key_i & mask) < t}: one ballot per 32 rows, the same count in
-// every lane.
-template <int RPL>
-__device__ __forceinline__ int count_below(const Column<RPL>& c, unsigned t,
-                                           unsigned mask) {
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < c.slots(); ++j)
-        cnt += __popc(__ballot_sync(
-            kFull, c.valid(j) && (c.get(j) & mask) < t));
-    return cnt;
-}
-
-// The r-th smallest (0-based) of the masked keys, built one bit at a
-// time from bit `top` down: a bit is set when at most r keys lie below
-// the prefix with that bit set.
-template <int RPL>
-__device__ __forceinline__ unsigned select_key(const Column<RPL>& c, int r,
-                                               int top, unsigned mask) {
-    unsigned ans = 0u;
-    for (int b = top; b >= 0; --b) {
-        const unsigned t = ans | (1u << b);
-        if (count_below(c, t, mask) <= r) ans = t;
-    }
-    return ans;
-}
-
-// Block: `cols` columns of G, which its warps take in turn.
-template <int RPL>
-__global__ void trimmed_mean_kernel(const float* __restrict__ G, int n,
-                                    long long d, int k, int cols,
-                                    float* __restrict__ out) {
-    extern __shared__ unsigned tile[];            // [n][cols + 1]
-    const int stride = cols + 1;
-    const long long c0 = (long long)blockIdx.x * cols;
-    for (int e = threadIdx.x; e < n * cols; e += blockDim.x) {
-        const int r = e / cols, c = e % cols;
-        const long long col = c0 + c;
-        tile[r * stride + c] =
-            col < d ? ordered_key(G[(long long)r * d + col]) : 0u;
-    }
-    __syncthreads();
-
-    const int lane = threadIdx.x & 31;
-    const int nwarps = blockDim.x >> 5;
-    for (int cc = threadIdx.x >> 5; cc < cols && c0 + cc < d; cc += nwarps) {
-        // (Each lane only ever touches its own rows, i = lane mod 32.)
-        Column<RPL> c;
-        c.x = tile + cc;
-        c.n = n;
-        c.stride = stride;
-        c.lane = lane;
-#pragma unroll
-        for (int j = 0; j < RPL; ++j)
-            c.r[j] = c.valid(j) ? c.x[(lane + 32 * j) * stride] : 0u;
-
-        // Median: the (n-1)/2-th key, and the n/2-th for even n.
-        const int mlo = (n - 1) / 2, mhi = n / 2;
-        const unsigned lo = select_key(c, mlo, 31, kFull);
-        unsigned hi = lo;
-        if (mhi != mlo) {
-            int le = 0;
-            unsigned above = kFull;
-#pragma unroll
-            for (int j = 0; j < c.slots(); ++j) {
-                const bool ok = c.valid(j);
-                const unsigned v = ok ? c.get(j) : 0u;
-                le += __popc(__ballot_sync(kFull, ok && v <= lo));
-                if (ok && v > lo && v < above) above = v;
-            }
-            hi = le > mhi ? lo : __reduce_min_sync(kFull, above);
-        }
-        const float med =
-            (from_ordered_key(lo) + from_ordered_key(hi)) * 0.5f;
-
-        // Keys -> deviation bits; |dev| is the bits without the sign.
-#pragma unroll
-        for (int j = 0; j < c.slots(); ++j)
-            if (c.valid(j))
-                c.set(j, __float_as_uint(from_ordered_key(c.get(j)) - med));
-
-        const unsigned T = select_key(c, k - 1, 30, 0x7fffffffu);
-        int need = k - count_below(c, T, 0x7fffffffu);
-        float sum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < c.slots(); ++j) {
-            const bool ok = c.valid(j);
-            const unsigned v = ok ? c.get(j) : 0u;
-            const unsigned key = v & 0x7fffffffu;
-            const bool tie = ok && key == T;
-            const unsigned ties = __ballot_sync(kFull, tie);
-            const int before = __popc(ties & ((1u << lane) - 1u));
-            if ((ok && key < T) || (tie && before < need))
-                sum += __uint_as_float(v);
-            need -= __popc(ties);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            sum += __shfl_xor_sync(kFull, sum, off);
-        if (lane == 0) out[c0 + cc] = sum / (float)k + med;
-    }
-}
-
-template <int RPL>
-cudaError_t launch(const float* G, int n, long long d, int k, int cols,
-                   size_t bytes, float* out, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        trimmed_mean_kernel<RPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return err;
-    const int threads = 32 * (cols < 8 ? cols : 8);
-    const unsigned blocks = (unsigned)((d + cols - 1) / cols);
-    trimmed_mean_kernel<RPL><<<blocks, threads, bytes, stream>>>(G, n, d, k,
-                                                                 cols, out);
-    return cudaGetLastError();
-}
-
-}  // namespace fl
+#include "coord_select.cuh"
 
 // G: (n, d) f32 row-major on the device; out: (d,).  1 <= k <= n, and
 // n <= 25,600 (one column's staging must fit a block's shared memory).
@@ -197,21 +20,7 @@ cudaError_t launch(const float* G, int n, long long d, int k, int cols,
 extern "C" int fl_trimmed_mean(const float* G, int n, long long d, int k,
                                float* out, void* stream) {
     if (n <= 0 || d <= 0 || k < 1 || k > n) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    // The widest column block (up to 32) whose staging takes at most 64 KB,
-    // so several blocks share an SM; one column up to 200 KB for large n.
-    int cols = 32;
-    while (cols > 1 && (size_t)n * (cols + 1) * sizeof(unsigned) > 64 * 1024)
-        cols /= 2;
-    const size_t bytes = (size_t)n * (cols + 1) * sizeof(unsigned);
-    if (bytes > 200 * 1024) return (int)cudaErrorInvalidValue;
-    // Rows in registers up to 256 (8 a lane), in shared memory past that.
-    const int rpl = (n + 31) / 32;
-    const cudaError_t err =
-        rpl <= 1   ? fl::launch<1>(G, n, d, k, cols, bytes, out, st)
-        : rpl <= 2 ? fl::launch<2>(G, n, d, k, cols, bytes, out, st)
-        : rpl <= 4 ? fl::launch<4>(G, n, d, k, cols, bytes, out, st)
-        : rpl <= 8 ? fl::launch<8>(G, n, d, k, cols, bytes, out, st)
-                   : fl::launch<0>(G, n, d, k, cols, bytes, out, st);
-    return (int)err;
+    // Every row alive: e = n, and k = n - (n - k).
+    return (int)fl::coord_select<fl::kTrim, false>(G, nullptr, nullptr, n, d,
+                                                   n - k, out, stream);
 }

@@ -1,3 +1,4 @@
+from attacking_federate_learning_tpu_torch.defenses import median  # noqa: F401  (registers "Median")
 from attacking_federate_learning_tpu_torch.defenses.kernels import (  # noqa: F401
     DEFENSES, check_defense_args
 )

@@ -12,6 +12,19 @@ defences.py:73-75) — vectorized over the client axis:
 - Bulyan's destructive dict-popping selection (defences.py:55-70) is a
   fixed-trip loop over the distance kernel's matrix with an alive mask,
   then the trimmed-mean kernel over the selection.
+- Median (defenses/median.py) is the median kernel.
+
+Two seams reach every defense, as in the JAX package:
+
+- ``mask`` (the quarantine seam, core/faults.py): an (n,) bool
+  effective-cohort mask.  Each defense then computes its estimator over
+  the alive rows only, with fixed shapes: NoDefense the alive mean, Krum
+  exact sort scoring over the distance kernel with dead rows and columns
+  at +inf (never the fused score kernel, whose complement identity
+  assumes the static pool), TrimmedMean and Bulyan's tail the masked
+  trimmed-mean kernel, Bulyan a selection loop over the alive pool.
+- ``weights`` (the staleness seam of async rounds; requires ``mask``):
+  per-row weights for the means.  Selections stay unweighted.
 
 On a CUDA tensor every kernel call launches the CUDA kernel; on a CPU
 tensor the same calls take the kernels' plain PyTorch versions.  The
@@ -35,7 +48,7 @@ import math
 import torch
 
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-    krum_complement, krum_scores, trimmed_mean_of
+    krum_complement, krum_scores, masked_trimmed_mean, trimmed_mean_of
 )
 from attacking_federate_learning_tpu_torch.ops.distances import (
     pairwise_distances
@@ -47,23 +60,55 @@ from attacking_federate_learning_tpu_torch.ops.distances import (
 # identity is used; below that the scores come from the exact sort.
 _TOPK_GUARD = 1e4
 
+# Bulyan's masked selection: a dead, unselected row competes at this
+# finite score, below +inf (already selected) and above any real score.
+_DEAD_SENTINEL = 3e38
 
-def no_defense(users_grads, users_count, corrupted_count):
-    """Plain FedAvg mean (reference defences.py:13-14)."""
-    return users_grads.mean(0)
+
+def check_weight_seam(mask, weights):
+    """The staleness weights ride the quarantine mask: weights without a
+    mask have no delivered cohort to weight and are a caller bug."""
+    if weights is not None and mask is None:
+        raise ValueError(
+            "defense weights= requires mask= (staleness weights apply "
+            "to the delivered cohort only; core/async_rounds.py)")
 
 
-def sort_scores(D, users_count, corrupted_count, paper_scoring=False):
+def no_defense(users_grads, users_count, corrupted_count, mask=None,
+               weights=None):
+    """Plain FedAvg mean (reference defences.py:13-14); with ``mask`` the
+    mean of the alive rows (a zeroed dropout row must not drag it toward
+    zero), with ``weights`` the weighted alive mean sum(w g) / sum(w)."""
+    check_weight_seam(mask, weights)
+    if weights is not None:
+        w = torch.where(mask, weights, 0.0)
+        return (w @ users_grads) / torch.clamp(w.sum(), min=1e-12)
+    if mask is None:
+        return users_grads.mean(0)
+    e = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask[:, None], users_grads, 0.0).sum(0) / e
+
+
+def sort_scores(D, users_count, corrupted_count, paper_scoring=False,
+                alive=None):
     """Exact Krum scores from a zero-diagonal distance matrix: sort each
     row (self-distance at +inf, so it never counts) and sum the k =
-    users_count - corrupted_count (- 2 paper) smallest entries."""
+    users_count - corrupted_count (- 2 paper) smallest entries.  With an
+    ``alive`` mask, dead rows and columns go to +inf, ``users_count`` is
+    the alive count, and a dead row's score is +inf."""
     n = D.shape[0]
     Dm = D + torch.diag(torch.full((n,), torch.inf, device=D.device))
+    if alive is not None:
+        row_dead = torch.where(alive, 0.0, torch.inf)
+        Dm = Dm + row_dead[None, :] + row_dead[:, None]
     k = users_count - corrupted_count - (2 if paper_scoring else 0)
     srt = torch.sort(Dm, dim=1).values
     prefix = (torch.arange(n, device=D.device) < k)[None, :] & torch.isfinite(
         srt)
-    return torch.where(prefix, srt, 0.0).sum(1)
+    scores = torch.where(prefix, srt, 0.0).sum(1)
+    if alive is not None:
+        scores = torch.where(alive, scores, torch.inf)
+    return scores
 
 
 def guarded_krum_scores(users_grads, users_count, corrupted_count,
@@ -89,81 +134,125 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
 
 
 def krum_select(users_grads, users_count, corrupted_count,
-                paper_scoring=False, method="sort"):
+                paper_scoring=False, method="sort", mask=None):
     """Index (0-d tensor) of the Krum winner (reference ``krum(...,
     return_index=True)``, defences.py:39-40).  ``method='sort'`` scores
     exactly from the distance kernel's matrix; ``'fused'`` uses the fused
-    score kernel under its guard (what the engine runs)."""
-    if method == "sort":
+    score kernel under its guard (what the engine runs).  With ``mask``
+    both score exactly by sort over the distance kernel, with k following
+    the alive count e - f, and a dead row never wins."""
+    if method not in ("sort", "fused"):
+        raise ValueError(f"method must be 'sort' or 'fused', got {method!r}")
+    if mask is not None:
+        scores = sort_scores(pairwise_distances(users_grads), mask.sum(),
+                             corrupted_count, paper_scoring, alive=mask)
+    elif method == "sort":
         scores = sort_scores(pairwise_distances(users_grads), users_count,
                              corrupted_count, paper_scoring)
-    elif method == "fused":
+    else:
         scores = guarded_krum_scores(users_grads, users_count,
                                      corrupted_count, paper_scoring)
-    else:
-        raise ValueError(f"method must be 'sort' or 'fused', got {method!r}")
     return torch.argmin(scores)
 
 
 def krum(users_grads, users_count, corrupted_count, paper_scoring=False,
-         method="sort"):
+         method="sort", mask=None, weights=None):
     """Krum (reference defences.py:23-42): the single gradient whose summed
-    distance to its k nearest peers is minimal."""
+    distance to its k nearest peers is minimal; with ``mask`` the Krum
+    choice of the alive rows, with ``weights`` scaled by its weight."""
+    check_weight_seam(mask, weights)
     idx = krum_select(users_grads, users_count, corrupted_count,
-                      paper_scoring=paper_scoring, method=method)
+                      paper_scoring=paper_scoring, method=method, mask=mask)
+    if weights is not None:
+        return users_grads[idx] * weights[idx]
     return users_grads[idx]
 
 
-def trimmed_mean(users_grads, users_count, corrupted_count):
-    """Reference defences.py:44-52; keeps n - f - 1 coordinates."""
+def trimmed_mean(users_grads, users_count, corrupted_count, mask=None,
+                 weights=None):
+    """Reference defences.py:44-52; keeps n - f - 1 coordinates.  With
+    ``mask`` the estimator of the alive rows, keeping e - f - 1 (at least
+    1) of the e alive values, the mean weighted by ``weights`` if given."""
+    check_weight_seam(mask, weights)
+    if mask is not None:
+        return masked_trimmed_mean(users_grads, mask, corrupted_count + 1,
+                                   weights)
     return trimmed_mean_of(users_grads,
                            users_grads.shape[0] - corrupted_count - 1)
 
 
-def bulyan_select(D, users_count, corrupted_count, paper_scoring=False):
+def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
+                  mask=None):
     """Bulyan's selection (reference defences.py:55-68) over a zero-diagonal
     distance matrix: set_size = n - 2f rounds of Krum, each removing its
     winner from the pool, with the pool size (but not f) shrinking.
 
-    Each row is sorted once; a round's score is the alive-masked prefix sum
+    Each row is sorted once; a round's score is the pool-masked prefix sum
     of its k smallest entries over the presorted row — the same multiset
     of k smallest as a re-sort, so the same scores.  Returns the (set_size,)
     int64 selected indices in selection order, on D's device, with no
-    host synchronization."""
+    host synchronization.
+
+    With ``mask`` the pool is the alive unselected rows and k = max(pool
+    - f (- 2), 1).  Three levels decide a round: alive unselected rows
+    compete on their scores, dead unselected rows on a finite sentinel
+    (picked, lowest index first, only once the alive pool is empty), and
+    selected rows sit at +inf.  The selection keeps its static size."""
     n = D.shape[0]
     f = corrupted_count
+    p = 2 if paper_scoring else 0
     set_size = users_count - 2 * f
     Dm = D + torch.diag(torch.full((n,), torch.inf, device=D.device))
     sortedD, order = torch.sort(Dm, dim=1, stable=True)
     finite = torch.isfinite(sortedD)
-    alive = torch.ones(n, dtype=torch.bool, device=D.device)
+    remaining = torch.ones(n, dtype=torch.bool, device=D.device)
     selected = torch.empty(set_size, dtype=torch.int64, device=D.device)
     for t in range(set_size):
-        # Pool at round start: everyone minus the t already selected.
-        k = users_count - t - f - (2 if paper_scoring else 0)
-        alive_cols = alive[order]                        # (n, n) gather
-        rank = torch.cumsum(alive_cols, dim=1)           # 1-based among alive
+        # Pool at round start: everyone (alive) minus the t already
+        # selected.
+        if mask is None:
+            pool, k = remaining, users_count - t - f - p
+        else:
+            pool = remaining & mask
+            k = torch.clamp(pool.sum() - f - p, min=1)
+        alive_cols = pool[order]                         # (n, n) gather
+        rank = torch.cumsum(alive_cols, dim=1)           # 1-based in pool
         take = alive_cols & (rank <= k) & finite
         scores = torch.where(take, sortedD, 0.0).sum(1)
-        scores = torch.where(alive, scores, torch.inf)
+        if mask is not None:
+            scores = torch.where(pool, scores, _DEAD_SENTINEL)
+        scores = torch.where(remaining, scores, torch.inf)
         idx = torch.argmin(scores)                      # ties -> lowest index
         selected[t] = idx
-        alive[idx] = False
+        remaining[idx] = False
     return selected
 
 
-def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False):
+def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
+           mask=None, weights=None):
     """Bulyan (reference defences.py:55-70): select n - 2f gradients by
     iterated Krum, then the median-anchored trimmed mean of the selection
-    keeping set_size - 2f - 1 values per coordinate."""
+    keeping set_size - 2f - 1 values per coordinate.
+
+    With ``mask``: the selection runs over the alive pool, then only the
+    first e - 2f alive picks enter the trimmed mean (as a run over the
+    alive sub-matrix would select them), which keeps max(|picks| - 2f - 1,
+    1) values per coordinate, the mean weighted by ``weights`` if given."""
+    check_weight_seam(mask, weights)
     f = corrupted_count
     set_size = users_count - 2 * f
     D = pairwise_distances(users_grads)
-    selected = bulyan_select(D, users_count, f, paper_scoring)
+    selected = bulyan_select(D, users_count, f, paper_scoring, mask)
     selection = users_grads[selected].contiguous()  # (set_size, d)
-    return trimmed_mean_of(selection, set_size - 2 * f - 1)
+    if mask is None:
+        return trimmed_mean_of(selection, set_size - 2 * f - 1)
+    sel_alive = mask[selected]
+    sel_mask = sel_alive & (torch.cumsum(sel_alive, 0) <= mask.sum() - 2 * f)
+    w_sel = None if weights is None else weights[selected].contiguous()
+    return masked_trimmed_mean(selection, sel_mask, 2 * f + 1, w_sel)
 
 
+# defenses/median.py adds "Median" when the package is imported.
 DEFENSES = {"NoDefense": no_defense, "Krum": krum,
             "TrimmedMean": trimmed_mean, "Bulyan": bulyan}
 

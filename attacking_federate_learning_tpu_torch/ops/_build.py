@@ -42,6 +42,12 @@ KERNELS = {
                     (_P, _I, _LL, _I, _P, _P, _P, _P)),
     "trimmed_mean": ("trimmed_mean.cu", "fl_trimmed_mean",
                      (_P, _I, _LL, _I, _P, _P)),
+    "median": ("median.cu", "fl_median", (_P, _I, _LL, _P, _P)),
+    "masked_trimmed_mean": ("masked_trimmed_mean.cu",
+                            "fl_masked_trimmed_mean",
+                            (_P, _P, _P, _I, _LL, _I, _I, _P, _P)),
+    "masked_median": ("masked_median.cu", "fl_masked_median",
+                      (_P, _P, _P, _I, _LL, _I, _P, _P)),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -157,6 +163,23 @@ def check_cuda_matrix(G, name: str) -> None:
                          f"contiguous={G.is_contiguous()}")
     if G.shape[0] < 1 or G.shape[1] < 1:
         raise ValueError(f"{name}: empty matrix {tuple(G.shape)}")
+
+
+def check_cuda_rows(G, mask, weights, name: str) -> None:
+    """What the masked kernels take beside the matrix: an (n,) bool mask
+    and, if given, (n,) float32 weights, contiguous, on G's device."""
+    n = G.shape[0]
+    if (mask.device != G.device or mask.dtype != torch.bool
+            or tuple(mask.shape) != (n,) or not mask.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous ({n},) bool mask "
+                         f"on {G.device}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    if weights is not None and (
+            weights.device != G.device or weights.dtype != torch.float32
+            or tuple(weights.shape) != (n,) or not weights.is_contiguous()):
+        raise ValueError(f"{name}: expected contiguous ({n},) float32 "
+                         f"weights on {G.device}, got {weights.dtype} "
+                         f"{tuple(weights.shape)} on {weights.device}")
 
 
 def stream_handle(G) -> int:

@@ -1,4 +1,5 @@
-"""The defense kernels: fused Krum scores and the trimmed mean.
+"""The defense kernels: fused Krum scores, the trimmed mean, the median
+and their masked variants.
 
 :func:`krum_scores` — fused distance -> Krum score (csrc/krum_scores.cu):
 each row's score sums its k smallest distances to the other rows, through
@@ -10,8 +11,21 @@ too, for the caller's cancellation guard (defenses/kernels.py).
 (csrc/trimmed_mean.cu): subtract the median, keep the k values of
 smallest magnitude in stable order, return their mean plus the median.
 
-Each runs its CUDA kernel on a CUDA tensor and its plain PyTorch version
-(``*_plain``, beside it) on a CPU tensor.
+The coordinate-wise kernels (csrc/coord_select.cuh) share one design:
+
+:func:`median_of` — jnp.median along the clients (csrc/median.cu).
+
+:func:`masked_trimmed_mean` — the trimmed mean over the rows a quarantine
+mask keeps alive, k = max(e - k_delta, 1) with e the alive count, the
+mean optionally weighted per row (csrc/masked_trimmed_mean.cu).
+
+:func:`masked_median` — the median over the alive rows, or the lower
+weighted median (csrc/masked_median.cu).
+
+The masked kernels derive e and k from the mask on the device, so a call
+reads nothing back to the host.  Each wrapper runs its CUDA kernel on a
+CUDA tensor and its plain PyTorch version (``*_plain``, beside it) on a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -104,6 +118,124 @@ def trimmed_mean_of(G: torch.Tensor, number_to_consider: int) -> torch.Tensor:
     fn = _build.entry_point(name)
     out = torch.empty(d, dtype=torch.float32, device=G.device)
     status = fn(G.data_ptr(), n, d, k, out.data_ptr(),
+                _build.stream_handle(G))
+    _build.check_status(name, status)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def median_of_plain(G: torch.Tensor) -> torch.Tensor:
+    """(n, d) -> (d,) in plain PyTorch: jnp.median along the clients, the
+    midpoint of the two middle order statistics (torch.median returns
+    the lower one)."""
+    n = G.shape[0]
+    srt = torch.sort(G, dim=0).values
+    return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
+
+
+def median_of(G: torch.Tensor) -> torch.Tensor:
+    """(n, d) f32 -> (d,) f32 coordinate-wise median."""
+    if G.device.type == "cpu":
+        return median_of_plain(G)
+    name = "median"
+    _build.check_cuda_matrix(G, name)
+    n, d = G.shape
+    fn = _build.entry_point(name)
+    out = torch.empty(d, dtype=torch.float32, device=G.device)
+    status = fn(G.data_ptr(), n, d, out.data_ptr(), _build.stream_handle(G))
+    _build.check_status(name, status)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def masked_median_plain(G: torch.Tensor, mask: torch.Tensor,
+                        weights=None) -> torch.Tensor:
+    """(n, d), (n,) bool[, (n,) weights] -> (d,) in plain PyTorch, the JAX
+    package's ``defenses/kernels.py:masked_median``: dead rows sort last
+    as +inf, the median of the e alive values is (srt[(e-1)//2] +
+    srt[e//2]) / 2 (e = 0 gives +inf).  With weights: the lower weighted
+    median, the first sorted value whose cumulative alive weight reaches
+    half the alive weight."""
+    vals = torch.where(mask[:, None], G, torch.inf)
+    srt, order = torch.sort(vals, dim=0, stable=True)
+    if weights is not None:
+        w = torch.where(mask, weights, 0.0)
+        cum = torch.cumsum(w[order], dim=0)
+        pick = (cum >= w.sum() / 2.0).to(torch.int32).argmax(0)
+        return srt.gather(0, pick[None, :])[0]
+    e = mask.sum()
+    # The indices wrap like jnp.take's: e = 0 reads the last and first
+    # rows, +inf both.
+    lo, hi = srt.index_select(
+        0, torch.stack([(e - 1) // 2, e // 2]) % G.shape[0])
+    return (lo + hi) / 2
+
+
+def masked_median(G: torch.Tensor, mask: torch.Tensor,
+                  weights=None) -> torch.Tensor:
+    """(n, d) f32, (n,) bool mask[, (n,) f32 weights] -> (d,) f32: the
+    median of the alive rows, or their lower weighted median."""
+    if G.device.type == "cpu":
+        return masked_median_plain(G, mask, weights)
+    name = "masked_median"
+    _build.check_cuda_matrix(G, name)
+    _build.check_cuda_rows(G, mask, weights, name)
+    n, d = G.shape
+    fn = _build.entry_point(name)
+    out = torch.empty(d, dtype=torch.float32, device=G.device)
+    status = fn(G.data_ptr(), mask.data_ptr(),
+                0 if weights is None else weights.data_ptr(), n, d,
+                int(weights is not None), out.data_ptr(),
+                _build.stream_handle(G))
+    _build.check_status(name, status)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def masked_trimmed_mean_plain(G: torch.Tensor, mask: torch.Tensor,
+                              k_delta: int, weights=None) -> torch.Tensor:
+    """(n, d), (n,) bool, k_delta[, (n,) weights] -> (d,) in plain
+    PyTorch, the JAX package's ``masked_trimmed_mean_of`` with keep count
+    e - k_delta: the alive median anchor, dead rows keyed +inf in a
+    stable argsort of |dev|, the first k = max(e - k_delta, 1) kept, and
+    their mean (or kept-weight mean, mass >= 1e-12) plus the anchor."""
+    n = G.shape[0]
+    med = masked_median_plain(G, mask)
+    dev = G - med[None, :]
+    key = torch.where(mask[:, None], dev.abs(), torch.inf)
+    order = torch.sort(key, dim=0, stable=True).indices
+    sdev = dev.gather(0, order)
+    k = torch.clamp(mask.sum() - k_delta, min=1)
+    keep = torch.arange(n, device=G.device)[:, None] < k
+    if weights is not None:
+        w = torch.where(mask, weights, 0.0)
+        wk = torch.where(keep, w[order], 0.0)
+        mass = torch.clamp(wk.sum(0), min=1e-12)
+        return (wk * sdev).sum(0) / mass + med
+    return torch.where(keep, sdev, 0.0).sum(0) / k + med
+
+
+def masked_trimmed_mean(G: torch.Tensor, mask: torch.Tensor, k_delta: int,
+                        weights=None) -> torch.Tensor:
+    """(n, d) f32, (n,) bool mask, k_delta >= 0[, (n,) f32 weights] ->
+    (d,) f32 trimmed mean of the alive rows keeping max(e - k_delta, 1)
+    values per coordinate: k_delta = f + 1 for TrimmedMean, 2f + 1 for
+    Bulyan's tail."""
+    k_delta = int(k_delta)
+    if k_delta < 0:
+        raise ValueError(f"masked trimmed mean needs k_delta >= 0, got "
+                         f"{k_delta}")
+    if G.device.type == "cpu":
+        return masked_trimmed_mean_plain(G, mask, k_delta, weights)
+    name = "masked_trimmed_mean"
+    _build.check_cuda_matrix(G, name)
+    _build.check_cuda_rows(G, mask, weights, name)
+    n, d = G.shape
+    fn = _build.entry_point(name)
+    out = torch.empty(d, dtype=torch.float32, device=G.device)
+    status = fn(G.data_ptr(), mask.data_ptr(),
+                0 if weights is None else weights.data_ptr(), n, d, k_delta,
+                int(weights is not None), out.data_ptr(),
                 _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1

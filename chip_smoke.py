@@ -17,18 +17,31 @@ success):
                identical crafted rows, ragged n and d, n = 1,000 on four
                seeds, and trimmed-mean columns with exact +-dev ties at
                the k-th place.  Distances are also held against an fp64
-               Gram.  Kernel, plain and library times are CUDA-event
-               medians; torch.profiler splits each wrapper's time at
-               the main shape into the kernels it launches.
-4. reference-- three rounds of each defense at a small size on the card;
-               each round's aggregate (kernels) is held against the plain
-               versions on the CPU on the same gradients.
+               Gram.  The median and masked kernels are held on the main
+               shape with a quarantine mask drawn by the port's own
+               fault_masks (f = 10), the Bulyan tail (80 rows, k_delta =
+               2f + 1), weighted variants, an all-true mask (bit for bit
+               the unmasked kernels), e = 1, e <= k_delta, e = 0, ragged
+               n and d and n = 1,000.  Kernel, plain and library times are
+               CUDA-event medians; torch.profiler splits each wrapper's
+               time at the main shape into the kernels it launches.
+4. reference-- three rounds of each defense at a small size on the card,
+               without and with faults; each round's aggregate (kernels)
+               is held against the plain versions on the CPU on the same
+               gradients and mask.
 5. main     -- FederatedExperiment.run() on the card at full width:
                mnist_mlp on SYNTH_MNIST at MNIST's 60,000/10,000 sizes,
-               n = 100, f = 24 (ALIE z = 1.5), B = 128, lr 0.1, momentum 0.9,
-               rounds 0..20 for NoDefense, Krum, TrimmedMean and Bulyan.
-               Launch counters are zeroed before and read after each run,
-               and every kernel of the defense's path must have launched.
+               n = 100, B = 128, lr 0.1, momentum 0.9, ALIE z = 1.5,
+               rounds 0..20: NoDefense, Krum, TrimmedMean, Bulyan and
+               Median at f = 24, then all five with faults (dropout 0.1,
+               straggler 0.1 of delay 2, NaN corruption 0.05) at f = 10,
+               whose per-round fault counts must equal a host replay of
+               the schedule; then a short run whose bit-scaled corruption
+               must trip the divergence watchdog (FloatingPointError,
+               state restored and finite).  Launch counters are zeroed
+               before and read after each run; every kernel of the run's
+               path must have launched, and faulted Krum must not launch
+               the fused score kernel.
 
 Output: one line per check, a {"kernels": [...]} JSON line, the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
@@ -51,6 +64,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "attacking_federate_learning_tpu_torch"
 
 N_MAIN, F_MAIN, D_MLP = 100, 24, 79_510
+# The faulted runs: mal_prop 0.1, so f = 10 and Bulyan's n >= 4f + 3
+# holds over the alive rows in most rounds.
+F_FAULT = 10
+FAULTS_MAIN = dict(dropout=0.1, straggler=0.1, straggler_delay=2,
+                   corrupt=0.05, corrupt_mode="nan")
 ROUNDS = 21                      # rounds 0..20, evaluated at 0, 10 and 20
 TEST_STEP = 10
 
@@ -332,18 +350,214 @@ def check_kernels(peaks, failures):
     for n, k in ((13, 4), (64, 7), (300, 101)):
         Gt = torch.from_numpy(tie_cohort(n, 4099, n)).cuda()
         check_trim(Gt, k, f"n={n} d=4099 k={k} +-ties", 3)
+    check_coord_kernels(report, failures)
     return entries
 
 
+def exact(got, want):
+    """(largest |got - want|, whether they are equal): NaN matches NaN
+    and equal infinities match; -0 == +0."""
+    import torch
+
+    g, w = got.double(), want.double()
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    diff = torch.where(same, 0.0, (g - w).abs())
+    return float(torch.nan_to_num(diff, nan=math.inf).max()), bool(same.all())
+
+
+def finite_rel(got, want):
+    """rel_err over the entries where the plain version is finite."""
+    import torch
+
+    fin = torch.isfinite(want)
+    return rel_err((got[fin], want[fin])) if bool(fin.any()) else 0.0
+
+
+def drawn_mask(n, t):
+    """(n,) alive mask of round t of the faulted runs' schedule, drawn by
+    the port's fault_masks: dropped and corrupted rows are dead."""
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        fault_key, fault_masks
+    )
+
+    cfg = ExperimentConfig(faults=FaultConfig(**FAULTS_MAIN))
+    drop, _, corrupt = fault_masks(fault_key(cfg), t, n, F_FAULT, cfg.faults)
+    return ~(drop | corrupt)
+
+
+def dyadic_weights(n, seed):
+    """Random positive weights j / 64, j in 1..256: every sum of them is
+    exact in fp32, so the weighted median's selection is the same in any
+    summation order."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(1, 257, n) / 64.0).astype(np.float32)
+
+
+def check_coord_kernels(report, failures):
+    """Phase 3 for kernels 4-6: the median, masked trimmed mean and
+    masked median against their plain versions.  Medians and the kept
+    sets are selections and must be exact; a trimmed mean may differ by
+    the k-term sum's order (k rounding steps of the largest alive |g|,
+    2x margin; twice that for the weighted mean's two sums)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
+        masked_median, masked_median_plain, masked_trimmed_mean,
+        masked_trimmed_mean_plain, median_of, median_of_plain,
+        trimmed_mean_of
+    )
+
+    eps = float(np.finfo(np.float32).eps)
+    quantile_max = 2 ** 24      # torch.quantile refuses larger inputs
+
+    def check_median(G, label, reps, entry_for=None):
+        n, d = G.shape
+        got, want = median_of(G), median_of_plain(G)
+        err, ok = exact(got, want)
+        ms = time_ms(lambda: median_of(G), reps)
+        pms = time_ms(lambda: median_of_plain(G), reps)
+        lms = None
+        if G.numel() <= quantile_max:
+            lms = time_ms(lambda: torch.quantile(
+                G, 0.5, dim=0, interpolation="midpoint"), reps)
+        else:
+            label += " library: none (too large)"
+        report("median", label, err, finite_rel(got, want), "exact", ok,
+               ms, pms, lms, 4 * (n * d + d), n * d, entry_for)
+        return got
+
+    def check_mmed(G, mask, w, label, reps, entry_for=None):
+        n, d = G.shape
+        got, want = masked_median(G, mask, w), masked_median_plain(G, mask, w)
+        err, ok = exact(got, want)
+        ms = time_ms(lambda: masked_median(G, mask, w), reps)
+        pms = time_ms(lambda: masked_median_plain(G, mask, w), reps)
+        lms = None
+        if w is None and G.numel() <= quantile_max:
+            # The library call on the NaN-masked matrix (made once,
+            # outside the timing).
+            Gn = torch.where(mask[:, None], G, torch.nan)
+            lms = time_ms(lambda: torch.nanquantile(
+                Gn, 0.5, dim=0, interpolation="midpoint"), reps)
+        elif w is None:
+            label += " library: none (too large)"
+        nbytes = 4 * (n * d + d) + n + (4 * n if w is not None else 0)
+        report("masked_median", label, err, finite_rel(got, want),
+               "exact" + (" (dyadic weights)" if w is not None else ""),
+               ok, ms, pms, lms, nbytes, n * d, entry_for)
+
+    def check_mtrim(G, mask, k_delta, w, label, reps, entry_for=None):
+        n, d = G.shape
+        got = masked_trimmed_mean(G, mask, k_delta, w)
+        want = masked_trimmed_mean_plain(G, mask, k_delta, w)
+        e = int(mask.sum())
+        k = max(e - k_delta, 1)
+        scale = float(G[mask].abs().max()) if e else 0.0
+        atol = (2.0 if w is not None else 1.0) * k * eps * 2.0 * scale
+        nan_ok = bool((torch.isnan(got) == torch.isnan(want)).all())
+        fin = ~torch.isnan(want)
+        err, ok = close(got[fin], want[fin], atol, 1e-6) if bool(
+            fin.any()) else (0.0, True)
+        ms = time_ms(lambda: masked_trimmed_mean(G, mask, k_delta, w), reps)
+        pms = time_ms(lambda: masked_trimmed_mean_plain(G, mask, k_delta, w),
+                      reps)
+        nbytes = 4 * (n * d + d) + n + (4 * n if w is not None else 0)
+        report("masked_trimmed_mean", f"{label} e={e} k={k}", err,
+               finite_rel(got, want), f"atol {atol:.2e} + rtol 1e-6, NaN "
+               f"where plain is NaN", ok and nan_ok, ms, pms, None, nbytes,
+               3 * n * d, entry_for)
+
+    def bit_equal(name, label, got, want):
+        same = torch.equal(got, want)
+        print(f"[kernel] {name:18s} {label:34s} bit-equal={same}",
+              flush=True)
+        if not same:
+            failures.append(f"{name} {label}: not bit-equal")
+
+    n, d, f = N_MAIN, D_MLP, F_FAULT
+    # -- main shapes ----------------------------------------------------------
+    G = torch.from_numpy(cohort(n, d, F_MAIN, "alie", 11)).cuda()
+    med = check_median(G, f"n={n} d={d} f={F_MAIN} alie", 20,
+                       ("median.cu", "ops/pallas_defense.py:297", [n, d]))
+    bit_equal("masked_median", f"n={n} all-true mask vs median",
+              masked_median(G, torch.ones(n, dtype=torch.bool,
+                                          device="cuda")), med)
+    G = torch.from_numpy(cohort(n, d, f, "alie", 12)).cuda()
+    mask = torch.from_numpy(drawn_mask(n, 3)).cuda()
+    w = torch.from_numpy(dyadic_weights(n, 13)).cuda()
+    check_mtrim(G, mask, f + 1, None, f"n={n} d={d} f={f} alie", 20,
+                ("masked_trimmed_mean.cu", "ops/pallas_defense.py:388",
+                 [n, d]))
+    check_mmed(G, mask, None, f"n={n} d={d} f={f} alie e={int(mask.sum())}",
+               20, ("masked_median.cu", "ops/pallas_defense.py:406",
+                    [n, d]))
+    check_mtrim(G, mask, f + 1, w, f"n={n} d={d} f={f} weighted", 5)
+    check_mmed(G, mask, w, f"n={n} d={d} f={f} weighted", 5)
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    bit_equal("masked_trimmed_mean", f"n={n} all-true mask vs trimmed",
+              masked_trimmed_mean(G, ones, f + 1),
+              trimmed_mean_of(G, n - f - 1))
+    # Bulyan's tail: the n - 2f selected rows, the first e - 2f alive.
+    tail = n - 2 * f
+    Gs = G[:tail].contiguous()
+    sel = torch.from_numpy(drawn_mask(tail, 5)).cuda()
+    sel &= torch.cumsum(sel, 0) <= int(mask.sum()) - 2 * f
+    check_mtrim(Gs, sel, 2 * f + 1, None, f"n={tail} d={d} Bulyan tail", 20)
+    check_mtrim(Gs, sel, 2 * f + 1, w[:tail].contiguous(),
+                f"n={tail} d={d} Bulyan tail weighted", 3)
+    kernel_split([lambda: median_of(G), lambda: masked_median(G, mask),
+                  lambda: masked_trimmed_mean(G, mask, f + 1)], 20)
+    # -- degenerate cohorts: e = 1, e <= k_delta, a short Bulyan tail,
+    #    e = 0 (+inf medians, NaN trimmed means, as in JAX) -------------------
+    for alive, what in ((1, "one alive"), (f, "alive <= k_delta"),
+                        (0, "none alive")):
+        m = torch.zeros(n, dtype=torch.bool, device="cuda")
+        m[torch.randperm(n, generator=torch.Generator().manual_seed(alive))[
+            :alive].cuda()] = True
+        check_mtrim(G, m, f + 1, None, f"n={n} {what}", 1)
+        check_mtrim(G, m, f + 1, w, f"n={n} {what} weighted", 1)
+        check_mmed(G, m, None, f"n={n} {what}", 1)
+        check_mmed(G, m, w, f"n={n} {what} weighted", 1)
+    short = sel & (torch.cumsum(sel, 0) <= 2 * f + 1)
+    check_mtrim(Gs, short, 2 * f + 1, None,
+                f"n={tail} Bulyan tail < 2f+2 picks", 1)
+    del G, Gs
+    torch.cuda.empty_cache()
+    # -- ragged n and d (registers, 2 slots, shared memory), +-dev ties,
+    #    n = 1,000 ----------------------------------------------------------
+    for n_r, d_r, f_r, seed in ((13, 79, 2, 21), (33, 1000, 6, 22),
+                                (300, 4099, 60, 23), (1000, D_MLP, 100, 24)):
+        G = torch.from_numpy(cohort(n_r, d_r, f_r, "alie", seed)).cuda()
+        m = torch.from_numpy(drawn_mask(n_r, seed)).cuda()
+        wr = torch.from_numpy(dyadic_weights(n_r, seed)).cuda()
+        reps = 3 if n_r == 1000 else 1
+        check_median(G, f"n={n_r} d={d_r}", reps)
+        check_mtrim(G, m, f_r + 1, None, f"n={n_r} d={d_r}", reps)
+        check_mtrim(G, m, f_r + 1, wr, f"n={n_r} d={d_r} weighted", 1)
+        check_mmed(G, m, None, f"n={n_r} d={d_r}", reps)
+        check_mmed(G, m, wr, f"n={n_r} d={d_r} weighted", 1)
+        del G
+        torch.cuda.empty_cache()
+    for n_t, k in ((13, 4), (64, 7), (300, 101)):
+        Gt = torch.from_numpy(tie_cohort(n_t, 4099, n_t)).cuda()
+        check_mtrim(Gt, torch.ones(n_t, dtype=torch.bool, device="cuda"),
+                    n_t - k, None, f"n={n_t} d=4099 +-ties", 1)
+
+
 def check_reference(failures):
-    """Phase 4: a few rounds of each defense on the card at a small size;
-    every round's aggregate is held against the plain versions on the
-    CPU, on the same gradients."""
+    """Phase 4: three rounds of each defense on the card at a small size,
+    without and with faults; every round's aggregate is held against the
+    plain versions on the CPU, on the same gradients and mask."""
     import torch
 
     from attacking_federate_learning_tpu_torch import config as C
     from attacking_federate_learning_tpu_torch.attacks import DriftAttack
-    from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
     from attacking_federate_learning_tpu_torch.core.engine import (
         FederatedExperiment
     )
@@ -354,22 +568,32 @@ def check_reference(failures):
     eps = float(np.finfo(np.float32).eps)
     ds = load_dataset(C.SYNTH_MNIST_HARD, seed=0, synth_train=2000,
                       synth_test=500)
-    for defense in C.DEFENSE_NAMES:
+    faults = FaultConfig(dropout=0.15, straggler=0.15, straggler_delay=1,
+                         corrupt=0.1)
+    runs = ([(d, None) for d in C.DEFENSE_NAMES]
+            + [(d, faults) for d in C.DEFENSE_NAMES])
+    for defense, fc in runs:
+        # Faulted Bulyan at f = 1: at f = 4 its masked tail keeps one value
+        # of an often even count, where the two middle values tie about
+        # their midpoint and the selection order breaks the tie.
+        mal_prop = 0.06 if fc is not None and defense == "Bulyan" else 0.22
         cfg = ExperimentConfig(dataset=C.SYNTH_MNIST_HARD, users_count=19,
-                               mal_prop=0.22, batch_size=32, epochs=3,
+                               mal_prop=mal_prop, batch_size=32, epochs=3,
                                defense=defense, synth_train=2000,
-                               synth_test=500)
+                               synth_test=500, faults=fc)
         exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
                                   device="cuda")
         inner, errs = exp.defense_fn, []
 
-        def checked(grads, n, f, inner=inner, errs=errs):
-            got = inner(grads, n, f)
-            want = inner(grads.cpu(), n, f)
-            # Krum returns a row of the matrix: it must be the same row.
-            # The means sum at most n terms in another order: n rounding
-            # steps of the largest |g| (2x margin).
-            atol = 0.0 if defense == "Krum" else (
+        def checked(grads, n, f, inner=inner, errs=errs, **kw):
+            got = inner(grads, n, f, **kw)
+            want = inner(grads.cpu(), n, f,
+                         **{k: v.cpu() for k, v in kw.items()})
+            # Krum returns a row of the matrix and Median a selected
+            # value: they must be the same.  The means sum at most n terms
+            # in another order: n rounding steps of the largest |g| (2x
+            # margin).
+            atol = 0.0 if defense in ("Krum", "Median") else (
                 2.0 * n * eps * float(grads.abs().max()))
             err = float((got.cpu() - want).abs().max())
             errs.append((err, atol))
@@ -381,23 +605,29 @@ def check_reference(failures):
         ok = (all(e <= a for e, a in errs)
               and bool(torch.isfinite(exp.state.weights).all()))
         worst = max(errs)
-        print(f"[reference] {defense:11s} n=19 f=4 {cfg.epochs} rounds, "
-              f"aggregate on the card vs plain on the CPU, same gradients: "
-              f"max_abs_err={worst[0]:.3e} tol={worst[1]:.2e} ok={ok}",
-              flush=True)
+        kind = "faulted" if fc is not None else "clean"
+        print(f"[reference] {defense:11s} {kind:7s} n=19 f={exp.f} "
+              f"{cfg.epochs} rounds, aggregate on the card vs plain on the "
+              f"CPU, same gradients: max_abs_err={worst[0]:.3e} "
+              f"tol={worst[1]:.2e} ok={ok}", flush=True)
         if not ok:
-            failures.append(f"reference {defense}: {errs}")
+            failures.append(f"reference {defense} {kind}: {errs}")
 
 
 def run_main_path(failures):
-    """Phase 5.  Returns launches per kernel summed over the four runs."""
+    """Phase 5.  Returns launches per kernel summed over the runs."""
     import torch
 
     from attacking_federate_learning_tpu_torch import config as C
     from attacking_federate_learning_tpu_torch.attacks import DriftAttack
-    from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
     from attacking_federate_learning_tpu_torch.core.engine import (
         FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        fault_masks
     )
     from attacking_federate_learning_tpu_torch.data.datasets import (
         load_dataset
@@ -409,19 +639,34 @@ def run_main_path(failures):
                       synth_test=10_000)
     print(f"[main] SYNTH_MNIST 60000/10000 made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    needs = {"NoDefense": (), "Krum": ("krum_scores",),
-             "TrimmedMean": ("trimmed_mean",),
-             "Bulyan": ("pairwise_distances", "trimmed_mean")}
+    faults = FaultConfig(**FAULTS_MAIN)
+    runs = [  # (defense, faults, must launch, must not launch)
+        ("NoDefense", None, (), ()),
+        ("Krum", None, ("krum_scores",), ()),
+        ("TrimmedMean", None, ("trimmed_mean",), ()),
+        ("Bulyan", None, ("pairwise_distances", "trimmed_mean"), ()),
+        ("Median", None, ("median",), ()),
+        ("NoDefense", faults, (), ()),
+        ("Krum", faults, ("pairwise_distances",), ("krum_scores",)),
+        ("TrimmedMean", faults, ("masked_trimmed_mean",), ()),
+        ("Bulyan", faults, ("pairwise_distances", "masked_trimmed_mean"),
+         ()),
+        ("Median", faults, ("masked_median",), ()),
+    ]
     totals = {name: 0 for name in _build.LAUNCHES}
-    for defense, kernels in needs.items():
+    clean_ms = {}
+    for defense, fc, kernels, banned in runs:
         cfg = ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
-                               mal_prop=0.24, batch_size=128, epochs=ROUNDS,
+                               mal_prop=0.24 if fc is None else 0.1,
+                               batch_size=128, epochs=ROUNDS,
                                num_std=1.5, learning_rate=0.1, momentum=0.9,
                                defense=defense, test_step=TEST_STEP,
-                               synth_train=60_000, synth_test=10_000)
+                               synth_train=60_000, synth_test=10_000,
+                               faults=fc)
         exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
                                   device="cuda")
-        assert exp.flat.dim == D_MLP and exp.f == F_MAIN
+        assert exp.flat.dim == D_MLP
+        assert exp.f == (F_MAIN if fc is None else F_FAULT)
         round_s = []
         inner = exp.run_round
 
@@ -434,6 +679,20 @@ def run_main_path(failures):
             return state
 
         exp.run_round = timed_round
+        seam_s = []
+        if fc is not None:
+            # The fault seam's host time (schedule draw, pinned copy,
+            # launches), with no synchronisation, so the round times
+            # above are not perturbed.
+            inject = exp.inject_and_quarantine
+
+            def timed_inject(grads, t, inject=inject, seam_s=seam_s):
+                a = time.perf_counter()
+                out = inject(grads, t)
+                seam_s.append(time.perf_counter() - a)
+                return out
+
+            exp.inject_and_quarantine = timed_inject
         lines = []
         _build.reset_launches()
         result = exp.run(log=lines.append)
@@ -444,20 +703,93 @@ def run_main_path(failures):
         finite = (all(math.isfinite(a) for a in accs.values())
                   and bool(torch.isfinite(exp.state.weights).all()))
         missing = [k for k in kernels if launches[k] == 0]
-        per_round = {k: launches[k] / ROUNDS for k in launches}
+        extra = [k for k in banned if launches[k] != 0]
+        per_round = {k: launches[k] / ROUNDS for k in launches if launches[k]}
         acc_txt = "/".join(f"{accs[r]:.2f}" if r in accs else "none"
                            for r in (0, 10, 20))
-        print(f"[main] {defense:11s} acc r0/r10/r20 = {acc_txt} % "
-              f"median_round_ms={1e3 * statistics.median(round_s):.3f} "
+        median_ms = 1e3 * statistics.median(round_s)
+        kind, counts_ok, beside = "clean", True, ""
+        if fc is None:
+            clean_ms[defense] = median_ms
+        else:
+            kind = "faulted"
+            # The counts the engine reported, against a host replay of
+            # the schedule (NaN corruption is quarantined with dropout).
+            want, draw_s = [], []
+            for t in range(ROUNDS):
+                a = time.perf_counter()
+                drop, stale, corrupt = fault_masks(exp._fault_key, t, N_MAIN,
+                                                   exp.f, fc)
+                draw_s.append(time.perf_counter() - a)
+                want.append({"round": t,
+                             "injected_dropout": int(drop.sum()),
+                             "injected_straggler": int(stale.sum()),
+                             "injected_corrupt": int(corrupt.sum()),
+                             "quarantined": int(drop.sum() + corrupt.sum())})
+            counts_ok = result["faults"] == want
+            alive = [N_MAIN - r["quarantined"] for r in result["faults"]]
+            beside = (f"clean_median_round_ms={clean_ms[defense]:.3f} "
+                      f"seam_host_ms={1e3 * statistics.median(seam_s):.3f} "
+                      f"schedule_draw_ms="
+                      f"{1e3 * statistics.median(draw_s):.3f} "
+                      f"fault_counts_match_replay={counts_ok} "
+                      f"alive_min/max={min(alive)}/{max(alive)} ")
+        print(f"[main] {defense:11s} {kind:7s} f={exp.f} acc r0/r10/r20 = "
+              f"{acc_txt} % median_round_ms={median_ms:.3f} {beside}"
               f"launches={launches} per_round={per_round} "
               f"finite={finite}", flush=True)
         for line in lines:
             if line.startswith("Test set"):
                 print(f"[main]   {line}", flush=True)
-        if missing or not finite or sorted(accs) != [0, 10, 20]:
-            failures.append(f"main {defense}: missing launches {missing}, "
-                            f"finite={finite}, evals={sorted(accs)}")
+        if (missing or extra or not finite or not counts_ok
+                or sorted(accs) != [0, 10, 20]):
+            failures.append(f"main {defense} {kind}: missing launches "
+                            f"{missing}, unexpected launches {extra}, "
+                            f"finite={finite}, counts_ok={counts_ok}, "
+                            f"evals={sorted(accs)}")
+    check_watchdog(ds, failures)
     return totals
+
+
+def check_watchdog(ds, failures):
+    """A short full-width NoDefense run whose finite bit-scaled corruption
+    explodes the weights: the watchdog must roll back once, then raise
+    FloatingPointError with the state restored and finite.  That
+    exception is the expected outcome; any other outcome fails."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+
+    fc = FaultConfig(corrupt=0.3, corrupt_mode="scale", corrupt_scale=1e30,
+                     watchdog_norm=1e6, max_rollbacks=1)
+    cfg = ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
+                           mal_prop=0.1, batch_size=128, epochs=4,
+                           test_step=2, defense="NoDefense",
+                           synth_train=60_000, synth_test=10_000, faults=fc)
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda")
+    w0 = exp.state.weights.clone()
+    lines, raised = [], None
+    try:
+        exp.run(log=lines.append)
+    except FloatingPointError as err:
+        raised = str(err)
+    rollbacks = [s for s in lines if s.startswith("!! server state")]
+    ok = (raised is not None and len(rollbacks) == 2
+          and exp.state.round == 0 and torch.equal(exp.state.weights, w0)
+          and bool(torch.isfinite(exp.state.weights).all()))
+    print(f"[main] watchdog    scale-corrupt NoDefense: rollbacks="
+          f"{len(rollbacks)} raised={raised!r} restored_round="
+          f"{exp.state.round} ok={ok}", flush=True)
+    if not ok:
+        failures.append(f"watchdog: raised={raised!r}, lines={rollbacks}")
 
 
 def main() -> int:

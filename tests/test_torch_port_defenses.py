@@ -95,7 +95,7 @@ def test_no_defense_is_the_mean():
 
 
 def test_registry_and_validity_bounds():
-    assert sorted(DEFENSES) == ["Bulyan", "Krum", "NoDefense",
+    assert sorted(DEFENSES) == ["Bulyan", "Krum", "Median", "NoDefense",
                                 "TrimmedMean"]
     check_defense_args("Bulyan", 19, 4)
     with pytest.raises(ValueError, match="4\\*corrupted_count \\+ 3"):

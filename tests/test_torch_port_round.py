@@ -1,22 +1,27 @@
 """The whole slice: the port's flat FedSGD round vs the JAX engine.
 
-For each of the reference's four defenses under ALIE (n = 19, f = 4,
-B = 32, SYNTH_MNIST_HARD at a small size), both engines start from the
-same weights (the JAX init, carried over as numpy) and run three rounds:
-the port on the CPU, where its kernel wrappers take their plain versions,
-and the JAX ``FederatedExperiment`` on the XLA path
-(``aggregation_impl='xla'``).  Final weights must agree, the Krum winner
-must be the same client every round, and evaluation must agree.
+For each defense under ALIE (n = 19, f = 4, B = 32, SYNTH_MNIST_HARD at
+a small size), both engines start from the same weights (the JAX init,
+carried over as numpy) and run three rounds: the port on the CPU, where
+its kernel wrappers take their plain versions, and the JAX
+``FederatedExperiment`` on the XLA path (``aggregation_impl='xla'``).
+Final weights must agree, the Krum winner must be the same client every
+round, and evaluation must agree.  The faulted cases add
+``FaultConfig(dropout=0.15, straggler=0.15, straggler_delay=1,
+corrupt=0.1)``: both engines draw the same schedule, so the per-round
+fault counts must be equal too.  The watchdog case runs a diverging
+NoDefense experiment through ``run()``.
 """
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from attacking_federate_learning_tpu import config as JC
 from attacking_federate_learning_tpu.attacks import DriftAttack as JDrift
 from attacking_federate_learning_tpu.config import (
-    ExperimentConfig as JConfig
+    ExperimentConfig as JConfig, FaultConfig as JFaultConfig
 )
 from attacking_federate_learning_tpu.core.engine import (
     FederatedExperiment as JExperiment
@@ -26,7 +31,9 @@ from attacking_federate_learning_tpu.data.datasets import (
 )
 from attacking_federate_learning_tpu_torch import config as C
 from attacking_federate_learning_tpu_torch.attacks import DriftAttack, paper_z
-from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+from attacking_federate_learning_tpu_torch.config import (
+    ExperimentConfig, FaultConfig
+)
 from attacking_federate_learning_tpu_torch.core.engine import (
     FederatedExperiment
 )
@@ -40,6 +47,7 @@ from attacking_federate_learning_tpu_torch.utils.weights import (
 
 N, MAL_PROP, B, ROUNDS = 19, 0.22, 32, 3
 SIZES = dict(synth_train=1200, synth_test=300)
+FAULTS = dict(dropout=0.15, straggler=0.15, straggler_delay=1, corrupt=0.1)
 
 
 @pytest.fixture(scope="module")
@@ -48,29 +56,49 @@ def datasets():
             load_dataset(C.SYNTH_MNIST_HARD, seed=0, **SIZES))
 
 
-def _pair(defense, datasets):
-    kw = dict(dataset=C.SYNTH_MNIST_HARD, users_count=N, mal_prop=MAL_PROP,
+def _pair(defense, datasets, faults=None, mal_prop=MAL_PROP):
+    kw = dict(dataset=C.SYNTH_MNIST_HARD, users_count=N, mal_prop=mal_prop,
               batch_size=B, epochs=ROUNDS, defense=defense, **SIZES)
+    # With faults the JAX engine reports the Krum winner only through its
+    # defense telemetry (the same aggregate, plus the selection mask).
     jexp = JExperiment(JConfig(**kw, aggregation_impl="xla",
-                               log_round_stats=True),
+                               log_round_stats=True,
+                               telemetry=faults is not None,
+                               faults=faults and JFaultConfig(**faults)),
                        attacker=JDrift(1.5), dataset=datasets[0])
-    texp = FederatedExperiment(ExperimentConfig(**kw), DriftAttack(1.5),
-                               datasets[1], device="cpu")
+    texp = FederatedExperiment(
+        ExperimentConfig(**kw, faults=faults and FaultConfig(**faults)),
+        DriftAttack(1.5), datasets[1], device="cpu")
     params = jax.tree.map(np.asarray, jexp.flat.unravel(jexp.state.weights))
     texp.state = init_server_state(from_jax_params(params))
     return jexp, texp
 
 
-@pytest.mark.parametrize("defense", C.DEFENSE_NAMES)
-def test_three_rounds_match_the_jax_engine(defense, datasets):
-    jexp, texp = _pair(defense, datasets)
-    assert texp.f == jexp.f == 4
+# (defense, faults, mal_prop).  Faulted Bulyan runs at f = 1: at f = 4 its
+# masked tail keeps max(e - 2f - 2f - 1, 1) = 1 value of the first e - 8
+# alive picks, and when that count is even the two middle values tie
+# about their midpoint, so gradient noise far below the tolerance (the
+# two frameworks' backward passes differ by ~1e-7) decides which one is
+# kept and the aggregates part by the gap between them.  At f = 1 the
+# tail keeps about ten values.
+_CASES = ([(d, None, MAL_PROP) for d in C.DEFENSE_NAMES]
+          + [(d, FAULTS, MAL_PROP) for d in C.DEFENSE_NAMES
+             if d != "Bulyan"] + [("Bulyan", FAULTS, 0.06)])
+
+
+@pytest.mark.parametrize(
+    "defense,faults,mal_prop", _CASES,
+    ids=[f"{d}-faulted" if fl else d for d, fl, _ in _CASES])
+def test_three_rounds_match_the_jax_engine(defense, faults, mal_prop,
+                                           datasets):
+    jexp, texp = _pair(defense, datasets, faults, mal_prop)
+    assert texp.f == jexp.f == int(mal_prop * N)
     winners = []
     if defense == "Krum":
         inner = texp.defense_fn
 
-        def spy(grads, n, f):
-            out = inner(grads, n, f)
+        def spy(grads, n, f, **kw):
+            out = inner(grads, n, f, **kw)
             rows = np.flatnonzero((grads == out).all(1).numpy())
             winners.append(rows)
             return out
@@ -84,6 +112,13 @@ def test_three_rounds_match_the_jax_engine(defense, datasets):
             # aggregate (ALIE's crafted rows are identical copies).
             won = int(jexp.last_round_stats["krum_selected"])
             assert won in winners[t]
+        if faults:
+            want = {k[len("fault_"):]: int(v) for k, v in
+                    jexp.last_round_telemetry.items()
+                    if k.startswith("fault_")}
+            got = {k: int(v) for k, v in texp.last_round_faults.items()
+                   if k != "round"}
+            assert got == want and texp.last_round_faults["round"] == t
     want = np.asarray(jexp.state.weights)
     got = texp.state.weights.numpy()
     # Same inputs and the same arithmetic in fp32; the two frameworks sum
@@ -126,3 +161,64 @@ def test_config_matches_the_jax_config():
         with pytest.raises(ValueError) as te:
             ExperimentConfig(num_std=bad)
         assert str(je.value) == str(te.value)
+
+
+def test_watchdog_rolls_back_then_raises(datasets):
+    """The JAX engine's test_watchdog_rollback_then_abort without a
+    checkpointer: finite bit-scaled corruption under NoDefense explodes
+    the weight norm; the watchdog rolls back to the state at the start
+    of run() and, past max_rollbacks, raises FloatingPointError with the
+    state restored and finite.  The JAX engine, given the same config,
+    does the same."""
+    fc = dict(corrupt=0.3, corrupt_mode="scale", corrupt_scale=1e30,
+              watchdog_norm=1e6, max_rollbacks=1)
+    kw = dict(dataset=C.SYNTH_MNIST_HARD, users_count=10, mal_prop=0.0,
+              batch_size=B, epochs=10, test_step=5, defense="NoDefense",
+              **SIZES)
+    texp = FederatedExperiment(
+        ExperimentConfig(**kw, faults=FaultConfig(**fc)), DriftAttack(0.0),
+        datasets[1], device="cpu")
+    w0 = texp.state.weights.clone()
+    lines = []
+    with pytest.raises(FloatingPointError, match="diverged") as te:
+        texp.run(log=lines.append)
+    rollbacks = [s for s in lines if s.startswith("!! server state")]
+    # max_rollbacks=1: one rollback and retry, then the aborting one; the
+    # deterministic retry diverges at the same round.
+    assert len(rollbacks) == 2 and rollbacks[0] == rollbacks[1].replace(
+        "rollback 2/1", "rollback 1/1")
+    assert texp.state.round == 0 and torch.equal(texp.state.weights, w0)
+    assert bool(torch.isfinite(texp.state.weights).all())
+
+    jexp = JExperiment(JConfig(**kw, faults=JFaultConfig(**fc)),
+                       attacker=JDrift(0.0), dataset=datasets[0])
+    with pytest.raises(FloatingPointError) as je:
+        jexp.run()
+    assert str(te.value) == str(je.value)
+
+
+def test_faulted_run_reports_counts_at_the_eval_rounds(datasets):
+    """run() returns one row of counts per round, equal to a host replay
+    of the schedule, and evaluates on the usual cadence."""
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        fault_masks
+    )
+
+    cfg = ExperimentConfig(dataset=C.SYNTH_MNIST_HARD, users_count=N,
+                           mal_prop=MAL_PROP, batch_size=B, epochs=4,
+                           test_step=2, defense="Median",
+                           faults=FaultConfig(**FAULTS), **SIZES)
+    exp = FederatedExperiment(cfg, DriftAttack(1.5), datasets[1],
+                              device="cpu")
+    result = exp.run(log=lambda s: None)
+    assert result["epochs"] == [0, 2, 3]
+    assert [r["round"] for r in result["faults"]] == [0, 1, 2, 3]
+    for row in result["faults"]:
+        drop, stale, corrupt = fault_masks(exp._fault_key, row["round"], N,
+                                           exp.f, cfg.faults)
+        assert row == {"round": row["round"],
+                       "injected_dropout": int(drop.sum()),
+                       "injected_straggler": int(stale.sum()),
+                       "injected_corrupt": int(corrupt.sum()),
+                       "quarantined": int(drop.sum() + corrupt.sum())}
+    assert bool(torch.isfinite(exp.state.weights).all())

@@ -28,7 +28,8 @@ from attacking_federate_learning_tpu_torch.core.engine import (
 from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
 from attacking_federate_learning_tpu_torch.ops import _build
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-    krum_scores, trimmed_mean_of
+    krum_scores, masked_median, masked_trimmed_mean, median_of,
+    trimmed_mean_of
 )
 from attacking_federate_learning_tpu_torch.ops.distances import (
     pairwise_distances
@@ -96,8 +97,10 @@ def test_the_scan_sees_every_form_of_import():
 def test_the_scan_covers_the_whole_port():
     names = {p.relative_to(PORT_DIR).as_posix() for p in SOURCES[:-1]}
     for module in ("config.py", "cli.py", "core/engine.py",
+                   "core/faults.py", "utils/threefry.py",
                    "ops/_build.py", "ops/distances.py",
-                   "ops/defense_kernels.py", "defenses/kernels.py"):
+                   "ops/defense_kernels.py", "defenses/kernels.py",
+                   "defenses/median.py"):
         assert module in names
 
 
@@ -155,10 +158,24 @@ class _CudaMatrix:
         return True
 
 
+class _CudaMask:
+    """Stands in for the (4,) bool CUDA mask of the masked kernels."""
+
+    device = torch.device("cuda", 0)
+    dtype = torch.bool
+    shape = (4,)
+
+    def is_contiguous(self):
+        return True
+
+
 _WRAPPERS = {
     "pairwise_distances": lambda G: pairwise_distances(G),
     "krum_scores": lambda G: krum_scores(G, 2),
     "trimmed_mean": lambda G: trimmed_mean_of(G, 1),
+    "median": lambda G: median_of(G),
+    "masked_trimmed_mean": lambda G: masked_trimmed_mean(G, _CudaMask(), 2),
+    "masked_median": lambda G: masked_median(G, _CudaMask()),
 }
 
 
@@ -199,5 +216,34 @@ def test_every_kernel_has_a_source_and_a_counter():
         assert "Replaces the TPU kernel" in text
     # The library name follows the sources, so an edited kernel rebuilds.
     paths = {_build.library_path(n) for n in _build.KERNELS}
-    assert len(paths) == 3 and all(p.parent == _build.BUILD_DIR
+    assert len(paths) == 6 and all(p.parent == _build.BUILD_DIR
                                    for p in paths)
+
+
+@pytest.mark.parametrize("name", ["masked_trimmed_mean", "masked_median"])
+def test_masked_wrappers_refuse_a_bad_mask_or_weights(name):
+    """The masked kernels read an (n,) bool mask and (n,) float32 weights
+    on the matrix's device; anything else is refused before a launch."""
+    call = {"masked_trimmed_mean":
+            lambda G, m, w: masked_trimmed_mean(G, m, 2, w),
+            "masked_median": lambda G, m, w: masked_median(G, m, w)}[name]
+
+    class FloatMask(_CudaMask):
+        dtype = torch.float32
+
+    class ShortMask(_CudaMask):
+        shape = (3,)
+
+    class HostMask(_CudaMask):
+        device = torch.device("cpu")
+
+    class DoubleWeights(_CudaMask):
+        dtype = torch.float64
+
+    before = dict(_build.LAUNCHES)
+    for bad in (FloatMask(), ShortMask(), HostMask()):
+        with pytest.raises(ValueError, match="bool mask"):
+            call(_CudaMatrix(), bad, None)
+    with pytest.raises(ValueError, match="float32 weights"):
+        call(_CudaMatrix(), _CudaMask(), DoubleWeights())
+    assert _build.LAUNCHES == before
