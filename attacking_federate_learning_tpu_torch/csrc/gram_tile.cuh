@@ -1,55 +1,95 @@
 // Shared pieces of the two distance kernels (pairwise_distances.cu and
-// krum_scores.cu): the tile plan, one block's fp32 Gram tile, and the row
-// norms summed in the Gram's own order.
+// krum_scores.cu): the fp32 Gram of an (n, d) matrix, split over d across
+// every SM, and the epilogue that turns it into distances.
 //
-// A block computes the (BM x 128) tile  acc[r][c] = sum_k G[row0+r][k] *
-// G[col0+c][k]  over one slice [k0, k1) of the contraction axis, with plain
-// fp32 FMA (no tensor cores, so no TF32).  The slice is walked in chunks
-// of 32 staged through shared
-// memory, with the next chunk's global loads issued into registers
-// before the current chunk is consumed.  The 8 warps of the block are
-// split into BM/4 row groups of 4 rows and 8/(BM/4) k groups: at small
-// BM (small n, few blocks) most warps split the contraction and their
-// partial tiles are summed through shared memory in a fixed order, at
-// BM = 32 every warp owns 4 rows outright.  Each lane holds a 4 x 4
-// register tile: 4 rows x the columns lane, lane+32, lane+64, lane+96.
+// What bounds them on an H100: operations.  The function needs the
+// n(n-1)/2 dot products of the symmetric Gram plus the row norms,
+// n(n-1)*d + 2*n*d flops: 0.80 GFLOP at n = 100, d = 79,510, 12 us against
+// the 67 TFLOP/s of fp32 FMA outside the tensor cores (tensor cores would
+// mean TF32, which the port's fp32 parity forbids), against 31.8 MB of
+// input, 9.5 us at 3.35 TB/s.
 //
-// Summation order.  A warp's FMA chain restarts after kChainProducts = 256
-// products (256 / KPW chunks, KPW = its share of a chunk) and is added to
-// a running total, so the totals add at most ceil(d / 256) chains: the
-// longest sequential dependency of any output is under 256 + ceil(d/256)
-// + 8 + 8 roundings, whatever the plan (the last two terms: the k-group
-// and cluster-rank sums).  The restart matters at large n, where a plan
-// of one block per tile and one k group would otherwise sum all of d in
-// one chain, with rounding error growing as its square root.  Every
-// output is summed in the same order whatever its
-// position in the tile, so acc[i][j] == acc[j][i] bit for bit and the
-// distance matrix comes out exactly symmetric; row_sqnorms_kernel sums
-// sq[i] in that order too, so for two identical rows sq_i == sq_j ==
-// acc[i][j] and their distance is exactly 0 (ALIE's crafted rows), not
-// the square root of cancellation noise.
+// Stage 1, gram_partials_kernel.  The padded Gram is cut into 128 x 128
+// tiles and only the nt(nt+1)/2 tiles on or above the diagonal are
+// computed (nt = ceil(n / 128)).  d is cut into S slices of `cps` whole
+// chains of 256 products; the grid is tiles x S blocks, and block
+// (tile, s) writes its partial tile to the workspace, ws[s][tile][128][128],
+// and the diagonal of a diagonal tile also to dg[s][nt * 128], so that the
+// epilogue reads the row norms contiguously.  The plan (cps, S) is made
+// by the wrapper (ops/distances.py:gram_plan) from the card's SM count,
+// so that tiles x S fills every SM in whole waves.  A block is 256
+// threads, each with an 8 x 8 register tile; it has an SM to itself (up
+// to 255 registers a thread, which the tile and its operands fill).  The
+// operands reach shared memory through a ring of three stages of 32 k
+// with asynchronous copies (cp.async), so the next chunks' loads overlap
+// this chunk's FMAs; on a diagonal tile the two operands are the same
+// rows and are loaded once.
+// A stage holds [row][32 k], the 16-byte quads of a row permuted by its
+// thread tile (staged()), so that a warp's copies write whole rows and a
+// warp's 16-byte reads of 16 thread tiles take the minimum two
+// wavefronts.  The copies are as wide as every row start allows: 8 bytes
+// at d = 79,510, whose odd rows start at 8 mod 16 bytes (a TMA tensor map
+// or a 16-byte copy would need 16), 4 bytes for odd d, 16 where d is a
+// multiple of 4.  Rows past n and k past d are zero-filled by the copy
+// (src-size 0), so nothing out of bounds is read and G is never padded.
 //
-// Rows and columns beyond n, and k beyond k1, read as 0, so ragged n and
-// d never read out of bounds.
+// Only the thread tiles that hold an output on or above the diagonal and
+// inside n are computed: the block numbers them and gives them to its
+// first threads, so whole warps past the count skip the FMAs.  At
+// n = 100 the single tile has 91 such thread tiles of 8 x 8 (0.93 GFLOP in
+// all instead of the padded tile's 2.6).  Where the Gram is one tile and
+// half the threads or more would idle, the block's threads form KG = 2 or
+// 4 k groups that split each chunk's 32 k between them (n = 100: KG = 2,
+// six warps); at a chain's end the groups' sums are added in group order
+// through shared memory before they reach the partial.
 //
-// A cluster of S blocks shares one output tile: block rank q sums the
-// q-th slice of d (slice_bounds), and cluster_sum adds the S partial
-// tiles in rank order through distributed shared memory, so the split
-// keeps the symmetry and never writes a partial sum to device memory.
+// Stage 2, gram_epilogue_kernel (one launch).  Each output's S partials
+// are summed in a fixed order; the row norm sq_i is the summed Gram
+// diagonal acc[i][i], so no second pass over G is needed.  D[i][j] and
+// D[j][i] are written from one value, sqrt(max(sq_i + sq_j - 2 acc, 0)),
+// with an exact zero diagonal.
+//
+// Summation order.  Every output is summed the same way whatever its
+// position: per k group, FMA chains of its 256 / KG products of a 256-k
+// chain in k order from 0; the groups' chains added in group order; each
+// chain added in order to its slice's partial (the first one stored); the
+// S partials summed in kGroups runs of ceil(S / kGroups) in order, and the
+// runs' sums added in order.  The longest sequential chain of roundings
+// is at most 256 + ceil(d / 256) + 8 (ops/distances.py:
+// GramPlan.rounding_chain).  So two bit-identical rows i, j give
+// acc[i][j] == acc[i][i] == acc[j][j] bit for bit, and their distance
+// (x + x) - 2x is exactly 0 (ALIE's crafted rows), not the square root of
+// cancellation noise.  Partials are combined in a fixed order, never by
+// float atomics, so two launches on the same input give the same bits.
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace fl {
 
-constexpr int kThreads = 256;         // 8 warps
+constexpr int kThreads = 256;           // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 128;              // tile columns
-constexpr int kBK = 32;               // d-chunk per shared-memory stage
-constexpr int kBNPad = kBN + 1;       // conflict-free transposed stores
-constexpr int kChainProducts = 256;   // products per FMA chain (see above)
+constexpr int kT = 128;                 // Gram tile edge
+constexpr int kTT = 8;                  // thread tile edge
+constexpr int kTG = kT / kTT;           // thread tiles per tile edge
+constexpr int kBK = 32;                 // k per shared-memory stage
+constexpr int kStages = 3;              // cp.async ring depth
+constexpr int kChainProducts = 256;     // products per FMA chain
+constexpr int kChunksPerChain = kChainProducts / kBK;
+constexpr int kStageFloats = 2 * kT * kBK;   // A and B of one stage
+constexpr int kGroups = kWarps;         // epilogue runs of partials
+
+static_assert(kThreads == kTG * kTG, "one thread per thread tile");
+static_assert(kChainProducts % kBK == 0, "chains are whole chunks");
+
+// Shared memory of stage 1: the ring, and the k groups' exchange of their
+// chain sums, [KG - 1][64 entries][256 / KG threads].
+template <int KG>
+constexpr size_t stage1_smem() {
+    return (kStages * kStageFloats + (KG - 1) * kTT * kTT * (kThreads / KG))
+           * sizeof(float);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -58,323 +98,375 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// (rows per tile bm, blocks per cluster ranks) of the two distance kernels.
-// A cluster of `ranks` blocks computes one tile of bm rows, each block over
-// 1/ranks of d.  The card reads G once per row tile, so the tallest tile
-// comes first, with the smallest cluster that gives three quarters of the
-// SMs a block (`col_tiles` tiles share a row tile's rows); at small n,
-// where even 8 do not, the shortest tile with 8.
-inline cudaError_t tile_plan(int n, int col_tiles, int& bm, int& ranks) {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    for (int b = 32; b >= 8; b /= 2)
-        for (int r = 1; r <= 8; r *= 2)
-            if (4LL * ((n + b - 1) / b) * col_tiles * r >= 3LL * sms) {
-                bm = b;
-                ranks = r;
-                return cudaSuccess;
-            }
-    bm = 4;
-    ranks = 8;
-    return cudaSuccess;
+// Tile t of the upper triangle of nt x nt tiles, row by row:
+// (0,0), (0,1), ..., (0,nt-1), (1,1), ...
+__device__ __forceinline__ void tile_coords(int t, int nt, int& ti,
+                                            int& tj) {
+    ti = 0;
+    int len = nt;
+    while (t >= len) {
+        t -= len;
+        ++ti;
+        --len;
+    }
+    tj = ti + t;
 }
 
-// Shared memory a gram tile needs (floats), as one static block.
-template <int BM>
-struct GramSmem {
-    static_assert(BM == 4 || BM == 8 || BM == 16 || BM == 32, "BM");
-    // [k][row] in groups of 4 rows; group g of k sits at slot g ^ (k % RG)
-    // so the transposed stores spread over banks, and a 16-byte group
-    // read stays one aligned float4.
-    float a[kBK * BM];
-    float b[kBK * kBNPad];             // [k][col], padded
-    float red[kWarps * 4 * kBN];       // partial tiles; tile result in [0, BM*kBN)
-};
-
-// [k0, k1) of the contraction axis for block `rank` of `ranks`: whole
-// chunks of kBK, so every tile splits d at the same places.
-__device__ __forceinline__ void slice_bounds(long long d, unsigned rank,
-                                             unsigned ranks, long long& k0,
-                                             long long& k1) {
-    const long long chunks = (d + kBK - 1) / kBK;
-    const long long per = (chunks + ranks - 1) / ranks * kBK;
-    k0 = per * rank;
-    k1 = k0 + per < d ? k0 + per : d;
+__device__ __forceinline__ int tile_index(int ti, int tj, int nt) {
+    return ti * nt - ti * (ti - 1) / 2 + (tj - ti);
 }
 
-// sq[i] = sum_k G[i][k]^2 in f32, summed in exactly the order gram_tile<BM>
-// with `ranks` blocks per cluster sums acc[i][j]: per rank slice and k
-// group, FMA chains of kChainProducts products added in chunk order to a
-// total starting at 0; the KG totals added in k-group order; the rank
-// sums added in rank order to 0.
-//
-// One block per row.  A row's chains are numbered by (rank, span of CPS
-// chunks, k group), k group fastest, and thread t of a batch runs chain
-// base + t.  A warp's 32 chains cover 32 / KG spans, which it stages
-// through shared memory KG chunks at a time (32 coalesced loads a lane)
-// so that each lane can walk its own chain in order.  Thread kg then
-// folds k group kg's chains of the batch, in order, into its rank's
-// total.  Entries past a slice's end read as 0, as in the Gram.
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-row_sqnorms_kernel(const float* __restrict__ G, long long d, int ranks,
-                   float* __restrict__ sq) {
-    constexpr int KG = kWarps / (BM / 4);
-    constexpr int KPW = kBK / KG;
-    constexpr int CPS = kChainProducts / KPW;      // chunks per chain
-    constexpr int SPW = 32 / KG;                   // spans per warp
-    // Row jj * KG + ci of a warp's stage holds chunk ci of span jj; the
-    // span stride is padded so a lane's reads hit distinct banks.
-    constexpr int kSpan = KG * (kBK + 1) + (KG > 1 ? 1 : 0);
-    __shared__ float stage[kWarps][SPW * kSpan];
-    __shared__ long long span_k[kWarps][SPW][2];   // [k start, k end)
-    __shared__ float part[kThreads];
-    __shared__ int part_rank[kThreads];
-    __shared__ float tot[8][KG];
-    __shared__ long long first_span[9];   // of each rank; [ranks] = all
-
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const float* g = G + (long long)blockIdx.x * d;
-    if (threadIdx.x == 0) {
-        first_span[0] = 0;
-        for (int q = 0; q < ranks; ++q) {
-            long long k0, k1;
-            slice_bounds(d, q, ranks, k0, k1);
-            const long long nchunks =
-                k1 > k0 ? (k1 - k0 + kBK - 1) / kBK : 0;
-            first_span[q + 1] = first_span[q] + (nchunks + CPS - 1) / CPS;
-        }
-    }
-    if (threadIdx.x < 8 * KG) tot[threadIdx.x / KG][threadIdx.x % KG] = 0.f;
-    __syncthreads();
-
-    const long long chains = first_span[ranks] * KG;
-    for (long long base = 0; base < chains; base += kThreads) {
-        const long long s0 = (base + warp * 32) / KG;   // warp's first span
-        if (lane < SPW) {            // where the warp's span `lane` lies
-            const long long sp = s0 + lane;
-            int q = 0;
-            while (q < ranks && first_span[q + 1] <= sp) ++q;
-            long long k0 = 0, k1 = 0;
-            if (q < ranks) {
-                slice_bounds(d, q, ranks, k0, k1);
-                k0 += (sp - first_span[q]) * CPS * kBK;
-            }
-            span_k[warp][lane][0] = k0;
-            span_k[warp][lane][1] = k1;
-            for (int kg = 0; kg < KG; ++kg)
-                part_rank[warp * 32 + lane * KG + kg] = q;
-        }
-        __syncwarp();
-        const int span = lane / KG, kg = lane % KG;    // this lane's chain
-        float* st = stage[warp];
-        float acc = 0.f;
-        for (int c0 = 0; c0 < CPS; c0 += KG) {
-            // All 32 loads first, then the stores, so the loads overlap.
-            float v[SPW][KG];
-#pragma unroll
-            for (int jj = 0; jj < SPW; ++jj) {
-                const long long ks = span_k[warp][jj][0];
-                const long long ke = span_k[warp][jj][1];
-#pragma unroll
-                for (int ci = 0; ci < KG; ++ci) {
-                    const long long k = ks + (c0 + ci) * kBK + lane;
-                    v[jj][ci] = k < ke ? __ldg(g + k) : 0.f;
-                }
-            }
-#pragma unroll
-            for (int jj = 0; jj < SPW; ++jj)
-#pragma unroll
-                for (int ci = 0; ci < KG; ++ci)
-                    st[jj * kSpan + ci * (kBK + 1) + lane] = v[jj][ci];
-            __syncwarp();
-#pragma unroll
-            for (int ci = 0; ci < KG; ++ci)
-#pragma unroll
-                for (int kk = 0; kk < KPW; ++kk) {
-                    const float v =
-                        st[span * kSpan + ci * (kBK + 1) + kg * KPW + kk];
-                    acc = fmaf(v, v, acc);
-                }
-            __syncwarp();
-        }
-        part[threadIdx.x] = acc;
-        __syncthreads();
-        if (threadIdx.x < KG) {
-            const long long left = chains - base;
-            const int m = left < kThreads ? (int)left : kThreads;
-            for (int i = threadIdx.x; i < m; i += KG)
-                tot[part_rank[i]][threadIdx.x] += part[i];
-        }
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-        float total = 0.f;
-        for (int q = 0; q < ranks; ++q) {
-            float w = tot[q][0];
-#pragma unroll
-            for (int kg = 1; kg < KG; ++kg) w += tot[q][kg];
-            total += w;
-        }
-        sq[blockIdx.x] = total;
-    }
+// Where k (0..31) of staged row r (0..127) sits: rows of 32 floats, their
+// 16-byte quads permuted by the row's thread tile, so that thread tiles
+// 0..7 read one quad index from eight distinct bank groups.
+__device__ __forceinline__ int staged(int r, int k) {
+    return r * kBK + (((k >> 2) ^ ((r >> 3) & 7)) << 2) + (k & 3);
 }
 
-// Computes the gram tile of rows [row0, row0+BM) x cols [col0, col0+kBN)
-// over k in [k0, k1) into s.red[r * kBN + c].  Must be called by all
-// kThreads threads; ends with a __syncthreads so the tile is readable by
-// every thread.
-template <int BM>
-__device__ void gram_tile(const float* __restrict__ G, int n, long long d,
-                          long long k0, long long k1, int row0, int col0,
-                          GramSmem<BM>& s) {
-    constexpr int RG = BM / 4;             // row groups
-    constexpr int KG = kWarps / RG;        // k groups
-    constexpr int KPW = kBK / KG;          // k per warp per chunk
-    constexpr int CPS = kChainProducts / KPW;   // chunks per FMA chain
-    constexpr int kElems = (BM + kBN) * kBK;
-    constexpr int kLoads = (kElems + kThreads - 1) / kThreads;
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(4 * VEC), "r"(valid ? 4 * VEC : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage 1.  Grid: tiles * S blocks, block = s * tiles + tile.  The block's
+// threads form KG k groups of 256 / KG; group g takes k [32g/KG,
+// 32(g+1)/KG) of every chunk.  ws: (S, tiles, 128, 128) f32, then dg:
+// (S, nt * 128); only the entries of computed thread tiles are written.
+// Every tile of a launch must have at most 256 / KG live thread tiles.
+// Copies move VEC floats (G's base and row stride must allow 4 VEC-byte
+// copies).  Dynamic shared memory: stage1_smem<KG>().
+template <int KG, int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+gram_partials_kernel(const float* __restrict__ G, int n, long long d,
+                     int nt, int cps, float* __restrict__ ws) {
+    constexpr int kPer = kThreads / KG;      // threads per k group
+    constexpr int kQ = kBK / 4 / KG;         // k quads per group per chunk
+    constexpr int kRowCopies = kBK / VEC;    // copies per staged row
+    constexpr int kCopies = kT * kRowCopies / kThreads;   // per thread
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    float* xch = smem + kStages * kStageFloats;
+    const int tiles = nt * (nt + 1) / 2;
+    const int tile = blockIdx.x % tiles;
+    const int s = blockIdx.x / tiles;
+    int ti, tj;
+    tile_coords(tile, nt, ti, tj);
+    const bool diag = ti == tj;
+    const int row0 = ti * kT, col0 = tj * kT;
+    const long long k0 = (long long)s * cps * kChainProducts;
+    const long long kend = k0 + (long long)cps * kChainProducts;
+    const long long k1 = kend < d ? kend : d;
+    const int nchunks = (int)((k1 - k0 + kBK - 1) / kBK);
 
     const int tid = threadIdx.x;
-    const int lane = tid & 31;
     const int warp = tid >> 5;
-    const int rg = warp % RG;
-    const int kg = warp / RG;
 
-    // This thread's 16 outputs in its k group's partial tile red[kg], which
-    // hold the running totals of its restarted FMA chains (in shared
-    // memory, so the totals cost no registers).  Only this thread touches
-    // them until the barrier after the loop.
-    float* part = s.red + kg * (BM * kBN) + rg * 4 * kBN + lane;
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            acc[r][q] = 0.f;
-            part[r * kBN + 32 * q] = 0.f;
-        }
-
-    // Loader: element e = tid + i*kThreads; staged row e/32, k = e%32 = lane
-    // (kThreads is a multiple of 32), so a warp reads 128 contiguous bytes
-    // of one row.  Rows [0, BM) come from the row block, the rest from the
-    // column block.
-    float pf[kLoads];
-    auto load = [&](long long kbase) {
-#pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-            const int e = tid + i * kThreads;
-            const int r = e >> 5;
-            const long long k = kbase + lane;
-            float v = 0.f;
-            if (e < kElems && k < k1) {
-                const int g = r < BM ? row0 + r : col0 + (r - BM);
-                if (g < n) v = G[(long long)g * d + k];
+    // This thread's k group and thread tile (a, b) among the block's live
+    // ones.
+    const int g = tid / kPer;
+    const int idx = tid % kPer;
+    const int mr = min(kTG, (n - row0 + kTT - 1) / kTT);
+    const int mc = min(kTG, (n - col0 + kTT - 1) / kTT);
+    const int live = diag ? mr * (mr + 1) / 2 : mr * mc;
+    const bool thread_live = idx < live;
+    int a = 0, b = 0;
+    {
+        const int t = thread_live ? idx : 0;
+        if (diag) {
+            int rem = t;
+            while (rem >= mr - a) {
+                rem -= mr - a;
+                ++a;
             }
-            pf[i] = v;
+            b = a + rem;
+        } else {
+            a = t / mc;
+            b = t % mc;
         }
-    };
-    auto store = [&]() {
-#pragma unroll
-        for (int i = 0; i < kLoads; ++i) {
-            const int e = tid + i * kThreads;
-            if (e < kElems) {
-                const int r = e >> 5;
-                if (r < BM)
-                    s.a[lane * BM + (((r >> 2) ^ (lane % RG)) << 2)
-                        + (r & 3)] = pf[i];
-                else s.b[lane * kBNPad + (r - BM)] = pf[i];
-            }
-        }
-    };
-
-    const long long nchunks = k1 > k0 ? (k1 - k0 + kBK - 1) / kBK : 0;
-    if (nchunks > 0) load(k0);
-    for (long long c0 = 0; c0 < nchunks; c0 += CPS) {      // one FMA chain
-        const long long c1 = c0 + CPS < nchunks ? c0 + CPS : nchunks;
-        for (long long c = c0; c < c1; ++c) {
-            store();
-            __syncthreads();
-            if (c + 1 < nchunks) load(k0 + (c + 1) * kBK);
-#pragma unroll
-            for (int kk = 0; kk < KPW; ++kk) {
-                const int k = kg * KPW + kk;
-                const float4 a =
-                    *reinterpret_cast<const float4*>(
-                        &s.a[k * BM + ((rg ^ (k % RG)) << 2)]);
-                const float* brow = &s.b[k * kBNPad + lane];
-                const float av[4] = {a.x, a.y, a.z, a.w};
-                float bv[4];
-#pragma unroll
-                for (int q = 0; q < 4; ++q) bv[q] = brow[32 * q];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-#pragma unroll
-                    for (int q = 0; q < 4; ++q)
-                        acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
-            }
-            __syncthreads();
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                part[r * kBN + 32 * q] += acc[r][q];
-                acc[r][q] = 0.f;
-            }
     }
+    const bool warp_live = warp * 32 % kPer < live;     // warp-uniform
 
-    // The partial tiles red[kg][row][col] are complete; with several k
-    // groups, sum them over kg in order into red[0][row][col] (each output
-    // is read and written by one thread only, so the in-place sum is
-    // race-free).
+    // Copier: copy e = tid + i * 256 is row e / kRowCopies, k VEC * (e %
+    // kRowCopies) of the chunk, so a warp's copies cover whole rows.
+    auto load_chunk = [&](int c, int st) {
+        float* A = smem + st * kStageFloats;
+        float* B = A + kT * kBK;
+        const long long kc = k0 + (long long)c * kBK;
+#pragma unroll
+        for (int i = 0; i < kCopies; ++i) {
+            const int e = tid + i * kThreads;
+            const int r = e / kRowCopies;
+            const int k = (e % kRowCopies) * VEC;
+            const long long kg = kc + k;
+            const int slot = staged(r, k);
+            const bool kin = kg < k1;
+            const bool va = kin && row0 + r < n;
+            cp_async<VEC>(A + slot,
+                          va ? G + (long long)(row0 + r) * d + kg : G, va);
+            if (!diag) {
+                const bool vb = kin && col0 + r < n;
+                cp_async<VEC>(B + slot,
+                              vb ? G + (long long)(col0 + r) * d + kg : G,
+                              vb);
+            }
+        }
+    };
+
+    float acc[kTT][kTT];
+#pragma unroll
+    for (int i = 0; i < kTT; ++i)
+#pragma unroll
+        for (int j = 0; j < kTT; ++j) acc[i][j] = 0.f;
+
+    float* out = ws + ((long long)s * tiles + tile) * (kT * kT);
+    float* dg = ws + (long long)gridDim.x * (kT * kT)
+                + (long long)s * nt * kT + row0;
+    const int sa = (a & 7) << 2, sb = (b & 7) << 2;   // staged() swizzle
+
+#pragma unroll
+    for (int c = 0; c < kStages - 1; ++c) {
+        if (c < nchunks) load_chunk(c, c);
+        cp_async_commit();
+    }
+    for (int c = 0; c < nchunks; ++c) {
+        cp_async_wait<kStages - 2>();
+        __syncthreads();          // chunk c landed; chunk c-1 consumed
+        if (c + kStages - 1 < nchunks)
+            load_chunk(c + kStages - 1, (c + kStages - 1) % kStages);
+        cp_async_commit();
+        if (warp_live) {
+            const float* st = smem + (c % kStages) * kStageFloats;
+            const float* A = st + a * kTT * kBK;
+            const float* B = (diag ? st : st + kT * kBK) + b * kTT * kBK;
+#pragma unroll
+            for (int q = 0; q < kQ; ++q) {
+                const int k4 = (g * kQ + q) << 2;
+                float4 av[kTT];
+#pragma unroll
+                for (int i = 0; i < kTT; ++i)
+                    av[i] = *reinterpret_cast<const float4*>(
+                        A + i * kBK + (k4 ^ sa));
+#pragma unroll
+                for (int j = 0; j < kTT; ++j) {
+                    const float4 bv = *reinterpret_cast<const float4*>(
+                        B + j * kBK + (k4 ^ sb));
+#pragma unroll
+                    for (int i = 0; i < kTT; ++i) {
+                        float v = acc[i][j];
+                        v = fmaf(av[i].x, bv.x, v);
+                        v = fmaf(av[i].y, bv.y, v);
+                        v = fmaf(av[i].z, bv.z, v);
+                        acc[i][j] = fmaf(av[i].w, bv.w, v);
+                    }
+                }
+            }
+        }
+        // A chain ends (block-uniform): add the k groups' chains in group
+        // order, add that to the slice's partial (the first chain is
+        // stored), and restart from 0.
+        if ((c + 1) % kChunksPerChain == 0 || c + 1 == nchunks) {
+            if (KG > 1) {
+                if (g > 0 && thread_live) {
+#pragma unroll
+                    for (int i = 0; i < kTT; ++i)
+#pragma unroll
+                        for (int j = 0; j < kTT; ++j)
+                            xch[((g - 1) * kTT * kTT + i * kTT + j) * kPer
+                                + idx] = acc[i][j];
+                }
+                __syncthreads();
+                if (g == 0 && thread_live) {
+#pragma unroll
+                    for (int h = 1; h < KG; ++h)
+#pragma unroll
+                        for (int i = 0; i < kTT; ++i)
+#pragma unroll
+                            for (int j = 0; j < kTT; ++j)
+                                acc[i][j] += xch[((h - 1) * kTT * kTT
+                                                  + i * kTT + j) * kPer
+                                                 + idx];
+                }
+            }
+            if (g == 0 && thread_live) {
+                const bool first = c < kChunksPerChain;
+#pragma unroll
+                for (int i = 0; i < kTT; ++i) {
+                    float4* p = reinterpret_cast<float4*>(
+                        out + (a * kTT + i) * kT + b * kTT);
+                    float4 lo = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                            acc[i][3]);
+                    float4 hi = make_float4(acc[i][4], acc[i][5], acc[i][6],
+                                            acc[i][7]);
+                    if (!first) {
+                        const float4 plo = p[0], phi = p[1];
+                        lo = make_float4(plo.x + lo.x, plo.y + lo.y,
+                                         plo.z + lo.z, plo.w + lo.w);
+                        hi = make_float4(phi.x + hi.x, phi.y + hi.y,
+                                         phi.z + hi.z, phi.w + hi.w);
+                    }
+                    p[0] = lo;
+                    p[1] = hi;
+                }
+                if (diag && a == b) {
+                    // The same sums again, beside the other slices'.
+#pragma unroll
+                    for (int i = 0; i < kTT; ++i) {
+                        float* q = dg + a * kTT + i;
+                        *q = first ? acc[i][i] : *q + acc[i][i];
+                    }
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < kTT; ++i)
+#pragma unroll
+                for (int j = 0; j < kTT; ++j) acc[i][j] = 0.f;
+        }
+    }
+    cp_async_wait<0>();
+}
+
+// The sums over partials [s0, s1), in order, of p0[s * st0], p1[s * st1]
+// and p2[s * st1]; the three run together so that their loads overlap.
+__device__ __forceinline__ void partial_sums(const float* p0, long long st0,
+                                             const float* p1,
+                                             const float* p2, long long st1,
+                                             int s0, int s1, float& v0,
+                                             float& v1, float& v2) {
+    v0 = p0[s0 * st0];
+    v1 = p1[s0 * st1];
+    v2 = p2[s0 * st1];
+#pragma unroll 4
+    for (int s = s0 + 1; s < s1; ++s) {
+        v0 += p0[s * st0];
+        v1 += p1[s * st1];
+        v2 += p2[s * st1];
+    }
+}
+
+// Stage 2.  Grid: tiles * 128 * 4 blocks, block = (tile * 128 + r) * 4 + q;
+// a block takes row r of the tile and its 32 columns [32 q, 32 q + 32),
+// and writes D[i][j] and D[j][i] for every i <= j among them.  The S
+// partials fall into kGroups runs of ceil(S / kGroups) (the last may be
+// short); warp w sums run w of each output and of the two norms in slice
+// order, and warp 0 adds the runs' sums in run order, so every output,
+// the diagonal ones included, is summed the same way.
+__global__ void __launch_bounds__(kThreads)
+gram_epilogue_kernel(const float* __restrict__ ws, int n, int nt, int S,
+                     float* __restrict__ D) {
+    __shared__ float part[kGroups][2][32];     // outputs, column norms
+    __shared__ float part_r[kGroups];          // the row's norm
+    const int tiles = nt * (nt + 1) / 2;
+    const int q = blockIdx.x % 4;
+    const int r = (blockIdx.x / 4) % kT;
+    const int tile = blockIdx.x / (4 * kT);
+    int ti, tj;
+    tile_coords(tile, nt, ti, tj);
+    const int c0 = 32 * q;
+    const int i = ti * kT + r;
+    // Block-uniform: the row is past n, the columns are, or all of them
+    // lie below the diagonal.
+    if (i >= n || tj * kT + c0 >= n || (ti == tj && c0 + 31 < r)) return;
+
+    const int lane = threadIdx.x & 31;
+    const int w = threadIdx.x >> 5;
+    const int gsz = (S + kGroups - 1) / kGroups;
+    const int runs = (S + gsz - 1) / gsz;
+    const int c = c0 + lane;
+    const int j = tj * kT + c;
+    if (w < runs) {
+        // Every lane sums its entries, live or not (a dead entry is in
+        // bounds and never read back).
+        const long long st0 = (long long)tiles * (kT * kT);
+        const float* dg = ws + (long long)S * st0;
+        float g, sq_c, sq_r;
+        partial_sums(ws + (long long)tile * (kT * kT) + r * kT + c, st0,
+                     dg + tj * kT + c, dg + ti * kT + r, (long long)nt * kT,
+                     w * gsz, min(S, (w + 1) * gsz), g, sq_c, sq_r);
+        part[w][0][lane] = g;
+        part[w][1][lane] = sq_c;
+        if (lane == 0) part_r[w] = sq_r;
+    }
     __syncthreads();
-    if (KG > 1) {
-        for (int o = tid; o < BM * kBN; o += kThreads) {
-            float v = s.red[o];
-#pragma unroll
-            for (int g = 1; g < KG; ++g) v += s.red[g * (BM * kBN) + o];
-            s.red[o] = v;
-        }
-        __syncthreads();
+    if (w != 0 || j >= n || (ti == tj && r > c)) return;
+    float g = part[0][0][lane], sq_c = part[0][1][lane], sq_r = part_r[0];
+    for (int v = 1; v < runs; ++v) {
+        g += part[v][0][lane];
+        sq_c += part[v][1][lane];
+        sq_r += part_r[v];
     }
+    const float d2 = sq_r + sq_c - 2.0f * g;
+    const float val = i == j ? 0.0f : sqrtf(fmaxf(d2, 0.0f));
+    D[(long long)i * n + j] = val;
+    D[(long long)j * n + i] = val;
 }
 
-// Output o (< BM * kBN) of the cluster's tile: the S partial tiles of
-// the cluster's blocks summed in rank order.  Call between two
-// cluster.sync()s: after every block's gram_tile, and before any block
-// reuses its s.red.
-template <int BM>
-__device__ __forceinline__ float cluster_sum(
-        cooperative_groups::cluster_group& cluster, GramSmem<BM>& s, int o) {
-    float v = 0.f;
-    for (unsigned q = 0; q < cluster.num_blocks(); ++q)
-        v += cluster.map_shared_rank(s.red, q)[o];
-    return v;
+// Checks a plan from the wrapper: S slices of cps chains cover [0, d),
+// the last one not empty; k groups only where the Gram is one tile with
+// at most 256 / kg live thread tiles.
+inline bool plan_ok(int n, long long d, int S, int cps, int kg) {
+    if (n <= 0 || d <= 0 || S <= 0 || cps <= 0) return false;
+    if (kg != 1 && kg != 2 && kg != 4) return false;
+    const int mr = (n + kTT - 1) / kTT;
+    if (kg > 1 && (n > kT || mr * (mr + 1) / 2 > kThreads / kg))
+        return false;
+    const long long per = (long long)cps * kChainProducts;
+    return (long long)S * per >= d && (long long)(S - 1) * per < d;
 }
 
-// Launches kernel<<<grid, kThreads, smem, stream>>> in clusters of
-// `ranks` blocks along x (grid.x must be a multiple of ranks).
-template <typename Kernel, typename... Args>
-cudaError_t launch_clusters(Kernel kernel, dim3 grid, unsigned ranks,
-                            size_t smem, cudaStream_t stream, Args... args) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = ranks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, kernel, args...);
+template <int KG, int VEC>
+cudaError_t launch_partials(const float* G, int n, long long d, int nt,
+                            int S, int cps, float* ws, cudaStream_t stream) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gram_partials_kernel<KG, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stage1_smem<KG>());
+    if (err != cudaSuccess) return err;
+    const int tiles = nt * (nt + 1) / 2;
+    gram_partials_kernel<KG, VEC>
+        <<<tiles * S, kThreads, stage1_smem<KG>(), stream>>>(G, n, d, nt,
+                                                             cps, ws);
+    return cudaGetLastError();
+}
+
+// The widest copy that every row start allows.
+template <int KG>
+cudaError_t launch_partials(const float* G, int n, long long d, int nt,
+                            int S, int cps, float* ws, cudaStream_t stream) {
+    const unsigned long long base = reinterpret_cast<unsigned long long>(G);
+    if (base % 16 == 0 && d % 4 == 0)
+        return launch_partials<KG, 4>(G, n, d, nt, S, cps, ws, stream);
+    if (base % 8 == 0 && d % 2 == 0)
+        return launch_partials<KG, 2>(G, n, d, nt, S, cps, ws, stream);
+    return launch_partials<KG, 1>(G, n, d, nt, S, cps, ws, stream);
+}
+
+// Both stages on `stream`: the Gram partials into ws, the distances into
+// D.  Returns the first launch error.
+inline cudaError_t gram_distances(const float* G, int n, long long d, int S,
+                                  int cps, int kg, float* ws, float* D,
+                                  cudaStream_t stream) {
+    const int nt = (n + kT - 1) / kT;
+    const int tiles = nt * (nt + 1) / 2;
+    cudaError_t err =
+        kg == 4   ? launch_partials<4>(G, n, d, nt, S, cps, ws, stream)
+        : kg == 2 ? launch_partials<2>(G, n, d, nt, S, cps, ws, stream)
+                  : launch_partials<1>(G, n, d, nt, S, cps, ws, stream);
+    if (err != cudaSuccess) return err;
+    gram_epilogue_kernel<<<tiles * kT * 4, kThreads, 0, stream>>>(ws, n, nt,
+                                                                  S, D);
+    return cudaGetLastError();
 }
 
 }  // namespace fl

@@ -8,188 +8,158 @@
 // caller applies the cancellation guard on (scores, rowsums) and falls
 // back to the exact sort over the distance matrix when it fails.
 //
-// What bounds it on an H100: the same fp32 FMA work as the distance
-// kernel, outside the tensor cores because TF32 is off limits: the
-// function needs n(n-1)*d + 2*n*d flops (0.80 GFLOP at n = 100,
-// d = 79,510), and the kernel, which computes both halves of the
-// symmetric Gram, does 2*n^2*d.  The design: a cluster of S blocks
-// owns BM rows and walks every 128-column tile; each block computes the
-// Gram tile over its slice of d with the distance kernel's code
-// (gram_tile.cuh), and the cluster's first block sums the S partial
-// tiles through distributed shared memory and folds the distances, in
-// shared memory, into a per-row rowsum and a running top-c buffer.  The
-// (n, n) matrix, and every partial of it, stays on chip.  Splitting d is
-// what fills the card at small n: n = 100 has 13 row tiles of 8 rows, and
-// clusters of 8 make them 104 blocks.  The top-c merge ranks the c
-// current and 128 new candidates of a row (rank = how many beat it, ties
-// to the lower slot), which keeps the c largest exactly and in descending
-// order; its O((c+128)^2) work per row and tile is small next to the
-// tile's 128*BM*d FMAs.  Diagonal and columns past n never score.
+// What bounds it on an H100: the distance kernel's fp32 FMA work,
+// n(n-1)*d + 2*n*d flops (0.80 GFLOP at n = 100, d = 79,510, 12 us at
+// 67 TFLOP/s); the selection reads n^2 floats.  The design: the distance
+// kernel's two stages (gram_tile.cuh: the upper-triangle Gram split over
+// d across every SM, then the fixed-order epilogue) write the (n, n)
+// distances to scratch, and a third launch, one block per row, folds row
+// i into its rowsum and the sum of its c largest.  The Pallas kernel
+// keeps the matrix out of HBM because VMEM is where the TPU holds it;
+// here the matrix is 40 KB at n = 100 and 4 MB at n = 1,000, small next
+// to the 31.8 MB input, and it stays in the 50 MB L2.  Workspace: the
+// Gram partials (S * tiles * 64 KB and their diagonals) plus the n^2
+// floats.
+//
+// The c largest are found by radix selection of the c-th largest on the
+// floats' order-preserving keys, 8 bits a pass, four passes, counts in
+// shared memory; the sum is the values above that threshold T plus
+// T times the ties still to take (ties at T are taken in index order;
+// equal values, so which ones does not change the sum).  The rowsum and
+// the sum above T are per-thread sums in index order added across the
+// block in a fixed order, so two launches give the same bits.  c = 0 is
+// the rowsum alone.
 
 #include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
 
 #include "gram_tile.cuh"
 
 namespace fl {
 
-// Grid: x = row tile * S + rank, in clusters of S along x.
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-krum_scores_kernel(const float* __restrict__ G, int n, long long d, int comp,
-                   const float* __restrict__ sq, float* __restrict__ scores,
-                   float* __restrict__ rowsums) {
-    __shared__ __align__(16) GramSmem<BM> s;
-    cooperative_groups::cluster_group cluster =
-        cooperative_groups::this_cluster();
-    const bool lead = cluster.block_rank() == 0;
-    __shared__ float rowsum_s[BM];
-    extern __shared__ float dyn[];            // top[BM][comp], next[BM][comp]
-    float* top = dyn;
-    float* next = dyn + BM * comp;
+// Block-wide sum in a fixed order: the warps' butterfly sums, then the
+// eight warp sums in warp order.  Every thread gets the result.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += red[w];
+    __syncthreads();
+    return t;
+}
 
+// Order-preserving key of a float: larger float, larger key (NaN above
+// +inf, as torch.topk ranks it).
+__device__ __forceinline__ uint32_t float_key(float f) {
+    const uint32_t u = __float_as_uint(f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(uint32_t k) {
+    return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// One block per row i of D (n, n): rowsum and rowsum minus the sum of the
+// comp largest off-diagonal entries.
+__global__ void __launch_bounds__(kThreads)
+krum_rows_kernel(const float* __restrict__ D, int n, int comp,
+                 float* __restrict__ scores, float* __restrict__ rowsums) {
+    __shared__ float red[kWarps];
+    __shared__ unsigned hist[256];
+    __shared__ uint32_t sel[2];            // prefix, ties still to take
+    const int i = blockIdx.x;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int row0 = blockIdx.x / cluster.num_blocks() * BM;
-    long long k0, k1;
-    slice_bounds(d, cluster.block_rank(), cluster.num_blocks(), k0, k1);
+    const float* row = D + (long long)i * n;
 
-    for (int o = tid; o < BM * comp; o += kThreads) top[o] = -INFINITY;
-    if (tid < BM) rowsum_s[tid] = 0.0f;
-    // (gram_tile's barriers order these stores before their first use)
-
-    for (int col0 = 0; col0 < n; col0 += kBN) {
-        gram_tile<BM>(G, n, d, k0, k1, row0, col0, s);
-        cluster.sync();
-        // The lead block sums the cluster's partial tiles into a distance
-        // tile in place; -inf where an entry does not score.  (Each entry
-        // is read and written by one thread, so in place is race-free.)
-        if (lead) {
-            for (int o = tid; o < BM * kBN; o += kThreads) {
-                const int i = row0 + o / kBN;
-                const int j = col0 + o % kBN;
-                const float acc = cluster_sum(cluster, s, o);
-                float v = -INFINITY;
-                if (i < n && j < n && i != j) {
-                    const float d2 = sq[i] + sq[j] - 2.0f * acc;
-                    v = sqrtf(fmaxf(d2, 0.0f));
-                }
-                s.red[o] = v;
-            }
+    float part = 0.f;
+    for (int j = tid; j < n; j += kThreads)
+        if (j != i) part += row[j];
+    const float rowsum = block_sum(part, red);
+    if (comp == 0) {
+        if (tid == 0) {
+            scores[i] = rowsum;
+            rowsums[i] = rowsum;
         }
-        cluster.sync();   // partial tiles read: the others may go on
-        if (!lead) continue;                      // block-uniform
-        for (int r = warp; r < BM; r += kWarps) {
-            const int i = row0 + r;
-            if (i >= n) continue;                 // warp-uniform
-            const float* t = s.red + r * kBN;
-            float part = 0.0f;
+        return;
+    }
+
+    // The comp-th largest key, 8 bits at a time from the top.
+    uint32_t prefix = 0, known = 0, want = (uint32_t)comp;
+    for (int shift = 24; shift >= 0; shift -= 8) {
+        hist[tid] = 0;                     // kThreads == 256 bins
+        __syncthreads();
+        for (int j = tid; j < n; j += kThreads) {
+            if (j == i) continue;
+            const uint32_t k = float_key(row[j]);
+            if ((k & known) == prefix)
+                atomicAdd(&hist[(k >> shift) & 255], 1u);
+        }
+        __syncthreads();
+        if (tid < 32) {
+            // Lane l holds bins 255 - 8l down to 248 - 8l.
+            unsigned cnt[8], mine = 0;
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const int j = col0 + lane + 32 * q;
-                if (j < n && j != i) part += t[lane + 32 * q];
+            for (int q = 0; q < 8; ++q) {
+                cnt[q] = hist[255 - 8 * lane - q];
+                mine += cnt[q];
             }
-            part = warp_sum(part);
-            if (lane == 0) rowsum_s[r] += part;
-            if (comp > 0) {
-                float* cur = top + r * comp;
-                float* nxt = next + r * comp;
-                for (int q = lane; q < comp; q += 32) nxt[q] = -INFINITY;
-                __syncwarp();
-                const int m = comp + kBN;
-                for (int a = lane; a < m; a += 32) {
-                    const float va = a < comp ? cur[a] : t[a - comp];
-                    int rank = 0;
-                    for (int b = 0; b < comp; ++b) {
-                        const float vb = cur[b];
-                        rank += (vb > va) || (vb == va && b < a);
-                    }
-                    for (int b = 0; b < kBN; ++b) {
-                        const float vb = t[b];
-                        rank += (vb > va) || (vb == va && b + comp < a);
-                    }
-                    if (rank < comp) nxt[rank] = va;
-                }
-                __syncwarp();
-                for (int q = lane; q < comp; q += 32) cur[q] = nxt[q];
-                __syncwarp();
+            unsigned incl = mine;          // inclusive scan over lanes
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1) {
+                const unsigned o = __shfl_up_sync(0xffffffffu, incl, off);
+                if (lane >= off) incl += o;
+            }
+            const unsigned hit =
+                __ballot_sync(0xffffffffu, incl >= want);
+            const int first = __ffs(hit) - 1;       // want <= total
+            if (lane == first) {
+                unsigned before = incl - mine;
+                int q = 0;
+                while (before + cnt[q] < want) before += cnt[q++];
+                sel[0] = prefix | ((uint32_t)(255 - 8 * lane - q) << shift);
+                sel[1] = want - before;
             }
         }
         __syncthreads();
+        prefix = sel[0];
+        want = sel[1];
+        known |= 255u << shift;
+        __syncthreads();
     }
 
-    if (!lead) return;
-    for (int r = warp; r < BM; r += kWarps) {
-        const int i = row0 + r;
-        if (i >= n || lane != 0) continue;
-        const float rs = rowsum_s[r];
-        float tsum = 0.0f;
-        for (int q = 0; q < comp; ++q) {
-            const float v = top[r * comp + q];
-            if (isfinite(v)) tsum += v;
-        }
-        scores[i] = rs - tsum;
-        rowsums[i] = rs;
+    // Values above the threshold, then `want` copies of it.
+    float above = 0.f;
+    for (int j = tid; j < n; j += kThreads)
+        if (j != i && float_key(row[j]) > prefix) above += row[j];
+    above = block_sum(above, red);
+    if (tid == 0) {
+        const float top = above + (float)want * key_float(prefix);
+        scores[i] = rowsum - top;
+        rowsums[i] = rowsum;
     }
-}
-
-// Shared memory a block may take for its top-c buffers, beyond the Gram
-// tile's static ~37 KB (the H100's per-block limit is 227 KB).
-constexpr size_t kTopSmem = 180 * 1024;
-
-template <int BM>
-cudaError_t launch(const float* G, int n, long long d, int comp, float* sq,
-                   float* scores, float* rowsums, int ranks,
-                   cudaStream_t stream) {
-    const size_t dyn = 2u * BM * (size_t)comp * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        krum_scores_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn);
-    if (err != cudaSuccess) return err;
-    row_sqnorms_kernel<BM><<<n, kThreads, 0, stream>>>(G, d, ranks, sq);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = launch_clusters(krum_scores_kernel<BM>,
-                          dim3((n + BM - 1) / BM * ranks), ranks, dyn, stream,
-                          G, n, d, comp, (const float*)sq, scores, rowsums);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
 }
 
 }  // namespace fl
 
-// G: (n, d) f32 row-major on the device; sq: (n,) scratch; scores and
+// G: (n, d) f32 row-major on the device; ws: f32 scratch of the Gram
+// partials (as fl_pairwise_distances); D: (n, n) f32 scratch; scores and
 // rowsums: (n,) out.  comp = c, the count of largest distances each row
-// drops (0 <= c <= n-1).  The tile plan (fl::tile_plan) follows n and the
-// card's SM count, with rows per cluster halved while the top-c buffers
-// need more than kTopSmem; a c too large even for 4 rows is refused.
-// Launches on `stream`; returns the CUDA error code (0 on success).
+// drops (0 <= c <= n-1).  The plan (S, cps, kg) comes from the caller
+// (ops/distances.py:gram_plan).  Launches on `stream`; returns the CUDA
+// error code (0 on success).
 extern "C" int fl_krum_scores(const float* G, int n, long long d, int comp,
-                              float* sq, float* scores, float* rowsums,
+                              int S, int cps, int kg, float* ws,
+                              float* D, float* scores, float* rowsums,
                               void* stream) {
-    if (n <= 0 || d <= 0 || comp < 0 || comp > n - 1)
-        return (int)cudaErrorInvalidValue;
-    int bm = 0, ranks = 0;
-    const cudaError_t err = fl::tile_plan(n, 1, bm, ranks);
-    if (err != cudaSuccess) return (int)err;
-    while (bm > 4 && 2u * bm * (size_t)comp * sizeof(float) > fl::kTopSmem)
-        bm /= 2;
-    if (2u * bm * (size_t)comp * sizeof(float) > fl::kTopSmem)
+    if (!fl::plan_ok(n, d, S, cps, kg) || comp < 0 || comp > n - 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (bm) {
-        case 4:
-            return (int)fl::launch<4>(G, n, d, comp, sq, scores, rowsums,
-                                      ranks, st);
-        case 8:
-            return (int)fl::launch<8>(G, n, d, comp, sq, scores, rowsums,
-                                      ranks, st);
-        case 16:
-            return (int)fl::launch<16>(G, n, d, comp, sq, scores, rowsums,
-                                       ranks, st);
-        default:
-            return (int)fl::launch<32>(G, n, d, comp, sq, scores, rowsums,
-                                       ranks, st);
-    }
+    cudaError_t err = fl::gram_distances(G, n, d, S, cps, kg, ws, D, st);
+    if (err != cudaSuccess) return (int)err;
+    fl::krum_rows_kernel<<<n, fl::kThreads, 0, st>>>(D, n, comp, scores,
+                                                      rowsums);
+    return (int)cudaGetLastError();
 }

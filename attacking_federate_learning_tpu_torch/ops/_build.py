@@ -37,9 +37,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Every entry point takes the stream last and returns a cudaError_t.
 KERNELS = {
     "pairwise_distances": ("pairwise_distances.cu", "fl_pairwise_distances",
-                           (_P, _I, _LL, _P, _P, _P)),
+                           (_P, _I, _LL, _I, _I, _I, _P, _P, _P)),
     "krum_scores": ("krum_scores.cu", "fl_krum_scores",
-                    (_P, _I, _LL, _I, _P, _P, _P, _P)),
+                    (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P)),
     "trimmed_mean": ("trimmed_mean.cu", "fl_trimmed_mean",
                      (_P, _I, _LL, _I, _P, _P)),
     "median": ("median.cu", "fl_median", (_P, _I, _LL, _P, _P)),

@@ -3,8 +3,9 @@ and their masked variants.
 
 :func:`krum_scores` — fused distance -> Krum score (csrc/krum_scores.cu):
 each row's score sums its k smallest distances to the other rows, through
-the complement identity rowsum - (sum of the c = f - 1 (+2 paper) largest),
-in one sweep that never writes the (n, n) matrix.  It returns the rowsums
+the complement identity rowsum - (sum of the c = f - 1 (+2 paper) largest):
+the distance kernel's Gram and epilogue into an (n, n) scratch matrix,
+then one block per row selects its c largest.  It returns the rowsums
 too, for the caller's cancellation guard (defenses/kernels.py).
 
 :func:`trimmed_mean_of` — median-anchored trimmed mean per coordinate
@@ -34,7 +35,7 @@ import torch
 
 from attacking_federate_learning_tpu_torch.ops import _build
 from attacking_federate_learning_tpu_torch.ops.distances import (
-    pairwise_distances_plain
+    device_gram_plan, gram_workspace, pairwise_distances_plain
 )
 
 
@@ -76,10 +77,13 @@ def krum_scores(G: torch.Tensor, corrupted_count: int,
     n, d = G.shape
     comp = krum_complement(n, corrupted_count, paper_scoring)
     fn = _build.entry_point(name)
-    sq = torch.empty(n, dtype=torch.float32, device=G.device)
+    plan = device_gram_plan(G)
+    ws = gram_workspace(G, plan)
+    D = torch.empty((n, n), dtype=torch.float32, device=G.device)
     scores = torch.empty(n, dtype=torch.float32, device=G.device)
     rowsums = torch.empty(n, dtype=torch.float32, device=G.device)
-    status = fn(G.data_ptr(), n, d, comp, sq.data_ptr(), scores.data_ptr(),
+    status = fn(G.data_ptr(), n, d, comp, plan.slices, plan.cps,
+                plan.kgroups, ws.data_ptr(), D.data_ptr(), scores.data_ptr(),
                 rowsums.data_ptr(), _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1

@@ -17,7 +17,10 @@ success):
                identical crafted rows, ragged n and d, n = 1,000 on four
                seeds, and trimmed-mean columns with exact +-dev ties at
                the k-th place.  Distances are also held against an fp64
-               Gram.  The median and masked kernels are held on the main
+               Gram; n = 129 and 257 and d = 4,099 cross the Gram's tile
+               and slice plan; Krum also runs at c = 0 and c = n - 1; two
+               launches of each distance kernel must give the same bits.
+               The median and masked kernels are held on the main
                shape with a quarantine mask drawn by the port's own
                fault_masks (f = 10), the Bulyan tail (80 rows, k_delta =
                2f + 1), weighted variants, an all-true mask (bit for bit
@@ -145,10 +148,11 @@ def rel_err(*pairs):
 
 
 def kernel_chain(d):
-    """The longest sequential chain of roundings in one Gram output of the
-    distance kernels, whatever the tile plan (csrc/gram_tile.cuh): FMA
-    chains of at most 256 products, at most ceil(d / 256) of them added in
-    order, then at most 8 k-group and 8 cluster-rank partials."""
+    """A bound on the longest sequential chain of roundings in one Gram
+    output of the distance kernels, whatever the split (csrc/gram_tile.cuh,
+    ops/distances.py:GramPlan.rounding_chain): an FMA chain of at most 256
+    products, then fewer than ceil(d / 256) + 8 partial sums added in a
+    fixed order (tests/test_torch_port_gram.py holds the plan to it)."""
     return 256 + -(-d // 256) + 16
 
 
@@ -180,7 +184,8 @@ def kernel_split(calls, reps):
     """Prints the device time of each CUDA kernel the wrappers launch
     (mean over ``reps`` rounds of ``calls``), from torch.profiler: a
     wrapper may launch more than one kernel (the distance kernels launch
-    a row-norm pass first)."""
+    the Gram's partial tiles, then the epilogue that sums them; Krum then
+    one block per row for the selection)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -196,6 +201,17 @@ def kernel_split(calls, reps):
     if not rows:
         print("[split] not measured: the profiler saw no device time",
               flush=True)
+
+
+def bit_equal(name, label, got, want, failures):
+    """Tensors, or tuples of them, equal bit for bit."""
+    import torch
+
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    same = all(torch.equal(g, w) for g, w in pairs)
+    print(f"[kernel] {name:18s} {label:34s} bit-equal={same}", flush=True)
+    if not same:
+        failures.append(f"{name} {label}: not bit-equal")
 
 
 def check_kernels(peaks, failures):
@@ -254,10 +270,38 @@ def check_kernels(peaks, failures):
         report("trimmed_mean", label, err, rel_err((got, want)), f"atol {atol:.2e} + rtol 1e-6",
                ok, ms, pms, None, 4 * (nt * d + d), 3 * nt * d, entry_for)
 
+    def check_krum(G, f, e, label, reps, gram_ops, entry_for):
+        n, d = G.shape
+        comp = krum_complement(n, f)
+        got_s, got_r = krum_scores(G, f)
+        want_s, want_r = krum_scores_plain(G, f)
+        sum_tol = 2.0 * n * eps * want_r.double().abs()
+        ok_s = bool(((got_s.double() - want_s.double()).abs()
+                     <= 2.0 * e + sum_tol).all())
+        ok_r = bool(((got_r.double() - want_r.double()).abs()
+                     <= e + sum_tol).all())
+        ga, wa = int(torch.argmin(got_s)), int(torch.argmin(want_s))
+        ok_w = ga == wa or abs(float(want_s[ga] - want_s[wa])) <= float(
+            2.0 * (e[ga] + e[wa]) + sum_tol[ga] + sum_tol[wa])
+        err = max(float((got_s - want_s).abs().max()),
+                  float((got_r - want_r).abs().max()))
+        bit_equal("krum_scores", f"{label} c={comp} two launches",
+                  (got_s, got_r), krum_scores(G, f), failures)
+        ms = time_ms(lambda: krum_scores(G, f), reps)
+        pms = time_ms(lambda: krum_scores_plain(G, f), reps)
+        report("krum_scores", label + f" c={comp}", err,
+               rel_err((got_s, want_s), (got_r, want_r)),
+               "rowsum e_i + 2n eps rowsum_i, score 2 e_i + 2n eps rowsum_i,"
+               " e_i = sum_j min(sqrt b_ij, b_ij / D_ij) of the distance "
+               "band b", ok_s and ok_r and ok_w, ms, pms, None,
+               4 * (n * d + 2 * n), gram_ops, entry_for)
+
     cases = [  # (n, d, f, attack, seed, reps, main-path?)
         (N_MAIN, D_MLP, F_MAIN, "alie", 1, 20, True),
         (N_MAIN, D_MLP, F_MAIN, "none", 2, 5, False),
         (13, 79, 3, "alie", 3, 5, False),
+        (129, D_MLP, 31, "alie", 8, 3, False),
+        (257, 4099, 60, "alie", 9, 3, False),
         (1000, D_MLP, 240, "alie", 4, 3, False),
     ] + [(1000, D_MLP, 240, "alie", seed, 1, False) for seed in (5, 6, 7)]
     for n, d, f, attack, seed, reps, main in cases:
@@ -284,6 +328,8 @@ def check_kernels(peaks, failures):
               and bool((got == got.T).all())
               and bool((got.diagonal() == 0).all())
               and bool((got[crafted, crafted] == 0).all()))
+        bit_equal("pairwise_distances", label + " two launches", got,
+                  pairwise_distances(G), failures)
         ms = time_ms(lambda: pairwise_distances(G), reps)
         pms = time_ms(lambda: pairwise_distances_plain(G), reps)
         lms = time_ms(lambda: torch.cdist(
@@ -297,35 +343,17 @@ def check_kernels(peaks, failures):
                main and ("pairwise_distances.cu",
                          "ops/pallas_distances.py:92", [n, d]))
 
-        # -- fused Krum scores --------------------------------------------
-        comp = krum_complement(n, f)
-        got_s, got_r = krum_scores(G, f)
-        want_s, want_r = krum_scores_plain(G, f)
+        # -- fused Krum scores, at the main c and at c = 0 and n - 1 ------
         # Each distance may stray by e_ij <= min(sqrt(band), band / D):
         # a rowsum by their sum, a score by twice that (rowsum and top-c),
         # plus the rounding of n-term sums in another order.
         e = torch.minimum(band.sqrt(), band / want.double().clamp(
             min=1e-30)).fill_diagonal_(0.0).sum(1)
-        sum_tol = 2.0 * n * eps * want_r.double().abs()
-        ok_s = bool(((got_s.double() - want_s.double()).abs()
-                     <= 2.0 * e + sum_tol).all())
-        ok_r = bool(((got_r.double() - want_r.double()).abs()
-                     <= e + sum_tol).all())
-        ga, wa = int(torch.argmin(got_s)), int(torch.argmin(want_s))
-        ok_w = ga == wa or abs(float(want_s[ga] - want_s[wa])) <= float(
-            2.0 * (e[ga] + e[wa]) + sum_tol[ga] + sum_tol[wa])
-        err = max(float((got_s - want_s).abs().max()),
-                  float((got_r - want_r).abs().max()))
-        ms = time_ms(lambda: krum_scores(G, f), reps)
-        pms = time_ms(lambda: krum_scores_plain(G, f), reps)
-        report("krum_scores", label + f" c={comp}", err,
-               rel_err((got_s, want_s), (got_r, want_r)),
-               "rowsum e_i + 2n eps rowsum_i, score 2 e_i + 2n eps rowsum_i,"
-               " e_i = sum_j min(sqrt b_ij, b_ij / D_ij) of the distance "
-               "band b", ok_s and ok_r and ok_w, ms, pms, None,
-               4 * (n * d + 2 * n), gram_ops,
-               main and ("krum_scores.cu", "ops/pallas_defense.py:214",
-                         [n, d]))
+        for fk, reps_k in ((f, reps), (1, 1), (n, 1)):
+            check_krum(G, fk, e, label, reps_k, gram_ops,
+                       main and fk == f and ("krum_scores.cu",
+                                             "ops/pallas_defense.py:214",
+                                             [n, d]))
 
         # -- trimmed mean -------------------------------------------------
         check_trim(G, n - f - 1, f"n={n} d={d} k={n - f - 1} {attack} "
@@ -470,13 +498,6 @@ def check_coord_kernels(report, failures):
                f"where plain is NaN", ok and nan_ok, ms, pms, None, nbytes,
                3 * n * d, entry_for)
 
-    def bit_equal(name, label, got, want):
-        same = torch.equal(got, want)
-        print(f"[kernel] {name:18s} {label:34s} bit-equal={same}",
-              flush=True)
-        if not same:
-            failures.append(f"{name} {label}: not bit-equal")
-
     n, d, f = N_MAIN, D_MLP, F_FAULT
     # -- main shapes ----------------------------------------------------------
     G = torch.from_numpy(cohort(n, d, F_MAIN, "alie", 11)).cuda()
@@ -484,7 +505,7 @@ def check_coord_kernels(report, failures):
                        ("median.cu", "ops/pallas_defense.py:297", [n, d]))
     bit_equal("masked_median", f"n={n} all-true mask vs median",
               masked_median(G, torch.ones(n, dtype=torch.bool,
-                                          device="cuda")), med)
+                                          device="cuda")), med, failures)
     G = torch.from_numpy(cohort(n, d, f, "alie", 12)).cuda()
     mask = torch.from_numpy(drawn_mask(n, 3)).cuda()
     w = torch.from_numpy(dyadic_weights(n, 13)).cuda()
@@ -499,7 +520,7 @@ def check_coord_kernels(report, failures):
     ones = torch.ones(n, dtype=torch.bool, device="cuda")
     bit_equal("masked_trimmed_mean", f"n={n} all-true mask vs trimmed",
               masked_trimmed_mean(G, ones, f + 1),
-              trimmed_mean_of(G, n - f - 1))
+              trimmed_mean_of(G, n - f - 1), failures)
     # Bulyan's tail: the n - 2f selected rows, the first e - 2f alive.
     tail = n - 2 * f
     Gs = G[:tail].contiguous()
