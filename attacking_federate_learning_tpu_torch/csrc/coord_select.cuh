@@ -3,21 +3,25 @@
 // the rows a per-row mask keeps alive, unweighted or with per-row weights.
 // One kernel template serves four entry points:
 //
-//   trimmed_mean.cu         fl_trimmed_mean          all rows, k static
 //   median.cu               fl_median                all rows
-//   masked_trimmed_mean.cu  fl_masked_trimmed_mean   alive rows, k = max(e - k_delta, 1)
 //   masked_median.cu        fl_masked_median         alive rows
+//   trimmed_mean.cu         fl_trimmed_mean          all rows, k static
+//   masked_trimmed_mean.cu  fl_masked_trimmed_mean   alive rows, k = max(e - k_delta, 1)
+//
+// The two trimmed means take this template's kTrim branch only for
+// n > 128; up to 128 rows they sort each column in one thread's registers
+// (trim_sort.cuh), which issues far fewer instructions a column.
 //
 // With every row alive, the masked kernels run exactly the instructions of
 // the unmasked ones (e = n), so their outputs are bit for bit the same.
 //
 // What bounds them on an H100: in bytes, one read of the (n, d) matrix and
-// one (d,) write (31.8 MB at n = 100, d = 79,510: 9.5 us at 3.35 TB/s).
-// A sort along n per column would cost far more than that read, so no
-// kernel sorts: they select.  A block stages an (n x C) column block in
-// shared memory once (coalesced along the columns; row stride C + 1, odd,
-// so a warp reading one column down its rows hits 32 banks), and one warp
-// takes a column at a time, its lanes striding over the rows:
+// one (d,) write (31.8 MB at n = 100, d = 79,510: 9.5 us at 3.35 TB/s); in
+// practice the issue of the counting passes below.  A block stages an
+// (n x C) column block in shared memory once (coalesced along the
+// columns; row stride C + 1, odd, so a warp reading one column down its
+// rows hits 32 banks), and one warp takes a column at a time, its lanes
+// striding over the rows:
 //
 // - an order statistic by radix selection on the float's order-preserving
 //   32-bit key, one bit per counting pass over n (32 passes, each count a

@@ -11,25 +11,31 @@
 // is f + 1 for TrimmedMean and 2f + 1 for Bulyan's tail.  e and k come
 // from the mask inside the kernel: no device-to-host read per call.
 //
-// Bound by bytes on an H100: one read of the (n, d) matrix.  The design
-// is coord_select.cuh's; dead rows never enter a count or a sum, which
-// is what the Pallas kernel's +inf keys achieve (k <= e whenever e >= 1).
+// Bound on an H100 by instruction issue, before bytes (one read of the
+// (n, d) matrix).  The routes are trimmed_mean.cu's: n <= 128 sorts each
+// column in one thread's registers (trim_sort.cuh), n > 128 selects by
+// radix on one warp a column (coord_select.cuh).  Dead rows enter no sum
+// and sort last, which is what the Pallas kernel's +inf keys achieve
+// (k <= e whenever e >= 1).  With every row alive it does the unmasked
+// kernel's arithmetic in the same order, so its output is bit for bit
+// fl_trimmed_mean's.
 
-#include "coord_select.cuh"
+#include "trim_sort.cuh"
 
 // G: (n, d) f32 row-major; mask: (n,) bytes, nonzero = alive; w: (n,) f32
-// (read only when `weighted`); out: (d,).  k_delta >= 0, n <= 25,600.
-// Launches on `stream`; returns the CUDA error code (0 on success).
+// (read only when `weighted`); out: (d,).  k_delta >= 0; padded as for
+// fl_trimmed_mean.  Launches on `stream`; returns the CUDA error code (0
+// on success).
 extern "C" int fl_masked_trimmed_mean(const float* G,
                                       const unsigned char* mask,
                                       const float* w, int n, long long d,
-                                      int k_delta, int weighted, float* out,
-                                      void* stream) {
+                                      int k_delta, int weighted, int padded,
+                                      float* out, void* stream) {
     if (mask == nullptr || k_delta < 0 || (weighted && w == nullptr))
         return (int)cudaErrorInvalidValue;
     return (int)(weighted
-        ? fl::coord_select<fl::kTrim, true>(G, mask, w, n, d, k_delta, out,
-                                            stream)
-        : fl::coord_select<fl::kTrim, false>(G, mask, nullptr, n, d, k_delta,
-                                             out, stream));
+        ? fl::trimmed_mean_route<true, true>(G, mask, w, n, d, k_delta,
+                                             padded, out, stream)
+        : fl::trimmed_mean_route<true, false>(G, mask, nullptr, n, d,
+                                              k_delta, padded, out, stream));
 }

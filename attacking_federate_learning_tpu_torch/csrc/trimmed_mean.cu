@@ -8,19 +8,25 @@
 // row, as argsort(..., stable=True) does; ALIE's f identical rows make
 // ties the normal case); return sum(kept dev) / k + med.
 //
-// Bound by bytes on an H100: one read of the (n, d) matrix.  The design
-// (radix selection on order-preserving keys, one warp per column, no
-// sort) is coord_select.cuh's, shared with the median and masked kernels.
+// Bound on an H100 by instruction issue, before bytes (one read of the
+// (n, d) matrix, 9.5 us at n = 100, d = 79,510).  Two routes, chosen in
+// Python (ops/defense_kernels.py:trim_plan) and passed as `padded`:
+// n <= 128 sorts each column in one thread's registers (trim_sort.cuh,
+// padded rows = 32, 36, ..., 128); n > 128 (padded = 0) selects by radix
+// on one warp a column (coord_select.cuh's kTrim branch).  Both are shared
+// with the masked kernel.
 
-#include "coord_select.cuh"
+#include "trim_sort.cuh"
 
-// G: (n, d) f32 row-major on the device; out: (d,).  1 <= k <= n, and
-// n <= 25,600 (one column's staging must fit a block's shared memory).
+// G: (n, d) f32 row-major on the device; out: (d,).  1 <= k <= n;
+// padded = 32, 36, ..., 128 (the sort: n <= padded, d < 2^30) or 0 (radix
+// selection: n <= 25,600, as one column's staging must fit a block's
+// shared memory).
 // Launches on `stream`; returns the CUDA error code (0 on success).
 extern "C" int fl_trimmed_mean(const float* G, int n, long long d, int k,
-                               float* out, void* stream) {
+                               int padded, float* out, void* stream) {
     if (n <= 0 || d <= 0 || k < 1 || k > n) return (int)cudaErrorInvalidValue;
     // Every row alive: e = n, and k = n - (n - k).
-    return (int)fl::coord_select<fl::kTrim, false>(G, nullptr, nullptr, n, d,
-                                                   n - k, out, stream);
+    return (int)fl::trimmed_mean_route<false, false>(
+        G, nullptr, nullptr, n, d, n - k, padded, out, stream);
 }

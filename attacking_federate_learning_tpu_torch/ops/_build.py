@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a) into
-its own shared library with a plain C interface, loaded with ``ctypes``.
+its own shared library with a plain C interface, loaded with ``ctypes``;
+what nvcc printed is kept beside it (:func:`ptxas_log`).
 No PyTorch header is compiled, so a build takes seconds.  The libraries
 go into ``_build/`` beside this package (listed in ``.gitignore``), named
 by a hash of the sources and flags, so an edited source is rebuilt and a
@@ -41,16 +42,18 @@ KERNELS = {
     "krum_scores": ("krum_scores.cu", "fl_krum_scores",
                     (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P)),
     "trimmed_mean": ("trimmed_mean.cu", "fl_trimmed_mean",
-                     (_P, _I, _LL, _I, _P, _P)),
+                     (_P, _I, _LL, _I, _I, _P, _P)),
     "median": ("median.cu", "fl_median", (_P, _I, _LL, _P, _P)),
     "masked_trimmed_mean": ("masked_trimmed_mean.cu",
                             "fl_masked_trimmed_mean",
-                            (_P, _P, _P, _I, _LL, _I, _I, _P, _P)),
+                            (_P, _P, _P, _I, _LL, _I, _I, _I, _P, _P)),
     "masked_median": ("masked_median.cu", "fl_masked_median",
                       (_P, _P, _P, _I, _LL, _I, _P, _P)),
 }
+# -Xptxas -v: each kernel's registers, stack frame and spills, kept in
+# the build's log (ptxas_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
@@ -88,6 +91,14 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_log(name: str) -> str:
+    """What nvcc printed when it built kernel ``name``'s library (ptxas's
+    register, stack and spill report among it); empty if it is not
+    built."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every missing library among ``names`` (default: all), one
     ``nvcc`` process per source, started together.  Returns the seconds
@@ -121,6 +132,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
                           f"(rc {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -11,6 +11,10 @@ too, for the caller's cancellation guard (defenses/kernels.py).
 :func:`trimmed_mean_of` — median-anchored trimmed mean per coordinate
 (csrc/trimmed_mean.cu): subtract the median, keep the k values of
 smallest magnitude in stable order, return their mean plus the median.
+It and :func:`masked_trimmed_mean` take one of two routes, chosen by
+:func:`trim_plan`: up to 128 rows, a sort of each column in one thread's
+registers (csrc/trim_sort.cuh); past that, the radix selection of
+csrc/coord_select.cuh.
 
 The coordinate-wise kernels (csrc/coord_select.cuh) share one design:
 
@@ -30,6 +34,8 @@ CPU tensor.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -90,6 +96,47 @@ def krum_scores(G: torch.Tensor, corrupted_count: int,
     return scores, rowsums
 
 
+TRIM_SORT_ROWS = 128   # the most rows the sort route takes (trim_sort.cuh)
+TRIM_SORT_STEP = 4     # its padded row counts: 32, 36, ..., 128
+TRIM_SORT_MAX_D = 2 ** 30 - 1   # it keeps the row stride in 32 bits
+
+
+class TrimPlan(NamedTuple):
+    """The trimmed-mean kernels' route: ``"sort"`` keeps a column's
+    ``padded`` (32, 36, ..., 128; at least n) keys in one thread's
+    registers and sorts them; ``"select"`` (``padded`` 0) selects by
+    radix, one warp a column, for any n."""
+
+    route: str
+    padded: int
+
+
+def trim_plan(n: int, d: int) -> TrimPlan:
+    """The route for an (n, d) matrix: up to 128 rows the sort, padded to
+    the next multiple of 4 (at least 32), since its registers and
+    comparators grow with the padding; radix selection past that (and for
+    d of 2^30 or more)."""
+    if n < 1 or d < 1:
+        raise ValueError(f"trim_plan needs n, d >= 1, got {n}, {d}")
+    if n > TRIM_SORT_ROWS or d > TRIM_SORT_MAX_D:
+        return TrimPlan("select", 0)
+    return TrimPlan("sort", max(32, -(-n // TRIM_SORT_STEP) * TRIM_SORT_STEP))
+
+
+def _checked_plan(n: int, d: int, plan: Optional[TrimPlan]) -> TrimPlan:
+    """``plan``, or :func:`trim_plan`'s, once it is known to fit (n, d)."""
+    if plan is None:
+        return trim_plan(n, d)
+    sizes = range(32, TRIM_SORT_ROWS + 1, TRIM_SORT_STEP)
+    fits = (plan.route == "select" and plan.padded == 0) or (
+        plan.route == "sort" and plan.padded in sizes and n <= plan.padded
+        and d <= TRIM_SORT_MAX_D)
+    if not fits:
+        raise ValueError(f"trimmed-mean plan {plan} does not fit "
+                         f"(n, d) = ({n}, {d})")
+    return plan
+
+
 def trimmed_mean_of_plain(G: torch.Tensor,
                           number_to_consider: int) -> torch.Tensor:
     """(n, d) -> (d,) in plain PyTorch, the JAX package's
@@ -107,8 +154,10 @@ def trimmed_mean_of_plain(G: torch.Tensor,
     return kept.mean(0) + med
 
 
-def trimmed_mean_of(G: torch.Tensor, number_to_consider: int) -> torch.Tensor:
-    """(n, d) f32, k static -> (d,) f32 median-anchored trimmed mean."""
+def trimmed_mean_of(G: torch.Tensor, number_to_consider: int,
+                    plan: Optional[TrimPlan] = None) -> torch.Tensor:
+    """(n, d) f32, k static -> (d,) f32 median-anchored trimmed mean.  A
+    CUDA tensor takes ``plan``'s route (default: :func:`trim_plan`'s)."""
     n = G.shape[0]
     k = int(number_to_consider)
     if not 1 <= k <= n:
@@ -119,9 +168,10 @@ def trimmed_mean_of(G: torch.Tensor, number_to_consider: int) -> torch.Tensor:
     name = "trimmed_mean"
     _build.check_cuda_matrix(G, name)
     d = G.shape[1]
+    plan = _checked_plan(n, d, plan)
     fn = _build.entry_point(name)
     out = torch.empty(d, dtype=torch.float32, device=G.device)
-    status = fn(G.data_ptr(), n, d, k, out.data_ptr(),
+    status = fn(G.data_ptr(), n, d, k, plan.padded, out.data_ptr(),
                 _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1
@@ -220,11 +270,12 @@ def masked_trimmed_mean_plain(G: torch.Tensor, mask: torch.Tensor,
 
 
 def masked_trimmed_mean(G: torch.Tensor, mask: torch.Tensor, k_delta: int,
-                        weights=None) -> torch.Tensor:
+                        weights=None,
+                        plan: Optional[TrimPlan] = None) -> torch.Tensor:
     """(n, d) f32, (n,) bool mask, k_delta >= 0[, (n,) f32 weights] ->
     (d,) f32 trimmed mean of the alive rows keeping max(e - k_delta, 1)
     values per coordinate: k_delta = f + 1 for TrimmedMean, 2f + 1 for
-    Bulyan's tail."""
+    Bulyan's tail.  ``plan`` as for :func:`trimmed_mean_of`."""
     k_delta = int(k_delta)
     if k_delta < 0:
         raise ValueError(f"masked trimmed mean needs k_delta >= 0, got "
@@ -235,11 +286,12 @@ def masked_trimmed_mean(G: torch.Tensor, mask: torch.Tensor, k_delta: int,
     _build.check_cuda_matrix(G, name)
     _build.check_cuda_rows(G, mask, weights, name)
     n, d = G.shape
+    plan = _checked_plan(n, d, plan)
     fn = _build.entry_point(name)
     out = torch.empty(d, dtype=torch.float32, device=G.device)
     status = fn(G.data_ptr(), mask.data_ptr(),
                 0 if weights is None else weights.data_ptr(), n, d, k_delta,
-                int(weights is not None), out.data_ptr(),
+                int(weights is not None), plan.padded, out.data_ptr(),
                 _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1

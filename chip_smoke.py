@@ -10,7 +10,11 @@ success):
                (nvidia-smi); fp32 everywhere (TF32 off for matmul and
                cuDNN).
 2. build    -- compile every kernel of the flat round from csrc/ with nvcc
-               (one process per source, all started together).
+               (one process per source, all started together); print
+               ptxas's registers, stack frame and spills of each kernel
+               of the trimmed means' sort route (csrc/trim_sort.cuh),
+               which must keep its keys in registers (no stack, no
+               spill).
 3. kernels  -- hold each CUDA kernel against its plain PyTorch version on
                the card, on seeded numpy cohorts: the main path's shapes
                (mnist_mlp, d = 79,510, n = 100, f = 24), an ALIE cohort of
@@ -25,9 +29,15 @@ success):
                fault_masks (f = 10), the Bulyan tail (80 rows, k_delta =
                2f + 1), weighted variants, an all-true mask (bit for bit
                the unmasked kernels), e = 1, e <= k_delta, e = 0, ragged
-               n and d and n = 1,000.  Kernel, plain and library times are
-               CUDA-event medians; torch.profiler splits each wrapper's
-               time at the main shape into the kernels it launches.
+               n and d and n = 1,000.  The trimmed means are also held at
+               the sort route's edges (n = 32, 33, 64, 65, 128 and 129,
+               the last on the radix route), each call's route printed,
+               two launches bit-equal, and at n = 100 both routes run.
+               Kernel, plain and library times are CUDA-event medians;
+               torch.profiler splits each wrapper's time at the main
+               shapes (and the trimmed means' at n = 52, 80 and 1,000)
+               into the kernels it launches, mixed with the other
+               kernels and, for the sort route, alone.
 4. reference-- three rounds of each defense at a small size on the card,
                without and with faults; each round's aggregate (kernels)
                is held against the plain versions on the CPU on the same
@@ -180,7 +190,7 @@ def tie_cohort(n, d, seed):
     return (cols + rng.integers(-16, 17, d)).astype(np.float32)
 
 
-def kernel_split(calls, reps):
+def kernel_split(calls, reps, label):
     """Prints the device time of each CUDA kernel the wrappers launch
     (mean over ``reps`` rounds of ``calls``), from torch.profiler: a
     wrapper may launch more than one kernel (the distance kernels launch
@@ -196,7 +206,7 @@ def kernel_split(calls, reps):
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_time_total > 0]
     for e in rows:
-        print(f"[split] {e.key[:60]:60s} calls={e.count} "
+        print(f"[split] {label:14s} {e.key[:60]:60s} calls={e.count} "
               f"mean_us={e.device_time_total / e.count:.1f}", flush=True)
     if not rows:
         print("[split] not measured: the profiler saw no device time",
@@ -204,14 +214,80 @@ def kernel_split(calls, reps):
 
 
 def bit_equal(name, label, got, want, failures):
-    """Tensors, or tuples of them, equal bit for bit."""
+    """Tensors, or tuples of them, equal bit for bit: their bytes compared,
+    so NaN matches the same NaN and -0 differs from +0."""
     import torch
 
+    def same_bits(g, w):
+        return (g.dtype == w.dtype and g.shape == w.shape
+                and torch.equal(g.contiguous().view(torch.uint8),
+                                w.contiguous().view(torch.uint8)))
+
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-    same = all(torch.equal(g, w) for g, w in pairs)
+    same = all(same_bits(g, w) for g, w in pairs)
     print(f"[kernel] {name:18s} {label:34s} bit-equal={same}", flush=True)
     if not same:
         failures.append(f"{name} {label}: not bit-equal")
+
+
+def ptxas_entries(log):
+    """(mangled kernel name, registers, stack frame bytes, spill store
+    bytes, spill load bytes) of each entry function in an nvcc -Xptxas -v
+    log."""
+    import re
+
+    out, name, frame = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and frame:
+            out.append((name, int(m.group(1))) + frame)
+            name = None
+    return out
+
+
+def sort_route_build(failures):
+    """Phase 2's report on the sort route: each trim_sort_kernel<NP,
+    MASKED, WEIGHTED> that nvcc built, with its registers, stack frame and
+    spills.  A stack frame or a spill fails: the keys must stay in
+    registers."""
+    import re
+
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    for name in ("trimmed_mean", "masked_trimmed_mean"):
+        found = 0
+        for entry, regs, frame, stores, loads in ptxas_entries(
+                _build.ptxas_log(name)):
+            m = re.search(r"trim_sort_kernelILi(\d+)ELb([01])ELb([01])",
+                          entry)
+            if not m:
+                continue
+            found += 1
+            np_, masked, weighted = m.groups()
+            ok = frame == stores == loads == 0
+            print(f"[build] {name:19s} trim_sort_kernel<{np_}, "
+                  f"masked={masked}, weighted={weighted}>: {regs} registers, "
+                  f"{frame} bytes stack frame, {stores} bytes spill stores, "
+                  f"{loads} bytes spill loads ok={ok}", flush=True)
+            if not ok:
+                failures.append(f"{name} trim_sort_kernel<{np_}>: stack "
+                                f"frame or spills")
+        if not found:
+            failures.append(f"{name}: no ptxas report of the sort route")
+
+
+def route_of(plan):
+    return "route=select" if plan.route == "select" else (
+        f"route=sort/{plan.padded}")
 
 
 def check_kernels(peaks, failures):
@@ -220,8 +296,8 @@ def check_kernels(peaks, failures):
 
     from attacking_federate_learning_tpu_torch.ops import _build
     from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-        krum_complement, krum_scores, krum_scores_plain, trimmed_mean_of,
-        trimmed_mean_of_plain
+        TrimPlan, krum_complement, krum_scores, krum_scores_plain,
+        trim_plan, trimmed_mean_of, trimmed_mean_of_plain
     )
     from attacking_federate_learning_tpu_torch.ops.distances import (
         pairwise_distances, pairwise_distances_plain
@@ -256,17 +332,20 @@ def check_kernels(peaks, failures):
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_ms, "shape": shape}
 
-    def check_trim(Gt, k, label, reps, entry_for=None):
-        got = trimmed_mean_of(Gt, k)
+    def check_trim(Gt, k, label, reps, entry_for=None, plan=None):
+        nt, d = Gt.shape
+        label = f"{label} {route_of(plan or trim_plan(nt, d))}"
+        got = trimmed_mean_of(Gt, k, plan)
         want = trimmed_mean_of_plain(Gt, k)
+        bit_equal("trimmed_mean", f"{label} two launches", got,
+                  trimmed_mean_of(Gt, k, plan), failures)
         # Same median, same keys, same stable kept set; only the order of
         # the k-term sum differs: k rounding steps of the largest kept
         # |dev| (2x margin).
         atol = k * eps * 2.0 * float(Gt.abs().max())
         err, ok = close(got, want, atol, 1e-6)
-        ms = time_ms(lambda: trimmed_mean_of(Gt, k), reps)
+        ms = time_ms(lambda: trimmed_mean_of(Gt, k, plan), reps)
         pms = time_ms(lambda: trimmed_mean_of_plain(Gt, k), reps)
-        nt, d = Gt.shape
         report("trimmed_mean", label, err, rel_err((got, want)), f"atol {atol:.2e} + rtol 1e-6",
                ok, ms, pms, None, 4 * (nt * d + d), 3 * nt * d, entry_for)
 
@@ -361,23 +440,45 @@ def check_kernels(peaks, failures):
                    main and ("trimmed_mean.cu", "ops/pallas_defense.py:274",
                              [n, d]))
         if main:
+            # The radix route (the route past 128 rows) at the same shape.
+            select = TrimPlan("select", 0)
+            check_trim(G, n - f - 1, f"n={n} d={d} k={n - f - 1} {attack}",
+                       reps, plan=select)
             # Bulyan's trim tail: set_size = n - 2f rows, keep
             # set_size - 2f - 1.
-            check_trim(G[:n - 2 * f].contiguous(), n - 4 * f - 1,
+            Gb = G[:n - 2 * f].contiguous()
+            check_trim(Gb, n - 4 * f - 1,
                        f"n={n - 2 * f} d={d} k={n - 4 * f - 1} {attack}",
                        reps)
-        if main:
             kernel_split([lambda: pairwise_distances(G),
                           lambda: krum_scores(G, f),
-                          lambda: trimmed_mean_of(G, n - f - 1)], reps)
+                          lambda: trimmed_mean_of(G, n - f - 1),
+                          lambda: trimmed_mean_of(G, n - f - 1, select),
+                          lambda: trimmed_mean_of(Gb, n - 4 * f - 1)],
+                         reps, f"n={n}, {n - 2 * f}")
+            # The sort route alone, as the main path calls it: the input
+            # in L2, no other kernel between two calls.
+            kernel_split([lambda: trimmed_mean_of(G, n - f - 1)], reps,
+                         f"n={n} alone")
+            kernel_split([lambda: trimmed_mean_of(Gb, n - 4 * f - 1)], reps,
+                         f"n={n - 2 * f} alone")
+        if n == 1000 and reps > 1:
+            kernel_split([lambda: trimmed_mean_of(G, n - f - 1)], reps,
+                         f"n={n}")
         del G, got, want, got2, want2, ref2, band, band_k
         torch.cuda.empty_cache()
 
     # Exact +-dev ties at the k-th place: only the stable kept set (lower
-    # row first) matches, in registers (n <= 256) and in shared memory.
-    for n, k in ((13, 4), (64, 7), (300, 101)):
+    # row first) matches, on the sort route (n <= 128) and on the radix
+    # route in registers (n <= 256) and in shared memory.
+    for n, k in ((13, 4), (64, 7), (100, 30), (128, 63), (300, 101)):
         Gt = torch.from_numpy(tie_cohort(n, 4099, n)).cuda()
         check_trim(Gt, k, f"n={n} d=4099 k={k} +-ties", 3)
+    # The sort route's edges: n at and one past a padding (32, 64, 128),
+    # and the switch to the radix route past 128.
+    for n in (32, 33, 64, 65, 128, 129):
+        G = torch.from_numpy(cohort(n, 4099, n // 4, "alie", n)).cuda()
+        check_trim(G, n - n // 4 - 1, f"n={n} d=4099 k={n - n // 4 - 1}", 3)
     check_coord_kernels(report, failures)
     return entries
 
@@ -433,8 +534,8 @@ def check_coord_kernels(report, failures):
     import torch
 
     from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-        masked_median, masked_median_plain, masked_trimmed_mean,
-        masked_trimmed_mean_plain, median_of, median_of_plain,
+        TrimPlan, masked_median, masked_median_plain, masked_trimmed_mean,
+        masked_trimmed_mean_plain, median_of, median_of_plain, trim_plan,
         trimmed_mean_of
     )
 
@@ -477,10 +578,14 @@ def check_coord_kernels(report, failures):
                "exact" + (" (dyadic weights)" if w is not None else ""),
                ok, ms, pms, lms, nbytes, n * d, entry_for)
 
-    def check_mtrim(G, mask, k_delta, w, label, reps, entry_for=None):
+    def check_mtrim(G, mask, k_delta, w, label, reps, entry_for=None,
+                    plan=None):
         n, d = G.shape
-        got = masked_trimmed_mean(G, mask, k_delta, w)
+        label = f"{label} {route_of(plan or trim_plan(n, d))}"
+        got = masked_trimmed_mean(G, mask, k_delta, w, plan)
         want = masked_trimmed_mean_plain(G, mask, k_delta, w)
+        bit_equal("masked_trimmed_mean", f"{label} two launches", got,
+                  masked_trimmed_mean(G, mask, k_delta, w, plan), failures)
         e = int(mask.sum())
         k = max(e - k_delta, 1)
         scale = float(G[mask].abs().max()) if e else 0.0
@@ -489,7 +594,8 @@ def check_coord_kernels(report, failures):
         fin = ~torch.isnan(want)
         err, ok = close(got[fin], want[fin], atol, 1e-6) if bool(
             fin.any()) else (0.0, True)
-        ms = time_ms(lambda: masked_trimmed_mean(G, mask, k_delta, w), reps)
+        ms = time_ms(lambda: masked_trimmed_mean(G, mask, k_delta, w, plan),
+                     reps)
         pms = time_ms(lambda: masked_trimmed_mean_plain(G, mask, k_delta, w),
                       reps)
         nbytes = 4 * (n * d + d) + n + (4 * n if w is not None else 0)
@@ -517,6 +623,9 @@ def check_coord_kernels(report, failures):
                     [n, d]))
     check_mtrim(G, mask, f + 1, w, f"n={n} d={d} f={f} weighted", 5)
     check_mmed(G, mask, w, f"n={n} d={d} f={f} weighted", 5)
+    select = TrimPlan("select", 0)      # the radix route at the same shape
+    check_mtrim(G, mask, f + 1, None, f"n={n} d={d} f={f} alie", 20,
+                plan=select)
     ones = torch.ones(n, dtype=torch.bool, device="cuda")
     bit_equal("masked_trimmed_mean", f"n={n} all-true mask vs trimmed",
               masked_trimmed_mean(G, ones, f + 1),
@@ -530,7 +639,15 @@ def check_coord_kernels(report, failures):
     check_mtrim(Gs, sel, 2 * f + 1, w[:tail].contiguous(),
                 f"n={tail} d={d} Bulyan tail weighted", 3)
     kernel_split([lambda: median_of(G), lambda: masked_median(G, mask),
-                  lambda: masked_trimmed_mean(G, mask, f + 1)], 20)
+                  lambda: masked_trimmed_mean(G, mask, f + 1),
+                  lambda: masked_trimmed_mean(G, mask, f + 1, w),
+                  lambda: masked_trimmed_mean(G, mask, f + 1, None, select),
+                  lambda: masked_trimmed_mean(Gs, sel, 2 * f + 1)], 20,
+                 f"n={n}, {tail}")
+    kernel_split([lambda: masked_trimmed_mean(G, mask, f + 1)], 20,
+                 f"n={n} alone")
+    kernel_split([lambda: masked_trimmed_mean(Gs, sel, 2 * f + 1)], 20,
+                 f"n={tail} alone")
     # -- degenerate cohorts: e = 1, e <= k_delta, a short Bulyan tail,
     #    e = 0 (+inf medians, NaN trimmed means, as in JAX) -------------------
     for alive, what in ((1, "one alive"), (f, "alive <= k_delta"),
@@ -560,12 +677,28 @@ def check_coord_kernels(report, failures):
         check_mtrim(G, m, f_r + 1, wr, f"n={n_r} d={d_r} weighted", 1)
         check_mmed(G, m, None, f"n={n_r} d={d_r}", reps)
         check_mmed(G, m, wr, f"n={n_r} d={d_r} weighted", 1)
+        if n_r == 1000:
+            kernel_split([lambda: masked_trimmed_mean(G, m, f_r + 1)], reps,
+                         f"n={n_r}")
         del G
         torch.cuda.empty_cache()
-    for n_t, k in ((13, 4), (64, 7), (300, 101)):
+    for n_t, k in ((13, 4), (64, 7), (100, 30), (128, 63), (300, 101)):
         Gt = torch.from_numpy(tie_cohort(n_t, 4099, n_t)).cuda()
         check_mtrim(Gt, torch.ones(n_t, dtype=torch.bool, device="cuda"),
                     n_t - k, None, f"n={n_t} d=4099 +-ties", 1)
+    # The sort route's edges, as for the unmasked kernel, with a drawn
+    # mask, weighted too, and the all-true mask bit for bit the unmasked.
+    for n_e in (32, 33, 64, 65, 128, 129):
+        G = torch.from_numpy(cohort(n_e, 4099, n_e // 4, "alie", n_e)).cuda()
+        m = torch.from_numpy(drawn_mask(n_e, n_e)).cuda()
+        we = torch.from_numpy(dyadic_weights(n_e, n_e)).cuda()
+        k_delta = n_e // 8 + 1
+        check_mtrim(G, m, k_delta, None, f"n={n_e} d=4099", 3)
+        check_mtrim(G, m, k_delta, we, f"n={n_e} d=4099 weighted", 1)
+        ones = torch.ones(n_e, dtype=torch.bool, device="cuda")
+        bit_equal("masked_trimmed_mean", f"n={n_e} all-true mask vs trimmed",
+                  masked_trimmed_mean(G, ones, k_delta),
+                  trimmed_mean_of(G, n_e - k_delta), failures)
 
 
 def check_reference(failures):
@@ -840,8 +973,8 @@ def main() -> int:
     times = _build.build_all()
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in times.items()})}"
           f" wall {time.perf_counter() - t0:.1f} s", flush=True)
-
     failures = []
+    sort_route_build(failures)
     # -- 3. kernels vs plain ----------------------------------------------
     entries = check_kernels(peaks, failures)
     # -- 4. small-input reference ------------------------------------------
