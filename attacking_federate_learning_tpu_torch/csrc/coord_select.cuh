@@ -8,9 +8,10 @@
 //   trimmed_mean.cu         fl_trimmed_mean          all rows, k static
 //   masked_trimmed_mean.cu  fl_masked_trimmed_mean   alive rows, k = max(e - k_delta, 1)
 //
-// The two trimmed means take this template's kTrim branch only for
-// n > 128; up to 128 rows they sort each column in one thread's registers
-// (trim_sort.cuh), which issues far fewer instructions a column.
+// All four take this template only for n > 128 (or when the caller plans
+// the radix route); up to 128 rows they sort each column in one thread's
+// registers (trim_sort.cuh), which issues far fewer instructions a column
+// and picks the same keys.
 //
 // With every row alive, the masked kernels run exactly the instructions of
 // the unmasked ones (e = n), so their outputs are bit for bit the same.

@@ -9,24 +9,29 @@
 // alive weight at or below it reaches half the alive weight.  e = 0 gives
 // +inf, as the Pallas kernel's picks of its +inf sentinels do.
 //
-// Bound by bytes on an H100: one read of the (n, d) matrix.  The design
-// is coord_select.cuh's: order statistics, and for the weighted median a
-// radix selection on summed weights, over order-preserving keys, one
-// warp per column, no sort.
+// Bound on an H100 by instruction issue, before bytes (one read of the
+// (n, d) matrix).  The routes are median.cu's: n <= 128 sorts each column
+// in one thread's registers (trim_sort.cuh; the weighted median then
+// bisects over the sorted keys, one row-order pass over the column a
+// step), n > 128 selects by radix on one warp a column (coord_select.cuh).
+// With every row alive it does the unmasked kernel's arithmetic in the
+// same order, so its output is bit for bit fl_median's.
 
-#include "coord_select.cuh"
+#include "trim_sort.cuh"
 
 // G: (n, d) f32 row-major; mask: (n,) bytes, nonzero = alive; w: (n,) f32
-// (read only when `weighted`); out: (d,).  n <= 25,600.
+// (read only when `weighted`); out: (d,).  padded as for fl_median.
 // Launches on `stream`; returns the CUDA error code (0 on success).
 extern "C" int fl_masked_median(const float* G, const unsigned char* mask,
                                 const float* w, int n, long long d,
-                                int weighted, float* out, void* stream) {
+                                int weighted, int padded, float* out,
+                                void* stream) {
     if (mask == nullptr || (weighted && w == nullptr))
         return (int)cudaErrorInvalidValue;
     return (int)(weighted
-        ? fl::coord_select<fl::kMedian, true>(G, mask, w, n, d, 0, out,
-                                              stream)
-        : fl::coord_select<fl::kMedian, false>(G, mask, nullptr, n, d, 0,
-                                               out, stream));
+        ? fl::select_route<fl::kMedian, true, true>(G, mask, w, n, d, 0,
+                                                    padded, out, stream)
+        : fl::select_route<fl::kMedian, true, false>(G, mask, nullptr, n, d,
+                                                     0, padded, out,
+                                                     stream));
 }

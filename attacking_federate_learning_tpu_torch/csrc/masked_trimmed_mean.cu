@@ -34,8 +34,10 @@ extern "C" int fl_masked_trimmed_mean(const float* G,
     if (mask == nullptr || k_delta < 0 || (weighted && w == nullptr))
         return (int)cudaErrorInvalidValue;
     return (int)(weighted
-        ? fl::trimmed_mean_route<true, true>(G, mask, w, n, d, k_delta,
-                                             padded, out, stream)
-        : fl::trimmed_mean_route<true, false>(G, mask, nullptr, n, d,
-                                              k_delta, padded, out, stream));
+        ? fl::select_route<fl::kTrim, true, true>(G, mask, w, n, d,
+                                                  k_delta, padded, out,
+                                                  stream)
+        : fl::select_route<fl::kTrim, true, false>(G, mask, nullptr, n, d,
+                                                   k_delta, padded, out,
+                                                   stream));
 }

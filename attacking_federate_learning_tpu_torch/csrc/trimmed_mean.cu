@@ -27,6 +27,6 @@ extern "C" int fl_trimmed_mean(const float* G, int n, long long d, int k,
                                int padded, float* out, void* stream) {
     if (n <= 0 || d <= 0 || k < 1 || k > n) return (int)cudaErrorInvalidValue;
     // Every row alive: e = n, and k = n - (n - k).
-    return (int)fl::trimmed_mean_route<false, false>(
+    return (int)fl::select_route<fl::kTrim, false, false>(
         G, nullptr, nullptr, n, d, n - k, padded, out, stream);
 }

@@ -119,7 +119,13 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
     kept mass falls below the subtraction's noise floor, or a rowsum is
     not finite, the scores are re-evaluated exactly by sorting the
     distance matrix.  c == 0 is the pure rowsum: no subtraction, no
-    guard.  The guard's decision is one device-to-host read."""
+    guard.  c < 0 (f = 0 without paper scoring) has no complement to
+    drop: the scores come from the exact sort, as the JAX package's
+    ``_krum_scores`` takes them.  The guard's decision is one
+    device-to-host read."""
+    if corrupted_count - 1 + (2 if paper_scoring else 0) < 0:
+        return sort_scores(pairwise_distances(users_grads), users_count,
+                           corrupted_count, paper_scoring)
     scores, rowsum = krum_scores(users_grads, corrupted_count, paper_scoring)
     n = users_grads.shape[0]
     if krum_complement(n, corrupted_count, paper_scoring) == 0:

@@ -43,12 +43,12 @@ KERNELS = {
                     (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P)),
     "trimmed_mean": ("trimmed_mean.cu", "fl_trimmed_mean",
                      (_P, _I, _LL, _I, _I, _P, _P)),
-    "median": ("median.cu", "fl_median", (_P, _I, _LL, _P, _P)),
+    "median": ("median.cu", "fl_median", (_P, _I, _LL, _I, _P, _P)),
     "masked_trimmed_mean": ("masked_trimmed_mean.cu",
                             "fl_masked_trimmed_mean",
                             (_P, _P, _P, _I, _LL, _I, _I, _I, _P, _P)),
     "masked_median": ("masked_median.cu", "fl_masked_median",
-                      (_P, _P, _P, _I, _LL, _I, _P, _P)),
+                      (_P, _P, _P, _I, _LL, _I, _I, _P, _P)),
 }
 # -Xptxas -v: each kernel's registers, stack frame and spills, kept in
 # the build's log (ptxas_log).

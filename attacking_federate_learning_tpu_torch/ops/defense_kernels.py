@@ -11,12 +11,6 @@ too, for the caller's cancellation guard (defenses/kernels.py).
 :func:`trimmed_mean_of` — median-anchored trimmed mean per coordinate
 (csrc/trimmed_mean.cu): subtract the median, keep the k values of
 smallest magnitude in stable order, return their mean plus the median.
-It and :func:`masked_trimmed_mean` take one of two routes, chosen by
-:func:`trim_plan`: up to 128 rows, a sort of each column in one thread's
-registers (csrc/trim_sort.cuh); past that, the radix selection of
-csrc/coord_select.cuh.
-
-The coordinate-wise kernels (csrc/coord_select.cuh) share one design:
 
 :func:`median_of` — jnp.median along the clients (csrc/median.cu).
 
@@ -27,10 +21,13 @@ mean optionally weighted per row (csrc/masked_trimmed_mean.cu).
 :func:`masked_median` — the median over the alive rows, or the lower
 weighted median (csrc/masked_median.cu).
 
-The masked kernels derive e and k from the mask on the device, so a call
-reads nothing back to the host.  Each wrapper runs its CUDA kernel on a
-CUDA tensor and its plain PyTorch version (``*_plain``, beside it) on a
-CPU tensor.
+All four take one of two routes, chosen by :func:`trim_plan`: up to 128
+rows, a sort of each column in one thread's registers
+(csrc/trim_sort.cuh); past that, the radix selection of
+csrc/coord_select.cuh.  The masked kernels derive e and k from the mask
+on the device, so a call reads nothing back to the host.  Each wrapper
+runs its CUDA kernel on a CUDA tensor and its plain PyTorch version
+(``*_plain``, beside it) on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -102,7 +99,8 @@ TRIM_SORT_MAX_D = 2 ** 30 - 1   # it keeps the row stride in 32 bits
 
 
 class TrimPlan(NamedTuple):
-    """The trimmed-mean kernels' route: ``"sort"`` keeps a column's
+    """The route of the trimmed-mean and median kernels: ``"sort"`` keeps
+    a column's
     ``padded`` (32, 36, ..., 128; at least n) keys in one thread's
     registers and sorts them; ``"select"`` (``padded`` 0) selects by
     radix, one warp a column, for any n."""
@@ -132,7 +130,7 @@ def _checked_plan(n: int, d: int, plan: Optional[TrimPlan]) -> TrimPlan:
         plan.route == "sort" and plan.padded in sizes and n <= plan.padded
         and d <= TRIM_SORT_MAX_D)
     if not fits:
-        raise ValueError(f"trimmed-mean plan {plan} does not fit "
+        raise ValueError(f"sort-route plan {plan} does not fit "
                          f"(n, d) = ({n}, {d})")
     return plan
 
@@ -187,16 +185,21 @@ def median_of_plain(G: torch.Tensor) -> torch.Tensor:
     return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
 
 
-def median_of(G: torch.Tensor) -> torch.Tensor:
-    """(n, d) f32 -> (d,) f32 coordinate-wise median."""
+def median_of(G: torch.Tensor,
+              plan: Optional[TrimPlan] = None) -> torch.Tensor:
+    """(n, d) f32 -> (d,) f32 coordinate-wise median.  A CUDA tensor takes
+    ``plan``'s route (default: :func:`trim_plan`'s); both routes give the
+    same bits."""
     if G.device.type == "cpu":
         return median_of_plain(G)
     name = "median"
     _build.check_cuda_matrix(G, name)
     n, d = G.shape
+    plan = _checked_plan(n, d, plan)
     fn = _build.entry_point(name)
     out = torch.empty(d, dtype=torch.float32, device=G.device)
-    status = fn(G.data_ptr(), n, d, out.data_ptr(), _build.stream_handle(G))
+    status = fn(G.data_ptr(), n, d, plan.padded, out.data_ptr(),
+                _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1
     return out
@@ -225,21 +228,23 @@ def masked_median_plain(G: torch.Tensor, mask: torch.Tensor,
     return (lo + hi) / 2
 
 
-def masked_median(G: torch.Tensor, mask: torch.Tensor,
-                  weights=None) -> torch.Tensor:
+def masked_median(G: torch.Tensor, mask: torch.Tensor, weights=None,
+                  plan: Optional[TrimPlan] = None) -> torch.Tensor:
     """(n, d) f32, (n,) bool mask[, (n,) f32 weights] -> (d,) f32: the
-    median of the alive rows, or their lower weighted median."""
+    median of the alive rows, or their lower weighted median.  ``plan``
+    as for :func:`median_of`."""
     if G.device.type == "cpu":
         return masked_median_plain(G, mask, weights)
     name = "masked_median"
     _build.check_cuda_matrix(G, name)
     _build.check_cuda_rows(G, mask, weights, name)
     n, d = G.shape
+    plan = _checked_plan(n, d, plan)
     fn = _build.entry_point(name)
     out = torch.empty(d, dtype=torch.float32, device=G.device)
     status = fn(G.data_ptr(), mask.data_ptr(),
                 0 if weights is None else weights.data_ptr(), n, d,
-                int(weights is not None), out.data_ptr(),
+                int(weights is not None), plan.padded, out.data_ptr(),
                 _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1

@@ -12,9 +12,9 @@ success):
 2. build    -- compile every kernel of the flat round from csrc/ with nvcc
                (one process per source, all started together); print
                ptxas's registers, stack frame and spills of each kernel
-               of the trimmed means' sort route (csrc/trim_sort.cuh),
-               which must keep its keys in registers (no stack, no
-               spill).
+               of the sort route of the trimmed means and the medians
+               (csrc/trim_sort.cuh), which must keep its keys in
+               registers (no stack, no spill).
 3. kernels  -- hold each CUDA kernel against its plain PyTorch version on
                the card, on seeded numpy cohorts: the main path's shapes
                (mnist_mlp, d = 79,510, n = 100, f = 24), an ALIE cohort of
@@ -29,15 +29,18 @@ success):
                fault_masks (f = 10), the Bulyan tail (80 rows, k_delta =
                2f + 1), weighted variants, an all-true mask (bit for bit
                the unmasked kernels), e = 1, e <= k_delta, e = 0, ragged
-               n and d and n = 1,000.  The trimmed means are also held at
-               the sort route's edges (n = 32, 33, 64, 65, 128 and 129,
-               the last on the radix route), each call's route printed,
-               two launches bit-equal, and at n = 100 both routes run.
+               n and d and n = 1,000.  The trimmed means and the medians
+               are also held at the sort route's edges (n = 32, 33, 64,
+               65, 128 and 129, the last on the radix route), each call's
+               route printed, two launches bit-equal, and at n = 100 both
+               routes run; the medians' two routes must agree bit for bit
+               there (the weighted median on dyadic weights).
                Kernel, plain and library times are CUDA-event medians;
                torch.profiler splits each wrapper's time at the main
                shapes (and the trimmed means' at n = 52, 80 and 1,000)
                into the kernels it launches, mixed with the other
-               kernels and, for the sort route, alone.
+               kernels and, for the sort route (and the medians' radix
+               route), alone.
 4. reference-- three rounds of each defense at a small size on the card,
                without and with faults; each round's aggregate (kernels)
                is held against the plain versions on the CPU on the same
@@ -46,7 +49,9 @@ success):
                mnist_mlp on SYNTH_MNIST at MNIST's 60,000/10,000 sizes,
                n = 100, B = 128, lr 0.1, momentum 0.9, ALIE z = 1.5,
                rounds 0..20: NoDefense, Krum, TrimmedMean, Bulyan and
-               Median at f = 24, then all five with faults (dropout 0.1,
+               Median at f = 24, Krum at f = 0 (mal_prop 0: scored by
+               the distance kernel and an exact sort, never the fused
+               score kernel), then all five with faults (dropout 0.1,
                straggler 0.1 of delay 2, NaN corruption 0.05) at f = 10,
                whose per-round fault counts must equal a host replay of
                the schedule; then a short run whose bit-scaled corruption
@@ -254,32 +259,38 @@ def ptxas_entries(log):
     return out
 
 
+# Each library's sort-route kernel: trim_sort_kernel<NP, MASKED, WEIGHTED>
+# or median_sort_kernel<NP, MASKED, WEIGHTED>.
+SORT_KERNELS = {"trimmed_mean": "trim_sort_kernel",
+                "masked_trimmed_mean": "trim_sort_kernel",
+                "median": "median_sort_kernel",
+                "masked_median": "median_sort_kernel"}
+
+
 def sort_route_build(failures):
-    """Phase 2's report on the sort route: each trim_sort_kernel<NP,
-    MASKED, WEIGHTED> that nvcc built, with its registers, stack frame and
-    spills.  A stack frame or a spill fails: the keys must stay in
-    registers."""
+    """Phase 2's report on the sort route: each sort kernel that nvcc
+    built, with its registers, stack frame and spills.  A stack frame or
+    a spill fails: the keys must stay in registers."""
     import re
 
     from attacking_federate_learning_tpu_torch.ops import _build
 
-    for name in ("trimmed_mean", "masked_trimmed_mean"):
+    for name, kernel in SORT_KERNELS.items():
         found = 0
         for entry, regs, frame, stores, loads in ptxas_entries(
                 _build.ptxas_log(name)):
-            m = re.search(r"trim_sort_kernelILi(\d+)ELb([01])ELb([01])",
-                          entry)
+            m = re.search(kernel + r"ILi(\d+)ELb([01])ELb([01])", entry)
             if not m:
                 continue
             found += 1
             np_, masked, weighted = m.groups()
             ok = frame == stores == loads == 0
-            print(f"[build] {name:19s} trim_sort_kernel<{np_}, "
+            print(f"[build] {name:19s} {kernel}<{np_}, "
                   f"masked={masked}, weighted={weighted}>: {regs} registers, "
                   f"{frame} bytes stack frame, {stores} bytes spill stores, "
                   f"{loads} bytes spill loads ok={ok}", flush=True)
             if not ok:
-                failures.append(f"{name} trim_sort_kernel<{np_}>: stack "
+                failures.append(f"{name} {kernel}<{np_}>: stack "
                                 f"frame or spills")
         if not found:
             failures.append(f"{name}: no ptxas report of the sort route")
@@ -542,11 +553,14 @@ def check_coord_kernels(report, failures):
     eps = float(np.finfo(np.float32).eps)
     quantile_max = 2 ** 24      # torch.quantile refuses larger inputs
 
-    def check_median(G, label, reps, entry_for=None):
+    def check_median(G, label, reps, entry_for=None, plan=None):
         n, d = G.shape
-        got, want = median_of(G), median_of_plain(G)
+        label = f"{label} {route_of(plan or trim_plan(n, d))}"
+        got, want = median_of(G, plan), median_of_plain(G)
+        bit_equal("median", f"{label} two launches", got,
+                  median_of(G, plan), failures)
         err, ok = exact(got, want)
-        ms = time_ms(lambda: median_of(G), reps)
+        ms = time_ms(lambda: median_of(G, plan), reps)
         pms = time_ms(lambda: median_of_plain(G), reps)
         lms = None
         if G.numel() <= quantile_max:
@@ -558,11 +572,15 @@ def check_coord_kernels(report, failures):
                ms, pms, lms, 4 * (n * d + d), n * d, entry_for)
         return got
 
-    def check_mmed(G, mask, w, label, reps, entry_for=None):
+    def check_mmed(G, mask, w, label, reps, entry_for=None, plan=None):
         n, d = G.shape
-        got, want = masked_median(G, mask, w), masked_median_plain(G, mask, w)
+        label = f"{label} {route_of(plan or trim_plan(n, d))}"
+        got = masked_median(G, mask, w, plan)
+        want = masked_median_plain(G, mask, w)
+        bit_equal("masked_median", f"{label} two launches", got,
+                  masked_median(G, mask, w, plan), failures)
         err, ok = exact(got, want)
-        ms = time_ms(lambda: masked_median(G, mask, w), reps)
+        ms = time_ms(lambda: masked_median(G, mask, w, plan), reps)
         pms = time_ms(lambda: masked_median_plain(G, mask, w), reps)
         lms = None
         if w is None and G.numel() <= quantile_max:
@@ -577,6 +595,7 @@ def check_coord_kernels(report, failures):
         report("masked_median", label, err, finite_rel(got, want),
                "exact" + (" (dyadic weights)" if w is not None else ""),
                ok, ms, pms, lms, nbytes, n * d, entry_for)
+        return got
 
     def check_mtrim(G, mask, k_delta, w, label, reps, entry_for=None,
                     plan=None):
@@ -605,28 +624,44 @@ def check_coord_kernels(report, failures):
                3 * n * d, entry_for)
 
     n, d, f = N_MAIN, D_MLP, F_FAULT
+    select = TrimPlan("select", 0)      # the radix route at the same shape
     # -- main shapes ----------------------------------------------------------
     G = torch.from_numpy(cohort(n, d, F_MAIN, "alie", 11)).cuda()
     med = check_median(G, f"n={n} d={d} f={F_MAIN} alie", 20,
                        ("median.cu", "ops/pallas_defense.py:297", [n, d]))
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
     bit_equal("masked_median", f"n={n} all-true mask vs median",
-              masked_median(G, torch.ones(n, dtype=torch.bool,
-                                          device="cuda")), med, failures)
+              masked_median(G, ones), med, failures)
+    # The two routes pick the same keys: the same bits.
+    bit_equal("median", f"n={n} sort route vs radix route", med,
+              check_median(G, f"n={n} d={d} f={F_MAIN} alie", 20,
+                           plan=select), failures)
+    kernel_split([lambda: median_of(G)], 20, f"n={n} alone")
+    kernel_split([lambda: median_of(G, select)], 20, f"n={n} radix alone")
     G = torch.from_numpy(cohort(n, d, f, "alie", 12)).cuda()
     mask = torch.from_numpy(drawn_mask(n, 3)).cuda()
     w = torch.from_numpy(dyadic_weights(n, 13)).cuda()
     check_mtrim(G, mask, f + 1, None, f"n={n} d={d} f={f} alie", 20,
                 ("masked_trimmed_mean.cu", "ops/pallas_defense.py:388",
                  [n, d]))
-    check_mmed(G, mask, None, f"n={n} d={d} f={f} alie e={int(mask.sum())}",
-               20, ("masked_median.cu", "ops/pallas_defense.py:406",
-                    [n, d]))
+    label = f"n={n} d={d} f={f} alie e={int(mask.sum())}"
+    mmed = check_mmed(G, mask, None, label, 20,
+                      ("masked_median.cu", "ops/pallas_defense.py:406",
+                       [n, d]))
+    bit_equal("masked_median", f"n={n} sort route vs radix route", mmed,
+              check_mmed(G, mask, None, label, 20, plan=select), failures)
     check_mtrim(G, mask, f + 1, w, f"n={n} d={d} f={f} weighted", 5)
-    check_mmed(G, mask, w, f"n={n} d={d} f={f} weighted", 5)
-    select = TrimPlan("select", 0)      # the radix route at the same shape
+    wmed = check_mmed(G, mask, w, f"n={n} d={d} f={f} weighted", 5)
+    bit_equal("masked_median", f"n={n} weighted sort vs radix route", wmed,
+              check_mmed(G, mask, w, f"n={n} d={d} f={f} weighted", 5,
+                         plan=select), failures)
+    for what, plan in (("alone", None), ("radix alone", select)):
+        kernel_split([lambda plan=plan: masked_median(G, mask, None, plan)],
+                     20, f"n={n} {what}")
+        kernel_split([lambda plan=plan: masked_median(G, mask, w, plan)], 20,
+                     f"n={n} w {what}")
     check_mtrim(G, mask, f + 1, None, f"n={n} d={d} f={f} alie", 20,
                 plan=select)
-    ones = torch.ones(n, dtype=torch.bool, device="cuda")
     bit_equal("masked_trimmed_mean", f"n={n} all-true mask vs trimmed",
               masked_trimmed_mean(G, ones, f + 1),
               trimmed_mean_of(G, n - f - 1), failures)
@@ -686,7 +721,7 @@ def check_coord_kernels(report, failures):
         Gt = torch.from_numpy(tie_cohort(n_t, 4099, n_t)).cuda()
         check_mtrim(Gt, torch.ones(n_t, dtype=torch.bool, device="cuda"),
                     n_t - k, None, f"n={n_t} d=4099 +-ties", 1)
-    # The sort route's edges, as for the unmasked kernel, with a drawn
+    # The sort route's edges, as for the unmasked kernels, with a drawn
     # mask, weighted too, and the all-true mask bit for bit the unmasked.
     for n_e in (32, 33, 64, 65, 128, 129):
         G = torch.from_numpy(cohort(n_e, 4099, n_e // 4, "alie", n_e)).cuda()
@@ -699,6 +734,11 @@ def check_coord_kernels(report, failures):
         bit_equal("masked_trimmed_mean", f"n={n_e} all-true mask vs trimmed",
                   masked_trimmed_mean(G, ones, k_delta),
                   trimmed_mean_of(G, n_e - k_delta), failures)
+        med = check_median(G, f"n={n_e} d=4099", 3)
+        check_mmed(G, m, None, f"n={n_e} d=4099", 3)
+        check_mmed(G, m, we, f"n={n_e} d=4099 weighted", 1)
+        bit_equal("masked_median", f"n={n_e} all-true mask vs median",
+                  masked_median(G, ones), med, failures)
 
 
 def check_reference(failures):
@@ -794,24 +834,26 @@ def run_main_path(failures):
     print(f"[main] SYNTH_MNIST 60000/10000 made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     faults = FaultConfig(**FAULTS_MAIN)
-    runs = [  # (defense, faults, must launch, must not launch)
-        ("NoDefense", None, (), ()),
-        ("Krum", None, ("krum_scores",), ()),
-        ("TrimmedMean", None, ("trimmed_mean",), ()),
-        ("Bulyan", None, ("pairwise_distances", "trimmed_mean"), ()),
-        ("Median", None, ("median",), ()),
-        ("NoDefense", faults, (), ()),
-        ("Krum", faults, ("pairwise_distances",), ("krum_scores",)),
-        ("TrimmedMean", faults, ("masked_trimmed_mean",), ()),
-        ("Bulyan", faults, ("pairwise_distances", "masked_trimmed_mean"),
-         ()),
-        ("Median", faults, ("masked_median",), ()),
+    runs = [  # (defense, faults, mal_prop, must launch, must not launch)
+        ("NoDefense", None, 0.24, (), ()),
+        ("Krum", None, 0.24, ("krum_scores",), ()),
+        ("TrimmedMean", None, 0.24, ("trimmed_mean",), ()),
+        ("Bulyan", None, 0.24, ("pairwise_distances", "trimmed_mean"), ()),
+        ("Median", None, 0.24, ("median",), ()),
+        ("NoDefense", faults, 0.1, (), ()),
+        ("Krum", faults, 0.1, ("pairwise_distances",), ("krum_scores",)),
+        ("TrimmedMean", faults, 0.1, ("masked_trimmed_mean",), ()),
+        ("Bulyan", faults, 0.1,
+         ("pairwise_distances", "masked_trimmed_mean"), ()),
+        ("Median", faults, 0.1, ("masked_median",), ()),
+        # f = 0: no complement for the fused kernel to drop.
+        ("Krum", None, 0.0, ("pairwise_distances",), ("krum_scores",)),
     ]
     totals = {name: 0 for name in _build.LAUNCHES}
     clean_ms = {}
-    for defense, fc, kernels, banned in runs:
+    for defense, fc, mal_prop, kernels, banned in runs:
         cfg = ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
-                               mal_prop=0.24 if fc is None else 0.1,
+                               mal_prop=mal_prop,
                                batch_size=128, epochs=ROUNDS,
                                num_std=1.5, learning_rate=0.1, momentum=0.9,
                                defense=defense, test_step=TEST_STEP,
@@ -820,7 +862,7 @@ def run_main_path(failures):
         exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
                                   device="cuda")
         assert exp.flat.dim == D_MLP
-        assert exp.f == (F_MAIN if fc is None else F_FAULT)
+        assert exp.f == {0.24: F_MAIN, 0.1: F_FAULT, 0.0: 0}[mal_prop]
         round_s = []
         inner = exp.run_round
 
@@ -864,7 +906,7 @@ def run_main_path(failures):
         median_ms = 1e3 * statistics.median(round_s)
         kind, counts_ok, beside = "clean", True, ""
         if fc is None:
-            clean_ms[defense] = median_ms
+            clean_ms.setdefault(defense, median_ms)
         else:
             kind = "faulted"
             # The counts the engine reported, against a host replay of

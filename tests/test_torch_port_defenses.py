@@ -64,6 +64,25 @@ def test_fused_krum_guard_falls_back_to_the_exact_sort():
     assert got == want
 
 
+@pytest.mark.parametrize("n", [10, 19])
+def test_guarded_krum_scores_at_f0_score_by_sort(n, monkeypatch):
+    """At f = 0 the complement c = f - 1 is -1: with no complement to drop
+    the guard scores exactly by sort, never through the fused kernel,
+    which refuses c < 0; the winner is JAX's."""
+    G = torch.from_numpy(_cohort(n, 200, 0, "none", seed=n))
+    with pytest.raises(ValueError, match="f-1"):
+        tk.krum_complement(n, 0)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the fused Krum kernel ran at c < 0")
+
+    monkeypatch.setattr(tk, "krum_scores", refuse)
+    got = tk.guarded_krum_scores(G, n, 0)
+    assert torch.equal(got, tk.sort_scores(pairwise_distances(G), n, 0))
+    jwin = int(jk.krum_select(jnp.asarray(G.numpy()), n, 0))
+    assert int(tk.krum_select(G, n, 0, method="fused")) == jwin
+
+
 @pytest.mark.parametrize("n,d,f,attack", _CASES)
 def test_trimmed_mean_matches_jax(n, d, f, attack):
     G = _cohort(n, d, f, attack)

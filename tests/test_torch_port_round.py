@@ -81,14 +81,18 @@ def _pair(defense, datasets, faults=None, mal_prop=MAL_PROP):
 # two frameworks' backward passes differ by ~1e-7) decides which one is
 # kept and the aggregates part by the gap between them.  At f = 1 the
 # tail keeps about ten values.
+# Clean Krum also runs at mal_prop 0 (f = 0), where the complement
+# c = f - 1 is negative and the scores come from the exact sort.
 _CASES = ([(d, None, MAL_PROP) for d in C.DEFENSE_NAMES]
           + [(d, FAULTS, MAL_PROP) for d in C.DEFENSE_NAMES
-             if d != "Bulyan"] + [("Bulyan", FAULTS, 0.06)])
+             if d != "Bulyan"] + [("Bulyan", FAULTS, 0.06)]
+          + [("Krum", None, 0.0)])
 
 
 @pytest.mark.parametrize(
     "defense,faults,mal_prop", _CASES,
-    ids=[f"{d}-faulted" if fl else d for d, fl, _ in _CASES])
+    ids=[(f"{d}-faulted" if fl else d) + ("-f0" if m == 0 else "")
+         for d, fl, m in _CASES])
 def test_three_rounds_match_the_jax_engine(defense, faults, mal_prop,
                                            datasets):
     jexp, texp = _pair(defense, datasets, faults, mal_prop)

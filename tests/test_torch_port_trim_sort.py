@@ -483,6 +483,10 @@ ptxas info    : Compiling entry function '_ZN2fl16trim_sort_kernelILi128ELb1ELb1
 ptxas info    : Function properties for _ZN2fl16trim_sort_kernelILi128ELb1ELb1EEEvPKfPKhS2_ixiPf
     304 bytes stack frame, 356 bytes spill stores, 332 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 304 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN2fl18median_sort_kernelILi100ELb0ELb0EEEvPKfPKhS2_ixPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN2fl18median_sort_kernelILi100ELb0ELb0EEEvPKfPKhS2_ixPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 112 registers, used 1 barriers, 16 bytes smem
 """
 
 
@@ -499,26 +503,34 @@ def _chip_smoke():
 
 def test_chip_smoke_reads_ptxas_reports(monkeypatch, capsys):
     """Each entry function's registers, stack frame and spills; a sort-
-    route kernel with a stack frame or a spill fails the smoke test, and
-    so does a build whose log names no sort-route kernel."""
+    route kernel (the trimmed means' or the medians') with a stack frame
+    or a spill fails the smoke test, and so does a build whose log names
+    no sort-route kernel of its own."""
     from attacking_federate_learning_tpu_torch.ops import _build
 
     mod = _chip_smoke()
     entries = mod.ptxas_entries(_PTXAS_LOG)
     assert [e[1:] for e in entries] == [(128, 0, 0, 0), (40, 0, 0, 0),
-                                        (255, 304, 356, 332)]
+                                        (255, 304, 356, 332),
+                                        (112, 0, 0, 0)]
     assert "trim_sort_kernelILi112" in entries[0][0]
-    logs = {"trimmed_mean": _PTXAS_LOG, "masked_trimmed_mean": ""}
+    logs = {"trimmed_mean": _PTXAS_LOG, "masked_trimmed_mean": "",
+            "median": _PTXAS_LOG, "masked_median": ""}
     monkeypatch.setattr(_build, "ptxas_log", logs.__getitem__)
     failures = []
     mod.sort_route_build(failures)
     out = capsys.readouterr().out
     assert "trim_sort_kernel<112, masked=0, weighted=0>: 128 registers" in out
+    assert ("median_sort_kernel<100, masked=0, weighted=0>: 112 registers"
+            in out)
     assert "coord_kernel" not in out
+    # The median library's report names only its own kernels.
+    assert out.count("[build] median ") == 1
     assert failures == ["trimmed_mean trim_sort_kernel<128>: stack frame or "
                         "spills",
                         "masked_trimmed_mean: no ptxas report of the sort "
-                        "route"]
+                        "route",
+                        "masked_median: no ptxas report of the sort route"]
     assert mod.route_of(trim_plan(100, D_MLP)) == "route=sort/100"
     assert mod.route_of(trim_plan(129, D_MLP)) == "route=select"
 
