@@ -39,6 +39,6 @@ def paper_z(users_count: int, corrupted_count: int) -> float:
 class DriftAttack(Attack):
     name = "alie"
 
-    def craft(self, mal_grads):
+    def craft(self, mal_grads, ctx=None):
         mean, stdev = cohort_stats(mal_grads)
         return mean - self.num_std * stdev

@@ -8,11 +8,24 @@ one crafted vector, and overwrites every malicious client's gradient with
 it (malicious.py:26-27).  Malicious clients are the first f ids
 (reference main.py:28), so the seam replaces rows [0, f) of the (n, d)
 matrix.  ``num_std == 0`` disables crafting (malicious.py:21-22).
+
+``craft(mal_grads, ctx)`` takes an :class:`AttackContext`: what the
+reference stashes on user 0 (user.py:84-86), the round's broadcast
+weights and the faded learning rate, plus the round index that seeds the
+noise attack.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+
+
+class AttackContext(NamedTuple):
+    original_params: torch.Tensor  # (d,) weights broadcast this round
+    learning_rate: torch.Tensor    # () f32 faded lr, reference server.py:50
+    round: int = 0                 # round index (rng derivation)
 
 
 def cohort_stats(mal_grads: torch.Tensor):
@@ -31,19 +44,20 @@ class Attack:
     def __init__(self, num_std: float):
         self.num_std = num_std
 
-    def craft(self, mal_grads: torch.Tensor) -> torch.Tensor:
+    def craft(self, mal_grads: torch.Tensor,
+              ctx: Optional[AttackContext]) -> torch.Tensor:
         """(f, d) honest malicious-cohort grads -> (d,) crafted vector."""
         raise NotImplementedError
 
-    def apply(self, users_grads: torch.Tensor,
-              corrupted_count: int) -> torch.Tensor:
+    def apply(self, users_grads: torch.Tensor, corrupted_count: int,
+              ctx: Optional[AttackContext] = None) -> torch.Tensor:
         """Returns users_grads with the first f rows replaced (in place:
         the round owns the matrix).  No-op when f == 0 (reference
         malicious.py:11) or num_std == 0 (malicious.py:21)."""
         f = corrupted_count
         if f == 0 or self.num_std == 0:
             return users_grads
-        crafted = self.craft(users_grads[:f])
+        crafted = self.craft(users_grads[:f], ctx)
         users_grads[:f] = crafted[None, :]
         return users_grads
 
@@ -54,5 +68,5 @@ class NoAttack(Attack):
     def __init__(self):
         super().__init__(num_std=0.0)
 
-    def apply(self, users_grads, corrupted_count):
+    def apply(self, users_grads, corrupted_count, ctx=None):
         return users_grads

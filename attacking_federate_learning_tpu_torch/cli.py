@@ -2,13 +2,20 @@
 
 The flat flags of the JAX package's CLI, with the reference driver's
 short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
--e 300), the ``--fault-*`` flags of the fault model, plus ``--device``.  It prints the same ``Test set: [ N] ...
-Accuracy: x/N`` lines.  The run is on the card unless ``--device cpu``
-asks for the CPU.  Backdoor attacks are not ported yet, so ``-b`` takes
-only ``No``.
+-e 300), ``--attack`` / ``--attack-direction``, the ``--fault-*`` flags of
+the fault model, plus ``--device``.  It prints the same ``Test set: [ N]
+... Accuracy: x/N`` lines, and under a backdoor (``-b``) the ``BEFORE:``
+line and a ``##Test malicious net: [POST]`` line after each evaluation.
+The run is on the card unless ``--device cpu`` asks for the CPU.
+``--attack backdoor_timed`` needs async rounds, which the port does not
+have yet: it is refused.
 
 Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 100 -m 0.24
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d Krum -n 100 -m 0.24 -b pattern
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d TrimmedMean -n 100 -m 0.24 --attack minmax
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Median -n 100 -m 0.1 --fault-dropout 0.1 --fault-straggler 0.1
 """
@@ -28,6 +35,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--dataset", default=C.MNIST, choices=C.DATASETS)
     p.add_argument("-d", "--defense", default="NoDefense",
                    choices=C.DEFENSE_NAMES)
+    p.add_argument("--attack", default="auto",
+                   choices=["auto", "none", "alie", "backdoor",
+                            "backdoor_timed", "signflip", "noise",
+                            "minmax", "minsum"],
+                   help="'auto' = reference behavior (backdoor if -b set, "
+                        "else ALIE, reference main.py:44-54); the rest are "
+                        "beyond-reference baselines (attacks/); "
+                        "'backdoor_timed' is the async timing-channel "
+                        "variant (needs --aggregation async, which the "
+                        "port does not have yet: refused)")
+    p.add_argument("--attack-direction", default="std",
+                   choices=["std", "sign", "unit"],
+                   help="min-max/min-sum perturbation direction "
+                        "(attacks/minmax.py): cohort -std (the NDSS'21 "
+                        "paper's best), -sign(mean), or -unit mean")
     p.add_argument("-n", "-dispatch_weightsn", "--users-count", default=10,
                    type=int)
     p.add_argument("-m", "--mal-prop", default=0.24, type=float,
@@ -38,8 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "shifts; 'auto' computes the ALIE paper's z_max "
                         "from (n, f)")
     p.add_argument("-e", "--epochs", default=300, type=int)
-    p.add_argument("-b", "--backdoor", default="No", choices=["No"],
-                   help="backdoor attacks are not ported yet")
+    p.add_argument("-b", "--backdoor", default="No",
+                   choices=["No", "pattern", "1", "2", "3"],
+                   help="no backdoor, pattern trigger, or single-sample "
+                        "backdoor with the given training index")
     p.add_argument("-c", "--batch-size", "--batch_size", dest="batch_size",
                    default=128, type=int)
     p.add_argument("-l", "--learning_rate", default=0.1, type=float)
@@ -114,20 +138,44 @@ def config_from_args(args) -> ExperimentConfig:
         num_std=args.num_std, defense=args.defense, test_step=args.test_step,
         data_dir=args.data_dir, seed=args.seed,
         synth_train=args.synth_train, synth_test=args.synth_test,
+        backdoor=args.backdoor, attack_direction=args.attack_direction,
         faults=faults)
 
 
 def main(argv=None) -> dict:
-    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.attacks import make_attacker
     from attacking_federate_learning_tpu_torch.core.engine import (
-        FederatedExperiment
+        FederatedExperiment, resolve_device
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
     )
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if (args.attack in ("backdoor", "backdoor_timed")
+            and args.backdoor == "No"):
+        # BackdoorAttack's poison set is derived from the -b trigger; an
+        # explicit --attack backdoor without one would build an empty set.
+        parser.error(f"--attack {args.attack} requires a trigger: "
+                     f"-b pattern|1|2|3")
+    if args.attack == "backdoor_timed":
+        # The timing channel only exists where arrival time matters; the
+        # port has no async aggregation yet.
+        parser.error("--attack backdoor_timed games the async arrival "
+                     "schedule (delay-0 emission); it requires "
+                     "--aggregation async")
     cfg = config_from_args(args)
     print(cfg)
-    exp = FederatedExperiment(cfg, attacker=DriftAttack(cfg.num_std),
-                              device=args.device)
+    device = resolve_device(args.device)
+    dataset = load_dataset(cfg.dataset, cfg.data_dir, cfg.seed,
+                           synth_train=cfg.synth_train,
+                           synth_test=cfg.synth_test)
+    attacker = make_attacker(cfg, dataset=dataset,
+                             name=None if args.attack == "auto"
+                             else args.attack, device=device)
+    exp = FederatedExperiment(cfg, attacker=attacker, dataset=dataset,
+                              device=device)
     return exp.run()
 
 

@@ -3,11 +3,11 @@
 A flat-only subset of the JAX package's ``ExperimentConfig``: the fields
 the flat, synchronous, full-participation round reads, with the same
 defaults, the same derived values (``corrupted_count``, ``'auto'`` z,
-per-dataset fading rate, default model) and the same validation
-messages, plus the JAX package's ``FaultConfig`` (a copy: the port
-imports nothing of the JAX package).  Hierarchical/async aggregation,
-traffic, secagg, backdoor, checkpoints and the observability knobs are
-later slices of the port.
+per-dataset fading rate, default model, the ``-b`` coercion) and the
+same validation messages, plus the JAX package's ``FaultConfig`` (a
+copy: the port imports nothing of the JAX package).  Hierarchical/async
+aggregation, traffic, secagg, checkpoints and the observability knobs
+are later slices of the port.
 """
 
 from __future__ import annotations
@@ -125,6 +125,25 @@ class ExperimentConfig:
     # ALIE z (reference main.py:109); 'auto' resolves at construction
     # to the ALIE paper's z_max (attacks/alie.py:paper_z).
     num_std: "float | str" = 1.5
+    backdoor: object = False         # False | 'pattern' | int sample index
+    alpha: float = 4.0               # anchor-loss weight, reference main.py:142
+    mal_epochs: int = 5              # shadow-net epochs, reference main.py:139
+    mal_batch_size: int = 200        # reference backdoor.py:14
+    mal_learning_rate: float = 0.1   # shadow SGD lr, reference backdoor.py:132
+    mal_weight_decay: float = 1e-4   # reference backdoor.py:132
+    # (the reference's shadow-SGD momentum is inert — fresh optimizer per
+    # batch, backdoor.py:132 — so it is not a knob here)
+    # The JAX package fuses the shadow-train + clip pipeline into its
+    # round program; False there is its staged per-round path, which it
+    # refuses together with its Pallas defense suite.  The port's
+    # defenses always take the kernel route, so only True is accepted;
+    # the port's craft seam checks the crafted vector every round
+    # (attacks/backdoor.py).
+    backdoor_fused: bool = True
+    # Perturbation direction for the min-max/min-sum attacks
+    # (attacks/minmax.py): cohort negative std ('std', the NDSS'21 paper's
+    # best performer), -sign(mean) ('sign'), or negative unit mean ('unit').
+    attack_direction: str = "std"
 
     # --- defense --------------------------------------------------------
     defense: str = "NoDefense"       # reference main.py:112
@@ -165,6 +184,17 @@ class ExperimentConfig:
                 f"got {self.defense!r}")
         if self.partition not in ("iid", "dirichlet"):
             raise ValueError(f"Unknown partition {self.partition!r}")
+        if self.backdoor and not self.backdoor_fused:
+            raise ValueError(
+                "--backdoor-staged aggregates eagerly on the host "
+                "between compute and craft; the Pallas defense "
+                "suite is a device-kernel route (and the "
+                "staged==fused bit-identity pin needs both modes "
+                "on one kernel) — drop --backdoor-staged")
+        if self.attack_direction not in ("std", "sign", "unit"):
+            raise ValueError(
+                f"attack_direction must be 'std', 'sign' or 'unit', "
+                f"got {self.attack_direction!r}")
         if isinstance(self.faults, dict):
             self.faults = FaultConfig(**self.faults)
         if self.checkpoint_every != 0:
@@ -189,6 +219,12 @@ class ExperimentConfig:
             self.fading_rate = FADING_RATES.get(self.dataset, 10000.0)
         if self.model is None:
             self.model = "mnist_mlp"
+        if self.backdoor == "No":
+            self.backdoor = False  # reference main.py:135-136
+        elif isinstance(self.backdoor, str) and self.backdoor.isdigit():
+            # reference main.py:116 leaves '1'|'2'|'3' as strings, which
+            # crashes at backdoor.py:34 (str - int); we coerce instead.
+            self.backdoor = int(self.backdoor)
 
     @property
     def corrupted_count(self) -> int:

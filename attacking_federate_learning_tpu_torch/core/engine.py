@@ -4,17 +4,21 @@ The reference's round is four host-side phases over one process
 (reference main.py:64-71).  Here a round is
 
     grads = vmap(grad(loss))(w, batches)      # deliver: all clients at once
-    grads = attack.apply(grads, f)            # craft: first-f-rows overwrite
+    grads = attack.apply(grads, f, ctx)       # craft: first-f-rows overwrite
     grads, mask = inject_and_quarantine(...)  # only with cfg.faults
     agg   = defense(grads, n, f[, mask])      # tier-1 aggregate
     state = momentum_update(state, agg)       # apply
 
-on one device.  Which implementation a defense runs follows the device
-of the gradient matrix alone: on ``cuda`` Krum, TrimmedMean, Bulyan and
-Median go through the hand-written CUDA kernels (unmasked Krum through
-the fused distance -> score kernel under its cancellation guard, the
-route the JAX engine takes with ``aggregation_impl='pallas'``), on
-``cpu`` the same calls take the kernels' plain PyTorch versions.  No
+on one device.  ``ctx`` is the round's :class:`AttackContext`: the
+weights broadcast this round, the faded learning rate (as an f32 device
+scalar) and the round index; the server step itself stays on the
+constant base learning rate.  Which implementation a defense runs
+follows the device of the gradient matrix alone: on ``cuda`` Krum,
+TrimmedMean, Bulyan and Median go through the hand-written CUDA kernels
+(unmasked Krum through the fused distance -> score kernel under its
+cancellation guard, the route the JAX engine takes with
+``aggregation_impl='pallas'``), on ``cpu`` the same calls take the
+kernels' plain PyTorch versions.  No
 option selects the plain versions on the card.
 
 With ``cfg.faults`` (core/faults.py) each round injects the scheduled
@@ -27,7 +31,9 @@ check, core/engine.py:_diverged/_rollback, without auto-checkpoints).
 
 Evaluation runs on the host's cadence, every ``test_step`` rounds and
 after the last one (reference main.py:73-95), and prints the reference's
-``Test set:`` lines.
+``Test set:`` lines; under a backdoor each is followed by the attack's
+``##Test malicious net: [POST]`` line, and the run opens with the
+``BEFORE:`` accuracy line instead of ``Starting Training...``.
 """
 
 from __future__ import annotations
@@ -35,10 +41,11 @@ from __future__ import annotations
 import functools
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from attacking_federate_learning_tpu_torch.attacks.base import (
-    Attack, NoAttack
+    Attack, AttackContext, NoAttack
 )
 from attacking_federate_learning_tpu_torch.config import ExperimentConfig
 from attacking_federate_learning_tpu_torch.core import faults as F
@@ -156,10 +163,25 @@ class FederatedExperiment:
         self.last_round_faults = {"round": t, **stats, **qstats}
         return clean, mask
 
+    def attack_context(self, t: int) -> AttackContext:
+        """The round-t attack context.  The faded lr is computed as the
+        JAX round computes it with a traced round index: the Python
+        product ``base_lr * fading_rate`` divided in float32 by
+        ``t + fading_rate`` (reference server.py:50-52)."""
+        cfg = self.cfg
+        lr = np.float32(cfg.learning_rate * cfg.fading_rate) / (
+            np.float32(t) + np.float32(cfg.fading_rate))
+        return AttackContext(
+            original_params=self.state.weights,
+            learning_rate=torch.full((), float(lr), dtype=torch.float32,
+                                     device=self.device),
+            round=t)
+
     def run_round(self, t: int) -> ServerState:
         cfg = self.cfg
         grads = self.compute_grads(t)
-        grads = self.attacker.apply(grads, self.f)             # craft
+        grads = self.attacker.apply(grads, self.f,
+                                    self.attack_context(t))    # craft
         if self.faults is None:
             agg = self.defense_fn(grads, self.n, self.f)       # aggregate
         else:
@@ -211,15 +233,28 @@ class FederatedExperiment:
         per round run (a rolled-back round appears again when it is run
         again), read to the host at the evaluation rounds only; with the
         watchdog on, a diverged state at an evaluation round is rolled
-        back before it is evaluated."""
+        back before it is evaluated.
+
+        Under a backdoor (``cfg.backdoor`` and an attacker with
+        ``test_asr``) the result also holds ``asr``, the attack success
+        rate of the server weights at each evaluation."""
         cfg = self.cfg
         test_size = len(self.dataset.test_y)
         accuracies, epochs, fault_rows, pending = [], [], [], []
+        asr = []
+        backdoor = bool(cfg.backdoor) and hasattr(self.attacker, "test_asr")
         watchdog = self.faults is not None and self.faults.watchdog
         self._rollbacks = 0
         if watchdog:
             self._last_good = self._snapshot()
-        log("\nStarting Training...")
+        if cfg.backdoor:
+            # Pre-training accuracy line (reference main.py:45-51).
+            loss0, correct0 = self.evaluate(self.state.weights)
+            log("\nBEFORE: Test set. Average loss: {:.4f}, Accuracy: {}/{} "
+                "({:.2f}%)".format(float(loss0), int(correct0), test_size,
+                                   100.0 * float(correct0) / test_size))
+        else:
+            log("\nStarting Training...")
         epoch = int(self.state.round)
         while epoch < cfg.epochs:
             self.run_round(epoch)
@@ -245,6 +280,11 @@ class FederatedExperiment:
                 "Accuracy: {}/{} ({:.2f}%)".format(
                     epoch, float(test_loss), int(correct), test_size,
                     accuracy))
+            if backdoor:
+                # Post-aggregation backdoor check, printed after the
+                # accuracy line as in the reference (main.py:91-95).
+                asr.append(self.attacker.test_asr(self.state.weights, log,
+                                                  tag="POST"))
             epoch += 1
         if accuracies:
             log("Max accuracy: {}".format(max(accuracies)))
@@ -252,4 +292,6 @@ class FederatedExperiment:
                   "final_weights": self.state.weights}
         if self.faults is not None:
             result["faults"] = fault_rows
+        if backdoor:
+            result["asr"] = asr
         return result

@@ -31,6 +31,26 @@ def pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
             mask.reshape(shape))
 
 
+@torch.no_grad()
+def masked_nll_metrics(model: nn.Module, flat: FlatParams,
+                       flat_w: torch.Tensor, bx: torch.Tensor,
+                       by: torch.Tensor, bm: torch.Tensor):
+    """Batched (nb, B, ...) data with its (nb, B) validity mask -> (sum of
+    per-batch masked-mean NLLs, masked correct count), two scalar
+    tensors: the reference's exact eval arithmetic (server.py:104-110),
+    shared by server eval and the backdoor's ASR check
+    (backdoor.py:89-94).  All batches go through one forward."""
+    params = flat.unflatten(flat_w)
+    nb, b = by.shape
+    logp = functional_call(model, params,
+                           (bx.reshape((nb * b,) + bx.shape[2:]),))
+    logp = logp.reshape(nb, b, -1)
+    per_ex = -logp.gather(2, by[..., None]).squeeze(2)
+    batch_mean = (per_ex * bm).sum(1) / torch.clamp(bm.sum(1), min=1.0)
+    correct = ((logp.argmax(2) == by).float() * bm).sum()
+    return batch_mean.sum(), correct
+
+
 def make_eval_fn(model: nn.Module, flat: FlatParams, test_x: np.ndarray,
                  test_y: np.ndarray, batch_size: int, device):
     """Returns (flat_w) -> (test_loss, correct) scalar tensors on the full
@@ -41,17 +61,9 @@ def make_eval_fn(model: nn.Module, flat: FlatParams, test_x: np.ndarray,
     bm = torch.from_numpy(bm).to(device)
     n_test = test_x.shape[0]
 
-    @torch.no_grad()
     def evaluate(flat_w: torch.Tensor):
-        params = flat.unflatten(flat_w)
-        nb, b = by.shape
-        logp = functional_call(model, params,
-                               (bx.reshape((nb * b,) + bx.shape[2:]),))
-        logp = logp.reshape(nb, b, -1)
-        per_ex = -logp.gather(2, by[..., None]).squeeze(2)
-        batch_mean = ((per_ex * bm).sum(1)
-                      / torch.clamp(bm.sum(1), min=1.0))
-        correct = ((logp.argmax(2) == by).float() * bm).sum()
-        return batch_mean.sum() / n_test, correct
+        loss_sum, correct = masked_nll_metrics(model, flat, flat_w, bx, by,
+                                               bm)
+        return loss_sum / n_test, correct
 
     return evaluate

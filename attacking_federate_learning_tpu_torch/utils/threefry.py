@@ -77,3 +77,17 @@ def uniform(k: np.ndarray, shape) -> np.ndarray:
                           np.arange(size, dtype=np.uint32))
     bits = (y0 ^ y1) >> np.uint32(9) | np.uint32(0x3F800000)
     return (bits.view(np.float32) - np.float32(1.0)).reshape(shape)
+
+
+def normal(k: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.normal(k, shape)`` for float32: a uniform draw on
+    ``[lo, 1)`` with ``lo = nextafter(-1, 0)`` (bit for bit the JAX
+    step), then ``sqrt(2) * erfinv(u)``.  The inverse error function is
+    torch's, on the CPU; XLA's polynomial differs from it in the last
+    bits, so the result is within a few ulp of JAX's, not equal."""
+    import torch
+
+    f32 = np.float32
+    lo = np.nextafter(f32(-1.0), f32(0.0), dtype=f32)
+    u = np.maximum(lo, uniform(k, shape) * (f32(1.0) - lo) + lo)
+    return (f32(np.sqrt(2)) * torch.erfinv(torch.from_numpy(u))).numpy()

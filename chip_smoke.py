@@ -60,6 +60,24 @@ success):
                before and read after each run; every kernel of the run's
                path must have launched, and faulted Krum must not launch
                the fused score kernel.
+6. attack   -- the attack layer through make_attacker and run() at the
+               same full width: the clipped backdoor ('pattern', z = 1.5,
+               f = 24) under all five defenses, sample mode ('-b 1') under
+               Krum, the faulted backdoor under TrimmedMean (phase 5's
+               faults, f = 10, counts against the host replay), signflip,
+               noise, min-max and min-sum under TrimmedMean and min-max
+               under Krum (f = 24).  Each run must launch (and avoid) the
+               kernels of its ALIE twin in phase 5; backdoor runs must
+               print a finite BEFORE line and, after each Test set line,
+               a POST line whose ASR lies in [0, 100].  Prints the ASR,
+               the median round time, the craft's CUDA-event ms a round
+               (shadow training, early-out read, clip), the early-out
+               rounds, the noise draw's host ms and min-max's final
+               gamma.  Then one backdoor craft and one min-max craft at
+               full width on the card against the CPU from the same
+               round-0 rows: the backdoor within twice the CPU craft's
+               distance from an fp64 craft of the same inputs (the CPU
+               test's band), gamma within one bisection step.
 
 Output: one line per check, a {"kernels": [...]} JSON line, the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
@@ -71,6 +89,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -808,31 +827,113 @@ def check_reference(failures):
             failures.append(f"reference {defense} {kind}: {errs}")
 
 
-def run_main_path(failures):
-    """Phase 5.  Returns launches per kernel summed over the runs."""
+def main_config(defense, mal_prop, faults=None, **kw):
+    """The full-width configuration of phases 5 and 6."""
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
+                            mal_prop=mal_prop, batch_size=128, epochs=ROUNDS,
+                            num_std=1.5, learning_rate=0.1, momentum=0.9,
+                            defense=defense, test_step=TEST_STEP,
+                            synth_train=60_000, synth_test=10_000,
+                            faults=faults, **kw)
+
+
+def drive(exp, kernels, banned, failures, label):
+    """One full-width run of ``exp.run()`` on the card, launch counters
+    zeroed just before and read just after.  Fails the phase when a
+    kernel of ``kernels`` did not launch, one of ``banned`` did, the
+    weights or an accuracy is not finite, the evaluations are not rounds
+    0/10/20, or (with faults) the per-round fault counts differ from a
+    host replay of the schedule.  Returns what the caller prints."""
     import torch
 
-    from attacking_federate_learning_tpu_torch import config as C
-    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
-    from attacking_federate_learning_tpu_torch.config import (
-        ExperimentConfig, FaultConfig
-    )
-    from attacking_federate_learning_tpu_torch.core.engine import (
-        FederatedExperiment
-    )
     from attacking_federate_learning_tpu_torch.core.faults import (
         fault_masks
     )
-    from attacking_federate_learning_tpu_torch.data.datasets import (
-        load_dataset
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    fc = exp.faults
+    round_s = []
+    inner = exp.run_round
+
+    def timed_round(t, inner=inner, round_s=round_s):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        state = inner(t)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - a)
+        return state
+
+    exp.run_round = timed_round
+    seam_s = []
+    if fc is not None:
+        # The fault seam's host time (schedule draw, pinned copy,
+        # launches), with no synchronisation, so the round times
+        # above are not perturbed.
+        inject = exp.inject_and_quarantine
+
+        def timed_inject(grads, t, inject=inject, seam_s=seam_s):
+            a = time.perf_counter()
+            out = inject(grads, t)
+            seam_s.append(time.perf_counter() - a)
+            return out
+
+        exp.inject_and_quarantine = timed_inject
+    lines = []
+    _build.reset_launches()
+    result = exp.run(log=lines.append)
+    launches = dict(_build.LAUNCHES)
+    accs = dict(zip(result["epochs"], result["accuracies"]))
+    finite = (all(math.isfinite(a) for a in accs.values())
+              and bool(torch.isfinite(exp.state.weights).all()))
+    missing = [k for k in kernels if launches[k] == 0]
+    extra = [k for k in banned if launches[k] != 0]
+    out = {"result": result, "launches": launches, "accs": accs,
+           "finite": finite, "lines": lines,
+           "median_ms": 1e3 * statistics.median(round_s),
+           "per_round": {k: launches[k] / ROUNDS for k in launches
+                         if launches[k]},
+           "acc_txt": "/".join(f"{accs[r]:.2f}" if r in accs else "none"
+                               for r in (0, 10, 20)),
+           "counts_ok": True}
+    if fc is not None:
+        # The counts the engine reported, against a host replay of
+        # the schedule (NaN corruption is quarantined with dropout).
+        want, draw_s = [], []
+        for t in range(ROUNDS):
+            a = time.perf_counter()
+            drop, stale, corrupt = fault_masks(exp._fault_key, t, N_MAIN,
+                                               exp.f, fc)
+            draw_s.append(time.perf_counter() - a)
+            want.append({"round": t,
+                         "injected_dropout": int(drop.sum()),
+                         "injected_straggler": int(stale.sum()),
+                         "injected_corrupt": int(corrupt.sum()),
+                         "quarantined": int(drop.sum() + corrupt.sum())})
+        out["counts_ok"] = result["faults"] == want
+        out["alive"] = [N_MAIN - r["quarantined"] for r in result["faults"]]
+        out["seam_ms"] = 1e3 * statistics.median(seam_s)
+        out["draw_ms"] = 1e3 * statistics.median(draw_s)
+    if (missing or extra or not finite or not out["counts_ok"]
+            or sorted(accs) != [0, 10, 20]):
+        failures.append(f"{label}: missing launches {missing}, unexpected "
+                        f"launches {extra}, finite={finite}, "
+                        f"counts_ok={out['counts_ok']}, "
+                        f"evals={sorted(accs)}")
+    return out
+
+
+def run_main_path(ds, failures):
+    """Phase 5.  Returns launches per kernel summed over the runs."""
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import FaultConfig
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
     )
     from attacking_federate_learning_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    ds = load_dataset(C.SYNTH_MNIST, seed=0, synth_train=60_000,
-                      synth_test=10_000)
-    print(f"[main] SYNTH_MNIST 60000/10000 made in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     faults = FaultConfig(**FAULTS_MAIN)
     runs = [  # (defense, faults, mal_prop, must launch, must not launch)
         ("NoDefense", None, 0.24, (), ()),
@@ -852,99 +953,255 @@ def run_main_path(failures):
     totals = {name: 0 for name in _build.LAUNCHES}
     clean_ms = {}
     for defense, fc, mal_prop, kernels, banned in runs:
-        cfg = ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
-                               mal_prop=mal_prop,
-                               batch_size=128, epochs=ROUNDS,
-                               num_std=1.5, learning_rate=0.1, momentum=0.9,
-                               defense=defense, test_step=TEST_STEP,
-                               synth_train=60_000, synth_test=10_000,
-                               faults=fc)
+        cfg = main_config(defense, mal_prop, fc)
         exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
                                   device="cuda")
         assert exp.flat.dim == D_MLP
         assert exp.f == {0.24: F_MAIN, 0.1: F_FAULT, 0.0: 0}[mal_prop]
-        round_s = []
-        inner = exp.run_round
-
-        def timed_round(t, inner=inner, round_s=round_s):
-            torch.cuda.synchronize()
-            a = time.perf_counter()
-            state = inner(t)
-            torch.cuda.synchronize()
-            round_s.append(time.perf_counter() - a)
-            return state
-
-        exp.run_round = timed_round
-        seam_s = []
-        if fc is not None:
-            # The fault seam's host time (schedule draw, pinned copy,
-            # launches), with no synchronisation, so the round times
-            # above are not perturbed.
-            inject = exp.inject_and_quarantine
-
-            def timed_inject(grads, t, inject=inject, seam_s=seam_s):
-                a = time.perf_counter()
-                out = inject(grads, t)
-                seam_s.append(time.perf_counter() - a)
-                return out
-
-            exp.inject_and_quarantine = timed_inject
-        lines = []
-        _build.reset_launches()
-        result = exp.run(log=lines.append)
-        launches = dict(_build.LAUNCHES)
-        for name, count in launches.items():
+        kind = "clean" if fc is None else "faulted"
+        run = drive(exp, kernels, banned, failures,
+                    f"main {defense} {kind}")
+        for name, count in run["launches"].items():
             totals[name] += count
-        accs = dict(zip(result["epochs"], result["accuracies"]))
-        finite = (all(math.isfinite(a) for a in accs.values())
-                  and bool(torch.isfinite(exp.state.weights).all()))
-        missing = [k for k in kernels if launches[k] == 0]
-        extra = [k for k in banned if launches[k] != 0]
-        per_round = {k: launches[k] / ROUNDS for k in launches if launches[k]}
-        acc_txt = "/".join(f"{accs[r]:.2f}" if r in accs else "none"
-                           for r in (0, 10, 20))
-        median_ms = 1e3 * statistics.median(round_s)
-        kind, counts_ok, beside = "clean", True, ""
+        beside = ""
         if fc is None:
-            clean_ms.setdefault(defense, median_ms)
+            clean_ms.setdefault(defense, run["median_ms"])
         else:
-            kind = "faulted"
-            # The counts the engine reported, against a host replay of
-            # the schedule (NaN corruption is quarantined with dropout).
-            want, draw_s = [], []
-            for t in range(ROUNDS):
-                a = time.perf_counter()
-                drop, stale, corrupt = fault_masks(exp._fault_key, t, N_MAIN,
-                                                   exp.f, fc)
-                draw_s.append(time.perf_counter() - a)
-                want.append({"round": t,
-                             "injected_dropout": int(drop.sum()),
-                             "injected_straggler": int(stale.sum()),
-                             "injected_corrupt": int(corrupt.sum()),
-                             "quarantined": int(drop.sum() + corrupt.sum())})
-            counts_ok = result["faults"] == want
-            alive = [N_MAIN - r["quarantined"] for r in result["faults"]]
+            alive = run["alive"]
             beside = (f"clean_median_round_ms={clean_ms[defense]:.3f} "
-                      f"seam_host_ms={1e3 * statistics.median(seam_s):.3f} "
-                      f"schedule_draw_ms="
-                      f"{1e3 * statistics.median(draw_s):.3f} "
-                      f"fault_counts_match_replay={counts_ok} "
+                      f"seam_host_ms={run['seam_ms']:.3f} "
+                      f"schedule_draw_ms={run['draw_ms']:.3f} "
+                      f"fault_counts_match_replay={run['counts_ok']} "
                       f"alive_min/max={min(alive)}/{max(alive)} ")
         print(f"[main] {defense:11s} {kind:7s} f={exp.f} acc r0/r10/r20 = "
-              f"{acc_txt} % median_round_ms={median_ms:.3f} {beside}"
-              f"launches={launches} per_round={per_round} "
-              f"finite={finite}", flush=True)
-        for line in lines:
+              f"{run['acc_txt']} % median_round_ms={run['median_ms']:.3f} "
+              f"{beside}launches={run['launches']} "
+              f"per_round={run['per_round']} finite={run['finite']}",
+              flush=True)
+        for line in run["lines"]:
             if line.startswith("Test set"):
                 print(f"[main]   {line}", flush=True)
-        if (missing or extra or not finite or not counts_ok
-                or sorted(accs) != [0, 10, 20]):
-            failures.append(f"main {defense} {kind}: missing launches "
-                            f"{missing}, unexpected launches {extra}, "
-                            f"finite={finite}, counts_ok={counts_ok}, "
-                            f"evals={sorted(accs)}")
     check_watchdog(ds, failures)
     return totals
+
+
+# Phase 6's clean runs: (defense, must launch, must not launch), each the
+# ALIE twin's of phase 5 at f = 24.
+CLEAN_KERNELS = {
+    "NoDefense": ((), ()),
+    "Krum": (("krum_scores",), ()),
+    "TrimmedMean": (("trimmed_mean",), ()),
+    "Bulyan": (("pairwise_distances", "trimmed_mean"), ()),
+    "Median": (("median",), ()),
+}
+# The card-vs-CPU craft tolerances of the CPU tests: the backdoor's
+# (tests/test_torch_port_backdoor.py::test_one_craft_matches_jax: two f32
+# crafts of the pipeline differ by at most twice the distance of one of
+# them from an fp64 craft of the same inputs) and min-max's gamma, one
+# bisection step apart at most (tests/test_torch_port_attacks.py).
+ROUNDING_BAND = 2.0
+
+
+def backdoor_lines_ok(lines, asr):
+    """The BEFORE line first, each Test set line followed by a POST line
+    whose ASR is the run's, in [0, 100]; every number finite."""
+    num = r"(\d+\.\d+|nan|inf)"
+    ok = bool(re.fullmatch(
+        rf"\nBEFORE: Test set\. Average loss: {num}, Accuracy: \d+/10000 "
+        rf"\({num}%\)", lines[0]))
+    ok = ok and "nan" not in lines[0] and "inf" not in lines[0]
+    tests = [i for i, s in enumerate(lines) if s.startswith("Test set:")]
+    ok = ok and len(tests) == len(asr) == 3
+    for i, a in zip(tests, asr):
+        post = lines[i + 1] if i + 1 < len(lines) else ""
+        ok = (ok and post.startswith("##Test malicious net: [POST] ")
+              and math.isfinite(a) and 0.0 <= a <= 100.0
+              and post.endswith(f"({a:.2f}%)"))
+    return ok
+
+
+def run_attack_path(ds, failures):
+    """Phase 6: the attack layer at full width.  The clipped backdoor
+    ('pattern') under every defense, sample mode under Krum, the faulted
+    backdoor under TrimmedMean, signflip / noise / min-max / min-sum
+    under TrimmedMean and min-max under Krum, then one backdoor and one
+    min-max craft on the card against the CPU from the same rows.
+    Returns launches per kernel summed over the runs."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import make_attacker
+    from attacking_federate_learning_tpu_torch.config import FaultConfig
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    faults = FaultConfig(**FAULTS_MAIN)
+    runs = ([("backdoor", "pattern", d, None, 0.24) for d in CLEAN_KERNELS]
+            + [("backdoor", "1", "Krum", None, 0.24),
+               ("backdoor", "pattern", "TrimmedMean", faults, 0.1)]
+            + [(a, "No", "TrimmedMean", None, 0.24)
+               for a in ("signflip", "noise", "minmax", "minsum")]
+            + [("minmax", "No", "Krum", None, 0.24)])
+    for attack, bd, defense, fc, mal_prop in runs:
+        cfg = main_config(defense, mal_prop, fc, backdoor=bd)
+        att = make_attacker(cfg, dataset=ds, name=attack, device="cuda")
+        exp = FederatedExperiment(cfg, att, ds, device="cuda")
+        assert exp.f == {0.24: F_MAIN, 0.1: F_FAULT}[mal_prop]
+        if fc is None:
+            kernels, banned = CLEAN_KERNELS[defense]
+        else:
+            kernels, banned = ("masked_trimmed_mean",), ()
+        kind = "clean" if fc is None else "faulted"
+        label = f"attack {attack} -b {bd} {defense} {kind}"
+        craft_ev, noise_s = [], []
+        if attack == "backdoor":
+            # CUDA events around each craft: the shadow training, its
+            # early-out read and the clip.
+            craft = att.craft
+
+            def timed_craft(g, ctx, craft=craft, craft_ev=craft_ev):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = craft(g, ctx)
+                b.record()
+                craft_ev.append((a, b))
+                return out
+
+            att.craft = timed_craft
+        elif attack == "noise":
+            noise = att.noise
+
+            def timed_noise(rnd, d, noise=noise, noise_s=noise_s):
+                a = time.perf_counter()
+                out = noise(rnd, d)
+                noise_s.append(time.perf_counter() - a)
+                return out
+
+            att.noise = timed_noise
+        run = drive(exp, kernels, banned, failures, label)
+        for name, count in run["launches"].items():
+            totals[name] += count
+        beside = ""
+        if attack == "backdoor":
+            torch.cuda.synchronize()
+            craft_ms = statistics.median(a.elapsed_time(b)
+                                         for a, b in craft_ev)
+            asr = run["result"]["asr"]
+            lines_ok = backdoor_lines_ok(run["lines"], asr)
+            beside = (f"asr r0/r10/r20 = "
+                      f"{'/'.join(f'{a:.2f}' for a in asr)} % "
+                      f"craft_ms={craft_ms:.3f} "
+                      f"poison={int(att.poison_count)} "
+                      f"early_out_rounds={att.early_outs} "
+                      f"lines_ok={lines_ok} ")
+            if not lines_ok:
+                failures.append(f"{label}: BEFORE/Test set/POST lines "
+                                f"{run['lines']}")
+        elif attack == "noise":
+            beside = (f"noise_draw_host_ms="
+                      f"{1e3 * statistics.median(noise_s):.3f} ")
+        elif attack in ("minmax", "minsum"):
+            beside = f"final_gamma={float(att.last_gamma):.7g} "
+        if fc is not None:
+            beside += (f"seam_host_ms={run['seam_ms']:.3f} "
+                       f"fault_counts_match_replay={run['counts_ok']} ")
+        print(f"[attack] {attack:8s} -b {bd:7s} {defense:11s} {kind:7s} "
+              f"f={exp.f} acc r0/r10/r20 = {run['acc_txt']} % "
+              f"median_round_ms={run['median_ms']:.3f} {beside}"
+              f"launches={run['launches']} per_round={run['per_round']} "
+              f"finite={run['finite']}", flush=True)
+        for line in run["lines"]:
+            if line.startswith(("Test set", "##Test", "\nBEFORE")):
+                print(f"[attack]   {line.strip()}", flush=True)
+    check_crafts_on_the_cpu(main_config("TrimmedMean", 0.24,
+                                        backdoor="pattern"), ds, failures)
+    return totals
+
+
+def check_crafts_on_the_cpu(cfg, ds, failures):
+    """One backdoor craft and one min-max craft at full width, on the
+    card and on the CPU from the same f = 24 rows of a real round: round
+    0 of ``cfg``, where about half the backdoor's coordinates fall inside
+    its clip envelope (by round 20 nearly all sit at a bound)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import (
+        AttackContext, MinMaxAttack, NoAttack, cohort_stats
+    )
+    from attacking_federate_learning_tpu_torch.attacks.backdoor import (
+        BackdoorAttack
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+
+    t = 0
+    exp = FederatedExperiment(cfg, NoAttack(), ds, device="cuda")
+    rows = exp.compute_grads(t)[:F_MAIN].clone()
+    ctx = exp.attack_context(t)
+    cpu_ctx = AttackContext(ctx.original_params.cpu(),
+                            ctx.learning_rate.cpu(), t)
+    card = BackdoorAttack(exp.cfg, ds, device="cuda")
+    host = BackdoorAttack(exp.cfg, ds, device="cpu")
+    exact = BackdoorAttack(exp.cfg, ds, device="cpu")
+    # The same pipeline in fp64 on the CPU: the poison set, the rows and
+    # the context widened, so every step of the shadow training rounds
+    # at fp64.
+    exact.poison_x = exact.poison_x.double()
+    exact.poison_mask = exact.poison_mask.double()
+    exact._count = exact._count.double()
+    got = card.craft(rows, ctx).cpu()
+    want = host.craft(rows.cpu(), cpu_ctx)
+    ref = exact.craft(rows.cpu().double(), AttackContext(
+        cpu_ctx.original_params.double(), cpu_ctx.learning_rate.double(),
+        t))
+    err = float((got - want).abs().max())
+    cpu64 = float((want.double() - ref).abs().max())
+    card64 = float((got.double() - ref).abs().max())
+    tol = ROUNDING_BAND * cpu64
+    mean, sd = cohort_stats(rows.cpu())
+    lo, hi = mean - 1.5 * sd, mean + 1.5 * sd
+    share = float(((want <= lo) | (want >= hi)).float().mean())
+    ok = (err <= tol and card.early_outs == host.early_outs
+          and bool(torch.isfinite(got).all()))
+    print(f"[attack] backdoor craft card vs CPU, f={F_MAIN} d={exp.flat.dim} "
+          f"round {t}: max_abs_err={err:.3e} tol={tol:.3e} "
+          f"(= {ROUNDING_BAND} x the CPU's distance from fp64; the card's "
+          f"{card64:.3e}) max|craft|={float(want.abs().max()):.3e} "
+          f"clip_share={share:.4f} early_out={card.early_outs} ok={ok}",
+          flush=True)
+    if not ok:
+        failures.append(f"backdoor craft card vs CPU: err {err}")
+
+    eps = float(np.finfo(np.float32).eps)
+    mm = [MinMaxAttack(1.5), MinMaxAttack(1.5)]
+    got = mm[0].craft(rows, ctx).cpu()
+    want = mm[1].craft(rows.cpu(), cpu_ctx)
+    g_card, g_cpu = float(mm[0].last_gamma), float(mm[1].last_gamma)
+    # The last bisection step: hi after the doublings (the first of 10,
+    # 20, ... above gamma) over 2**25; plus the f32 spacing of gamma, to
+    # which the grid rounds.
+    hi = 10.0
+    while hi <= max(g_card, g_cpu):
+        hi *= 2.0
+    step = hi / 2 ** 25
+    dg = abs(g_card - g_cpu)
+    spacing = float(np.spacing(np.float32(max(g_card, g_cpu))))
+    _, sd = cohort_stats(rows.cpu())
+    band = (F_MAIN * eps * float(rows.abs().max()) + dg * sd
+            + g_cpu * sd * F_MAIN * eps + eps * want.abs())
+    err = float((got - want).abs().max())
+    ok = (dg <= step + 2 * spacing
+          and bool(((got - want).abs() <= band).all()))
+    print(f"[attack] minmax craft card vs CPU, f={F_MAIN} d={exp.flat.dim}: "
+          f"gamma card={g_card:.9g} cpu={g_cpu:.9g} step={step:.3e} "
+          f"max_abs_err={err:.3e} ok={ok}", flush=True)
+    if not ok:
+        failures.append(f"minmax craft card vs CPU: gamma {g_card} vs "
+                        f"{g_cpu}, err {err}")
 
 
 def check_watchdog(ds, failures):
@@ -1022,9 +1279,21 @@ def main() -> int:
     # -- 4. small-input reference ------------------------------------------
     check_reference(failures)
     # -- 5. main path --------------------------------------------------------
-    totals = run_main_path(failures)
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+
+    t0 = time.perf_counter()
+    ds = load_dataset(C.SYNTH_MNIST, seed=0, synth_train=60_000,
+                      synth_test=10_000)
+    print(f"[main] SYNTH_MNIST 60000/10000 made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    totals = run_main_path(ds, failures)
+    # -- 6. attack layer -----------------------------------------------------
+    attack_totals = run_attack_path(ds, failures)
     for name, e in entries.items():
-        e["launches"] = totals[name]
+        e["launches"] = totals[name] + attack_totals[name]
 
     if failures:
         for msg in failures:

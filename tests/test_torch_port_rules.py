@@ -100,7 +100,9 @@ def test_the_scan_covers_the_whole_port():
                    "core/faults.py", "utils/threefry.py",
                    "ops/_build.py", "ops/distances.py",
                    "ops/defense_kernels.py", "defenses/kernels.py",
-                   "defenses/median.py"):
+                   "defenses/median.py", "attacks/backdoor.py",
+                   "attacks/baselines.py", "attacks/minmax.py",
+                   "data/triggers.py", "utils/plugins.py"):
         assert module in names
 
 
