@@ -2,8 +2,9 @@
 
 The flat flags of the JAX package's CLI, with the reference driver's
 short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
--e 300), ``--attack`` / ``--attack-direction``, the ``--fault-*`` flags of
-the fault model, plus ``--device``.  It prints the same ``Test set: [ N]
+-e 300), ``--attack`` / ``--attack-direction``, ``--model`` and
+``--augment``, the ``--fault-*`` flags of the fault model, plus
+``--device``.  It prints the same ``Test set: [ N]
 ... Accuracy: x/N`` lines, and under a backdoor (``-b``) the ``BEFORE:``
 line and a ``##Test malicious net: [POST]`` line after each evaluation.
 The run is on the card unless ``--device cpu`` asks for the CPU.
@@ -18,6 +19,11 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d TrimmedMean -n 100 -m 0.24 --attack minmax
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Median -n 100 -m 0.1 --fault-dropout 0.1 --fault-straggler 0.1
+      python -m attacking_federate_learning_tpu_torch.cli \\
+          -s SYNTH_CIFAR10_HARD -d TrimmedMean -n 100 -m 0.24 \\
+          --synth-train 50000 --synth-test 10000
+      python -m attacking_federate_learning_tpu_torch.cli -s CIFAR100 \\
+          -d Krum -n 10 -m 0.2 --synth-train 50000 --synth-test 10000
 """
 
 from __future__ import annotations
@@ -32,7 +38,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Federated-learning attack/defense simulator "
                     "(PyTorch/CUDA port, flat FedSGD round)")
-    p.add_argument("-s", "--dataset", default=C.MNIST, choices=C.DATASETS)
+    p.add_argument("-s", "--dataset", default=C.MNIST, choices=C.DATASETS,
+                   help="CIFAR100 runs the WRN-40-4 the reference defines "
+                        "but never exposes (reference main.py:114 excludes "
+                        "it; data_sets.py:108-173 defines it); without the "
+                        "raw files in --data-dir, MNIST, CIFAR10 and "
+                        "CIFAR100 fall back to synthetic sets of their "
+                        "shape")
+    p.add_argument("--model", default=None, choices=C.MODEL_NAMES,
+                   help="override the dataset's canonical model "
+                        "(default: MLP for MNIST, CNN for CIFAR10, "
+                        "WRN-40-4 for CIFAR100)")
     p.add_argument("-d", "--defense", default="NoDefense",
                    choices=C.DEFENSE_NAMES)
     p.add_argument("--attack", default="auto",
@@ -113,6 +129,11 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="K",
                    help="rounds a dead shard domain stays dead after "
                         "each failure onset (correlated outage width)")
+    p.add_argument("--augment", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="train-time reflect-pad-4 + random-crop + h-flip "
+                        "(reference data_sets.py:157-166); 'auto' follows "
+                        "the reference (CIFAR100 only)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the card (default), or the CPU with the kernels' "
                         "plain PyTorch versions")
@@ -133,12 +154,14 @@ def config_from_args(args) -> ExperimentConfig:
             shard_dropout_dwell=args.fault_shard_dropout_dwell)
     return ExperimentConfig(
         users_count=args.users_count, mal_prop=args.mal_prop,
-        dataset=args.dataset, learning_rate=args.learning_rate,
+        dataset=args.dataset, model=args.model,
+        learning_rate=args.learning_rate,
         batch_size=args.batch_size, epochs=args.epochs,
         num_std=args.num_std, defense=args.defense, test_step=args.test_step,
         data_dir=args.data_dir, seed=args.seed,
         synth_train=args.synth_train, synth_test=args.synth_test,
         backdoor=args.backdoor, attack_direction=args.attack_direction,
+        data_augment={"auto": None, "on": True, "off": False}[args.augment],
         faults=faults)
 
 

@@ -3,9 +3,10 @@
 A flat-only subset of the JAX package's ``ExperimentConfig``: the fields
 the flat, synchronous, full-participation round reads, with the same
 defaults, the same derived values (``corrupted_count``, ``'auto'`` z,
-per-dataset fading rate, default model, the ``-b`` coercion) and the
-same validation messages, plus the JAX package's ``FaultConfig`` (a
-copy: the port imports nothing of the JAX package).  Hierarchical/async
+per-dataset fading rate, the dataset's default model, the ``-b``
+coercion) and the same validation messages (the model/dataset family
+check among them), plus the JAX package's ``FaultConfig`` (a copy: the
+port imports nothing of the JAX package).  Hierarchical/async
 aggregation, traffic, secagg, checkpoints and the observability knobs
 are later slices of the port.
 """
@@ -17,14 +18,44 @@ from typing import Optional
 
 
 MNIST = "MNIST"
+CIFAR10 = "CIFAR10"
+CIFAR100 = "CIFAR100"
 SYNTH_MNIST = "SYNTH_MNIST"            # MNIST-shaped deterministic synthetic
+SYNTH_CIFAR10 = "SYNTH_CIFAR10"        # CIFAR10-shaped deterministic synthetic
 SYNTH_MNIST_HARD = "SYNTH_MNIST_HARD"  # low-SNR variant for behavioral tests
+SYNTH_CIFAR10_HARD = "SYNTH_CIFAR10_HARD"  # low-SNR CIFAR-shaped variant
 
-DATASETS = (MNIST, SYNTH_MNIST, SYNTH_MNIST_HARD)
+# The JAX CLI's -s choices, in its order.
+DATASETS = (MNIST, CIFAR10, CIFAR100, SYNTH_MNIST, SYNTH_CIFAR10,
+            SYNTH_MNIST_HARD, SYNTH_CIFAR10_HARD)
 
 # Per-dataset LR fading constants (reference main.py:144-149).
-FADING_RATES = {MNIST: 10000.0, SYNTH_MNIST: 10000.0,
-                SYNTH_MNIST_HARD: 10000.0}
+FADING_RATES = {CIFAR10: 2000.0, MNIST: 10000.0, CIFAR100: 1500.0,
+                SYNTH_MNIST: 10000.0, SYNTH_CIFAR10: 2000.0,
+                SYNTH_MNIST_HARD: 10000.0, SYNTH_CIFAR10_HARD: 2000.0}
+
+# The JAX CLI's --model choices.
+MODEL_NAMES = ("mnist_mlp", "mnist_cnn", "cifar10_cnn", "resnet20",
+               "wideresnet40_4")
+
+# Input-shape families for fail-fast model/dataset validation (a wrong
+# pairing otherwise surfaces as a reshape error deep inside the round).
+MODEL_FAMILY = {"mnist_mlp": "mnist", "mnist_cnn": "mnist",
+                "cifar10_cnn": "cifar", "resnet20": "cifar",
+                "wideresnet40_4": "cifar"}
+DATASET_FAMILY = {MNIST: "mnist", SYNTH_MNIST: "mnist",
+                  SYNTH_MNIST_HARD: "mnist", CIFAR10: "cifar",
+                  SYNTH_CIFAR10: "cifar", SYNTH_CIFAR10_HARD: "cifar",
+                  CIFAR100: "cifar"}
+
+
+def default_model_for(dataset: str) -> str:
+    return {
+        MNIST: "mnist_mlp", SYNTH_MNIST: "mnist_mlp",
+        CIFAR10: "cifar10_cnn", SYNTH_CIFAR10: "cifar10_cnn",
+        SYNTH_CIFAR10_HARD: "cifar10_cnn",
+        CIFAR100: "wideresnet40_4",
+    }.get(dataset, "mnist_mlp")
 
 DEFENSE_NAMES = ("NoDefense", "Krum", "TrimmedMean", "Bulyan", "Median")
 
@@ -162,6 +193,17 @@ class ExperimentConfig:
     partition: str = "iid"           # 'iid' | 'dirichlet'
     dirichlet_alpha: float = 0.5
 
+    # --- train-time augmentation ---------------------------------------
+    # Reference parity: only the CIFAR100 train pipeline augments
+    # (reflect-pad 4 + RandomCrop(32) + RandomHorizontalFlip, reference
+    # data_sets.py:157-166); None follows that rule, True/False overrides
+    # (data/augment.py).
+    data_augment: Optional[bool] = None
+    # The JAX package's jax.checkpoint of the client loss.  Its torch
+    # counterpart, torch.utils.checkpoint, cannot run under the port's
+    # vmap(grad(...)) client step, so only False is accepted.
+    remat: bool = False
+
     # --- faults & recovery (core/faults.py) -----------------------------
     # None (the default) is the zero-fault round.  A FaultConfig (or an
     # equivalent dict, coerced below) with any rate > 0 turns on fault
@@ -173,11 +215,22 @@ class ExperimentConfig:
     checkpoint_every: int = 0
 
     def __post_init__(self):
+        if self.model is not None and self.model in MODEL_FAMILY:
+            want = DATASET_FAMILY.get(self.dataset)
+            if want is not None and MODEL_FAMILY[self.model] != want:
+                raise ValueError(
+                    f"model {self.model!r} expects {MODEL_FAMILY[self.model]}"
+                    f"-shaped inputs but dataset {self.dataset!r} is "
+                    f"{want}-shaped")
         if self.dataset not in DATASETS:
             raise ValueError(f"Unknown dataset {self.dataset!r}")
-        if self.model is not None and self.model != "mnist_mlp":
+        if self.remat:
             raise ValueError(
-                f"model {self.model!r} is not ported yet (mnist_mlp only)")
+                "remat=True is not available in the port: "
+                "torch.utils.checkpoint registers saved-tensor hooks, and "
+                "torch.func.{grad, vjp, jacrev, hessian} don't yet support "
+                "saved tensor hooks, so it cannot run under the client "
+                "step's vmap(grad(...)); drop remat")
         if self.defense not in DEFENSE_NAMES:
             raise ValueError(
                 f"defense must be one of {DEFENSE_NAMES}, "
@@ -218,7 +271,7 @@ class ExperimentConfig:
         if self.fading_rate is None:
             self.fading_rate = FADING_RATES.get(self.dataset, 10000.0)
         if self.model is None:
-            self.model = "mnist_mlp"
+            self.model = default_model_for(self.dataset)
         if self.backdoor == "No":
             self.backdoor = False  # reference main.py:135-136
         elif isinstance(self.backdoor, str) and self.backdoor.isdigit():

@@ -29,6 +29,12 @@ round and rolls back to the state at the start of :meth:`run` instead of
 aborting, at most ``max_rollbacks`` times (the JAX engine's span-boundary
 check, core/engine.py:_diverged/_rollback, without auto-checkpoints).
 
+With ``cfg.data_augment`` (by default on for CIFAR100 alone, the
+reference's rule) the round's gathered batch is reflect-cropped and
+flipped before deliver (data/augment.py), bit for bit the JAX package's
+augmentation.  On the card every matmul and convolution runs in IEEE
+fp32: resolving a CUDA device turns TF32 off for both.
+
 Evaluation runs on the host's cadence, every ``test_step`` rounds and
 after the last one (reference main.py:73-95), and prints the reference's
 ``Test set:`` lines; under a backdoor each is followed by the attack's
@@ -47,7 +53,9 @@ import torch
 from attacking_federate_learning_tpu_torch.attacks.base import (
     Attack, AttackContext, NoAttack
 )
-from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+from attacking_federate_learning_tpu_torch.config import (
+    CIFAR100, ExperimentConfig
+)
 from attacking_federate_learning_tpu_torch.core import faults as F
 from attacking_federate_learning_tpu_torch.core.client import (
     make_client_grad_fn
@@ -55,6 +63,9 @@ from attacking_federate_learning_tpu_torch.core.client import (
 from attacking_federate_learning_tpu_torch.core.evaluate import make_eval_fn
 from attacking_federate_learning_tpu_torch.core.server import (
     ServerState, init_server_state, momentum_update
+)
+from attacking_federate_learning_tpu_torch.data.augment import (
+    reflect_crop_flip, round_augment_key
 )
 from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
 from attacking_federate_learning_tpu_torch.data.partition import (
@@ -69,7 +80,11 @@ from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; a CUDA device must exist.  There is
-    no silent fallback to the CPU: the caller asks for it by name."""
+    no silent fallback to the CPU: the caller asks for it by name.
+
+    On a CUDA device this also turns TF32 off for cuBLAS matmuls and
+    cuDNN convolutions (cuDNN's default is on), process-wide: the port
+    computes in IEEE fp32, whoever calls it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -78,6 +93,9 @@ def resolve_device(device) -> torch.device:
             f"CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev
 
 
@@ -103,6 +121,15 @@ class FederatedExperiment:
         self.dataset = dataset or load_dataset(
             cfg.dataset, cfg.data_dir, cfg.seed,
             synth_train=cfg.synth_train, synth_test=cfg.synth_test)
+        # Reference parity: augmentation is part of the CIFAR100 train
+        # pipeline only (reference data_sets.py:157-166); image-shaped
+        # data required.
+        self.augment = (cfg.data_augment if cfg.data_augment is not None
+                        else cfg.dataset == CIFAR100)
+        if self.augment and np.ndim(self.dataset.train_x) != 4:
+            raise ValueError(
+                f"data_augment needs (N, C, H, W) images, got "
+                f"shape {np.shape(self.dataset.train_x)} for {cfg.dataset}")
 
         defense = DEFENSES[cfg.defense]
         if cfg.defense == "Krum":
@@ -147,8 +174,10 @@ class FederatedExperiment:
 
     def compute_grads(self, t: int) -> torch.Tensor:
         """deliver: the (n, d) per-client gradients at the server weights
-        of round t."""
+        of round t (on the round-t augmented batch, with augmentation)."""
         xs, ys = self.gather_batches(t)
+        if self.augment:
+            xs = reflect_crop_flip(xs, round_augment_key(self.cfg.seed, t))
         return self._client_grads(self.state.weights, xs, ys).contiguous()
 
     def inject_and_quarantine(self, grads: torch.Tensor, t: int):

@@ -6,7 +6,10 @@ test-set size — a quirk of ``test_loss += loss.item()`` with
 mean-reduction batches (server.py:104-110) — plus the argmax-correct
 count.  The test set is padded to a whole number of batches with a
 validity mask; masked per-batch means match the reference's short final
-batch.
+batch.  A model with BatchNorm on batch statistics (``batch_stats``)
+normalizes each test batch by its own statistics, padding rows included,
+as the JAX package's scan over batches does; other models take all
+batches in one forward.
 """
 
 from __future__ import annotations
@@ -39,12 +42,17 @@ def masked_nll_metrics(model: nn.Module, flat: FlatParams,
     per-batch masked-mean NLLs, masked correct count), two scalar
     tensors: the reference's exact eval arithmetic (server.py:104-110),
     shared by server eval and the backdoor's ASR check
-    (backdoor.py:89-94).  All batches go through one forward."""
+    (backdoor.py:89-94).  All batches go through one forward, or one
+    forward each for a model on batch statistics."""
     params = flat.unflatten(flat_w)
     nb, b = by.shape
-    logp = functional_call(model, params,
-                           (bx.reshape((nb * b,) + bx.shape[2:]),))
-    logp = logp.reshape(nb, b, -1)
+    if getattr(model, "batch_stats", False):
+        logp = torch.stack([functional_call(model, params, (x,))
+                            for x in bx])
+    else:
+        logp = functional_call(model, params,
+                               (bx.reshape((nb * b,) + bx.shape[2:]),))
+        logp = logp.reshape(nb, b, -1)
     per_ex = -logp.gather(2, by[..., None]).squeeze(2)
     batch_mean = (per_ex * bm).sum(1) / torch.clamp(bm.sum(1), min=1.0)
     correct = ((logp.argmax(2) == by).float() * bm).sum()

@@ -4,3 +4,7 @@ from attacking_federate_learning_tpu_torch.models.base import (  # noqa: F401
 
 # Import for registry side effects.
 from attacking_federate_learning_tpu_torch.models import mnist  # noqa: F401
+from attacking_federate_learning_tpu_torch.models import mnist_cnn  # noqa: F401
+from attacking_federate_learning_tpu_torch.models import cifar10  # noqa: F401
+from attacking_federate_learning_tpu_torch.models import wideresnet  # noqa: F401
+from attacking_federate_learning_tpu_torch.models import resnet  # noqa: F401

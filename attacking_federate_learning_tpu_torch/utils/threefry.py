@@ -13,7 +13,11 @@ and a faulted JAX run of one config see the same faults.  A key is a
 - ``split(k, num)``  -> key i is ``threefry2x32(k, [0, i])``;
 - ``uniform(k, (m,))`` -> element i takes the 32 bits
   ``y0 ^ y1`` of ``threefry2x32(k, [0, i])``, keeps the top 23 as the
-  mantissa of a float in [1, 2) and subtracts 1.
+  mantissa of a float in [1, 2) and subtracts 1;
+- ``randint(k, shape, lo, hi)`` -> JAX's ``_randint`` for int32: 32
+  higher and 32 lower bits from the two halves of ``split(k)``, combined
+  modulo the span;
+- ``bernoulli(k, p, shape)`` -> ``uniform(k, shape) < p``.
 
 ``tests/test_torch_port_faults.py`` holds each against ``jax.random``
 bit for bit.
@@ -69,14 +73,44 @@ def split(k: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([y0, y1], axis=1)
 
 
-def uniform(k: np.ndarray, shape) -> np.ndarray:
-    """``jax.random.uniform(k, shape)``: float32 in [0, 1)."""
+def random_bits(k: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.bits(k, shape)`` for uint32: ``y0 ^ y1`` of
+    ``threefry2x32(k, [0, i])`` at each flat index i."""
     shape = tuple(shape)
     size = int(np.prod(shape, dtype=np.int64))
     y0, y1 = threefry2x32(k, np.zeros(size, np.uint32),
                           np.arange(size, dtype=np.uint32))
-    bits = (y0 ^ y1) >> np.uint32(9) | np.uint32(0x3F800000)
-    return (bits.view(np.float32) - np.float32(1.0)).reshape(shape)
+    return (y0 ^ y1).reshape(shape)
+
+
+def uniform(k: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.uniform(k, shape)``: float32 in [0, 1)."""
+    bits = random_bits(k, shape) >> np.uint32(9) | np.uint32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+def randint(k: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32): the
+    span's multiplier ``(2**16 mod span)**2 mod span`` and the offset
+    ``(hi mod span * mult + lo mod span) mod span``, all in uint32 (so
+    the product wraps as JAX's does)."""
+    lo32, hi32 = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    if not lo32 <= minval <= hi32 or not lo32 <= maxval <= hi32:
+        raise ValueError(f"randint bounds must fit int32, got {minval}, "
+                         f"{maxval}")
+    k1, k2 = split(k)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(maxval - minval if maxval > minval else 1)
+    mult = np.uint32(2 ** 16 % int(span))
+    mult = np.uint32((int(mult) * int(mult)) & 0xFFFFFFFF) % span
+    offset = (higher % span * mult + lower % span) % span
+    return (np.int64(minval) + offset.astype(np.int64)).astype(np.int32)
+
+
+def bernoulli(k: np.ndarray, p: float, shape) -> np.ndarray:
+    """``jax.random.bernoulli(k, p, shape)``: a float32 uniform below
+    ``p``."""
+    return uniform(k, shape) < np.float32(p)
 
 
 def normal(k: np.ndarray, shape) -> np.ndarray:

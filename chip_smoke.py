@@ -34,7 +34,11 @@ success):
                65, 128 and 129, the last on the radix route), each call's
                route printed, two launches bit-equal, and at n = 100 both
                routes run; the medians' two routes must agree bit for bit
-               there (the weighted median on dyadic weights).
+               there (the weighted median on dyadic weights).  All six
+               are also held at the model family's cohorts: (100,
+               117,706) (cifar10_cnn), (100, 272,282) (resnet20) and (10,
+               8,972,340) (WRN-40-4), each line with its route or Gram
+               plan.
                Kernel, plain and library times are CUDA-event medians;
                torch.profiler splits each wrapper's time at the main
                shapes (and the trimmed means' at n = 52, 80 and 1,000)
@@ -78,6 +82,32 @@ success):
                round-0 rows: the backdoor within twice the CPU craft's
                distance from an fp64 craft of the same inputs (the CPU
                test's band), gamma within one bisection step.
+7. models   -- the model family through run() at full width, B = 128,
+               lr 0.1, momentum 0.9, z = 1.5, with TF32 turned back on
+               before each run (the engine must turn it off):
+               cifar10_cnn on SYNTH_CIFAR10_HARD at CIFAR-10's 50,000 /
+               10,000 sizes, n = 100, rounds 0..20: ALIE at f = 24 under
+               all five defenses, the pattern backdoor under TrimmedMean,
+               and ALIE faulted (phase 5's faults, f = 10) under
+               TrimmedMean and Median, counts against the replay;
+               resnet20 on the same set under Krum and Median (f = 24);
+               mnist_cnn on phase 5's SYNTH_MNIST under Bulyan (f = 24);
+               WRN-40-4 on CIFAR100 (its synthetic stand-in,
+               CIFAR100_SYNTH, 50,000 / 10,000, 100 classes) at n = 10
+               with augmentation (the auto rule), f = 2 under
+               TrimmedMean, Krum and Median and f = 1 under Bulyan.  The
+               ResNets run rounds 0..5, evaluated at 0 and 5.  Each run
+               must launch its defense's kernels (and none it must avoid)
+               and give finite accuracies; it prints its median round
+               time, the deliver step's CUDA-event ms a round and its
+               peak allocated memory.  Per model, one deliver of 2
+               clients x 8 images on the card against the CPU (fp32 and
+               fp64, a relative-L2 band per client), whether two
+               identical full delivers gave the same bits (printed only),
+               one gradient of all n B images without the per-client
+               split (timed, as a reference), and one round under
+               torch.profiler: its kernel time over its wall time and
+               its top kernels.
 
 Output: one line per check, a {"kernels": [...]} JSON line, the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
@@ -86,6 +116,7 @@ The script imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -108,6 +139,13 @@ FAULTS_MAIN = dict(dropout=0.1, straggler=0.1, straggler_delay=2,
                    corrupt=0.05, corrupt_mode="nan")
 ROUNDS = 21                      # rounds 0..20, evaluated at 0, 10 and 20
 TEST_STEP = 10
+# The model family's cohorts (phase 7), for phase 3, as (n, d, f, Bulyan's
+# f): mnist_cnn, cifar10_cnn and resnet20 at n = 100, f = 24, and WRN-40-4
+# at n = 10, f = 2 (f = 1 under Bulyan, which needs n >= 4f + 3).
+D_MNIST_CNN, D_CNN, D_RESNET, D_WRN = 21_840, 117_706, 272_282, 8_972_340
+MODEL_SHAPES = ((N_MAIN, D_MNIST_CNN, F_MAIN, F_MAIN),
+                (N_MAIN, D_CNN, F_MAIN, F_MAIN),
+                (N_MAIN, D_RESNET, F_MAIN, F_MAIN), (10, D_WRN, 2, 1))
 
 # Published peaks (NVIDIA data sheets; dense fp32 outside the tensor cores,
 # device memory bandwidth), keyed by a substring of the card's name.  The
@@ -320,6 +358,16 @@ def route_of(plan):
         f"route=sort/{plan.padded}")
 
 
+def gram_plan_of(G):
+    from attacking_federate_learning_tpu_torch.ops.distances import (
+        device_gram_plan
+    )
+
+    p = device_gram_plan(G)
+    return (f"plan=tiles {p.tiles} x slices {p.slices} of {p.cps} chains, "
+            f"kgroups {p.kgroups}")
+
+
 def check_kernels(peaks, failures):
     """Phase 3.  Returns the kernels line's entries (main-path shapes)."""
     import torch
@@ -405,17 +453,20 @@ def check_kernels(peaks, failures):
                "band b", ok_s and ok_r and ok_w, ms, pms, None,
                4 * (n * d + 2 * n), gram_ops, entry_for)
 
-    cases = [  # (n, d, f, attack, seed, reps, main-path?)
-        (N_MAIN, D_MLP, F_MAIN, "alie", 1, 20, True),
-        (N_MAIN, D_MLP, F_MAIN, "none", 2, 5, False),
-        (13, 79, 3, "alie", 3, 5, False),
-        (129, D_MLP, 31, "alie", 8, 3, False),
-        (257, 4099, 60, "alie", 9, 3, False),
-        (1000, D_MLP, 240, "alie", 4, 3, False),
-    ] + [(1000, D_MLP, 240, "alie", seed, 1, False) for seed in (5, 6, 7)]
-    for n, d, f, attack, seed, reps, main in cases:
+    cases = [  # (n, d, f, attack, seed, reps, main-path?, Bulyan's f)
+        (N_MAIN, D_MLP, F_MAIN, "alie", 1, 20, True, F_MAIN),
+        (N_MAIN, D_MLP, F_MAIN, "none", 2, 5, False, None),
+        (13, 79, 3, "alie", 3, 5, False, None),
+        (129, D_MLP, 31, "alie", 8, 3, False, None),
+        (257, 4099, 60, "alie", 9, 3, False, None),
+        (1000, D_MLP, 240, "alie", 4, 3, False, None),
+    ] + [(1000, D_MLP, 240, "alie", seed, 1, False, None)
+         for seed in (5, 6, 7)] + [
+        (n, d, f, "alie", 30 + i, 5, False, fb)
+        for i, (n, d, f, fb) in enumerate(MODEL_SHAPES)]
+    for n, d, f, attack, seed, reps, main, fb in cases:
         G = torch.from_numpy(cohort(n, d, f, attack, seed)).cuda()
-        label = f"n={n} d={d} f={f} {attack} seed={seed}"
+        label = f"n={n} d={d} f={f} {attack} seed={seed} {gram_plan_of(G)}"
         # fp64 reference: squared distances from an fp64 Gram.
         G64 = G.double()
         sq64 = (G64 * G64).sum(1)
@@ -469,17 +520,18 @@ def check_kernels(peaks, failures):
                    f"seed={seed}", reps,
                    main and ("trimmed_mean.cu", "ops/pallas_defense.py:274",
                              [n, d]))
+        if fb is not None:
+            # Bulyan's trim tail, at every shape the main paths run it:
+            # set_size = n - 2f rows, keep set_size - 2f - 1.
+            Gb = G[:n - 2 * fb].contiguous()
+            check_trim(Gb, n - 4 * fb - 1,
+                       f"n={n - 2 * fb} d={d} k={n - 4 * fb - 1} {attack}",
+                       reps)
         if main:
             # The radix route (the route past 128 rows) at the same shape.
             select = TrimPlan("select", 0)
             check_trim(G, n - f - 1, f"n={n} d={d} k={n - f - 1} {attack}",
                        reps, plan=select)
-            # Bulyan's trim tail: set_size = n - 2f rows, keep
-            # set_size - 2f - 1.
-            Gb = G[:n - 2 * f].contiguous()
-            check_trim(Gb, n - 4 * f - 1,
-                       f"n={n - 2 * f} d={d} k={n - 4 * f - 1} {attack}",
-                       reps)
             kernel_split([lambda: pairwise_distances(G),
                           lambda: krum_scores(G, f),
                           lambda: trimmed_mean_of(G, n - f - 1),
@@ -532,9 +584,10 @@ def finite_rel(got, want):
     return rel_err((got[fin], want[fin])) if bool(fin.any()) else 0.0
 
 
-def drawn_mask(n, t):
-    """(n,) alive mask of round t of the faulted runs' schedule, drawn by
-    the port's fault_masks: dropped and corrupted rows are dead."""
+def drawn_mask(n, t, f=F_FAULT):
+    """(n,) alive mask of round t of the faulted runs' schedule with f
+    malicious rows, drawn by the port's fault_masks: dropped and corrupted
+    rows are dead."""
     from attacking_federate_learning_tpu_torch.config import (
         ExperimentConfig, FaultConfig
     )
@@ -543,7 +596,7 @@ def drawn_mask(n, t):
     )
 
     cfg = ExperimentConfig(faults=FaultConfig(**FAULTS_MAIN))
-    drop, _, corrupt = fault_masks(fault_key(cfg), t, n, F_FAULT, cfg.faults)
+    drop, _, corrupt = fault_masks(fault_key(cfg), t, n, f, cfg.faults)
     return ~(drop | corrupt)
 
 
@@ -758,6 +811,16 @@ def check_coord_kernels(report, failures):
         check_mmed(G, m, we, f"n={n_e} d=4099 weighted", 1)
         bit_equal("masked_median", f"n={n_e} all-true mask vs median",
                   masked_median(G, ones), med, failures)
+    # -- the model family's shapes (phase 7's cohorts) ----------------------
+    for i, (n_m, d_m, f_m, _) in enumerate(MODEL_SHAPES):
+        G = torch.from_numpy(cohort(n_m, d_m, f_m, "alie", 40 + i)).cuda()
+        m = torch.from_numpy(drawn_mask(n_m, i, f_m)).cuda()
+        label = f"n={n_m} d={d_m} f={f_m} alie"
+        check_median(G, label, 5)
+        check_mtrim(G, m, f_m + 1, None, label, 5)
+        check_mmed(G, m, None, f"{label} e={int(m.sum())}", 5)
+        del G
+        torch.cuda.empty_cache()
 
 
 def check_reference(failures):
@@ -840,13 +903,21 @@ def main_config(defense, mal_prop, faults=None, **kw):
                             faults=faults, **kw)
 
 
+def eval_rounds(cfg):
+    """The rounds run() evaluates: every test_step-th and the last."""
+    return sorted(set(range(0, cfg.epochs, cfg.test_step))
+                  | {cfg.epochs - 1})
+
+
 def drive(exp, kernels, banned, failures, label):
     """One full-width run of ``exp.run()`` on the card, launch counters
     zeroed just before and read just after.  Fails the phase when a
     kernel of ``kernels`` did not launch, one of ``banned`` did, the
-    weights or an accuracy is not finite, the evaluations are not rounds
-    0/10/20, or (with faults) the per-round fault counts differ from a
-    host replay of the schedule.  Returns what the caller prints."""
+    weights or an accuracy is not finite, the evaluations are not the
+    config's (0/10/20 in phases 5 and 6), or (with faults) the per-round
+    fault counts differ from a host replay of the schedule.  Also times
+    the deliver step of each round with CUDA events and reads the peak of
+    allocated device memory.  Returns what the caller prints."""
     import torch
 
     from attacking_federate_learning_tpu_torch.core.faults import (
@@ -855,7 +926,20 @@ def drive(exp, kernels, banned, failures, label):
     from attacking_federate_learning_tpu_torch.ops import _build
 
     fc = exp.faults
-    round_s = []
+    rounds, evals = exp.cfg.epochs, eval_rounds(exp.cfg)
+    round_s, deliver_ev = [], []
+    grads_fn = exp.compute_grads
+
+    def timed_grads(t, grads_fn=grads_fn, deliver_ev=deliver_ev):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = grads_fn(t)
+        b.record()
+        deliver_ev.append((a, b))
+        return out
+
+    exp.compute_grads = timed_grads
     inner = exp.run_round
 
     def timed_round(t, inner=inner, round_s=round_s):
@@ -882,9 +966,13 @@ def drive(exp, kernels, banned, failures, label):
 
         exp.inject_and_quarantine = timed_inject
     lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     result = exp.run(log=lines.append)
     launches = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     accs = dict(zip(result["epochs"], result["accuracies"]))
     finite = (all(math.isfinite(a) for a in accs.values())
               and bool(torch.isfinite(exp.state.weights).all()))
@@ -893,18 +981,21 @@ def drive(exp, kernels, banned, failures, label):
     out = {"result": result, "launches": launches, "accs": accs,
            "finite": finite, "lines": lines,
            "median_ms": 1e3 * statistics.median(round_s),
-           "per_round": {k: launches[k] / ROUNDS for k in launches
+           "deliver_ms": statistics.median(a.elapsed_time(b)
+                                           for a, b in deliver_ev),
+           "peak_gib": peak / 2 ** 30,
+           "per_round": {k: launches[k] / rounds for k in launches
                          if launches[k]},
            "acc_txt": "/".join(f"{accs[r]:.2f}" if r in accs else "none"
-                               for r in (0, 10, 20)),
+                               for r in evals),
            "counts_ok": True}
     if fc is not None:
         # The counts the engine reported, against a host replay of
         # the schedule (NaN corruption is quarantined with dropout).
         want, draw_s = [], []
-        for t in range(ROUNDS):
+        for t in range(rounds):
             a = time.perf_counter()
-            drop, stale, corrupt = fault_masks(exp._fault_key, t, N_MAIN,
+            drop, stale, corrupt = fault_masks(exp._fault_key, t, exp.n,
                                                exp.f, fc)
             draw_s.append(time.perf_counter() - a)
             want.append({"round": t,
@@ -913,15 +1004,15 @@ def drive(exp, kernels, banned, failures, label):
                          "injected_corrupt": int(corrupt.sum()),
                          "quarantined": int(drop.sum() + corrupt.sum())})
         out["counts_ok"] = result["faults"] == want
-        out["alive"] = [N_MAIN - r["quarantined"] for r in result["faults"]]
+        out["alive"] = [exp.n - r["quarantined"] for r in result["faults"]]
         out["seam_ms"] = 1e3 * statistics.median(seam_s)
         out["draw_ms"] = 1e3 * statistics.median(draw_s)
     if (missing or extra or not finite or not out["counts_ok"]
-            or sorted(accs) != [0, 10, 20]):
+            or sorted(accs) != evals):
         failures.append(f"{label}: missing launches {missing}, unexpected "
                         f"launches {extra}, finite={finite}, "
                         f"counts_ok={out['counts_ok']}, "
-                        f"evals={sorted(accs)}")
+                        f"evals={sorted(accs)} (want {evals})")
     return out
 
 
@@ -975,7 +1066,8 @@ def run_main_path(ds, failures):
                       f"alive_min/max={min(alive)}/{max(alive)} ")
         print(f"[main] {defense:11s} {kind:7s} f={exp.f} acc r0/r10/r20 = "
               f"{run['acc_txt']} % median_round_ms={run['median_ms']:.3f} "
-              f"{beside}launches={run['launches']} "
+              f"deliver_ms={run['deliver_ms']:.3f} {beside}"
+              f"launches={run['launches']} "
               f"per_round={run['per_round']} finite={run['finite']}",
               flush=True)
         for line in run["lines"]:
@@ -1000,6 +1092,27 @@ CLEAN_KERNELS = {
 # them from an fp64 craft of the same inputs) and min-max's gamma, one
 # bisection step apart at most (tests/test_torch_port_attacks.py).
 ROUNDING_BAND = 2.0
+
+
+def time_crafts(att):
+    """Wraps ``att.craft`` in CUDA events (the shadow training, its
+    early-out read and the clip); returns the list of (start, end) event
+    pairs it fills, one a round."""
+    import torch
+
+    craft_ev, craft = [], att.craft
+
+    def timed_craft(g, ctx):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = craft(g, ctx)
+        b.record()
+        craft_ev.append((a, b))
+        return out
+
+    att.craft = timed_craft
+    return craft_ev
 
 
 def backdoor_lines_ok(lines, asr):
@@ -1057,20 +1170,7 @@ def run_attack_path(ds, failures):
         label = f"attack {attack} -b {bd} {defense} {kind}"
         craft_ev, noise_s = [], []
         if attack == "backdoor":
-            # CUDA events around each craft: the shadow training, its
-            # early-out read and the clip.
-            craft = att.craft
-
-            def timed_craft(g, ctx, craft=craft, craft_ev=craft_ev):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = craft(g, ctx)
-                b.record()
-                craft_ev.append((a, b))
-                return out
-
-            att.craft = timed_craft
+            craft_ev = time_crafts(att)
         elif attack == "noise":
             noise = att.noise
 
@@ -1118,6 +1218,277 @@ def run_attack_path(ds, failures):
                 print(f"[attack]   {line.strip()}", flush=True)
     check_crafts_on_the_cpu(main_config("TrimmedMean", 0.24,
                                         backdoor="pattern"), ds, failures)
+    return totals
+
+
+# Phase 7's runs: (model, dataset, n, mal_prop, defense, attack, faulted,
+# rounds).  cifar10_cnn keeps the 21 rounds of phases 5 and 6; the
+# ResNets run rounds 0..5, evaluated at 0 and 5.
+MODEL_RUNS = (
+    [("cifar10_cnn", "SYNTH_CIFAR10_HARD", N_MAIN, 0.24, d, "alie", False,
+      ROUNDS) for d in CLEAN_KERNELS]
+    + [("cifar10_cnn", "SYNTH_CIFAR10_HARD", N_MAIN, 0.24, "TrimmedMean",
+        "backdoor", False, ROUNDS),
+       ("cifar10_cnn", "SYNTH_CIFAR10_HARD", N_MAIN, 0.1, "TrimmedMean",
+        "alie", True, ROUNDS),
+       ("cifar10_cnn", "SYNTH_CIFAR10_HARD", N_MAIN, 0.1, "Median", "alie",
+        True, ROUNDS),
+       ("resnet20", "SYNTH_CIFAR10_HARD", N_MAIN, 0.24, "Krum", "alie",
+        False, 6),
+       ("resnet20", "SYNTH_CIFAR10_HARD", N_MAIN, 0.24, "Median", "alie",
+        False, 6),
+       ("mnist_cnn", "SYNTH_MNIST", N_MAIN, 0.24, "Bulyan", "alie", False,
+        ROUNDS)]
+    + [("wideresnet40_4", "CIFAR100", 10, 0.2, d, "alie", False, 6)
+       for d in ("TrimmedMean", "Krum", "Median")]
+    + [("wideresnet40_4", "CIFAR100", 10, 0.1, "Bulyan", "alie", False, 6)])
+MODEL_DIMS = {"cifar10_cnn": D_CNN, "resnet20": D_RESNET,
+              "mnist_cnn": D_MNIST_CNN, "wideresnet40_4": D_WRN}
+FAULTED_KERNELS = {"TrimmedMean": ("masked_trimmed_mean",),
+                   "Median": ("masked_median",)}
+# The card-vs-CPU deliver check: two clients of the round-0 batch, their
+# log-probabilities and gradients held in relative L2 per client against
+# fp64 on the CPU (tests/test_torch_port_models.py).  The log-probs are
+# continuous in the rounding, so every model is held to 1e-5 there: a
+# TF32 convolution, off by about 1e-3, fails it.  A gradient is not: where
+# fp32 rounding puts a pre-ReLU activation on the other side of 0 than
+# fp64 does, ReLU's derivative jumps and every gradient upstream moves,
+# and with BatchNorm over a client's few images the whole channel's.  So
+# the BatchNorm models run at 2 images a client, where resnet20 holds the
+# 1e-5 gradient band; WRN-40-4, with several times resnet20's ReLU inputs,
+# flips one even there, on the CPU as on the card, and its gradients are
+# held to the tests' kink band, 2e-2.  The BatchNorm models' 8-image
+# gradient reading, and every model's log-probs with TF32 on, are printed
+# beside, not gated.
+DELIVER_IMAGES = {"cifar10_cnn": 8, "mnist_cnn": 8, "resnet20": 2,
+                  "wideresnet40_4": 2}
+LOGPROB_BAND = 1e-5
+GRAD_BAND = {"cifar10_cnn": 1e-5, "mnist_cnn": 1e-5, "resnet20": 1e-5,
+             "wideresnet40_4": 2e-2}
+
+
+def check_deliver(exp, model, failures):
+    """Two clients' log-probabilities and gradients from the round-0
+    batch, on the card and on the CPU in fp32 and fp64 (the same flat
+    weights; cuDNN on one side, the CPU's convolutions on the other);
+    whether two identical full delivers on the card gave the same bits
+    (printed, not gated: cuDNN's backward may be nondeterministic); and
+    the time of one gradient of the mean loss over the same n B images
+    without the per-client split (BatchNorm then normalizes over all of
+    them: a reference for the convolutions' cost, not the same
+    function)."""
+    import torch
+    from torch.func import functional_call, vmap
+
+    from attacking_federate_learning_tpu_torch.core.client import (
+        make_loss_fn
+    )
+
+    xs0, ys0 = exp.gather_batches(0)
+    if exp.augment:
+        from attacking_federate_learning_tpu_torch.data.augment import (
+            reflect_crop_flip, round_augment_key
+        )
+        xs0 = reflect_crop_flip(xs0, round_augment_key(exp.cfg.seed, 0))
+    w = exp.state.weights
+
+    def log_probs(w_, xs):
+        """Each client's log-probabilities, its BatchNorm over its own
+        images, as in deliver."""
+        params = exp.flat.unflatten(w_)
+        return vmap(lambda x: functional_call(exp.model, params, (x,)))(
+            xs).reshape(xs.shape[0], -1)
+
+    def readings(fn, images):
+        """Relative L2 per client (worst of two) of ``fn`` on the card and
+        on the CPU in fp32 against fp64, and of the card's against the
+        CPU's."""
+        xs, ys = xs0[:2, :images], ys0[:2, :images]
+        # The module's own parameters are never read: functional_call
+        # takes the flat weights' views, on the inputs' device.
+        card = fn(w, xs, ys).double().cpu()
+        cpu32 = fn(w.cpu(), xs.cpu(), ys.cpu()).double()
+        ref = fn(w.cpu().double(), xs.cpu().double(), ys.cpu())
+
+        def rel(a, b):
+            return float(((a - b).norm(dim=1) / ref.norm(dim=1)).max())
+        return rel(card, ref), rel(cpu32, ref), rel(card, cpu32)
+
+    images = DELIVER_IMAGES[model]
+    lp = readings(lambda w_, xs, ys: log_probs(w_, xs), images)
+    gr = readings(exp._client_grads, images)
+    band = GRAD_BAND[model]
+    ok = max(lp[:2]) <= LOGPROB_BAND and max(gr[:2]) <= band
+    # What the log-prob band would see of a TF32 deliver: the card's
+    # reading with TF32 on for this one call (printed, not gated).
+    backends = torch.backends
+    saved = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
+    backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = readings(lambda w_, xs, ys: log_probs(w_, xs), images)[0]
+    finally:
+        backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = saved
+    beside = (f"(not gated: TF32 log-probs card-fp64={tf32:.3e}, over the "
+              f"band={tf32 > LOGPROB_BAND}")
+    if images != 8:
+        b_card, b_cpu, b_both = readings(exp._client_grads, 8)
+        beside += (f"; gradients at 8 images card-fp64={b_card:.3e} "
+                   f"cpu-fp64={b_cpu:.3e} card-cpu={b_both:.3e}")
+    beside += ") "
+    del xs0, ys0
+    g0 = exp.compute_grads(1)
+    same = bool(torch.equal(g0, exp.compute_grads(1)))
+    del g0
+    xs, ys = exp.gather_batches(1)
+    xs, ys = xs.reshape((-1,) + xs.shape[2:]), ys.reshape(-1)
+    batched = torch.func.grad(make_loss_fn(exp.model, exp.flat))
+    batched_ms = time_ms(lambda: batched(w, xs, ys), 3)
+    print(f"[model] {model:14s} deliver card vs CPU, 2 clients x {images} "
+          f"images, rel_l2: log-probs card-fp64={lp[0]:.3e} cpu-fp64="
+          f"{lp[1]:.3e} card-cpu={lp[2]:.3e} band={LOGPROB_BAND:.0e}; "
+          f"gradients card-fp64={gr[0]:.3e} cpu-fp64={gr[1]:.3e} "
+          f"card-cpu={gr[2]:.3e} band={band:.0e}; ok={ok} {beside}"
+          f"two_full_delivers_bit_equal={same} "
+          f"one_grad_of_all_{xs.shape[0]}_images_ms={batched_ms:.3f}",
+          flush=True)
+    if not ok:
+        failures.append(f"{model} deliver card vs CPU at {images} images: "
+                        f"log-probs {lp}, gradients {gr}")
+
+
+def profile_round(exp, model, top=5):
+    """One more round of ``exp`` under torch.profiler: its kernel time
+    summed over the round's wall time (the profiler's own host cost in
+    the wall time) and the kernels that took the most of it.  Under 1 the
+    device idled for at least the rest; cuDNN may run kernels
+    concurrently, so over 1 says they overlapped, not that the device
+    never idled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a = time.perf_counter()
+        exp.run_round(int(exp.state.round))
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - a)
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_time_total > 0),
+                  key=lambda e: -e.device_time_total)
+    if not rows:
+        print(f"[model] {model:14s} profile: not measured, the profiler saw "
+              f"no device time", flush=True)
+        return
+    busy = sum(e.device_time_total for e in rows)
+    print(f"[model] {model:14s} profile of one round: wall_ms="
+          f"{wall_us / 1e3:.3f} kernel_ms={busy / 1e3:.3f} kernel_over_wall="
+          f"{busy / wall_us:.3f} kernels={len(rows)} launches="
+          f"{sum(e.count for e in rows)}", flush=True)
+    for e in rows[:top]:
+        print(f"[model]   {e.device_time_total / busy:6.1%} "
+              f"calls={e.count:5d} {e.key[:90]}", flush=True)
+
+
+def run_model_path(ds_mnist, failures):
+    """Phase 7: the model family through run() at full width.  Returns
+    launches per kernel summed over the runs."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import make_attacker
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    sets = {"SYNTH_MNIST": ds_mnist}
+    checked = set()
+    for (model, dataset, n, mal_prop, defense, attack, faulted,
+         rounds) in MODEL_RUNS:
+        if dataset not in sets:
+            t0 = time.perf_counter()
+            sets[dataset] = load_dataset(dataset, seed=0, synth_train=50_000,
+                                         synth_test=10_000)
+            ds = sets[dataset]
+            print(f"[model] {dataset} -> {ds.name} {len(ds.train_y)}/"
+                  f"{len(ds.test_y)} {ds.train_x.shape[1:]} "
+                  f"{ds.num_classes} classes made in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ds = sets[dataset]
+        cfg = ExperimentConfig(
+            dataset=dataset, model=model, users_count=n, mal_prop=mal_prop,
+            batch_size=128, epochs=rounds, num_std=1.5, learning_rate=0.1,
+            momentum=0.9, defense=defense,
+            test_step=TEST_STEP if rounds == ROUNDS else rounds - 1,
+            synth_train=50_000, synth_test=10_000,
+            backdoor="pattern" if attack == "backdoor" else False,
+            faults=FaultConfig(**FAULTS_MAIN) if faulted else None)
+        # The engine, not its caller, keeps the card in IEEE fp32.
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        exp = FederatedExperiment(cfg, make_attacker(cfg, ds, name=attack,
+                                                     device="cuda"),
+                                  ds, device="cuda")
+        fp32 = not (torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+        if not fp32 or exp.flat.dim != MODEL_DIMS[model] or (
+                exp.augment != (dataset == C.CIFAR100)):
+            failures.append(f"{model}: fp32={fp32} d={exp.flat.dim} "
+                            f"augment={exp.augment}")
+        kernels, banned = (FAULTED_KERNELS[defense], ()) if faulted else (
+            CLEAN_KERNELS[defense])
+        kind = "faulted" if faulted else "clean"
+        label = f"model {model} {attack} {defense} {kind}"
+        if attack == "backdoor":
+            craft_ev = time_crafts(exp.attacker)
+        run = drive(exp, kernels, banned, failures, label)
+        for name, count in run["launches"].items():
+            totals[name] += count
+        beside = ""
+        if attack == "backdoor":
+            torch.cuda.synchronize()
+            asr = run["result"]["asr"]
+            craft_ms = [a.elapsed_time(b) for a, b in craft_ev]
+            beside = (f"asr {'/'.join(f'{a:.2f}' for a in asr)} % "
+                      f"craft_ms median/max={statistics.median(craft_ms):.3f}"
+                      f"/{max(craft_ms):.3f} "
+                      f"poison={int(exp.attacker.poison_count)} "
+                      f"early_out_rounds={exp.attacker.early_outs} ")
+            if not backdoor_lines_ok(run["lines"], asr):
+                failures.append(f"{label}: BEFORE/Test set/POST lines "
+                                f"{run['lines']}")
+        if faulted:
+            beside += (f"fault_counts_match_replay={run['counts_ok']} "
+                       f"alive_min/max={min(run['alive'])}/"
+                       f"{max(run['alive'])} ")
+        evals = "/".join(f"r{r}" for r in eval_rounds(cfg))
+        print(f"[model] {model:14s} {dataset:18s} n={n} f={exp.f} "
+              f"{attack:8s} {defense:11s} {kind:7s} d={exp.flat.dim} "
+              f"augment={exp.augment} acc {evals} = {run['acc_txt']} % "
+              f"median_round_ms={run['median_ms']:.3f} "
+              f"deliver_ms={run['deliver_ms']:.3f} "
+              f"peak_GiB={run['peak_gib']:.2f} {beside}"
+              f"launches={run['launches']} per_round={run['per_round']} "
+              f"finite={run['finite']}", flush=True)
+        for line in run["lines"]:
+            if line.startswith(("Test set", "##Test", "\nBEFORE")):
+                print(f"[model]   {line.strip()}", flush=True)
+        if model not in checked:
+            checked.add(model)
+            check_deliver(exp, model, failures)
+            profile_round(exp, model)
+        # The timing wrappers hold the experiment in a reference cycle:
+        # collect it, so that the next run's peak is its own.
+        del exp, run
+        gc.collect()
+        torch.cuda.empty_cache()
     return totals
 
 
@@ -1292,8 +1663,11 @@ def main() -> int:
     totals = run_main_path(ds, failures)
     # -- 6. attack layer -----------------------------------------------------
     attack_totals = run_attack_path(ds, failures)
+    # -- 7. the model family -------------------------------------------------
+    model_totals = run_model_path(ds, failures)
     for name, e in entries.items():
-        e["launches"] = totals[name] + attack_totals[name]
+        e["launches"] = (totals[name] + attack_totals[name]
+                         + model_totals[name])
 
     if failures:
         for msg in failures:
