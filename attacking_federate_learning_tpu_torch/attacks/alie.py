@@ -12,7 +12,7 @@ from __future__ import annotations
 from statistics import NormalDist
 
 from attacking_federate_learning_tpu_torch.attacks.base import (
-    Attack, cohort_stats
+    Attack, cohort_stats, wire_scalar
 )
 
 
@@ -41,4 +41,4 @@ class DriftAttack(Attack):
 
     def craft(self, mal_grads, ctx=None):
         mean, stdev = cohort_stats(mal_grads)
-        return mean - self.num_std * stdev
+        return mean - wire_scalar(self.num_std, stdev) * stdev

@@ -47,7 +47,7 @@ import torch
 from torch.func import functional_call, grad
 
 from attacking_federate_learning_tpu_torch.attacks.base import (
-    Attack, cohort_stats
+    Attack, cohort_stats, wire_scalar
 )
 from attacking_federate_learning_tpu_torch.core.engine import resolve_device
 from attacking_federate_learning_tpu_torch.core.evaluate import (
@@ -153,6 +153,13 @@ class BackdoorAttack(Attack):
 
     def craft(self, mal_grads, ctx):
         mean, stdev = cohort_stats(mal_grads)
+        # The clip bounds stay in the wire's dtype (jnp's bf16 ops); the
+        # shadow arithmetic is f32, as the f32 weights and lr promote a
+        # bf16 mean in JAX (torch keeps a 0-d tensor's type out of it).
+        z = wire_scalar(self.num_std, stdev)
+        lo = mean - z * stdev
+        hi = mean + z * stdev
+        mean = mean.float()
         lr = ctx.learning_rate
         # The JAX package's operation order; folding it into
         # (start - mal_params)/lr - mean would round differently.
@@ -160,8 +167,7 @@ class BackdoorAttack(Attack):
         mal_params = self.train_shadow(start)
         new_params = mal_params + lr * mean
         new_grads = (start - new_params) / lr
-        out = torch.clamp(new_grads, mean - self.num_std * stdev,
-                          mean + self.num_std * stdev)
+        out = torch.clamp(new_grads, lo.float(), hi.float())
         if not bool(torch.isfinite(out).all()):
             raise FloatingPointError("Got nan in backdoor shadow training")
         return out

@@ -30,10 +30,23 @@ class AttackContext(NamedTuple):
 
 def cohort_stats(mal_grads: torch.Tensor):
     """Mean and population std over the malicious cohort (reference
-    malicious.py:18-19: np.var ** 0.5, i.e. ddof=0)."""
-    mean = mal_grads.mean(0)
-    stdev = torch.sqrt(mal_grads.var(0, correction=0))
+    malicious.py:18-19: np.var ** 0.5, i.e. ddof=0), in the wire's dtype.
+    On a bf16 wire they round where ``jnp.mean``, ``jnp.var`` and
+    ``jnp.sqrt`` do: the mean and the variance computed in f32 and
+    rounded to bf16 once, the square root of the rounded variance
+    rounded again."""
+    dtype = mal_grads.dtype
+    G = mal_grads.float()
+    mean = G.mean(0).to(dtype)
+    stdev = torch.sqrt(G.var(0, correction=0).to(dtype))
     return mean, stdev
+
+
+def wire_scalar(x: float, like: torch.Tensor) -> float:
+    """``x`` rounded to ``like``'s dtype, as jnp rounds a Python scalar to
+    a bf16 array's dtype before the op; torch would keep it in f32 for a
+    bf16 op.  On an f32 wire it is x in f32, what torch uses anyway."""
+    return float(torch.tensor(x, dtype=like.dtype))
 
 
 class Attack:
@@ -52,8 +65,9 @@ class Attack:
     def apply(self, users_grads: torch.Tensor, corrupted_count: int,
               ctx: Optional[AttackContext] = None) -> torch.Tensor:
         """Returns users_grads with the first f rows replaced (in place:
-        the round owns the matrix).  No-op when f == 0 (reference
-        malicious.py:11) or num_std == 0 (malicious.py:21)."""
+        the round owns the matrix; the crafted row is rounded to its
+        dtype).  No-op when f == 0 (reference malicious.py:11) or num_std
+        == 0 (malicious.py:21)."""
         f = corrupted_count
         if f == 0 or self.num_std == 0:
             return users_grads

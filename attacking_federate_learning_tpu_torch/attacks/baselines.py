@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from attacking_federate_learning_tpu_torch.attacks.base import (
-    Attack, cohort_stats
+    Attack, cohort_stats, wire_scalar
 )
 from attacking_federate_learning_tpu_torch.utils import threefry
 
@@ -23,7 +23,7 @@ class SignFlipAttack(Attack):
 
     def craft(self, mal_grads, ctx=None):
         mean, _ = cohort_stats(mal_grads)
-        return -self.num_std * mean
+        return wire_scalar(-self.num_std, mean) * mean
 
 
 class GaussianNoiseAttack(Attack):
@@ -40,13 +40,17 @@ class GaussianNoiseAttack(Attack):
         super().__init__(num_std)
         self._key = threefry.key(seed)
 
-    def noise(self, rnd: int, d: int) -> torch.Tensor:
-        """The round-``rnd`` (d,) f32 noise draw, on the host."""
-        return torch.from_numpy(
-            threefry.normal(threefry.fold_in(self._key, rnd), (d,)))
+    def noise(self, rnd: int, d: int,
+              dtype=torch.float32) -> torch.Tensor:
+        """The round-``rnd`` (d,) noise draw in ``dtype`` (f32 or bf16,
+        the wire's: JAX draws it in the mean's dtype), on the host."""
+        k = threefry.fold_in(self._key, rnd)
+        if dtype == torch.bfloat16:
+            return threefry.normal_bf16(k, (d,))
+        return torch.from_numpy(threefry.normal(k, (d,)))
 
     def craft(self, mal_grads, ctx=None):
         mean, stdev = cohort_stats(mal_grads)
         rnd = ctx.round if ctx is not None else 0
-        noise = self.noise(rnd, mean.shape[0]).to(mean.device)
-        return mean + self.num_std * stdev * noise
+        noise = self.noise(rnd, mean.shape[0], mean.dtype).to(mean.device)
+        return mean + wire_scalar(self.num_std, stdev) * stdev * noise

@@ -3,13 +3,20 @@
 The flat flags of the JAX package's CLI, with the reference driver's
 short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
 -e 300), ``--attack`` / ``--attack-direction``, ``--model`` and
-``--augment``, the ``--fault-*`` flags of the fault model, plus
-``--device``.  It prints the same ``Test set: [ N]
-... Accuracy: x/N`` lines, and under a backdoor (``-b``) the ``BEFORE:``
-line and a ``##Test malicious net: [POST]`` line after each evaluation.
+``--augment``, the ``--fault-*`` flags of the fault model, the round's
+knobs (``--participation``, ``--local-steps``, ``--partition`` with
+``--dirichlet-alpha`` and ``--style-strength``, ``--krum-scoring-method``,
+``--bulyan-batch-select``, ``--distance-dtype``,
+``--server-uses-faded-lr``), plus ``--device``.  As in the JAX package,
+``grad_dtype`` and ``collect_metadata`` are config fields with no flag.
+It prints the same ``Test set: [ N] ... Accuracy: x/N`` lines, and
+under a backdoor (``-b``) the ``BEFORE:`` line and a ``##Test malicious
+net: [POST]`` line after each evaluation.
 The run is on the card unless ``--device cpu`` asks for the CPU.
 ``--attack backdoor_timed`` needs async rounds, which the port does not
-have yet: it is refused.
+have yet: it is refused, and so is ``--krum-scoring-method`` other than
+'sort' (the JAX package's XLA-suite evaluators, which the port's Pallas
+suite never reaches).
 
 Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 100 -m 0.24
@@ -76,6 +83,44 @@ def build_parser() -> argparse.ArgumentParser:
                         "shifts; 'auto' computes the ALIE paper's z_max "
                         "from (n, f)")
     p.add_argument("-e", "--epochs", default=300, type=int)
+    p.add_argument("--participation", default=1.0, type=float,
+                   help="fraction of clients sampled each round (static "
+                        "cohort sizes, random identities; 1.0 = the "
+                        "reference's everyone-every-round)")
+    p.add_argument("--local-steps", default=1, type=int,
+                   help="FedAvg-style local SGD steps per round (1 = the "
+                        "reference's FedSGD; k>1 reports (w0-w_k)/lr as "
+                        "the wire gradient)")
+    p.add_argument("--partition", default="iid",
+                   choices=["iid", "dirichlet", "femnist_style"])
+    p.add_argument("--dirichlet-alpha", default=0.5, type=float)
+    p.add_argument("--style-strength", default=0.25, type=float,
+                   help="femnist_style per-client contrast/brightness "
+                        "spread (data/partition.py client_style_params)")
+    p.add_argument("--krum-scoring-method", default="sort",
+                   choices=["sort", "topk", "auto"],
+                   help="Krum/Bulyan score evaluation: cancellation-free "
+                        "'sort' (default), complement-'topk' (cheaper at "
+                        "large n / small f; a runtime guard falls back to "
+                        "sort when the subtraction would cancel), or "
+                        "'auto' to pick by shape")
+    p.add_argument("--bulyan-batch-select",
+                   default=ExperimentConfig.bulyan_batch_select, type=int,
+                   help="Bulyan selection batch size: q>1 selects the q "
+                        "lowest-scoring clients per trip against the same "
+                        "scores (a flagged relaxation of the reference's "
+                        "sequential selection for the 10k regime); 1 = "
+                        "reference-exact")
+    p.add_argument("--distance-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="dtype for the Krum/Bulyan distance computation "
+                        "only (training stays f32): bfloat16 rides the "
+                        "MXU at native throughput with f32 accumulation "
+                        "— a flagged deviation for the 10k regime")
+    p.add_argument("--server-uses-faded-lr", action="store_true",
+                   help="paper-faithful mode: faded lr on the server step "
+                        "(the reference uses the constant base lr, "
+                        "server.py:89)")
     p.add_argument("-b", "--backdoor", default="No",
                    choices=["No", "pattern", "1", "2", "3"],
                    help="no backdoor, pattern trigger, or single-sample "
@@ -157,6 +202,13 @@ def config_from_args(args) -> ExperimentConfig:
         dataset=args.dataset, model=args.model,
         learning_rate=args.learning_rate,
         batch_size=args.batch_size, epochs=args.epochs,
+        local_steps=args.local_steps, participation=args.participation,
+        partition=args.partition, dirichlet_alpha=args.dirichlet_alpha,
+        style_strength=args.style_strength,
+        krum_scoring_method=args.krum_scoring_method,
+        distance_dtype=args.distance_dtype,
+        bulyan_batch_select=args.bulyan_batch_select,
+        server_uses_faded_lr=args.server_uses_faded_lr,
         num_std=args.num_std, defense=args.defense, test_step=args.test_step,
         data_dir=args.data_dir, seed=args.seed,
         synth_train=args.synth_train, synth_test=args.synth_test,

@@ -1,7 +1,8 @@
 """Experiment configuration of the flat FedSGD round.
 
 A flat-only subset of the JAX package's ``ExperimentConfig``: the fields
-the flat, synchronous, full-participation round reads, with the same
+the flat, synchronous round reads, partial participation, local steps,
+the bf16 wire and the selection knobs among them, with the same
 defaults, the same derived values (``corrupted_count``, ``'auto'`` z,
 per-dataset fading rate, the dataset's default model, the ``-b``
 coercion) and the same validation messages (the model/dataset family
@@ -151,6 +152,13 @@ class ExperimentConfig:
     momentum: float = 0.9            # reference main.py:138
     batch_size: int = 128            # reference main.py:121
     epochs: int = 300                # rounds, reference main.py:124
+    # Local SGD steps per client per round (beyond-reference: the
+    # reference is strictly FedSGD — its client optimizer never steps,
+    # user.py:80).  k > 1 clients run k local steps at the faded lr and
+    # report (w0 - w_k) divided by the lr the SERVER will multiply back
+    # in, so the FedAvg-as-FedSGD reduction is exact
+    # (core/client.py:make_client_update_fn).
+    local_steps: int = 1
 
     # --- attack ---------------------------------------------------------
     # ALIE z (reference main.py:109); 'auto' resolves at construction
@@ -181,6 +189,24 @@ class ExperimentConfig:
     # Krum scores sum the n-f smallest distances (reference
     # defences.py:26) unless this selects the paper's n-f-2.
     krum_paper_scoring: bool = False
+    # The JAX package's Krum score evaluation of its XLA suite ('sort',
+    # 'topk' or 'auto').  The port runs its Pallas suite, where unmasked
+    # Krum scores through the fused kernel and masked Krum and Bulyan by
+    # sort, so only 'sort' is accepted; the field lets JAX configs load.
+    krum_scoring_method: str = "sort"
+    # Distance computation dtype: 'bfloat16' casts the (n, d) operand for
+    # the Krum/Bulyan distances only (the kernels' bf16 route: a bf16
+    # Gram accumulated in f32, f32 norms); training numerics are
+    # untouched.  A flagged deviation; 'float32' is reference parity.
+    distance_dtype: str = "float32"
+    # Bulyan selection batching: q > 1 selects the q lowest-scoring
+    # clients per trip against the same scores (ceil(set_size/q) trips),
+    # a flagged relaxation of the reference's sequential selection.
+    bulyan_batch_select: int = 1
+    # Server momentum step on the faded lr instead of the reference's
+    # constant base lr (server.py:89; the faded lr reaches only the
+    # clients and the attacker there).
+    server_uses_faded_lr: bool = False
 
     # --- evaluation -----------------------------------------------------
     test_step: int = 5               # reference main.py:58
@@ -190,8 +216,24 @@ class ExperimentConfig:
     seed: int = 0
     synth_train: int = 10000
     synth_test: int = 2000
-    partition: str = "iid"           # 'iid' | 'dirichlet'
+    # 'iid' (DistributedSampler-equivalent, reference user.py:49-54) |
+    # 'dirichlet' (label skew) | 'femnist_style' (per-client affine
+    # input transform over IID shards; data/partition.py
+    # client_style_params).
+    partition: str = "iid"
     dirichlet_alpha: float = 0.5
+    style_strength: float = 0.25     # 'femnist_style' contrast/brightness
+                                     # spread; 0 degenerates to IID
+
+    # --- per-round client participation (beyond-reference) -------------
+    # Fraction of clients sampled each round.  Cohort sizes are STATIC —
+    # round(p*f) malicious + the honest remainder — with random
+    # identities per round (core/engine.py:participants), the JAX
+    # package's draw bit for bit.
+    participation: float = 1.0
+    # Dtype of the (m, d) gradient matrix on the wire: 'bfloat16' halves
+    # its bytes at large n (the distance kernels take it as bf16).
+    grad_dtype: str = "float32"
 
     # --- train-time augmentation ---------------------------------------
     # Reference parity: only the CIFAR100 train pipeline augments
@@ -203,6 +245,10 @@ class ExperimentConfig:
     # counterpart, torch.utils.checkpoint, cannot run under the port's
     # vmap(grad(...)) client step, so only False is accepted.
     remat: bool = False
+
+    # --- metadata subsystem (reference C12, vestigial there) ------------
+    collect_metadata: bool = False
+    metadata_fraction: float = 0.11  # reference user.py:65 test_size=0.11
 
     # --- faults & recovery (core/faults.py) -----------------------------
     # None (the default) is the zero-fault round.  A FaultConfig (or an
@@ -235,8 +281,38 @@ class ExperimentConfig:
             raise ValueError(
                 f"defense must be one of {DEFENSE_NAMES}, "
                 f"got {self.defense!r}")
-        if self.partition not in ("iid", "dirichlet"):
+        if self.partition not in ("iid", "dirichlet", "femnist_style"):
             raise ValueError(f"Unknown partition {self.partition!r}")
+        if self.krum_scoring_method not in ("sort", "topk", "auto"):
+            raise ValueError(
+                f"krum_scoring_method must be 'sort', 'topk' or 'auto', "
+                f"got {self.krum_scoring_method!r}")
+        if self.krum_scoring_method != "sort":
+            raise ValueError(
+                f"krum_scoring_method={self.krum_scoring_method!r} is not "
+                f"ported: the port runs the Pallas defense suite, where "
+                f"unmasked Krum scores through the fused kernel and masked "
+                f"Krum and Bulyan by sort, so the method would have no "
+                f"effect; drop --krum-scoring-method")
+        if self.distance_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"distance_dtype must be 'float32' or 'bfloat16', "
+                f"got {self.distance_dtype!r}")
+        if self.grad_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"grad_dtype must be 'float32' or 'bfloat16', "
+                f"got {self.grad_dtype!r}")
+        if self.bulyan_batch_select < 1:
+            raise ValueError(
+                f"bulyan_batch_select must be >= 1, got "
+                f"{self.bulyan_batch_select}")
+        if self.local_steps < 1:
+            raise ValueError(
+                f"local_steps must be >= 1, got {self.local_steps}")
+        if not (0.0 < self.participation <= 1.0):
+            raise ValueError(
+                f"participation must be in (0, 1], got "
+                f"{self.participation}")
         if self.backdoor and not self.backdoor_fused:
             raise ValueError(
                 "--backdoor-staged aggregates eagerly on the host "

@@ -8,8 +8,8 @@ call:
     grads = vmap(grad(loss))(broadcast_weights, client_xs, client_ys)
 
 over stacked per-client batches, giving the (n, d) flat gradient matrix
-directly in wire order.  Only the reference's FedSGD regime (one
-minibatch gradient per client per round) is in this slice.
+directly in wire order.  :func:`make_client_update_fn` adds the JAX
+package's FedAvg-style local steps on top (beyond-reference).
 """
 
 from __future__ import annotations
@@ -43,3 +43,37 @@ def make_client_grad_fn(model: nn.Module, flat: FlatParams):
         return clients_grads(flat_w, xs, ys)
 
     return fn
+
+
+def make_client_update_fn(model: nn.Module, flat: FlatParams,
+                          local_steps: int = 1):
+    """FedAvg-style local training (beyond-reference: the reference is
+    strictly FedSGD, user.py:80), the JAX package's
+    ``make_client_update_fn``.
+
+    With ``local_steps == 1`` this is :func:`make_client_grad_fn` (the
+    learning rates unused).  With k > 1 each client takes k plain SGD
+    steps ``w <- w - lr_train * grad(w)`` at the dispatched (faded)
+    ``lr_train`` and reports the pseudo-gradient ``(w0 - w_k) /
+    lr_report``, ``lr_report`` being the lr the server multiplies back
+    in.
+
+    Signature: (d,), (n, k, B, ...), (n, k, B), lr_train, lr_report ->
+    (n, d); the lrs are f32 0-d tensors or Python floats."""
+    if local_steps == 1:
+        base = make_client_grad_fn(model, flat)
+
+        def clients_update(flat_w, xs, ys, lr_train, lr_report):
+            return base(flat_w, xs[:, 0], ys[:, 0])
+
+        return clients_update
+
+    grad_fn = grad(make_loss_fn(model, flat))
+
+    def one_client(flat_w, xs, ys, lr_train, lr_report):
+        w = flat_w
+        for s in range(local_steps):
+            w = w - lr_train * grad_fn(w, xs[s], ys[s])
+        return (flat_w - w) / lr_report
+
+    return vmap(one_client, in_dims=(None, 0, 0, None, None))

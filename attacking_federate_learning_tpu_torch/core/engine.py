@@ -3,13 +3,28 @@
 The reference's round is four host-side phases over one process
 (reference main.py:64-71).  Here a round is
 
-    grads = vmap(grad(loss))(w, batches)      # deliver: all clients at once
-    grads = attack.apply(grads, f, ctx)       # craft: first-f-rows overwrite
+    part  = participants(t)                   # the cohort: m of n clients
+    grads = vmap(grad(loss))(w, batches)      # deliver: the cohort at once
+    grads = grads.to(grad_dtype)              # the wire
+    grads = attack.apply(grads, m_mal, ctx)   # craft: first-rows overwrite
     grads, mask = inject_and_quarantine(...)  # only with cfg.faults
-    agg   = defense(grads, n, f[, mask])      # tier-1 aggregate
+    agg   = defense(grads, m, m_mal[, mask])  # tier-1 aggregate
     state = momentum_update(state, agg)       # apply
 
-on one device.  ``ctx`` is the round's :class:`AttackContext`: the
+on one device.  Under ``cfg.participation < 1`` the cohort is m =
+round(p n) clients, m_mal = round(p f) of them malicious (rows [0,
+m_mal)), drawn each round as the JAX package draws them
+(core/population.py:legacy_cohort); at p = 1 it is every client, m = n.
+With ``cfg.local_steps`` k > 1 each client takes k SGD steps at the faded
+lr and reports the pseudo-gradient (core/client.py); under
+``cfg.partition='femnist_style'`` each client sees its batch through its
+own affine transform.  ``cfg.grad_dtype='bfloat16'`` puts the wire in
+bf16 after deliver: the attack crafts on it, the distance kernels take it
+as bf16 (their bf16 route) and the coordinate-wise kernels widen it to
+f32, as in the JAX package's Pallas suite; the aggregate is widened to
+f32 before the server step.
+
+``ctx`` is the round's :class:`AttackContext`: the
 weights broadcast this round, the faded learning rate (as an f32 device
 scalar) and the round index; the server step itself stays on the
 constant base learning rate.  Which implementation a defense runs
@@ -58,7 +73,7 @@ from attacking_federate_learning_tpu_torch.config import (
 )
 from attacking_federate_learning_tpu_torch.core import faults as F
 from attacking_federate_learning_tpu_torch.core.client import (
-    make_client_grad_fn
+    make_client_update_fn
 )
 from attacking_federate_learning_tpu_torch.core.evaluate import make_eval_fn
 from attacking_federate_learning_tpu_torch.core.server import (
@@ -68,14 +83,20 @@ from attacking_federate_learning_tpu_torch.data.augment import (
     reflect_crop_flip, round_augment_key
 )
 from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
+from attacking_federate_learning_tpu_torch.core.population import (
+    legacy_cohort
+)
 from attacking_federate_learning_tpu_torch.data.partition import (
-    make_shards, round_batch_indices
+    client_style_params, make_shards, round_batch_indices
 )
 from attacking_federate_learning_tpu_torch.defenses import (
     DEFENSES, check_defense_args
 )
 from attacking_federate_learning_tpu_torch.models.base import get_model
+from attacking_federate_learning_tpu_torch.utils import threefry
 from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device) -> torch.device:
@@ -99,6 +120,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def faded_lr(cfg: ExperimentConfig, t: int) -> float:
+    """The round-t faded lr as the JAX round computes it with a traced
+    round index: the Python product ``base_lr * fading_rate`` divided in
+    float32 by ``t + fading_rate`` (reference server.py:50-52); an f32
+    value."""
+    return float(np.float32(cfg.learning_rate * cfg.fading_rate)
+                 / (np.float32(t) + np.float32(cfg.fading_rate)))
+
+
 class FederatedExperiment:
     """The flat FedSGD experiment of ``cfg`` on ``device`` (default
     ``cuda``).  ``dataset`` defaults to ``load_dataset`` of the config;
@@ -112,12 +142,34 @@ class FederatedExperiment:
         self.attacker = attacker or NoAttack()
         self.n = cfg.users_count
         self.f = cfg.corrupted_count
-        check_defense_args(cfg.defense, self.n, self.f)
+        # The round cohort (cfg.participation): static sizes, round(p f)
+        # malicious and the honest remainder, random identities a round.
+        if cfg.participation < 1.0:
+            self.m = max(1, int(round(cfg.participation * self.n)))
+            self.m_mal = min(int(round(cfg.participation * self.f)), self.m)
+            if self.f > 0 and self.m_mal == 0:
+                raise ValueError(
+                    f"participation={cfg.participation} rounds the "
+                    f"malicious cohort to 0 while f={self.f} — the attack "
+                    f"would silently never run (static cohorts); raise "
+                    f"participation or set mal_prop=0 explicitly")
+            if self.m - self.m_mal > self.n - self.f:
+                raise ValueError(
+                    f"cohort needs {self.m - self.m_mal} honest clients "
+                    f"but only {self.n - self.f} exist "
+                    f"(n={self.n}, f={self.f}, "
+                    f"participation={cfg.participation})")
+        else:
+            self.m, self.m_mal = self.n, self.f
+        # The defense sees the round cohort, not the population.
+        check_defense_args(cfg.defense, self.m, self.m_mal)
+        self._part_key = threefry.key(cfg.seed ^ 0x9A47)
+        self.grad_dtype = _DTYPES[cfg.grad_dtype]
         # A FaultConfig with every rate 0 is the zero-fault round.
         self.faults = (cfg.faults if cfg.faults is not None
                        and cfg.faults.enabled else None)
         if self.faults is not None:
-            F.check_fault_support(cfg)
+            F.check_fault_support(cfg, cfg.participation)
         self.dataset = dataset or load_dataset(
             cfg.dataset, cfg.data_dir, cfg.seed,
             synth_train=cfg.synth_train, synth_test=cfg.synth_test)
@@ -132,14 +184,22 @@ class FederatedExperiment:
                 f"shape {np.shape(self.dataset.train_x)} for {cfg.dataset}")
 
         defense = DEFENSES[cfg.defense]
+        # distance_dtype reaches the distance kernels of Krum and Bulyan
+        # (None: as the JAX package leaves it unset at 'float32').
+        dist_dtype = (None if cfg.distance_dtype == "float32"
+                      else cfg.distance_dtype)
         if cfg.defense == "Krum":
             # The fused distance -> score kernel under the cancellation
             # guard, exact sort over the distance kernel when it fails.
             defense = functools.partial(
                 defense, method="fused",
-                paper_scoring=cfg.krum_paper_scoring)
-        elif cfg.defense == "Bulyan" and cfg.krum_paper_scoring:
-            defense = functools.partial(defense, paper_scoring=True)
+                paper_scoring=cfg.krum_paper_scoring,
+                distance_dtype=dist_dtype)
+        elif cfg.defense == "Bulyan":
+            defense = functools.partial(
+                defense, paper_scoring=cfg.krum_paper_scoring,
+                distance_dtype=dist_dtype,
+                batch_select=cfg.bulyan_batch_select)
         self.defense_fn = defense
 
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -151,7 +211,7 @@ class FederatedExperiment:
         self.last_round_faults = None
         if self.faults is not None:
             self._fault_key = F.fault_key(cfg)
-            self.fault_state = F.init_fault_state(self.faults, self.n,
+            self.fault_state = F.init_fault_state(self.faults, self.m,
                                                   self.flat.dim, self.device)
 
         shards = make_shards(cfg.partition, self.dataset.train_y, self.n,
@@ -160,25 +220,121 @@ class FederatedExperiment:
         self.train_x = torch.from_numpy(self.dataset.train_x).to(self.device)
         self.train_y = torch.from_numpy(self.dataset.train_y).to(
             self.device, torch.int64)
-        self._client_grads = make_client_grad_fn(self.model, self.flat)
+        # FEMNIST-style feature shift: client i sees a_i * x + b_i in its
+        # training batches and its metadata samples; the test set and the
+        # backdoor's shadow training read the raw data.
+        self._style = None
+        if cfg.partition == "femnist_style":
+            self._style = tuple(
+                torch.from_numpy(v).to(self.device)
+                for v in client_style_params(self.n, cfg.style_strength,
+                                             cfg.seed))
+        self._client_update = make_client_update_fn(self.model, self.flat,
+                                                    cfg.local_steps)
+        self.metadata = (self.collect_metadata() if cfg.collect_metadata
+                         else None)
         self.evaluate = make_eval_fn(self.model, self.flat,
                                      self.dataset.test_x,
                                      self.dataset.test_y, cfg.batch_size,
                                      self.device)
 
-    def gather_batches(self, t: int):
-        """Round-t minibatches of every client: one (n, B) gather from
-        the device-resident training set."""
-        idx = round_batch_indices(self.shards, t, self.cfg.batch_size)
+    def participants(self, t: int) -> Optional[np.ndarray]:
+        """Round-t cohort ids, (m,) int32 on the host, or None under full
+        participation: the first m_mal malicious ids (< f), then honest
+        ones, the JAX package's draw (core/population.py)."""
+        if self.cfg.participation >= 1.0:
+            return None
+        return legacy_cohort(self._part_key, t, self.n, self.f, self.m,
+                             self.m_mal)
+
+    def collect_metadata(self):
+        """The metadata pool (reference C12, server.py:58-77): each
+        client's stratified ~metadata_fraction sample of its first batch
+        (reference user.py:63-66), concatenated, as host numpy (meta_x,
+        meta_y) — the JAX package's pool byte for byte, styled rows
+        included under 'femnist_style'."""
+        cfg = self.cfg
+        shards = self.shards.cpu().numpy()
+        xs, ys = self.dataset.train_x, self.dataset.train_y
+        rng = np.random.default_rng(cfg.seed + 42)
+        meta_x, meta_y = [], []
+        for i in range(self.n):
+            batch = shards[i, : cfg.batch_size]
+            labels = ys[batch]
+            take = max(1, int(round(cfg.metadata_fraction * len(batch))))
+            picked = []
+            for c in np.unique(labels):
+                pool = batch[labels == c]
+                k = max(1, int(round(take * len(pool) / len(batch))))
+                picked.extend(rng.choice(pool, size=min(k, len(pool)),
+                                         replace=False).tolist())
+            picked = np.asarray(picked[:take], np.int64)
+            x_i = xs[picked]
+            if self._style is not None:
+                a, b = (float(v[i]) for v in self._style)
+                x_i = np.float32(a) * x_i + np.float32(b)
+            meta_x.append(x_i)
+            meta_y.append(ys[picked])
+        return np.concatenate(meta_x), np.concatenate(meta_y)
+
+    def get_metadata(self):
+        """Reference server.get_MetaData (server.py:58-59)."""
+        return self.metadata
+
+    def gather_batches(self, t: int, part=None):
+        """Round-t minibatches of the cohort ``part`` (host ids or their
+        int64 device copy; None: every client): one (m, k B) gather from
+        the device-resident training set (k = local_steps)."""
+        shards = self.shards
+        if part is not None:
+            shards = shards[torch.as_tensor(part, dtype=torch.int64,
+                                            device=self.device)]
+        idx = round_batch_indices(
+            shards, t, self.cfg.batch_size * self.cfg.local_steps)
         return self.train_x[idx], self.train_y[idx]
 
-    def compute_grads(self, t: int) -> torch.Tensor:
-        """deliver: the (n, d) per-client gradients at the server weights
-        of round t (on the round-t augmented batch, with augmentation)."""
-        xs, ys = self.gather_batches(t)
+    def apply_style(self, xs: torch.Tensor, part):
+        """'femnist_style': row i of the cohort batch becomes a_i xs_i +
+        b_i; any other partition leaves it as it is.  ``part`` as for
+        :meth:`gather_batches`."""
+        if self._style is None:
+            return xs
+        a, b = self._style
+        if part is not None:
+            idx = torch.as_tensor(part, dtype=torch.int64,
+                                  device=self.device)
+            a, b = a[idx], b[idx]
+        shape = (xs.shape[0],) + (1,) * (xs.ndim - 1)
+        return a.reshape(shape) * xs + b.reshape(shape)
+
+    def compute_grads(self, t: int,
+                      part: Optional[np.ndarray] = None) -> torch.Tensor:
+        """deliver: the cohort's (m, d) updates at the server weights of
+        round t on the wire (grad_dtype): gradients, or with local steps
+        the pseudo-gradients, on the round-t styled and augmented batch.
+        ``part`` is the round's cohort (:meth:`participants`), drawn here
+        when it is not given."""
+        cfg = self.cfg
+        if part is None:
+            part = self.participants(t)
+        if part is not None:    # one host-to-device copy a round
+            part = torch.from_numpy(part).to(self.device, torch.int64)
+        xs, ys = self.gather_batches(t, part)
+        xs = self.apply_style(xs, part)
         if self.augment:
-            xs = reflect_crop_flip(xs, round_augment_key(self.cfg.seed, t))
-        return self._client_grads(self.state.weights, xs, ys).contiguous()
+            xs = reflect_crop_flip(xs, round_augment_key(cfg.seed, t))
+        k, B = cfg.local_steps, cfg.batch_size
+        xs = xs.reshape((self.m, k, B) + xs.shape[2:])
+        ys = ys.reshape((self.m, k, B))
+        # Clients train at the faded lr the server dispatches; the
+        # pseudo-gradient divides by the lr the server multiplies back.
+        lr_train = torch.full((), faded_lr(cfg, t), dtype=torch.float32,
+                              device=self.device)
+        lr_report = lr_train if cfg.server_uses_faded_lr else (
+            cfg.learning_rate)
+        grads = self._client_update(self.state.weights, xs, ys, lr_train,
+                                    lr_report)
+        return grads.to(self.grad_dtype).contiguous()
 
     def inject_and_quarantine(self, grads: torch.Tensor, t: int):
         """Fault seam: inject the round-t faults into the submitted
@@ -187,36 +343,36 @@ class FederatedExperiment:
         records the round's counts in ``last_round_faults``."""
         grads, dropped, self.fault_state, stats = F.apply_faults(
             grads, t, self._fault_key, self.fault_state, self.faults,
-            self.f)
+            self.m_mal)
         clean, mask, qstats = F.quarantine(grads, dropped)
         self.last_round_faults = {"round": t, **stats, **qstats}
         return clean, mask
 
     def attack_context(self, t: int) -> AttackContext:
-        """The round-t attack context.  The faded lr is computed as the
-        JAX round computes it with a traced round index: the Python
-        product ``base_lr * fading_rate`` divided in float32 by
-        ``t + fading_rate`` (reference server.py:50-52)."""
-        cfg = self.cfg
-        lr = np.float32(cfg.learning_rate * cfg.fading_rate) / (
-            np.float32(t) + np.float32(cfg.fading_rate))
+        """The round-t attack context, with the faded lr (:func:`faded_lr`)
+        as an f32 device scalar."""
         return AttackContext(
             original_params=self.state.weights,
-            learning_rate=torch.full((), float(lr), dtype=torch.float32,
+            learning_rate=torch.full((), faded_lr(self.cfg, t),
+                                     dtype=torch.float32,
                                      device=self.device),
             round=t)
 
     def run_round(self, t: int) -> ServerState:
         cfg = self.cfg
-        grads = self.compute_grads(t)
-        grads = self.attacker.apply(grads, self.f,
+        grads = self.compute_grads(t, self.participants(t))
+        grads = self.attacker.apply(grads, self.m_mal,
                                     self.attack_context(t))    # craft
         if self.faults is None:
-            agg = self.defense_fn(grads, self.n, self.f)       # aggregate
+            agg = self.defense_fn(grads, self.m, self.m_mal)   # aggregate
         else:
             grads, mask = self.inject_and_quarantine(grads, t)
-            agg = self.defense_fn(grads, self.n, self.f, mask=mask)
-        self.state = momentum_update(self.state, agg, cfg.learning_rate,
+            agg = self.defense_fn(grads, self.m, self.m_mal, mask=mask)
+        # Reference parity: the constant base lr on the server
+        # (server.py:89) unless server_uses_faded_lr.
+        lr = (faded_lr(cfg, t) if cfg.server_uses_faded_lr
+              else cfg.learning_rate)
+        self.state = momentum_update(self.state, agg.float(), lr,
                                      cfg.momentum)             # apply
         return self.state
 

@@ -38,9 +38,8 @@ MASK_AWARE_DEFENSES = ("NoDefense", "Krum", "TrimmedMean", "Bulyan",
 
 def check_fault_support(cfg, participation: float = 1.0):
     """Fail fast on configs the fault model cannot honor, with the JAX
-    package's messages.  The port's round is flat with full
-    participation; ``participation`` names the cohort share of a round
-    that samples one."""
+    package's messages; ``participation`` is the cohort share of a round
+    (cfg.participation)."""
     if cfg.defense not in MASK_AWARE_DEFENSES:
         raise ValueError(
             f"faults need a mask-aware defense {MASK_AWARE_DEFENSES}, "
@@ -115,7 +114,7 @@ def apply_faults(grads, t: int, key, state: dict, faults, m_mal: int):
         # A straggler submits what it computed delay rounds ago; what it
         # computed THIS round enters the buffer for round t + delay.
         slot = state["stale"][t % faults.straggler_delay]
-        faulted = torch.where(stale_t[:, None], slot, grads)
+        faulted = torch.where(stale_t[:, None], slot.to(grads.dtype), grads)
         slot.copy_(grads)
         grads = faulted
 

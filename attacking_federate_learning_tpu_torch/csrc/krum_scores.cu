@@ -1,7 +1,10 @@
-// Fused distance -> Krum score: (n, d) f32 -> (n,) scores, (n,) rowsums.
+// Fused distance -> Krum score: (n, d) f32 or bf16 -> (n,) scores, (n,)
+// rowsums, f32.
 //
 // Replaces the TPU kernel attacking_federate_learning_tpu/ops/
-// pallas_defense.py:pallas_krum_scores (_krum_score_kernel).  Row i's
+// pallas_defense.py:pallas_krum_scores (_krum_score_kernel), and with
+// fl_krum_scores_bf16 its bf16 operand route (the Gram of gram_tile.cuh on
+// the bf16 values, widened to f32 in registers).  Row i's
 // score is the sum of its k smallest distances to the other rows,
 // evaluated by the complement identity: rowsum_i minus the sum of the
 // c = f - 1 (+2 under paper scoring) largest off-diagonal distances.  The
@@ -142,6 +145,20 @@ krum_rows_kernel(const float* __restrict__ D, int n, int comp,
     }
 }
 
+// Both stages of the Gram, then the per-row selection.
+template <typename T>
+int krum_scores(const T* G, int n, long long d, int comp, int S, int cps,
+                int kg, float* ws, float* D, float* scores, float* rowsums,
+                void* stream) {
+    if (!plan_ok(n, d, S, cps, kg) || comp < 0 || comp > n - 1)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    cudaError_t err = gram_distances(G, n, d, S, cps, kg, ws, D, st);
+    if (err != cudaSuccess) return (int)err;
+    krum_rows_kernel<<<n, kThreads, 0, st>>>(D, n, comp, scores, rowsums);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace fl
 
 // G: (n, d) f32 row-major on the device; ws: f32 scratch of the Gram
@@ -154,12 +171,15 @@ extern "C" int fl_krum_scores(const float* G, int n, long long d, int comp,
                               int S, int cps, int kg, float* ws,
                               float* D, float* scores, float* rowsums,
                               void* stream) {
-    if (!fl::plan_ok(n, d, S, cps, kg) || comp < 0 || comp > n - 1)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t err = fl::gram_distances(G, n, d, S, cps, kg, ws, D, st);
-    if (err != cudaSuccess) return (int)err;
-    fl::krum_rows_kernel<<<n, fl::kThreads, 0, st>>>(D, n, comp, scores,
-                                                      rowsums);
-    return (int)cudaGetLastError();
+    return fl::krum_scores(G, n, d, comp, S, cps, kg, ws, D, scores,
+                           rowsums, stream);
+}
+
+// As fl_krum_scores, with G (n, d) bf16 (its 16-bit words).
+extern "C" int fl_krum_scores_bf16(const uint16_t* G, int n, long long d,
+                                   int comp, int S, int cps, int kg,
+                                   float* ws, float* D, float* scores,
+                                   float* rowsums, void* stream) {
+    return fl::krum_scores(G, n, d, comp, S, cps, kg, ws, D, scores,
+                           rowsums, stream);
 }

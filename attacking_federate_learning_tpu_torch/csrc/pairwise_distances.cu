@@ -1,9 +1,13 @@
-// Pairwise Euclidean distances over the client axis: (n, d) f32 -> (n, n).
+// Pairwise Euclidean distances over the client axis: (n, d) f32 or bf16
+// -> (n, n) f32.
 //
 // Replaces the TPU kernel attacking_federate_learning_tpu/ops/
 // pallas_distances.py:pallas_pairwise_distances (_dist_kernel): a tiled
 // Gram G.G^T with the epilogue sqrt(max(sq_i + sq_j - 2*acc, 0)) fused on
-// the output tile and an exact zero diagonal.
+// the output tile and an exact zero diagonal.  Its bf16 operand route (a
+// bf16 tile product accumulated in f32, f32 norms) is
+// fl_pairwise_distances_bf16: the same plan on the bf16 values, widened to
+// f32 in registers (gram_tile.cuh), reading half the bytes.
 //
 // What bounds it on an H100: operations, n(n-1)*d + 2*n*d flops of fp32
 // FMA outside the tensor cores (TF32 is off limits): 0.80 GFLOP at the
@@ -20,6 +24,7 @@
 // distance to both of its places.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "gram_tile.cuh"
 
@@ -32,6 +37,16 @@
 extern "C" int fl_pairwise_distances(const float* G, int n, long long d,
                                      int S, int cps, int kg, float* ws,
                                      float* D, void* stream) {
+    if (!fl::plan_ok(n, d, S, cps, kg)) return (int)cudaErrorInvalidValue;
+    return (int)fl::gram_distances(G, n, d, S, cps, kg, ws, D,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// As fl_pairwise_distances, with G (n, d) bf16 (its 16-bit words).
+extern "C" int fl_pairwise_distances_bf16(const uint16_t* G, int n,
+                                          long long d, int S, int cps,
+                                          int kg, float* ws, float* D,
+                                          void* stream) {
     if (!fl::plan_ok(n, d, S, cps, kg)) return (int)cudaErrorInvalidValue;
     return (int)fl::gram_distances(G, n, d, S, cps, kg, ws, D,
                                    static_cast<cudaStream_t>(stream));

@@ -10,7 +10,9 @@ round's batch for all clients at once is
     idx = shards[:, (t*B + arange(B)) % shard_len]          # (n, B)
 
 with wrap-around instead of the reference DataLoader's short final batch.
-Also a Dirichlet label-skew partitioner for non-IID experiments.
+Also a Dirichlet label-skew partitioner for non-IID experiments, and the
+'femnist_style' feature shift: IID shards, each client seeing the data
+through its own affine transform (:func:`client_style_params`).
 """
 
 from __future__ import annotations
@@ -55,9 +57,29 @@ def dirichlet_shards(labels: np.ndarray, n_clients: int, alpha: float,
     return out
 
 
+def client_style_params(n_clients: int, strength: float,
+                        seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-client affine style parameters of the 'femnist_style'
+    partition, the JAX package's draw byte for byte: client i sees
+    ``a_i * x + b_i``, a per-writer contrast and brightness, with
+
+        a_i = 1 + strength * u1   (u1 ~ U[-1, 1])
+        b_i = strength/2 * u2     (u2 ~ U[-1, 1])
+
+    from numpy's generator on ``SeedSequence([seed, 0xFE30])``; two
+    (n_clients,) float32 arrays."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xFE30]))
+    a = 1.0 + strength * rng.uniform(-1.0, 1.0, n_clients)
+    b = 0.5 * strength * rng.uniform(-1.0, 1.0, n_clients)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
 def make_shards(partition: str, labels: np.ndarray, n_clients: int,
                 seed: int, dirichlet_alpha: float = 0.5) -> np.ndarray:
-    if partition == "iid":
+    if partition in ("iid", "femnist_style"):
+        # femnist_style shares the IID index assignment: its non-IIDness
+        # is the per-client input transform, not which examples a
+        # client holds.
         return iid_shards(len(labels), n_clients, seed)
     if partition == "dirichlet":
         return dirichlet_shards(labels, n_clients, dirichlet_alpha, seed)

@@ -31,6 +31,16 @@ tensor the same calls take the kernels' plain PyTorch versions.  The
 selection loop and the sort fallback are plain tensor code on both, as
 they are plain XLA in the JAX package.
 
+The wire may be bf16 (``grad_dtype``), and ``distance_dtype`` may ask for
+bf16 distances; the routes are those of the JAX package's Pallas suite,
+asymmetry included: unmasked Krum hands the wire to the fused score
+kernel as it is (a bf16 wire takes its bf16 route even at
+``distance_dtype=None``), while every distance matrix (the guard's
+fallback, masked Krum, Bulyan) casts the wire to ``distance_dtype``, f32
+when it is None (:func:`distances_for`).  The coordinate-wise kernels
+widen a bf16 matrix to f32; NoDefense's mean of a bf16 wire sums in f32
+and rounds to bf16 once, as ``jnp.mean`` does.
+
 Semantics match the reference's exact variants, quirks included: Krum
 scores sum the (users_count - corrupted_count) *smallest* distances, not
 the paper's n-f-2 (defences.py:26, 33-34; ``paper_scoring`` switches);
@@ -44,6 +54,7 @@ matching ``current_error < minimal_error`` (defences.py:35).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -64,6 +75,17 @@ _TOPK_GUARD = 1e4
 # finite score, below +inf (already selected) and above any real score.
 _DEAD_SENTINEL = 3e38
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def distances_for(users_grads, distance_dtype: Optional[str] = None):
+    """The Krum/Bulyan distance matrix from the distance kernel, as the
+    JAX package's ``_distances_for(..., 'pallas', distance_dtype)``: the
+    matrix cast to ``distance_dtype`` ('bfloat16': the kernel's bf16
+    route), or to f32 when it is None, whatever the wire's dtype."""
+    dtype = _DTYPES[distance_dtype or "float32"]
+    return pairwise_distances(users_grads.to(dtype).contiguous())
+
 
 def check_weight_seam(mask, weights):
     """The staleness weights ride the quarantine mask: weights without a
@@ -82,11 +104,15 @@ def no_defense(users_grads, users_count, corrupted_count, mask=None,
     check_weight_seam(mask, weights)
     if weights is not None:
         w = torch.where(mask, weights, 0.0)
-        return (w @ users_grads) / torch.clamp(w.sum(), min=1e-12)
+        return (w @ users_grads.float()) / torch.clamp(w.sum(), min=1e-12)
+    # The sums run in f32 and round to the wire's dtype once (jnp.mean
+    # and jnp.sum of a bf16 matrix).
+    dtype = users_grads.dtype
     if mask is None:
-        return users_grads.mean(0)
+        return users_grads.mean(0, dtype=torch.float32).to(dtype)
     e = torch.clamp(mask.sum(), min=1)
-    return torch.where(mask[:, None], users_grads, 0.0).sum(0) / e
+    return torch.where(mask[:, None], users_grads, 0.0).sum(
+        0, dtype=torch.float32).to(dtype) / e
 
 
 def sort_scores(D, users_count, corrupted_count, paper_scoring=False,
@@ -112,7 +138,7 @@ def sort_scores(D, users_count, corrupted_count, paper_scoring=False,
 
 
 def guarded_krum_scores(users_grads, users_count, corrupted_count,
-                        paper_scoring=False):
+                        paper_scoring=False, distance_dtype=None):
     """The fused kernel's scores under the cancellation guard of the JAX
     package's ``_pallas_krum_scores_guarded``: the fused evaluation is the
     complement identity (rowsum minus the c largest), so whenever a row's
@@ -122,11 +148,18 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
     guard.  c < 0 (f = 0 without paper scoring) has no complement to
     drop: the scores come from the exact sort, as the JAX package's
     ``_krum_scores`` takes them.  The guard's decision is one
-    device-to-host read."""
+    device-to-host read.
+
+    The fused kernel takes the matrix as it is, or cast to
+    ``distance_dtype``: a bf16 wire takes its bf16 route.  The sort's
+    distance matrix is :func:`distances_for`'s."""
     if corrupted_count - 1 + (2 if paper_scoring else 0) < 0:
-        return sort_scores(pairwise_distances(users_grads), users_count,
-                           corrupted_count, paper_scoring)
-    scores, rowsum = krum_scores(users_grads, corrupted_count, paper_scoring)
+        return sort_scores(distances_for(users_grads, distance_dtype),
+                           users_count, corrupted_count, paper_scoring)
+    op = users_grads
+    if distance_dtype is not None:
+        op = op.to(_DTYPES[distance_dtype]).contiguous()
+    scores, rowsum = krum_scores(op, corrupted_count, paper_scoring)
     n = users_grads.shape[0]
     if krum_complement(n, corrupted_count, paper_scoring) == 0:
         return scores
@@ -135,40 +168,46 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
     reliable = bool(((scores >= floor) & torch.isfinite(rowsum)).all())
     if reliable:
         return scores
-    return sort_scores(pairwise_distances(users_grads), users_count,
-                       corrupted_count, paper_scoring)
+    return sort_scores(distances_for(users_grads, distance_dtype),
+                       users_count, corrupted_count, paper_scoring)
 
 
 def krum_select(users_grads, users_count, corrupted_count,
-                paper_scoring=False, method="sort", mask=None):
+                paper_scoring=False, method="sort", mask=None,
+                distance_dtype=None):
     """Index (0-d tensor) of the Krum winner (reference ``krum(...,
     return_index=True)``, defences.py:39-40).  ``method='sort'`` scores
-    exactly from the distance kernel's matrix; ``'fused'`` uses the fused
-    score kernel under its guard (what the engine runs).  With ``mask``
-    both score exactly by sort over the distance kernel, with k following
-    the alive count e - f, and a dead row never wins."""
+    the distance kernel's matrix exactly by sort; ``'fused'`` uses the
+    fused score kernel under its guard (what the engine runs, as the JAX
+    package's Pallas route does).  With ``mask`` both score exactly by
+    sort over the distance kernel, with k following the alive count e -
+    f, and a dead row never wins.  ``distance_dtype`` as for
+    :func:`distances_for` and :func:`guarded_krum_scores`."""
     if method not in ("sort", "fused"):
         raise ValueError(f"method must be 'sort' or 'fused', got {method!r}")
     if mask is not None:
-        scores = sort_scores(pairwise_distances(users_grads), mask.sum(),
-                             corrupted_count, paper_scoring, alive=mask)
-    elif method == "sort":
-        scores = sort_scores(pairwise_distances(users_grads), users_count,
-                             corrupted_count, paper_scoring)
-    else:
+        scores = sort_scores(distances_for(users_grads, distance_dtype),
+                             mask.sum(), corrupted_count, paper_scoring,
+                             alive=mask)
+    elif method == "fused":
         scores = guarded_krum_scores(users_grads, users_count,
-                                     corrupted_count, paper_scoring)
+                                     corrupted_count, paper_scoring,
+                                     distance_dtype)
+    else:
+        scores = sort_scores(distances_for(users_grads, distance_dtype),
+                             users_count, corrupted_count, paper_scoring)
     return torch.argmin(scores)
 
 
 def krum(users_grads, users_count, corrupted_count, paper_scoring=False,
-         method="sort", mask=None, weights=None):
+         method="sort", mask=None, weights=None, distance_dtype=None):
     """Krum (reference defences.py:23-42): the single gradient whose summed
     distance to its k nearest peers is minimal; with ``mask`` the Krum
     choice of the alive rows, with ``weights`` scaled by its weight."""
     check_weight_seam(mask, weights)
     idx = krum_select(users_grads, users_count, corrupted_count,
-                      paper_scoring=paper_scoring, method=method, mask=mask)
+                      paper_scoring=paper_scoring, method=method, mask=mask,
+                      distance_dtype=distance_dtype)
     if weights is not None:
         return users_grads[idx] * weights[idx]
     return users_grads[idx]
@@ -188,10 +227,16 @@ def trimmed_mean(users_grads, users_count, corrupted_count, mask=None,
 
 
 def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
-                  mask=None):
+                  mask=None, batch_select=1):
     """Bulyan's selection (reference defences.py:55-68) over a zero-diagonal
     distance matrix: set_size = n - 2f rounds of Krum, each removing its
     winner from the pool, with the pool size (but not f) shrinking.
+
+    ``batch_select`` q > 1 (the JAX package's flagged relaxation): each
+    trip takes the q lowest scores at once, ceil(set_size / q) trips, the
+    last taking what is left; k follows the pool at the trip's start.
+    Equal scores go lowest index first, as ``lax.top_k`` orders them (a
+    stable sort: ``torch.topk`` promises no order of ties).
 
     Each row is sorted once; a round's score is the pool-masked prefix sum
     of its k smallest entries over the presorted row — the same multiset
@@ -208,16 +253,20 @@ def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
     f = corrupted_count
     p = 2 if paper_scoring else 0
     set_size = users_count - 2 * f
+    q = int(batch_select)
+    if q < 1:
+        raise ValueError(f"batch_select must be >= 1, got {batch_select}")
+    q = min(q, set_size)
     Dm = D + torch.diag(torch.full((n,), torch.inf, device=D.device))
     sortedD, order = torch.sort(Dm, dim=1, stable=True)
     finite = torch.isfinite(sortedD)
     remaining = torch.ones(n, dtype=torch.bool, device=D.device)
     selected = torch.empty(set_size, dtype=torch.int64, device=D.device)
-    for t in range(set_size):
-        # Pool at round start: everyone (alive) minus the t already
+    for t in range(-(-set_size // q)):
+        # Pool at trip start: everyone (alive) minus the t q already
         # selected.
         if mask is None:
-            pool, k = remaining, users_count - t - f - p
+            pool, k = remaining, users_count - t * q - f - p
         else:
             pool = remaining & mask
             k = torch.clamp(pool.sum() - f - p, min=1)
@@ -228,17 +277,25 @@ def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
         if mask is not None:
             scores = torch.where(pool, scores, _DEAD_SENTINEL)
         scores = torch.where(remaining, scores, torch.inf)
-        idx = torch.argmin(scores)                      # ties -> lowest index
-        selected[t] = idx
+        if q == 1:
+            idx = torch.argmin(scores)                  # ties -> lowest index
+            selected[t] = idx
+            remaining[idx] = False
+            continue
+        r = min(q, set_size - t * q)
+        idx = torch.sort(scores, stable=True).indices[:r]
+        selected[t * q:t * q + r] = idx
         remaining[idx] = False
     return selected
 
 
 def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
-           mask=None, weights=None):
+           mask=None, weights=None, distance_dtype=None, batch_select=1):
     """Bulyan (reference defences.py:55-70): select n - 2f gradients by
     iterated Krum, then the median-anchored trimmed mean of the selection
-    keeping set_size - 2f - 1 values per coordinate.
+    keeping set_size - 2f - 1 values per coordinate.  The distances are
+    :func:`distances_for`'s; ``batch_select`` as for
+    :func:`bulyan_select`.
 
     With ``mask``: the selection runs over the alive pool, then only the
     first e - 2f alive picks enter the trimmed mean (as a run over the
@@ -247,8 +304,9 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
     check_weight_seam(mask, weights)
     f = corrupted_count
     set_size = users_count - 2 * f
-    D = pairwise_distances(users_grads)
-    selected = bulyan_select(D, users_count, f, paper_scoring, mask)
+    D = distances_for(users_grads, distance_dtype)
+    selected = bulyan_select(D, users_count, f, paper_scoring, mask,
+                             batch_select)
     selection = users_grads[selected].contiguous()  # (set_size, d)
     if mask is None:
         return trimmed_mean_of(selection, set_size - 2 * f - 1)

@@ -2,7 +2,10 @@
 
 Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a) into
 its own shared library with a plain C interface, loaded with ``ctypes``;
-what nvcc printed is kept beside it (:func:`ptxas_log`).
+what nvcc printed is kept beside it (:func:`ptxas_log`).  A source may
+hold more than one kernel's entry point: the distance and Krum sources
+hold their bf16 operand routes too (``pairwise_distances[bf16]`` and
+``krum_scores[bf16]``, each with its own launch counter).
 No PyTorch header is compiled, so a build takes seconds.  The libraries
 go into ``_build/`` beside this package (listed in ``.gitignore``), named
 by a hash of the sources and flags, so an edited source is rebuilt and a
@@ -34,13 +37,19 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+_GRAM_ARGS = (_P, _I, _LL, _I, _I, _I, _P, _P, _P)
+_KRUM_ARGS = (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P)
+
 # kernel name -> (source in csrc/, C entry point, its argument types).
 # Every entry point takes the stream last and returns a cudaError_t.
 KERNELS = {
     "pairwise_distances": ("pairwise_distances.cu", "fl_pairwise_distances",
-                           (_P, _I, _LL, _I, _I, _I, _P, _P, _P)),
-    "krum_scores": ("krum_scores.cu", "fl_krum_scores",
-                    (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P)),
+                           _GRAM_ARGS),
+    "pairwise_distances[bf16]": ("pairwise_distances.cu",
+                                 "fl_pairwise_distances_bf16", _GRAM_ARGS),
+    "krum_scores": ("krum_scores.cu", "fl_krum_scores", _KRUM_ARGS),
+    "krum_scores[bf16]": ("krum_scores.cu", "fl_krum_scores_bf16",
+                          _KRUM_ARGS),
     "trimmed_mean": ("trimmed_mean.cu", "fl_trimmed_mean",
                      (_P, _I, _LL, _I, _I, _P, _P)),
     "median": ("median.cu", "fl_median", (_P, _I, _LL, _I, _P, _P)),
@@ -82,13 +91,14 @@ def nvcc_path() -> Optional[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives, keyed by a hash of its source,
-    the shared headers and the compiler flags."""
+    """Where kernel ``name``'s library lives (one per source), keyed by a
+    hash of its source, the shared headers and the compiler flags."""
+    source = CSRC / KERNELS[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / KERNELS[name][0]] + sorted(CSRC.glob("*.cuh")):
+    for path in [source] + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def ptxas_log(name: str) -> str:
@@ -100,13 +110,19 @@ def ptxas_log(name: str) -> str:
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile every missing library among ``names`` (default: all), one
-    ``nvcc`` process per source, started together.  Returns the seconds
-    each build took (0.0 for one already built); raises RuntimeError with
-    the compiler's output if a build fails or there is no ``nvcc``."""
+    """Compile every missing library of the kernels ``names`` (default:
+    all), one ``nvcc`` process per source, started together.  Returns the
+    seconds each source's build took (0.0 for one already built); raises
+    RuntimeError with the compiler's output if a build fails or there is
+    no ``nvcc``."""
     names = list(KERNELS if names is None else names)
-    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
-    times = {n: 0.0 for n in names}
+    # One build per source, named by its first kernel.
+    todo = {}
+    for n in names:
+        out = library_path(n)
+        if not out.exists() and out not in todo.values():
+            todo[n] = out
+    times = {KERNELS[n][0]: 0.0 for n in names}
     if not todo:
         return times
     nvcc = nvcc_path()
@@ -126,7 +142,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     errors = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        times[name] = time.perf_counter() - t0
+        times[KERNELS[name][0]] = time.perf_counter() - t0
         if proc.returncode != 0:
             errors.append(f"nvcc {KERNELS[name][0]} failed "
                           f"(rc {proc.returncode}):\n{log}")
@@ -165,14 +181,16 @@ def check_status(name: str, status: int) -> None:
 
 
 def check_cuda_matrix(G, name: str) -> None:
-    """What every kernel takes: a contiguous 2-D float32 CUDA tensor."""
+    """What every kernel takes: a contiguous 2-D CUDA tensor, float32, or
+    bfloat16 for the bf16 routes (``[bf16]`` in the name)."""
     if G.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes a CUDA tensor, "
                          f"got one on {G.device}")
-    if G.dtype != torch.float32 or G.dim() != 2 or not G.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous 2-D float32 "
-                         f"tensor, got {G.dtype} {tuple(G.shape)} "
-                         f"contiguous={G.is_contiguous()}")
+    want = torch.bfloat16 if name.endswith("[bf16]") else torch.float32
+    if G.dtype != want or G.dim() != 2 or not G.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous 2-D "
+                         f"{str(want)[len('torch.'):]} tensor, got {G.dtype} "
+                         f"{tuple(G.shape)} contiguous={G.is_contiguous()}")
     if G.shape[0] < 1 or G.shape[1] < 1:
         raise ValueError(f"{name}: empty matrix {tuple(G.shape)}")
 

@@ -6,7 +6,11 @@ each row's score sums its k smallest distances to the other rows, through
 the complement identity rowsum - (sum of the c = f - 1 (+2 paper) largest):
 the distance kernel's Gram and epilogue into an (n, n) scratch matrix,
 then one block per row selects its c largest.  It returns the rowsums
-too, for the caller's cancellation guard (defenses/kernels.py).
+too, for the caller's cancellation guard (defenses/kernels.py).  A bf16
+matrix takes the bf16 operand route of the Gram, as the JAX kernel does.
+
+The coordinate-wise kernels take f32; their wrappers widen a bf16 matrix
+to f32 first, as the JAX package's wrappers do.
 
 :func:`trimmed_mean_of` — median-anchored trimmed mean per coordinate
 (csrc/trimmed_mean.cu): subtract the median, keep the k values of
@@ -38,7 +42,7 @@ import torch
 
 from attacking_federate_learning_tpu_torch.ops import _build
 from attacking_federate_learning_tpu_torch.ops.distances import (
-    device_gram_plan, gram_workspace, pairwise_distances_plain
+    device_gram_plan, gram_route, gram_workspace, pairwise_distances_plain
 )
 
 
@@ -72,10 +76,10 @@ def krum_scores_plain(G: torch.Tensor, corrupted_count: int,
 
 def krum_scores(G: torch.Tensor, corrupted_count: int,
                 paper_scoring: bool = False):
-    """(n, d) f32 -> ((n,) scores, (n,) rowsums), f32."""
+    """(n, d) f32 or bf16 -> ((n,) scores, (n,) rowsums), f32."""
     if G.device.type == "cpu":
         return krum_scores_plain(G, corrupted_count, paper_scoring)
-    name = "krum_scores"
+    name = gram_route("krum_scores", G)
     _build.check_cuda_matrix(G, name)
     n, d = G.shape
     comp = krum_complement(n, corrupted_count, paper_scoring)
@@ -91,6 +95,12 @@ def krum_scores(G: torch.Tensor, corrupted_count: int,
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1
     return scores, rowsums
+
+
+def widened(G: torch.Tensor) -> torch.Tensor:
+    """A bf16 matrix as f32 (exact), what the coordinate kernels take;
+    any other matrix as it is."""
+    return G.float() if G.dtype == torch.bfloat16 else G
 
 
 TRIM_SORT_ROWS = 128   # the most rows the sort route takes (trim_sort.cuh)
@@ -161,6 +171,7 @@ def trimmed_mean_of(G: torch.Tensor, number_to_consider: int,
     if not 1 <= k <= n:
         raise ValueError(f"trimmed mean keeps 1 <= k <= n values, got "
                          f"k={k}, n={n}")
+    G = widened(G)
     if G.device.type == "cpu":
         return trimmed_mean_of_plain(G, k)
     name = "trimmed_mean"
@@ -190,6 +201,7 @@ def median_of(G: torch.Tensor,
     """(n, d) f32 -> (d,) f32 coordinate-wise median.  A CUDA tensor takes
     ``plan``'s route (default: :func:`trim_plan`'s); both routes give the
     same bits."""
+    G = widened(G)
     if G.device.type == "cpu":
         return median_of_plain(G)
     name = "median"
@@ -233,6 +245,7 @@ def masked_median(G: torch.Tensor, mask: torch.Tensor, weights=None,
     """(n, d) f32, (n,) bool mask[, (n,) f32 weights] -> (d,) f32: the
     median of the alive rows, or their lower weighted median.  ``plan``
     as for :func:`median_of`."""
+    G = widened(G)
     if G.device.type == "cpu":
         return masked_median_plain(G, mask, weights)
     name = "masked_median"
@@ -285,6 +298,7 @@ def masked_trimmed_mean(G: torch.Tensor, mask: torch.Tensor, k_delta: int,
     if k_delta < 0:
         raise ValueError(f"masked trimmed mean needs k_delta >= 0, got "
                          f"{k_delta}")
+    G = widened(G)
     if G.device.type == "cpu":
         return masked_trimmed_mean_plain(G, mask, k_delta, weights)
     name = "masked_trimmed_mean"

@@ -8,7 +8,9 @@ is one Gram product with the epilogue
 
 in f32.  :func:`pairwise_distances` runs the hand-written CUDA kernel
 (csrc/pairwise_distances.cu) on a CUDA tensor and the plain PyTorch
-version, :func:`pairwise_distances_plain`, on a CPU tensor.
+version, :func:`pairwise_distances_plain`, on a CPU tensor.  A bf16
+matrix takes the kernel's bf16 operand route, the JAX kernel's: a bf16
+Gram accumulated in f32, f32 norms, f32 distances.
 
 :func:`gram_plan` cuts the kernel's Gram (csrc/gram_tile.cuh) into tiles
 and d into slices for a card with a given SM count; the fused Krum-score
@@ -131,7 +133,8 @@ def gram_workspace(G: torch.Tensor, plan: GramPlan) -> torch.Tensor:
 def pairwise_distances_plain(G: torch.Tensor) -> torch.Tensor:
     """(n, d) -> (n, n) distances, zero diagonal: the kernel's function in
     plain PyTorch (the JAX package's ops/distances.py).  The Gram runs in
-    full f32 as long as TF32 matmul is off (PyTorch's default)."""
+    full f32 as long as TF32 matmul is off (PyTorch's default); a bf16
+    matrix is widened to f32 first, which is exact."""
     G = G.float()
     sq = (G * G).sum(1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (G @ G.T)
@@ -140,11 +143,17 @@ def pairwise_distances_plain(G: torch.Tensor) -> torch.Tensor:
     return D
 
 
+def gram_route(name: str, G: torch.Tensor) -> str:
+    """The kernel of ``name`` that takes G: its bf16 route for bf16."""
+    return f"{name}[bf16]" if G.dtype == torch.bfloat16 else name
+
+
 def pairwise_distances(G: torch.Tensor) -> torch.Tensor:
-    """(n, d) f32 -> (n, n) f32 distances with an exact zero diagonal."""
+    """(n, d) f32 or bf16 -> (n, n) f32 distances with an exact zero
+    diagonal."""
     if G.device.type == "cpu":
         return pairwise_distances_plain(G)
-    name = "pairwise_distances"
+    name = gram_route("pairwise_distances", G)
     _build.check_cuda_matrix(G, name)
     n, d = G.shape
     fn = _build.entry_point(name)

@@ -1,11 +1,12 @@
-"""The few ``jax.random`` primitives the fault schedule draws from, in numpy.
+"""The few ``jax.random`` primitives the port's host draws need, in numpy.
 
-The JAX package's fault schedule (``core/faults.py:fault_masks``) is a
-pure function of ``(seed, round)`` built on ``jax.random`` with the
+The JAX package's fault schedule (``core/faults.py:fault_masks``) and its
+per-round cohort (``core/population.py:legacy_cohort``) are pure
+functions of ``(seed, round)`` built on ``jax.random`` with the
 threefry2x32 generator in its partitionable mode
 (``jax_threefry_partitionable = True``, the default of jax 0.9).  The
-port draws the same bits here, on the host, so that a faulted port run
-and a faulted JAX run of one config see the same faults.  A key is a
+port draws the same bits here, on the host, so that a port run and a JAX
+run of one config see the same faults and the same cohorts.  A key is a
 ``(2,)`` uint32 array, what ``jax.random.key_data`` returns:
 
 - ``key(seed)``      -> ``[0, seed mod 2**32]``;
@@ -17,7 +18,12 @@ and a faulted JAX run of one config see the same faults.  A key is a
 - ``randint(k, shape, lo, hi)`` -> JAX's ``_randint`` for int32: 32
   higher and 32 lower bits from the two halves of ``split(k)``, combined
   modulo the span;
-- ``bernoulli(k, p, shape)`` -> ``uniform(k, shape) < p``.
+- ``bernoulli(k, p, shape)`` -> ``uniform(k, shape) < p``;
+- ``permutation(k, n)`` -> JAX's ``_shuffle`` of ``arange(n)``:
+  ``ceil(3 ln n / ln(2**32 - 1))`` rounds (1 up to n = 1,625, 2 from
+  there to about 2.6 million), each splitting the key, drawing 32 bits
+  an element and sorting stably on them;
+- ``choice(k, n, size, replace=False)`` -> ``permutation(k, n)[:size]``.
 
 ``tests/test_torch_port_faults.py`` holds each against ``jax.random``
 bit for bit.
@@ -111,6 +117,54 @@ def bernoulli(k: np.ndarray, p: float, shape) -> np.ndarray:
     """``jax.random.bernoulli(k, p, shape)``: a float32 uniform below
     ``p``."""
     return uniform(k, shape) < np.float32(p)
+
+
+def permutation(k: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(k, n)``: ``arange(n)`` (int32) in JAX's
+    shuffled order."""
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
+
+
+def choice(k: np.ndarray, n: int, size: int,
+           replace: bool = False) -> np.ndarray:
+    """``jax.random.choice(k, n, (size,), replace=False)``: the first
+    ``size`` of ``permutation(k, n)``.  Only sampling without
+    replacement is ported."""
+    if replace:
+        raise NotImplementedError("choice with replacement is not ported")
+    if size == 0:
+        return np.zeros(0, np.int32)
+    if size > n:
+        raise ValueError(f"Cannot take a larger sample (size {size}) than "
+                         f"population (size {n}) when 'replace=False'")
+    return permutation(k, n)[:size]
+
+
+def normal_bf16(k: np.ndarray, shape):
+    """``jax.random.normal(k, shape, bfloat16)``, as a bf16 torch tensor:
+    8 random bits an element (the low byte of ``y0 ^ y1``: JAX draws 8
+    bits for a type of fewer than 8 mantissa bits), the top 7 as the
+    mantissa of a bf16 in [1, 2), then JAX's steps in bf16
+    arithmetic: minus 1, times ``1 - lo`` plus ``lo`` (``lo =
+    nextafter(-1, 0)``), clipped at ``lo``, ``erfinv`` and times
+    ``sqrt(2)``.  ``erfinv`` is torch's, computed in f32 and rounded,
+    as XLA computes a bf16 op."""
+    import torch
+
+    bf = torch.bfloat16
+    bits = (random_bits(k, shape) & np.uint32(0xFF)).astype(np.uint16)
+    bits = (bits >> np.uint16(1)) | np.uint16(0x3F80)
+    one = torch.ones((), dtype=bf)
+    u = torch.from_numpy(bits.view(np.int16)).view(bf) - one
+    lo = torch.tensor(-1.0, dtype=bf).nextafter(torch.tensor(0.0, dtype=bf))
+    u = torch.maximum(lo, u * (one - lo) + lo)
+    return torch.tensor(np.sqrt(2), dtype=bf) * torch.erfinv(u)
 
 
 def normal(k: np.ndarray, shape) -> np.ndarray:

@@ -14,7 +14,9 @@ success):
                ptxas's registers, stack frame and spills of each kernel
                of the sort route of the trimmed means and the medians
                (csrc/trim_sort.cuh), which must keep its keys in
-               registers (no stack, no spill).
+               registers (no stack, no spill); print those of every
+               instantiation of the Gram's stage 1
+               (gram_partials_kernel<KG, VEC, float or bf16>).
 3. kernels  -- hold each CUDA kernel against its plain PyTorch version on
                the card, on seeded numpy cohorts: the main path's shapes
                (mnist_mlp, d = 79,510, n = 100, f = 24), an ALIE cohort of
@@ -38,7 +40,16 @@ success):
                are also held at the model family's cohorts: (100,
                117,706) (cifar10_cnn), (100, 272,282) (resnet20) and (10,
                8,972,340) (WRN-40-4), each line with its route or Gram
-               plan.
+               plan.  The bf16 operand route of kernels 1 and 2
+               (pairwise_distances[bf16], krum_scores[bf16]) is held the
+               same way on bf16 cohorts, against the plain versions on
+               the same bf16 values and an fp64 Gram of them: (100,
+               79,510) with its identical ALIE rows exactly 0 apart,
+               (129, 4,099), (257, 4,099), (1,000, 79,510) and (10,
+               8,972,340), two launches bit-equal; its library time is
+               cuBLAS on the bf16 operands plus the plain epilogue (a time
+               only: that Gram is rounded to bf16), its bound at the
+               dense bf16 tensor rate.
                Kernel, plain and library times are CUDA-event medians;
                torch.profiler splits each wrapper's time at the main
                shapes (and the trimmed means' at n = 52, 80 and 1,000)
@@ -108,6 +119,29 @@ success):
                split (timed, as a reference), and one round under
                torch.profiler: its kernel time over its wall time and
                its top kernels.
+8. knobs    -- the round's knobs through run() at phase 5's width and
+               21 rounds: (a) participation 0.6 at f = 24 (m = 60, m_mal =
+               14) under all five defenses, and with dropout 0.1 and NaN
+               corruption 0.05 at f = 10 under TrimmedMean, each round's
+               cohort equal to a replay from the seed; (b) local_steps 3
+               under Krum and TrimmedMean, and Krum with
+               server_uses_faded_lr; (c) grad_dtype='bfloat16' under all
+               five defenses at f = 24, then faulted (phase 5's faults)
+               TrimmedMean and Median; (d) distance_dtype='bfloat16' under
+               Krum, Bulyan and faulted Krum; (e) bulyan_batch_select=4
+               at f = 24; (f) partition='femnist_style' under Krum; (g) n
+               = 1,000, f = 240, bf16 wire and bf16 distances, under Krum
+               and TrimmedMean, rounds 0..5.  Each run must launch the
+               kernels and routes its dispatch takes (the bf16 routes
+               only where the JAX package's does: Krum on a bf16 wire
+               launches krum_scores[bf16] and no f32 krum_scores) and none
+               it must not; fault counts equal a host replay over the m
+               cohort rows; the first three rounds' aggregates hold
+               against the plain versions on the CPU on the same wire and
+               mask (phase 4's tolerances), and Bulyan's distance matrix
+               against the plain version in phase 3's d^2 band; round
+               ms, deliver ms (the cohort's host draw, printed apart, is
+               outside it) and peak GiB are printed.
 
 Output: one line per check, a {"kernels": [...]} JSON line, the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
@@ -148,10 +182,10 @@ MODEL_SHAPES = ((N_MAIN, D_MNIST_CNN, F_MAIN, F_MAIN),
                 (N_MAIN, D_RESNET, F_MAIN, F_MAIN), (10, D_WRN, 2, 1))
 
 # Published peaks (NVIDIA data sheets; dense fp32 outside the tensor cores,
-# device memory bandwidth), keyed by a substring of the card's name.  The
-# SXM part is the default.
-PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12),
-         "SXM": (67.0e12, 3.35e12)}
+# device memory bandwidth, dense bf16 on the tensor cores), keyed by a
+# substring of the card's name.  The SXM part is the default.
+PEAKS = {"PCIe": (51.2e12, 2.0e12, 756e12), "NVL": (60.0e12, 3.9e12, 835e12),
+         "SXM": (67.0e12, 3.35e12, 989e12)}
 
 
 def peaks_for(name: str):
@@ -353,6 +387,28 @@ def sort_route_build(failures):
             failures.append(f"{name}: no ptxas report of the sort route")
 
 
+def gram_route_build():
+    """Phase 2's report on the Gram kernels: registers, stack frame and
+    spills of each gram_partials_kernel<KG, VEC, T> instantiation, T
+    float (f) or the bf16 route's uint16_t (t), printed."""
+    import re
+
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    for name in ("pairwise_distances", "krum_scores"):
+        for entry, regs, frame, stores, loads in ptxas_entries(
+                _build.ptxas_log(name)):
+            m = re.search(r"gram_partials_kernelILi(\d)ELi(\d)E([ft])E",
+                          entry)
+            if not m:
+                continue
+            kg, vec, t = m.groups()
+            print(f"[build] {name:19s} gram_partials_kernel<{kg}, {vec}, "
+                  f"{'float' if t == 'f' else 'bf16'}>: {regs} registers, "
+                  f"{frame} bytes stack frame, {stores} bytes spill "
+                  f"stores, {loads} bytes spill loads", flush=True)
+
+
 def route_of(plan):
     return "route=select" if plan.route == "select" else (
         f"route=sort/{plan.padded}")
@@ -378,18 +434,20 @@ def check_kernels(peaks, failures):
         trim_plan, trimmed_mean_of, trimmed_mean_of_plain
     )
     from attacking_federate_learning_tpu_torch.ops.distances import (
-        pairwise_distances, pairwise_distances_plain
+        gram_route, pairwise_distances, pairwise_distances_plain
     )
 
-    flops_peak, bytes_peak = peaks
+    flops_peak, bytes_peak, bf16_peak = peaks
     eps = float(np.finfo(np.float32).eps)
     entries = {}
 
     def report(name, label, err, rel, tol, ok, ms, plain_ms, lib_ms,
                nbytes, nops, entry_for=None):
         """Print one check; with ``entry_for = (source, replaces, shape)``
-        it is also the kernel's entry in the kernels line."""
-        t_b, t_o = nbytes / bytes_peak * 1e3, nops / flops_peak * 1e3
+        it is also the kernel's entry in the kernels line.  The bf16
+        routes' operations are bounded at the bf16 tensor rate."""
+        rate = bf16_peak if name.endswith("[bf16]") else flops_peak
+        t_b, t_o = nbytes / bytes_peak * 1e3, nops / rate * 1e3
         b_ms, b_by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"[kernel] {name:18s} {label:34s} max_abs_err={err:.3e} "
@@ -429,6 +487,7 @@ def check_kernels(peaks, failures):
 
     def check_krum(G, f, e, label, reps, gram_ops, entry_for):
         n, d = G.shape
+        name = gram_route("krum_scores", G)
         comp = krum_complement(n, f)
         got_s, got_r = krum_scores(G, f)
         want_s, want_r = krum_scores_plain(G, f)
@@ -442,22 +501,25 @@ def check_kernels(peaks, failures):
             2.0 * (e[ga] + e[wa]) + sum_tol[ga] + sum_tol[wa])
         err = max(float((got_s - want_s).abs().max()),
                   float((got_r - want_r).abs().max()))
-        bit_equal("krum_scores", f"{label} c={comp} two launches",
+        bit_equal(name, f"{label} c={comp} two launches",
                   (got_s, got_r), krum_scores(G, f), failures)
         ms = time_ms(lambda: krum_scores(G, f), reps)
         pms = time_ms(lambda: krum_scores_plain(G, f), reps)
-        report("krum_scores", label + f" c={comp}", err,
+        report(name, label + f" c={comp}", err,
                rel_err((got_s, want_s), (got_r, want_r)),
                "rowsum e_i + 2n eps rowsum_i, score 2 e_i + 2n eps rowsum_i,"
                " e_i = sum_j min(sqrt b_ij, b_ij / D_ij) of the distance "
                "band b", ok_s and ok_r and ok_w, ms, pms, None,
-               4 * (n * d + 2 * n), gram_ops, entry_for)
+               G.element_size() * n * d + 8 * n, gram_ops, entry_for)
 
     cases = [  # (n, d, f, attack, seed, reps, main-path?, Bulyan's f)
         (N_MAIN, D_MLP, F_MAIN, "alie", 1, 20, True, F_MAIN),
         (N_MAIN, D_MLP, F_MAIN, "none", 2, 5, False, None),
         (13, 79, 3, "alie", 3, 5, False, None),
         (129, D_MLP, 31, "alie", 8, 3, False, None),
+        # Phase 8's cohort at participation 0.6: m = 60, m_mal = 14, and
+        # Bulyan's (32, d) tail.
+        (60, D_MLP, 14, "alie", 10, 5, False, 14),
         (257, 4099, 60, "alie", 9, 3, False, None),
         (1000, D_MLP, 240, "alie", 4, 3, False, None),
     ] + [(1000, D_MLP, 240, "alie", seed, 1, False, None)
@@ -562,6 +624,74 @@ def check_kernels(peaks, failures):
         G = torch.from_numpy(cohort(n, 4099, n // 4, "alie", n)).cuda()
         check_trim(G, n - n // 4 - 1, f"n={n} d=4099 k={n - n // 4 - 1}", 3)
     check_coord_kernels(report, failures)
+
+    # -- the bf16 operand route of kernels 1 and 2 --------------------------
+    # The same checks on bf16 cohorts (the ALIE rows identical in bf16
+    # too), against the plain versions on the same bf16 values and an fp64
+    # Gram of them.
+    bf16_cases = [  # (n, d, f, seed, reps, main-path?)
+        (N_MAIN, D_MLP, F_MAIN, 11, 20, True),
+        (129, 4099, 31, 12, 3, False),
+        (257, 4099, 60, 13, 3, False),
+        (1000, D_MLP, 240, 14, 3, False),
+        (10, D_WRN, 2, 15, 3, False),
+    ]
+    for n, d, f, seed, reps, main in bf16_cases:
+        G = torch.from_numpy(cohort(n, d, f, "alie", seed)).cuda().bfloat16()
+        label = f"n={n} d={d} f={f} alie bf16 seed={seed} {gram_plan_of(G)}"
+        G64 = G.double()
+        sq64 = (G64 * G64).sum(1)
+        ref2 = (sq64[:, None] + sq64[None, :] - 2.0 * (G64 @ G64.T)).clamp(
+            min=0.0)
+        del G64
+        band_k = d2_band(sq64, kernel_chain(d))
+        band = band_k + d2_band(sq64, d)
+        got = pairwise_distances(G)
+        want = pairwise_distances_plain(G)
+        got2, want2 = got.double() ** 2, want.double() ** 2
+        err = float((got - want).abs().max())
+        ok = (bool(((got2 - want2).abs() <= band).all())
+              and bool(((got2 - ref2).abs() <= band_k).all())
+              and bool((got == got.T).all())
+              and bool((got.diagonal() == 0).all())
+              and bool((got[:f, :f] == 0).all()))
+        name = "pairwise_distances[bf16]"
+        bit_equal(name, label + " two launches", got, pairwise_distances(G),
+                  failures)
+        ms = time_ms(lambda: pairwise_distances(G), reps)
+        pms = time_ms(lambda: pairwise_distances_plain(G), reps)
+
+        def library(G=G):
+            # cuBLAS on the bf16 operands (a bf16 product), then the plain
+            # epilogue: a time only, its Gram is rounded to bf16.
+            g = (G @ G.T).float()
+            sq = g.diagonal()
+            D = torch.sqrt((sq[:, None] + sq[None, :] - 2.0 * g).clamp(
+                min=0.0))
+            return D.fill_diagonal_(0.0)
+
+        lms = time_ms(library, reps)
+        gram_ops = n * (n - 1) * d + 2 * n * d
+        report(name, label, err, rel_err((got, want)),
+               f"|D^2-plain^2| <= 4(sqrt {kernel_chain(d)} + sqrt {d}) eps "
+               f"(sq_i+sq_j), |D^2-fp64| <= 4 sqrt {kernel_chain(d)} eps "
+               f"(sq_i+sq_j), identical rows exactly 0", ok, ms, pms, lms,
+               2 * n * d + 4 * n * n, gram_ops,
+               main and ("pairwise_distances.cu",
+                         "ops/pallas_distances.py:92", [n, d]))
+        e = torch.minimum(band.sqrt(), band / want.double().clamp(
+            min=1e-30)).fill_diagonal_(0.0).sum(1)
+        for fk, reps_k in ((f, reps), (1, 1), (n, 1)):
+            check_krum(G, fk, e, label, reps_k, gram_ops,
+                       main and fk == f and ("krum_scores.cu",
+                                             "ops/pallas_defense.py:214",
+                                             [n, d]))
+        if main:
+            kernel_split([lambda: pairwise_distances(G),
+                          lambda: krum_scores(G, f)], reps,
+                         f"n={n} bf16")
+        del G, got, want, got2, want2, ref2, band, band_k
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -909,7 +1039,7 @@ def eval_rounds(cfg):
                   | {cfg.epochs - 1})
 
 
-def drive(exp, kernels, banned, failures, label):
+def drive(exp, kernels, banned, failures, label, excluded=None):
     """One full-width run of ``exp.run()`` on the card, launch counters
     zeroed just before and read just after.  Fails the phase when a
     kernel of ``kernels`` did not launch, one of ``banned`` did, the
@@ -917,7 +1047,9 @@ def drive(exp, kernels, banned, failures, label):
     config's (0/10/20 in phases 5 and 6), or (with faults) the per-round
     fault counts differ from a host replay of the schedule.  Also times
     the deliver step of each round with CUDA events and reads the peak of
-    allocated device memory.  Returns what the caller prints."""
+    allocated device memory.  Seconds appended to ``excluded`` during a
+    round (a check's own work) are taken off that round's time.  Returns
+    what the caller prints."""
     import torch
 
     from attacking_federate_learning_tpu_torch.core.faults import (
@@ -930,11 +1062,11 @@ def drive(exp, kernels, banned, failures, label):
     round_s, deliver_ev = [], []
     grads_fn = exp.compute_grads
 
-    def timed_grads(t, grads_fn=grads_fn, deliver_ev=deliver_ev):
+    def timed_grads(t, *part, grads_fn=grads_fn, deliver_ev=deliver_ev):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = grads_fn(t)
+        out = grads_fn(t, *part)
         b.record()
         deliver_ev.append((a, b))
         return out
@@ -942,12 +1074,15 @@ def drive(exp, kernels, banned, failures, label):
     exp.compute_grads = timed_grads
     inner = exp.run_round
 
+    excluded = [] if excluded is None else excluded
+
     def timed_round(t, inner=inner, round_s=round_s):
         torch.cuda.synchronize()
+        skip = len(excluded)
         a = time.perf_counter()
         state = inner(t)
         torch.cuda.synchronize()
-        round_s.append(time.perf_counter() - a)
+        round_s.append(time.perf_counter() - a - sum(excluded[skip:]))
         return state
 
     exp.run_round = timed_round
@@ -995,8 +1130,8 @@ def drive(exp, kernels, banned, failures, label):
         want, draw_s = [], []
         for t in range(rounds):
             a = time.perf_counter()
-            drop, stale, corrupt = fault_masks(exp._fault_key, t, exp.n,
-                                               exp.f, fc)
+            drop, stale, corrupt = fault_masks(exp._fault_key, t, exp.m,
+                                               exp.m_mal, fc)
             draw_s.append(time.perf_counter() - a)
             want.append({"round": t,
                          "injected_dropout": int(drop.sum()),
@@ -1004,7 +1139,7 @@ def drive(exp, kernels, banned, failures, label):
                          "injected_corrupt": int(corrupt.sum()),
                          "quarantined": int(drop.sum() + corrupt.sum())})
         out["counts_ok"] = result["faults"] == want
-        out["alive"] = [exp.n - r["quarantined"] for r in result["faults"]]
+        out["alive"] = [exp.m - r["quarantined"] for r in result["faults"]]
         out["seam_ms"] = 1e3 * statistics.median(seam_s)
         out["draw_ms"] = 1e3 * statistics.median(draw_s)
     if (missing or extra or not finite or not out["counts_ok"]
@@ -1174,9 +1309,9 @@ def run_attack_path(ds, failures):
         elif attack == "noise":
             noise = att.noise
 
-            def timed_noise(rnd, d, noise=noise, noise_s=noise_s):
+            def timed_noise(rnd, d, *dtype, noise=noise, noise_s=noise_s):
                 a = time.perf_counter()
-                out = noise(rnd, d)
+                out = noise(rnd, d, *dtype)
                 noise_s.append(time.perf_counter() - a)
                 return out
 
@@ -1314,9 +1449,13 @@ def check_deliver(exp, model, failures):
             return float(((a - b).norm(dim=1) / ref.norm(dim=1)).max())
         return rel(card, ref), rel(cpu32, ref), rel(card, cpu32)
 
+    def deliver(w_, xs, ys):
+        """The engine's own deliver function, at one local step."""
+        return exp._client_update(w_, xs[:, None], ys[:, None], 0.0, 1.0)
+
     images = DELIVER_IMAGES[model]
     lp = readings(lambda w_, xs, ys: log_probs(w_, xs), images)
-    gr = readings(exp._client_grads, images)
+    gr = readings(deliver, images)
     band = GRAD_BAND[model]
     ok = max(lp[:2]) <= LOGPROB_BAND and max(gr[:2]) <= band
     # What the log-prob band would see of a TF32 deliver: the card's
@@ -1331,7 +1470,7 @@ def check_deliver(exp, model, failures):
     beside = (f"(not gated: TF32 log-probs card-fp64={tf32:.3e}, over the "
               f"band={tf32 > LOGPROB_BAND}")
     if images != 8:
-        b_card, b_cpu, b_both = readings(exp._client_grads, 8)
+        b_card, b_cpu, b_both = readings(deliver, 8)
         beside += (f"; gradients at 8 images card-fp64={b_card:.3e} "
                    f"cpu-fp64={b_cpu:.3e} card-cpu={b_both:.3e}")
     beside += ") "
@@ -1616,6 +1755,232 @@ def check_watchdog(ds, failures):
         failures.append(f"watchdog: raised={raised!r}, lines={rollbacks}")
 
 
+# Phase 8's runs: (label, defense, mal_prop, faults?, config fields, n,
+# rounds, must launch, must not launch).  The bf16 routes launch only
+# where the JAX package's dispatch takes them: the fused score kernel of
+# unmasked Krum on a bf16 wire or with distance_dtype='bfloat16', the
+# distance kernel where distance_dtype='bfloat16' asks for the matrix.
+_F32_GRAM = ("pairwise_distances", "krum_scores")
+_BF16_GRAM = ("pairwise_distances[bf16]", "krum_scores[bf16]")
+P8 = dict(participation=0.6)
+BF = dict(grad_dtype="bfloat16")
+DD = dict(distance_dtype="bfloat16")
+KNOB_RUNS = (
+    [("a participation", d, 0.24, False, P8, N_MAIN, ROUNDS, k,
+      _BF16_GRAM) for d, (k, _) in CLEAN_KERNELS.items()]
+    + [("a participation", "TrimmedMean", 0.1, True, P8, N_MAIN, ROUNDS,
+        ("masked_trimmed_mean",), _BF16_GRAM)]
+    + [("b local_steps 3", "Krum", 0.24, False, dict(local_steps=3),
+        N_MAIN, ROUNDS, ("krum_scores",), _BF16_GRAM),
+       ("b local_steps 3", "TrimmedMean", 0.24, False,
+        dict(local_steps=3), N_MAIN, ROUNDS, ("trimmed_mean",), _BF16_GRAM),
+       ("b local_steps 3 faded", "Krum", 0.24, False,
+        dict(local_steps=3, server_uses_faded_lr=True), N_MAIN, ROUNDS,
+        ("krum_scores",), _BF16_GRAM)]
+    + [("c bf16 wire", "NoDefense", 0.24, False, BF, N_MAIN, ROUNDS, (),
+        _F32_GRAM + _BF16_GRAM),
+       ("c bf16 wire", "Krum", 0.24, False, BF, N_MAIN, ROUNDS,
+        ("krum_scores[bf16]",), ("krum_scores",)),
+       ("c bf16 wire", "TrimmedMean", 0.24, False, BF, N_MAIN, ROUNDS,
+        ("trimmed_mean",), _BF16_GRAM),
+       ("c bf16 wire", "Bulyan", 0.24, False, BF, N_MAIN, ROUNDS,
+        ("pairwise_distances", "trimmed_mean"), _BF16_GRAM),
+       ("c bf16 wire", "Median", 0.24, False, BF, N_MAIN, ROUNDS,
+        ("median",), _BF16_GRAM),
+       ("c bf16 wire", "TrimmedMean", 0.1, True, BF, N_MAIN, ROUNDS,
+        ("masked_trimmed_mean",), _BF16_GRAM),
+       ("c bf16 wire", "Median", 0.1, True, BF, N_MAIN, ROUNDS,
+        ("masked_median",), _BF16_GRAM)]
+    + [("d bf16 distances", "Krum", 0.24, False, DD, N_MAIN, ROUNDS,
+        ("krum_scores[bf16]",), _F32_GRAM),
+       ("d bf16 distances", "Bulyan", 0.24, False, DD, N_MAIN, ROUNDS,
+        ("pairwise_distances[bf16]", "trimmed_mean"), _F32_GRAM),
+       ("d bf16 distances", "Krum", 0.1, True, DD, N_MAIN, ROUNDS,
+        ("pairwise_distances[bf16]",), _F32_GRAM + ("krum_scores[bf16]",))]
+    + [("e bulyan_batch_select 4", "Bulyan", 0.24, False,
+        dict(bulyan_batch_select=4), N_MAIN, ROUNDS,
+        ("pairwise_distances", "trimmed_mean"), _BF16_GRAM),
+       ("f femnist_style", "Krum", 0.24, False,
+        dict(partition="femnist_style"), N_MAIN, ROUNDS, ("krum_scores",),
+        _BF16_GRAM)]
+    + [("g n=1000 bf16", d, 0.24, False, dict(BF, **DD), 1000, 6, k, b)
+       for d, k, b in (("Krum", ("krum_scores[bf16]",), ("krum_scores",)),
+                       ("TrimmedMean", ("trimmed_mean",), _BF16_GRAM))])
+
+
+def checked_defense(exp, rounds, excluded, errs, dist_errs):
+    """Wraps ``exp.defense_fn`` so that for the first ``rounds`` calls the
+    aggregate on the card is held against the plain versions on the CPU
+    on the same wire and mask (phase 4's tolerances: Krum's and the
+    median's pick exact; a mean within n rounding steps of the largest
+    |g|, plus one bf16 ulp (at most 2^-7 of it) of the aggregate for
+    NoDefense's mean of a bf16 wire, whose f32 sum is rounded once).
+    The check's seconds, from the card's last kernel on, go to
+    ``excluded``.
+
+    Bulyan's distance matrix on the card (the distance kernel at the
+    cohort's shape, f32 or bf16) is held against the plain version on
+    the CPU on the same operand, in phase 3's d^2 band, with a zero
+    diagonal and symmetric; (largest |D - plain|, ok) goes to
+    ``dist_errs``.  Bulyan's CPU twin then selects from the card's
+    matrix: the card puts identical rows exactly 0 apart and the plain
+    Gram does not, so the CPU may pick tied rows in another order, and a
+    tail that keeps 3 of 52 bf16 values breaks exact +-dev ties by that
+    order."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.defenses import kernels as K
+    from attacking_federate_learning_tpu_torch.ops.distances import (
+        pairwise_distances_plain
+    )
+
+    eps = float(np.finfo(np.float32).eps)
+    inner, defense = exp.defense_fn, exp.cfg.defense
+    distances = K.pairwise_distances
+
+    def check_distances(G, D):
+        G64 = G.double().cpu()
+        sq64 = (G64 * G64).sum(1)
+        d = G.shape[1]
+        band = d2_band(sq64, kernel_chain(d)) + d2_band(sq64, d)
+        got, want = D.cpu(), pairwise_distances_plain(G.cpu())
+        ok = (bool(((got.double() ** 2 - want.double() ** 2).abs()
+                    <= band).all())
+              and bool((got == got.T).all())
+              and bool((got.diagonal() == 0).all()))
+        dist_errs.append((float((got - want).abs().max()), ok))
+
+    def checked(grads, n, f, **kw):
+        if len(errs) >= rounds:
+            return inner(grads, n, f, **kw)
+        seen = []
+        if defense == "Bulyan":
+            K.pairwise_distances = lambda G: seen.append(
+                (G, distances(G))) or seen[-1][1]
+        try:
+            got = inner(grads, n, f, **kw)
+        finally:
+            K.pairwise_distances = distances
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        if seen:
+            check_distances(*seen[0])
+            K.pairwise_distances = lambda G: seen[0][1].cpu()
+        try:
+            want = inner(grads.cpu(), n, f,
+                         **{k: v.cpu() for k, v in kw.items()}).float()
+        finally:
+            K.pairwise_distances = distances
+        g = got.float().cpu()
+        atol = 0.0 if defense in ("Krum", "Median") else (
+            2.0 * n * eps * float(grads.float().abs().max()))
+        if defense == "NoDefense" and grads.dtype == torch.bfloat16:
+            atol = atol + 2.0 ** -7 * want.abs()
+        err = (g - want).abs()
+        errs.append((float(err.max()), bool((err <= atol).all())))
+        excluded.append(time.perf_counter() - a)
+        return got
+
+    exp.defense_fn = checked
+
+
+def run_knobs_path(ds, failures):
+    """Phase 8: the round's knobs through run() at full width (mnist_mlp,
+    SYNTH_MNIST 60,000 / 10,000, n = 100, B = 128, z = 1.5): partial
+    participation, local steps, the bf16 wire, bf16 distances, batched
+    Bulyan selection, femnist_style, and n = 1,000 on a bf16 wire.  Each
+    run must launch the routes it must and none it must not, its cohorts
+    must equal a host replay, and three rounds' aggregates must hold
+    against the CPU.  Returns launches per kernel summed over the runs."""
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import FaultConfig
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.core.population import (
+        legacy_cohort
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils import threefry
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    faults = FaultConfig(dropout=0.1, corrupt=0.05, corrupt_mode="nan")
+    for (label, defense, mal_prop, faulted, knobs, n, rounds, kernels,
+         banned) in KNOB_RUNS:
+        fc = None
+        if faulted:
+            fc = faults if "participation" in knobs else FaultConfig(
+                **FAULTS_MAIN)
+        cfg = main_config(defense, mal_prop, fc, **knobs)
+        cfg.users_count, cfg.epochs = n, rounds
+        cfg.test_step = TEST_STEP if rounds == ROUNDS else rounds - 1
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda")
+        assert exp.flat.dim == D_MLP
+        cohorts, draw_s = [], []
+        draw = exp.participants
+
+        def recorded(t, draw=draw, cohorts=cohorts, draw_s=draw_s):
+            # The cohort draw's host time: run_round draws before the
+            # deliver window that drive() times.
+            a = time.perf_counter()
+            part = draw(t)
+            draw_s.append(time.perf_counter() - a)
+            cohorts.append((t, part))
+            return part
+
+        exp.participants = recorded
+        excluded, errs, dist_errs = [], [], []
+        checked_defense(exp, 3, excluded, errs, dist_errs)
+        run = drive(exp, kernels, banned, failures,
+                    f"knobs {label} {defense}", excluded)
+        for name, count in run["launches"].items():
+            totals[name] += count
+        # The cohort each round used, against a replay from the seed.
+        key = threefry.key(cfg.seed ^ 0x9A47)
+        cohorts_ok = all(
+            (part is None) == (cfg.participation >= 1.0)
+            and (part is None or (
+                np.array_equal(part, legacy_cohort(key, t, exp.n, exp.f,
+                                                   exp.m, exp.m_mal))
+                and (part[:exp.m_mal] < exp.f).all()
+                and (part[exp.m_mal:] >= exp.f).all()
+                and len(set(part.tolist())) == exp.m))
+            for t, part in cohorts)
+        agg_ok = (len(errs) == 3 and all(ok for _, ok in errs)
+                  and len(dist_errs) == (3 if defense == "Bulyan" else 0)
+                  and all(ok for _, ok in dist_errs))
+        if not cohorts_ok or not agg_ok:
+            failures.append(f"knobs {label} {defense}: cohorts_ok="
+                            f"{cohorts_ok} aggregates vs CPU {errs} "
+                            f"distances vs CPU {dist_errs}")
+        beside = ""
+        if dist_errs:
+            beside = (f"D_vs_cpu_max_abs_err="
+                      f"{max(e for e, _ in dist_errs):.3e} ")
+        if cfg.participation < 1.0:
+            beside += f"cohort_draw_ms={1e3 * statistics.median(draw_s):.3f} "
+        if fc is not None:
+            beside += (f"fault_counts_match_replay={run['counts_ok']} "
+                      f"alive_min/max={min(run['alive'])}/"
+                      f"{max(run['alive'])} ")
+        print(f"[knobs] {label:24s} {defense:11s} n={exp.n} m={exp.m} "
+              f"f={exp.f} m_mal={exp.m_mal} acc = {run['acc_txt']} % "
+              f"median_round_ms={run['median_ms']:.3f} "
+              f"deliver_ms={run['deliver_ms']:.3f} "
+              f"peak_gib={run['peak_gib']:.2f} {beside}"
+              f"cohorts_match_replay={cohorts_ok} "
+              f"agg_vs_cpu_max_abs_err="
+              f"{max(e for e, _ in errs) if errs else float('nan'):.3e} "
+              f"ok={agg_ok} launches={run['launches']} "
+              f"per_round={run['per_round']} finite={run['finite']}",
+              flush=True)
+        del exp
+        gc.collect()
+    return totals
+
+
+
 def main() -> int:
     import torch
 
@@ -1633,8 +1998,8 @@ def main() -> int:
     print(f"[device] {smi}", flush=True)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{kind}; peaks for the {part} part: "
-          f"{peaks[0] / 1e12:.1f} TFLOP/s fp32, {peaks[1] / 1e12:.2f} TB/s",
-          flush=True)
+          f"{peaks[0] / 1e12:.1f} TFLOP/s fp32, {peaks[1] / 1e12:.2f} TB/s, "
+          f"{peaks[2] / 1e12:.0f} TFLOP/s dense bf16", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1645,6 +2010,7 @@ def main() -> int:
           f" wall {time.perf_counter() - t0:.1f} s", flush=True)
     failures = []
     sort_route_build(failures)
+    gram_route_build()
     # -- 3. kernels vs plain ----------------------------------------------
     entries = check_kernels(peaks, failures)
     # -- 4. small-input reference ------------------------------------------
@@ -1665,9 +2031,11 @@ def main() -> int:
     attack_totals = run_attack_path(ds, failures)
     # -- 7. the model family -------------------------------------------------
     model_totals = run_model_path(ds, failures)
+    # -- 8. the round's knobs ------------------------------------------------
+    knob_totals = run_knobs_path(ds, failures)
     for name, e in entries.items():
         e["launches"] = (totals[name] + attack_totals[name]
-                         + model_totals[name])
+                         + model_totals[name] + knob_totals[name])
 
     if failures:
         for msg in failures:

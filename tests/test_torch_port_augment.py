@@ -109,7 +109,8 @@ def test_round_batch_is_augmented_before_deliver():
     exp = FederatedExperiment(cfg, device="cpu")
     xs, ys = exp.gather_batches(3)
     want = taug.reflect_crop_flip(xs, taug.round_augment_key(cfg.seed, 3))
-    grads = exp._client_grads(exp.state.weights, want, ys)
+    grads = exp._client_update(exp.state.weights, want[:, None],
+                                ys[:, None], 0.0, 1.0)
     assert torch.equal(exp.compute_grads(3), grads.contiguous())
     assert not torch.equal(want, xs)
 

@@ -97,7 +97,9 @@ def test_the_scan_sees_every_form_of_import():
 def test_the_scan_covers_the_whole_port():
     names = {p.relative_to(PORT_DIR).as_posix() for p in SOURCES[:-1]}
     for module in ("config.py", "cli.py", "core/engine.py",
-                   "core/faults.py", "utils/threefry.py",
+                   "core/faults.py", "core/population.py",
+                   "core/client.py", "data/partition.py",
+                   "utils/threefry.py",
                    "ops/_build.py", "ops/distances.py",
                    "ops/defense_kernels.py", "defenses/kernels.py",
                    "defenses/median.py", "attacks/backdoor.py",
@@ -181,6 +183,58 @@ _WRAPPERS = {
 }
 
 
+class _CudaBf16Matrix(_CudaMatrix):
+    """The stand-in as a bf16 matrix: the Gram kernels' bf16 route."""
+
+    dtype = torch.bfloat16
+
+
+_BF16_WRAPPERS = {
+    "pairwise_distances[bf16]": lambda G: pairwise_distances(G),
+    "krum_scores[bf16]": lambda G: krum_scores(G, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BF16_WRAPPERS))
+def test_bf16_route_raises_for_cuda_without_a_kernel(name, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setenv("NVCC", str(tmp_path / "no-nvcc"))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no nvcc found"):
+        _BF16_WRAPPERS[name](_CudaBf16Matrix())
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", sorted(_BF16_WRAPPERS))
+def test_bf16_route_refuses_what_it_does_not_take(name):
+    class Strided(_CudaBf16Matrix):
+        def is_contiguous(self):
+            return False
+
+    with pytest.raises(ValueError, match="contiguous 2-D bfloat16"):
+        _BF16_WRAPPERS[name](Strided())
+    # The f32 kernels refuse bf16, and the bf16 routes f32.
+    with pytest.raises(ValueError, match="contiguous 2-D float32"):
+        _build.check_cuda_matrix(_CudaBf16Matrix(), name[:-len("[bf16]")])
+    with pytest.raises(ValueError, match="contiguous 2-D bfloat16"):
+        _build.check_cuda_matrix(_CudaMatrix(), name)
+
+
+def test_the_gram_sources_build_both_routes_into_one_library():
+    """Each source is one library, keyed by the source and every shared
+    header: the f32 and bf16 routes of a Gram kernel share it."""
+    for name in ("pairwise_distances", "krum_scores"):
+        assert (_build.library_path(name)
+                == _build.library_path(f"{name}[bf16]"))
+        source = (_build.CSRC / _build.KERNELS[name][0]).read_text()
+        assert '#include "gram_tile.cuh"' in source
+        assert "uint16_t" in source
+    assert "template <int KG, int VEC, typename T>" in (
+        _build.CSRC / "gram_tile.cuh").read_text()
+
+
 @pytest.mark.parametrize("name", sorted(_WRAPPERS))
 def test_wrapper_raises_for_cuda_without_a_kernel(name, tmp_path,
                                                   monkeypatch):
@@ -211,7 +265,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(name):
 
 def test_every_kernel_has_a_source_and_a_counter():
     assert sorted(_build.KERNELS) == sorted(_build.LAUNCHES) == sorted(
-        _WRAPPERS)
+        {**_WRAPPERS, **_BF16_WRAPPERS})
     for source, symbol, _ in _build.KERNELS.values():
         text = (_build.CSRC / source).read_text()
         assert f'extern "C" int {symbol}(' in text
