@@ -1,8 +1,9 @@
 // Shared pieces of the two distance kernels (pairwise_distances.cu and
-// krum_scores.cu): the fp32 Gram of an (n, d) matrix, split over d across
-// every SM, and the epilogue that turns it into distances.  The matrix is
-// f32 or bf16 (the element type T of stage 1: float, or uint16_t holding
-// bf16 bits); the Gram, the norms and everything after are f32.
+// krum_scores.cu): the fp32 Gram of an (n, d) f32 matrix on the FMA units,
+// split over d across every SM, and the epilogue that turns it into
+// distances.  The epilogue also serves the bf16 operand route, whose
+// stage 1 runs on the tensor cores (gram_mma.cuh) and writes its partial
+// tiles in the layout below.
 //
 // What bounds them on an H100: operations.  The function needs the
 // n(n-1)/2 dot products of the symmetric Gram plus the row norms,
@@ -51,16 +52,6 @@
 // D[j][i] are written from one value, sqrt(max(sq_i + sq_j - 2 acc, 0)),
 // with an exact zero diagonal.
 //
-// The bf16 route.  Stage 1 copies the bf16 values to shared memory as
-// they are (half the bytes of the f32 route, in the same staged layout,
-// counted in elements) and widens each quad of four to f32 in registers
-// before the FMAs.  The product of two bf16 values is exact in f32, so the
-// route computes what a bf16 tile product with f32 accumulation computes,
-// in the same summation order as the f32 route; identical rows are still
-// exactly 0 apart.  A copy moves at most one quad (8 bytes), since the
-// staged layout permutes quads; a 2-byte element (odd d) is loaded and
-// stored by the thread, as cp.async moves 4, 8 or 16 bytes.
-//
 // Summation order.  Every output is summed the same way whatever its
 // position: per k group, FMA chains of its 256 / KG products of a 256-k
 // chain in k order from 0; the groups' chains added in group order; each
@@ -96,26 +87,17 @@ constexpr int kGroups = kWarps;         // epilogue runs of partials
 static_assert(kThreads == kTG * kTG, "one thread per thread tile");
 static_assert(kChainProducts % kBK == 0, "chains are whole chunks");
 
-// Shared memory of stage 1: the ring of T, and the k groups' exchange of
-// their chain sums, [KG - 1][64 entries][256 / KG threads] f32.
-template <int KG, typename T>
+// Shared memory of stage 1: the ring, and the k groups' exchange of their
+// chain sums, [KG - 1][64 entries][256 / KG threads] f32.
+template <int KG>
 constexpr size_t stage1_smem() {
-    return kStages * kStageFloats * sizeof(T)
-           + (KG - 1) * kTT * kTT * (kThreads / KG) * sizeof(float);
+    return (kStages * kStageFloats
+            + (KG - 1) * kTT * kTT * (kThreads / KG)) * sizeof(float);
 }
 
-// Four consecutive staged elements (one quad, 4-element aligned) as f32.
+// Four consecutive staged floats (one quad, 4-float aligned).
 __device__ __forceinline__ float4 load_quad(const float* p) {
     return *reinterpret_cast<const float4*>(p);
-}
-
-// bf16 to f32 is the 16 bits shifted to the top of the word.
-__device__ __forceinline__ float4 load_quad(const uint16_t* p) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    return make_float4(__uint_as_float(v.x << 16),
-                       __uint_as_float(v.x & 0xffff0000u),
-                       __uint_as_float(v.y << 16),
-                       __uint_as_float(v.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -160,19 +142,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                  "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
 }
 
-// VEC elements of T from src to dst (zeros where !valid): cp.async where
-// they make 4 bytes or more, else a load and a store by the thread.
-template <int VEC, typename T>
-__device__ __forceinline__ void copy_elems(T* dst, const T* src,
-                                           bool valid) {
-    if constexpr (VEC * sizeof(T) >= 4) {
-        cp_async<(int)(VEC * sizeof(T))>(dst, src, valid);
-    } else {
-        static_assert(VEC == 1, "a sub-word copy is one element");
-        *dst = valid ? *src : T(0);
-    }
-}
-
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -187,12 +156,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // 32(g+1)/KG) of every chunk.  ws: (S, tiles, 128, 128) f32, then dg:
 // (S, nt * 128); only the entries of computed thread tiles are written.
 // Every tile of a launch must have at most 256 / KG live thread tiles.
-// Copies move VEC elements of T (G's base and row stride must allow
-// VEC * sizeof(T)-byte copies).  Dynamic shared memory:
-// stage1_smem<KG, T>().
-template <int KG, int VEC, typename T>
+// Copies move VEC floats (G's base and row stride must allow 4 VEC-byte
+// copies).  Dynamic shared memory: stage1_smem<KG>().
+template <int KG, int VEC>
 __global__ void __launch_bounds__(kThreads, 1)
-gram_partials_kernel(const T* __restrict__ G, int n, long long d,
+gram_partials_kernel(const float* __restrict__ G, int n, long long d,
                      int nt, int cps, float* __restrict__ ws) {
     constexpr int kPer = kThreads / KG;      // threads per k group
     constexpr int kQ = kBK / 4 / KG;         // k quads per group per chunk
@@ -200,8 +168,8 @@ gram_partials_kernel(const T* __restrict__ G, int n, long long d,
     constexpr int kCopies = kT * kRowCopies / kThreads;   // per thread
     static_assert(VEC == 1 || VEC == 2 || VEC == 4, "a copy is in a quad");
     extern __shared__ float4 smem4[];
-    T* smem = reinterpret_cast<T*>(smem4);
-    float* xch = reinterpret_cast<float*>(smem + kStages * kStageFloats);
+    float* smem = reinterpret_cast<float*>(smem4);
+    float* xch = smem + kStages * kStageFloats;
     const int tiles = nt * (nt + 1) / 2;
     const int tile = blockIdx.x % tiles;
     const int s = blockIdx.x / tiles;
@@ -245,8 +213,8 @@ gram_partials_kernel(const T* __restrict__ G, int n, long long d,
     // Copier: copy e = tid + i * 256 is row e / kRowCopies, k VEC * (e %
     // kRowCopies) of the chunk, so a warp's copies cover whole rows.
     auto load_chunk = [&](int c, int st) {
-        T* A = smem + st * kStageFloats;
-        T* B = A + kT * kBK;
+        float* A = smem + st * kStageFloats;
+        float* B = A + kT * kBK;
         const long long kc = k0 + (long long)c * kBK;
 #pragma unroll
         for (int i = 0; i < kCopies; ++i) {
@@ -257,13 +225,15 @@ gram_partials_kernel(const T* __restrict__ G, int n, long long d,
             const int slot = staged(r, k);
             const bool kin = kg < k1;
             const bool va = kin && row0 + r < n;
-            copy_elems<VEC>(A + slot,
-                            va ? G + (long long)(row0 + r) * d + kg : G, va);
+            cp_async<4 * VEC>(A + slot,
+                              va ? G + (long long)(row0 + r) * d + kg : G,
+                              va);
             if (!diag) {
                 const bool vb = kin && col0 + r < n;
-                copy_elems<VEC>(B + slot,
-                                vb ? G + (long long)(col0 + r) * d + kg : G,
-                                vb);
+                cp_async<4 * VEC>(B + slot,
+                                  vb ? G + (long long)(col0 + r) * d + kg
+                                     : G,
+                                  vb);
             }
         }
     };
@@ -291,9 +261,9 @@ gram_partials_kernel(const T* __restrict__ G, int n, long long d,
             load_chunk(c + kStages - 1, (c + kStages - 1) % kStages);
         cp_async_commit();
         if (warp_live) {
-            const T* st = smem + (c % kStages) * kStageFloats;
-            const T* A = st + a * kTT * kBK;
-            const T* B = (diag ? st : st + kT * kBK) + b * kTT * kBK;
+            const float* st = smem + (c % kStages) * kStageFloats;
+            const float* A = st + a * kTT * kBK;
+            const float* B = (diag ? st : st + kT * kBK) + b * kTT * kBK;
 #pragma unroll
             for (int q = 0; q < kQ; ++q) {
                 const int k4 = (g * kQ + q) << 2;
@@ -467,38 +437,37 @@ inline bool plan_ok(int n, long long d, int S, int cps, int kg) {
     return (long long)S * per >= d && (long long)(S - 1) * per < d;
 }
 
-template <int KG, int VEC, typename T>
-cudaError_t launch_partials(const T* G, int n, long long d, int nt, int S,
-                            int cps, float* ws, cudaStream_t stream) {
-    constexpr int smem = (int)stage1_smem<KG, T>();
+template <int KG, int VEC>
+cudaError_t launch_partials(const float* G, int n, long long d, int nt,
+                            int S, int cps, float* ws, cudaStream_t stream) {
+    constexpr int smem = (int)stage1_smem<KG>();
     const cudaError_t err = cudaFuncSetAttribute(
-        gram_partials_kernel<KG, VEC, T>,
+        gram_partials_kernel<KG, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const int tiles = nt * (nt + 1) / 2;
-    gram_partials_kernel<KG, VEC, T>
+    gram_partials_kernel<KG, VEC>
         <<<tiles * S, kThreads, smem, stream>>>(G, n, d, nt, cps, ws);
     return cudaGetLastError();
 }
 
 // The widest copy (at most a quad) that every row start allows.
-template <int KG, typename T>
-cudaError_t launch_partials(const T* G, int n, long long d, int nt, int S,
-                            int cps, float* ws, cudaStream_t stream) {
+template <int KG>
+cudaError_t launch_partials(const float* G, int n, long long d, int nt,
+                            int S, int cps, float* ws, cudaStream_t stream) {
     const unsigned long long base = reinterpret_cast<unsigned long long>(G);
-    if (base % (4 * sizeof(T)) == 0 && d % 4 == 0)
+    if (base % 16 == 0 && d % 4 == 0)
         return launch_partials<KG, 4>(G, n, d, nt, S, cps, ws, stream);
-    if (base % (2 * sizeof(T)) == 0 && d % 2 == 0)
+    if (base % 8 == 0 && d % 2 == 0)
         return launch_partials<KG, 2>(G, n, d, nt, S, cps, ws, stream);
     return launch_partials<KG, 1>(G, n, d, nt, S, cps, ws, stream);
 }
 
 // Both stages on `stream`: the Gram partials into ws, the distances into
 // D.  Returns the first launch error.
-template <typename T>
-cudaError_t gram_distances(const T* G, int n, long long d, int S, int cps,
-                           int kg, float* ws, float* D,
-                           cudaStream_t stream) {
+inline cudaError_t gram_distances(const float* G, int n, long long d, int S,
+                                  int cps, int kg, float* ws, float* D,
+                                  cudaStream_t stream) {
     const int nt = (n + kT - 1) / kT;
     const int tiles = nt * (nt + 1) / 2;
     cudaError_t err =

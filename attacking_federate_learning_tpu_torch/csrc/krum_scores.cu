@@ -3,19 +3,22 @@
 //
 // Replaces the TPU kernel attacking_federate_learning_tpu/ops/
 // pallas_defense.py:pallas_krum_scores (_krum_score_kernel), and with
-// fl_krum_scores_bf16 its bf16 operand route (the Gram of gram_tile.cuh on
-// the bf16 values, widened to f32 in registers).  Row i's
+// fl_krum_scores_bf16 its bf16 operand route (the Gram's stage 1 on the
+// tensor cores, gram_mma.cuh).  Row i's
 // score is the sum of its k smallest distances to the other rows,
 // evaluated by the complement identity: rowsum_i minus the sum of the
 // c = f - 1 (+2 under paper scoring) largest off-diagonal distances.  The
 // caller applies the cancellation guard on (scores, rowsums) and falls
 // back to the exact sort over the distance matrix when it fails.
 //
-// What bounds it on an H100: the distance kernel's fp32 FMA work,
-// n(n-1)*d + 2*n*d flops (0.80 GFLOP at n = 100, d = 79,510, 12 us at
-// 67 TFLOP/s); the selection reads n^2 floats.  The design: the distance
-// kernel's two stages (gram_tile.cuh: the upper-triangle Gram split over
-// d across every SM, then the fixed-order epilogue) write the (n, n)
+// What bounds it on an H100: the distance kernel's Gram.  On the f32
+// route, its fp32 FMA work, n(n-1)*d + 2*n*d flops (0.80 GFLOP at n =
+// 100, d = 79,510, 12 us at 67 TFLOP/s); on the bf16 route, bytes up to
+// about n = 150 (2 n d, 4.7 us at n = 100) and the same flops at the
+// dense bf16 tensor rate above (81 us at n = 1,000).  The selection reads
+// n^2 floats.  The design: the distance kernel's two stages (gram_tile.cuh
+// or gram_mma.cuh: the upper-triangle Gram split over d across every SM,
+// then the fixed-order epilogue) write the (n, n)
 // distances to scratch, and a third launch, one block per row, folds row
 // i into its rowsum and the sum of its c largest.  The Pallas kernel
 // keeps the matrix out of HBM because VMEM is where the TPU holds it;
@@ -36,6 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gram_mma.cuh"
 #include "gram_tile.cuh"
 
 namespace fl {
@@ -145,15 +149,9 @@ krum_rows_kernel(const float* __restrict__ D, int n, int comp,
     }
 }
 
-// Both stages of the Gram, then the per-row selection.
-template <typename T>
-int krum_scores(const T* G, int n, long long d, int comp, int S, int cps,
-                int kg, float* ws, float* D, float* scores, float* rowsums,
-                void* stream) {
-    if (!plan_ok(n, d, S, cps, kg) || comp < 0 || comp > n - 1)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t err = gram_distances(G, n, d, S, cps, kg, ws, D, st);
+// The per-row selection on D, after the Gram's launches returned err.
+inline int krum_rows(cudaError_t err, const float* D, int n, int comp,
+                     float* scores, float* rowsums, cudaStream_t st) {
     if (err != cudaSuccess) return (int)err;
     krum_rows_kernel<<<n, kThreads, 0, st>>>(D, n, comp, scores, rowsums);
     return (int)cudaGetLastError();
@@ -171,15 +169,25 @@ extern "C" int fl_krum_scores(const float* G, int n, long long d, int comp,
                               int S, int cps, int kg, float* ws,
                               float* D, float* scores, float* rowsums,
                               void* stream) {
-    return fl::krum_scores(G, n, d, comp, S, cps, kg, ws, D, scores,
-                           rowsums, stream);
+    if (!fl::plan_ok(n, d, S, cps, kg) || comp < 0 || comp > n - 1)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return fl::krum_rows(fl::gram_distances(G, n, d, S, cps, kg, ws, D, st),
+                         D, n, comp, scores, rowsums, st);
 }
 
-// As fl_krum_scores, with G (n, d) bf16 (its 16-bit words).
+// As fl_krum_scores, with G (n, d) bf16 (its 16-bit words) and the
+// tensor cores' plan (ops/distances.py:mma_plan): S slices of cps chains,
+// stage_k k a pipeline stage.
 extern "C" int fl_krum_scores_bf16(const uint16_t* G, int n, long long d,
-                                   int comp, int S, int cps, int kg,
+                                   int comp, int S, int cps, int stage_k,
                                    float* ws, float* D, float* scores,
                                    float* rowsums, void* stream) {
-    return fl::krum_scores(G, n, d, comp, S, cps, kg, ws, D, scores,
-                           rowsums, stream);
+    if (!fl::mma::mma_plan_ok(n, d, S, cps, stage_k) || comp < 0
+        || comp > n - 1)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return fl::krum_rows(
+        fl::gram_distances_bf16(G, n, d, S, cps, stage_k, ws, D, st), D, n,
+        comp, scores, rowsums, st);
 }

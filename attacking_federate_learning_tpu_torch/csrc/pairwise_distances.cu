@@ -4,28 +4,33 @@
 // Replaces the TPU kernel attacking_federate_learning_tpu/ops/
 // pallas_distances.py:pallas_pairwise_distances (_dist_kernel): a tiled
 // Gram G.G^T with the epilogue sqrt(max(sq_i + sq_j - 2*acc, 0)) fused on
-// the output tile and an exact zero diagonal.  Its bf16 operand route (a
-// bf16 tile product accumulated in f32, f32 norms) is
-// fl_pairwise_distances_bf16: the same plan on the bf16 values, widened to
-// f32 in registers (gram_tile.cuh), reading half the bytes.
+// the output tile and an exact zero diagonal.  Two routes:
 //
-// What bounds it on an H100: operations, n(n-1)*d + 2*n*d flops of fp32
-// FMA outside the tensor cores (TF32 is off limits): 0.80 GFLOP at the
-// main path's n = 100, d = 79,510, 12 us at 67 TFLOP/s, against 31.8 MB of
-// input (9.5 us at 3.35 TB/s).  The design (gram_tile.cuh) does little
-// more work than that at any n: only the Gram tiles on or above the
-// diagonal, and in them only the 8 x 8 thread tiles that hold such an
-// output inside n (0.93 GFLOP at n = 100; 80.1 GFLOP at n = 1,000
-// against 79.6 needed), split over d so that every SM has work even when
-// n gives one tile.  Stage 1 writes S partial tiles and their diagonals
-// to a workspace (20.5 MB at n = 100 with S = 311, 26.0 MB at n = 1,000
-// with S = 11; the 50 MB L2 holds either); stage 2 sums them in a fixed
-// order, takes the row norms from the summed diagonal, and writes each
-// distance to both of its places.
+// fl_pairwise_distances, f32: the Gram on the FMA units (gram_tile.cuh;
+// TF32 is off limits).  What bounds it on an H100: operations, n(n-1)*d
+// + 2*n*d flops of fp32 FMA: 0.80 GFLOP at the main path's n = 100, d =
+// 79,510, 12 us at 67 TFLOP/s, against 31.8 MB of input (9.5 us at 3.35
+// TB/s).  The design does little more work than that at any n: only the
+// Gram tiles on or above the diagonal, and in them only the 8 x 8 thread
+// tiles that hold such an output inside n (0.93 GFLOP at n = 100; 80.1
+// GFLOP at n = 1,000 against 79.6 needed), split over d so that every SM
+// has work even when n gives one tile.  Stage 1 writes S partial tiles
+// and their diagonals to a workspace (20.5 MB at n = 100 with S = 311,
+// 26.0 MB at n = 1,000 with S = 11; the 50 MB L2 holds either); stage 2
+// sums them in a fixed order, takes the row norms from the summed
+// diagonal, and writes each distance to both of its places.
+//
+// fl_pairwise_distances_bf16, the Pallas kernel's bf16 operand route (a
+// bf16 tile product accumulated in f32, f32 norms): stage 1 on the tensor
+// cores (gram_mma.cuh: wgmma on bf16 operands, f32 accumulators), the
+// same epilogue.  What bounds it: bytes up to about n = 150 (2 n d bytes,
+// 4.7 us at n = 100), operations above (79.7 GFLOP at n = 1,000, 81 us
+// at 989 TFLOP/s dense bf16).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gram_mma.cuh"
 #include "gram_tile.cuh"
 
 // G: (n, d) f32 row-major on the device; ws: f32 scratch of
@@ -42,12 +47,15 @@ extern "C" int fl_pairwise_distances(const float* G, int n, long long d,
                                    static_cast<cudaStream_t>(stream));
 }
 
-// As fl_pairwise_distances, with G (n, d) bf16 (its 16-bit words).
+// As fl_pairwise_distances, with G (n, d) bf16 (its 16-bit words) and the
+// tensor cores' plan (ops/distances.py:mma_plan): S slices of cps chains
+// of 256, stage_k k a pipeline stage.
 extern "C" int fl_pairwise_distances_bf16(const uint16_t* G, int n,
                                           long long d, int S, int cps,
-                                          int kg, float* ws, float* D,
+                                          int stage_k, float* ws, float* D,
                                           void* stream) {
-    if (!fl::plan_ok(n, d, S, cps, kg)) return (int)cudaErrorInvalidValue;
-    return (int)fl::gram_distances(G, n, d, S, cps, kg, ws, D,
-                                   static_cast<cudaStream_t>(stream));
+    if (!fl::mma::mma_plan_ok(n, d, S, cps, stage_k))
+        return (int)cudaErrorInvalidValue;
+    return (int)fl::gram_distances_bf16(G, n, d, S, cps, stage_k, ws, D,
+                                        static_cast<cudaStream_t>(stream));
 }

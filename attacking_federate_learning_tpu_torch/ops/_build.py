@@ -5,7 +5,13 @@ its own shared library with a plain C interface, loaded with ``ctypes``;
 what nvcc printed is kept beside it (:func:`ptxas_log`).  A source may
 hold more than one kernel's entry point: the distance and Krum sources
 hold their bf16 operand routes too (``pairwise_distances[bf16]`` and
-``krum_scores[bf16]``, each with its own launch counter).
+``krum_scores[bf16]``, each with its own launch counter).  The two routes
+share the Gram's epilogue (csrc/gram_tile.cuh) and differ in stage 1:
+the f32 route's runs on the FMA units (gram_tile.cuh, plan
+:func:`~.distances.gram_plan`), bound by operations at 67 TFLOP/s; the
+bf16 route's on the tensor cores with wgmma (csrc/gram_mma.cuh, plan
+:func:`~.distances.mma_plan`), bound by bytes up to about n = 150 and
+by operations at 989 TFLOP/s above.
 No PyTorch header is compiled, so a build takes seconds.  The libraries
 go into ``_build/`` beside this package (listed in ``.gitignore``), named
 by a hash of the sources and flags, so an edited source is rebuilt and a
@@ -37,6 +43,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# (G, n, d, [comp,] slices, cps, kgroups or the bf16 route's stage_k, ws,
+# D, [scores, rowsums,] stream)
 _GRAM_ARGS = (_P, _I, _LL, _I, _I, _I, _P, _P, _P)
 _KRUM_ARGS = (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P, _P, _P)
 

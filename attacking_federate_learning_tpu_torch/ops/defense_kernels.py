@@ -89,9 +89,9 @@ def krum_scores(G: torch.Tensor, corrupted_count: int,
     D = torch.empty((n, n), dtype=torch.float32, device=G.device)
     scores = torch.empty(n, dtype=torch.float32, device=G.device)
     rowsums = torch.empty(n, dtype=torch.float32, device=G.device)
-    status = fn(G.data_ptr(), n, d, comp, plan.slices, plan.cps,
-                plan.kgroups, ws.data_ptr(), D.data_ptr(), scores.data_ptr(),
-                rowsums.data_ptr(), _build.stream_handle(G))
+    status = fn(G.data_ptr(), n, d, comp, *plan.launch_args, ws.data_ptr(),
+                D.data_ptr(), scores.data_ptr(), rowsums.data_ptr(),
+                _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1
     return scores, rowsums

@@ -12,9 +12,10 @@ version, :func:`pairwise_distances_plain`, on a CPU tensor.  A bf16
 matrix takes the kernel's bf16 operand route, the JAX kernel's: a bf16
 Gram accumulated in f32, f32 norms, f32 distances.
 
-:func:`gram_plan` cuts the kernel's Gram (csrc/gram_tile.cuh) into tiles
-and d into slices for a card with a given SM count; the fused Krum-score
-kernel shares it.
+:func:`gram_plan` cuts the f32 route's Gram (csrc/gram_tile.cuh, on the
+FMA units) into tiles and d into slices for a card with a given SM count,
+and :func:`mma_plan` the bf16 route's (csrc/gram_mma.cuh, on the tensor
+cores); the fused Krum-score kernel shares both.
 """
 
 from __future__ import annotations
@@ -37,6 +38,22 @@ GROUPS = 8            # epilogue runs of partials (kGroups)
 # tile on one SM (128 * 128 * 256 FMAs at 128 a clock, about 19 us).
 PARTIAL_COST = 1 / 400
 
+# The bf16 route's stage 1 (gram_mma.cuh).
+MMA_ROWS = 64               # rows of one wgmma, one warpgroup's
+MMA_COLS = (64, 128)        # its columns N: 64 up to n = 64, then 128
+MMA_GROUPS = ((16, 4), (32, 2))   # (most n, chains stacked in its rows)
+MMA_STEP = 16               # k of one wgmma; a chain is 16 of them
+MMA_RAW_STAGES = 4          # raw stages of the copies' ring (kRaw)
+MMA_STAGE_K = (64, CHAIN)   # a stage's k unstacked: a power of two
+MMA_TAIL = TILE * 128       # shared memory past the ring (kTailBytes)
+MMA_ALIGN = 1024            # the ring's alignment (kAlign)
+MMA_MAX_SMEM = 232_448      # a block's shared memory on an H100
+# The cost model's rates, per SM of an H100 SXM (132 SMs): the dense bf16
+# tensor rate, and the SM's share of the device memory rate.
+SM_TENSOR_RATE = 989e12 / 132
+SM_BYTES_RATE = 3.35e12 / 132
+CARD_BYTES_RATE = 3.35e12
+
 
 class GramPlan(NamedTuple):
     """The Gram's split: the ``tiles`` 128 x 128 tiles on or above the
@@ -52,6 +69,11 @@ class GramPlan(NamedTuple):
     cps: int
     slices: int
     kgroups: int
+
+    @property
+    def launch_args(self):
+        """What the f32 entry points take after (G, n, d)."""
+        return self.slices, self.cps, self.kgroups
 
     @property
     def workspace_bytes(self) -> int:
@@ -112,20 +134,158 @@ def gram_plan(n: int, d: int, sms: int) -> GramPlan:
     return GramPlan(n, d, tiles, chains, best[2], best[1], kgroups)
 
 
+class MmaPlan(NamedTuple):
+    """The bf16 route's split: the ``tiles`` 128 x 128 tiles on or above
+    the diagonal, d in ``slices`` slices of ``cps`` chains of 256 k (the
+    last slice may hold fewer); blocks of ``warpgroups`` warpgroups, each
+    running wgmma on 64 rows and ``cols`` columns, with ``groups`` chains
+    stacked in the 64 rows where n <= 32; a pipeline stage of ``stage_k``
+    k of at most ``live`` rows of G, in ``rows`` swizzled rows (each
+    operand's padded to 8, the busiest tile's; 64 for stacked chains)."""
+
+    n: int
+    d: int
+    tiles: int
+    chains: int
+    cps: int
+    slices: int
+    warpgroups: int
+    cols: int
+    groups: int
+    live: int
+    rows: int
+    stage_k: int
+
+    @property
+    def launch_args(self):
+        """What the bf16 entry points take after (G, n, d)."""
+        return self.slices, self.cps, self.stage_k
+
+    # The epilogue reads the f32 route's layout and sums it the same way.
+    workspace_bytes = GramPlan.workspace_bytes
+    run_size = GramPlan.run_size
+
+    @property
+    def rounding_chain(self) -> int:
+        """Longest sequential chain of roundings in one Gram output: a
+        chain's 16 wgmma steps (the tensor core rounds each step's sum to
+        f32 once), the slice's other chains, the other partials of its
+        epilogue run, then the other runs' sums."""
+        runs = -(-self.slices // self.run_size)
+        return (CHAIN // MMA_STEP + (self.cps - 1) + (self.run_size - 1)
+                + (runs - 1))
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's dynamic shared memory (gram_mma.cuh: ring_smem)."""
+        return _mma_smem(self.live, self.rows, self.stage_k, self.groups)
+
+
+def _pad8(r: int) -> int:
+    return -(-r // 8) * 8
+
+
+def _mma_smem(live: int, rows: int, stage_k: int, groups: int) -> int:
+    """Two swizzled stages of ``rows`` rows of stage_k / groups k, the
+    ring of raw stages of ``live`` rows (stage_k / 8 + 1 aligned 16-byte
+    words each), the tail and the alignment."""
+    return (2 * rows * (stage_k // groups) * 2
+            + MMA_RAW_STAGES * live * (stage_k // 8 + 1) * 16
+            + MMA_TAIL + MMA_ALIGN)
+
+
+@functools.lru_cache(maxsize=256)
+def mma_plan(n: int, d: int, sms: int) -> MmaPlan:
+    """The split of the (n, d) bf16 Gram on the tensor cores for a card
+    with ``sms`` SMs.
+
+    Instruction: one warpgroup with N = 64 where n <= 64, else two with
+    N = 128; where n <= 16 (32) four (two) chains are stacked as groups
+    of 16 (32) rows of the 64, and a stage holds one chain a group (1,024
+    or 512 k).  Otherwise a stage takes the largest power of two of k (64
+    to 256, one chain) whose two swizzled stages and four raw ones fit a
+    block's shared memory: 256 at n = 60, 128 at n = 100, 64 at n =
+    1,000; the three raw stages in flight then hold 60 to 110 KB of
+    loads.
+
+    Slices: as :func:`gram_plan`, tiles x slices gives every SM a block
+    wherever the chains allow it, and among such splits the one with the
+    least estimated time wins (ties: fewer slices).  The estimate is in
+    seconds on an H100 SXM:
+
+    - a chain of the busiest block takes the larger of its operations,
+      2 * 64 * warpgroups * N * 256 / groups at the SM's dense bf16
+      tensor rate
+      (989 TFLOP/s / 132: 1.12 us for a full 128 x 128 tile), and its
+      bytes, 2 * 256 * min(n, 256) at the SM's share of the device
+      memory rate (3.35 TB/s / 132: 2.0 us at n = 100, 5.2 us at n >=
+      256, where the rows are re-read from L2 at no better rate in this
+      model);
+    - a slice's partial costs the card its entries written by stage 1
+      and read by stage 2, 2 * 4 * 64 * warpgroups * N bytes (a group's
+      block where chains are stacked) at 3.35 TB/s (39 ns for a full
+      tile);
+    - the time is the waves of blocks (one resident to an SM) times cps
+      chains, plus every partial.
+
+    Against the f32 route's model a chain costs about 15 times less (1.12
+    us against 19 us for a full tile), so a partial weighs 1/29 of a
+    chain instead of 1/400, and the plan takes fewer slices: 156 at n =
+    100, d = 79,510 (gram_plan: 311)."""
+    if n < 1 or d < 1 or sms < 1:
+        raise ValueError(f"mma_plan needs n, d, sms >= 1, got {n}, {d}, "
+                         f"{sms}")
+    nt = -(-n // TILE)
+    tiles = nt * (nt + 1) // 2
+    chains = -(-d // CHAIN)
+    wgs = 1 if n <= MMA_ROWS else 2
+    cols = MMA_COLS[wgs - 1]
+    groups = next((g for most, g in MMA_GROUPS if n <= most), 1)
+    live = n if nt <= 2 else 2 * TILE
+    if groups > 1:
+        rows, stage_k = MMA_ROWS, groups * CHAIN
+    else:
+        rows = (_pad8(n) if nt == 1 else
+                TILE + _pad8(n - TILE) if nt == 2 else 2 * TILE)
+        stage_k = MMA_STAGE_K[0]
+        while (stage_k * 2 <= MMA_STAGE_K[1]
+               and _mma_smem(live, rows, stage_k * 2, 1) <= MMA_MAX_SMEM):
+            stage_k *= 2
+    out = MMA_ROWS * wgs * cols // groups ** 2    # a block's partial
+    t_chain = max(2 * MMA_ROWS * wgs * cols * CHAIN / groups
+                  / SM_TENSOR_RATE,
+                  2 * CHAIN * min(n, 2 * TILE) / SM_BYTES_RATE)
+    t_partial = 2 * 4 * out / CARD_BYTES_RATE
+    want = min(chains, -(-sms // tiles))
+    best = None
+    for cps in range(1, chains + 1):
+        slices = -(-chains // cps)
+        if slices < want:
+            break
+        cost = (-(-tiles * slices // (RESIDENT * sms)) * cps * t_chain
+                + tiles * slices * t_partial)
+        if best is None or (cost, slices) < best[:2]:
+            best = (cost, slices, cps)
+    return MmaPlan(n, d, tiles, chains, best[2], best[1], wgs, cols, groups,
+                   live, rows, stage_k)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def device_gram_plan(G: torch.Tensor) -> GramPlan:
-    """The plan for G on its card."""
+def device_gram_plan(G: torch.Tensor):
+    """The plan for G on its card: :func:`mma_plan` for bf16, else
+    :func:`gram_plan`."""
     n, d = G.shape
-    return gram_plan(n, d, _sm_count(G.device.index
-                                     if G.device.index is not None
-                                     else torch.cuda.current_device()))
+    sms = _sm_count(G.device.index if G.device.index is not None
+                    else torch.cuda.current_device())
+    plan = mma_plan if G.dtype == torch.bfloat16 else gram_plan
+    return plan(n, d, sms)
 
 
-def gram_workspace(G: torch.Tensor, plan: GramPlan) -> torch.Tensor:
+def gram_workspace(G: torch.Tensor, plan) -> torch.Tensor:
     return torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
                        device=G.device)
 
@@ -160,8 +320,8 @@ def pairwise_distances(G: torch.Tensor) -> torch.Tensor:
     plan = device_gram_plan(G)
     ws = gram_workspace(G, plan)
     D = torch.empty((n, n), dtype=torch.float32, device=G.device)
-    status = fn(G.data_ptr(), n, d, plan.slices, plan.cps, plan.kgroups,
-                ws.data_ptr(), D.data_ptr(), _build.stream_handle(G))
+    status = fn(G.data_ptr(), n, d, *plan.launch_args, ws.data_ptr(),
+                D.data_ptr(), _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1
     return D

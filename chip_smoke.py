@@ -15,8 +15,12 @@ success):
                of the sort route of the trimmed means and the medians
                (csrc/trim_sort.cuh), which must keep its keys in
                registers (no stack, no spill); print those of every
-               instantiation of the Gram's stage 1
-               (gram_partials_kernel<KG, VEC, float or bf16>).
+               instantiation of the Gram's stage 1 on both routes
+               (gram_partials_kernel<KG, VEC>, f32; gram_mma_kernel<WGS,
+               N, KS>, bf16 on the tensor cores, where a stack frame or a
+               spill fails too), and the HGMMA and HMMA instructions in
+               gram_mma_kernel's SASS (cuobjdump -sass; none fails, and a
+               toolkit without cuobjdump is said so on the line).
 3. kernels  -- hold each CUDA kernel against its plain PyTorch version on
                the card, on seeded numpy cohorts: the main path's shapes
                (mnist_mlp, d = 79,510, n = 100, f = 24), an ALIE cohort of
@@ -41,18 +45,23 @@ success):
                117,706) (cifar10_cnn), (100, 272,282) (resnet20) and (10,
                8,972,340) (WRN-40-4), each line with its route or Gram
                plan.  The bf16 operand route of kernels 1 and 2
-               (pairwise_distances[bf16], krum_scores[bf16]) is held the
-               same way on bf16 cohorts, against the plain versions on
-               the same bf16 values and an fp64 Gram of them: (100,
-               79,510) with its identical ALIE rows exactly 0 apart,
-               (129, 4,099), (257, 4,099), (1,000, 79,510) and (10,
-               8,972,340), two launches bit-equal; its library time is
-               cuBLAS on the bf16 operands plus the plain epilogue (a time
-               only: that Gram is rounded to bf16), its bound at the
-               dense bf16 tensor rate.
+               (pairwise_distances[bf16], krum_scores[bf16], stage 1 on
+               the tensor cores) is held the same way on bf16 cohorts,
+               against the plain versions on the same bf16 values and an
+               fp64 Gram of them: (100, 79,510) with its identical ALIE
+               rows exactly 0 apart, (60, 79,510), (129, 4,099), (257,
+               4,099), (257, 4,099) with the ALIE rows at 100..159
+               across a tile boundary, (1,000, 79,510), (10, 8,972,340),
+               and the tiling's edges n = 1, 2, 16, 17, 63, 64, 65, 128
+               by d = 15, 16, 79, 4,099, two launches bit-equal; its
+               library time is torch.mm(G, G.T, out_dtype=float32) on the
+               bf16 operands plus the plain epilogue (the line says so,
+               or that this torch lacks it and cuBLAS's bf16 product
+               stood in), its bound at the dense bf16 tensor rate.
                Kernel, plain and library times are CUDA-event medians;
                torch.profiler splits each wrapper's time at the main
-               shapes (and the trimmed means' at n = 52, 80 and 1,000)
+               shapes (the trimmed means' also at n = 52, 80 and 1,000,
+               the bf16 route's at n = 1,000)
                into the kernels it launches, mixed with the other
                kernels and, for the sort route (and the medians' radix
                route), alone.
@@ -203,15 +212,17 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cohort(n, d, f, attack, seed):
-    """Seeded (n, d) f32 cohort: honest normals with the first f rows
-    crafted as the attack would (ALIE: identical rows mean - 1.5 sigma of
-    the honest rows, the tie structure real rounds produce)."""
+def cohort(n, d, f, attack, seed, at=0):
+    """Seeded (n, d) f32 cohort: honest normals with the f rows from row
+    ``at`` on crafted as the attack would (ALIE: identical rows mean -
+    1.5 sigma of the honest rows, the tie structure real rounds
+    produce)."""
     rng = np.random.default_rng(seed)
     G = rng.standard_normal((n, d), dtype=np.float32)
     if attack == "alie" and f:
-        mu, sigma = G[f:].mean(0), G[f:].std(0)
-        G[:f] = mu - 1.5 * sigma
+        honest = np.concatenate([G[:at], G[at + f:]])
+        mu, sigma = honest.mean(0), honest.std(0)
+        G[at:at + f] = mu - 1.5 * sigma
     return G
 
 
@@ -387,26 +398,74 @@ def sort_route_build(failures):
             failures.append(f"{name}: no ptxas report of the sort route")
 
 
-def gram_route_build():
-    """Phase 2's report on the Gram kernels: registers, stack frame and
-    spills of each gram_partials_kernel<KG, VEC, T> instantiation, T
-    float (f) or the bf16 route's uint16_t (t), printed."""
-    import re
+def tensor_core_count(path):
+    """(HGMMA, HMMA) instructions in the SASS of gram_mma_kernel's
+    instantiations in the library at ``path`` (cuobjdump -sass), or None
+    when the toolkit has no cuobjdump."""
+    import shutil
 
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hg = hm = 0
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "gram_mma_kernel" in line
+        elif inside:
+            hg += "HGMMA" in line
+            hm += re.search(r"\bHMMA\b", line) is not None
+    return hg, hm
+
+
+def gram_route_build(failures):
+    """Phase 2's report on the Gram kernels: registers, stack frame and
+    spills of each instantiation of the f32 route's stage 1
+    (gram_partials_kernel<KG, VEC>, printed) and of the bf16 route's
+    (gram_mma_kernel<WGS, N, KS>: a stack frame or a spill fails, its
+    accumulators must stay in registers), and the tensor-core
+    instructions in the bf16 route's SASS (none fails)."""
     from attacking_federate_learning_tpu_torch.ops import _build
 
     for name in ("pairwise_distances", "krum_scores"):
+        found = 0
         for entry, regs, frame, stores, loads in ptxas_entries(
                 _build.ptxas_log(name)):
-            m = re.search(r"gram_partials_kernelILi(\d)ELi(\d)E([ft])E",
+            m = re.search(r"gram_partials_kernelILi(\d)ELi(\d)EE", entry)
+            if m:
+                kg, vec = m.groups()
+                print(f"[build] {name:19s} gram_partials_kernel<{kg}, "
+                      f"{vec}>: {regs} registers, {frame} bytes stack "
+                      f"frame, {stores} bytes spill stores, {loads} bytes "
+                      f"spill loads", flush=True)
+            m = re.search(r"gram_mma_kernelILi(\d)ELi(\d+)ELi(\d)EE",
                           entry)
-            if not m:
-                continue
-            kg, vec, t = m.groups()
-            print(f"[build] {name:19s} gram_partials_kernel<{kg}, {vec}, "
-                  f"{'float' if t == 'f' else 'bf16'}>: {regs} registers, "
-                  f"{frame} bytes stack frame, {stores} bytes spill "
-                  f"stores, {loads} bytes spill loads", flush=True)
+            if m:
+                found += 1
+                wgs, cols, ks = m.groups()
+                ok = frame == stores == loads == 0
+                print(f"[build] {name:19s} gram_mma_kernel<{wgs}, {cols}, "
+                      f"{ks}>: {regs} registers, {frame} bytes stack frame, "
+                      f"{stores} bytes spill stores, {loads} bytes spill "
+                      f"loads ok={ok}", flush=True)
+                if not ok:
+                    failures.append(f"{name} gram_mma_kernel<{wgs}, "
+                                    f"{cols}, {ks}>: stack frame or spills")
+        if found != 4:
+            failures.append(f"{name}: {found} ptxas reports of "
+                            f"gram_mma_kernel, want 4")
+        counts = tensor_core_count(_build.library_path(name))
+        if counts is None:
+            print(f"[build] {name:19s} gram_mma_kernel SASS: not counted, "
+                  f"the toolkit has no cuobjdump", flush=True)
+            continue
+        print(f"[build] {name:19s} gram_mma_kernel SASS: {counts[0]} HGMMA, "
+              f"{counts[1]} HMMA", flush=True)
+        if counts[0] + counts[1] == 0:
+            failures.append(f"{name}: no tensor-core instruction in "
+                            f"gram_mma_kernel's SASS")
 
 
 def route_of(plan):
@@ -415,13 +474,31 @@ def route_of(plan):
 
 
 def gram_plan_of(G):
+    import torch
+
     from attacking_federate_learning_tpu_torch.ops.distances import (
         device_gram_plan
     )
 
     p = device_gram_plan(G)
-    return (f"plan=tiles {p.tiles} x slices {p.slices} of {p.cps} chains, "
-            f"kgroups {p.kgroups}")
+    head = f"plan=tiles {p.tiles} x slices {p.slices} of {p.cps} chains, "
+    if G.dtype == torch.bfloat16:
+        return head + (f"warpgroups {p.warpgroups}, cols {p.cols}, "
+                       f"stage_k {p.stage_k}")
+    return head + f"kgroups {p.kgroups}"
+
+
+def mm_f32_out(G):
+    """The bf16 route's library yardstick: one cuBLAS call, bf16 operands
+    and f32 output, the route's own function (the port never calls it);
+    None where this torch has no mm(..., out_dtype) on CUDA."""
+    import torch
+
+    try:
+        torch.mm(G[:2], G[:2].T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return None
+    return lambda: torch.mm(G, G.T, out_dtype=torch.float32)
 
 
 def check_kernels(peaks, failures):
@@ -628,17 +705,28 @@ def check_kernels(peaks, failures):
     # -- the bf16 operand route of kernels 1 and 2 --------------------------
     # The same checks on bf16 cohorts (the ALIE rows identical in bf16
     # too), against the plain versions on the same bf16 values and an fp64
-    # Gram of them.
-    bf16_cases = [  # (n, d, f, seed, reps, main-path?)
-        (N_MAIN, D_MLP, F_MAIN, 11, 20, True),
-        (129, 4099, 31, 12, 3, False),
-        (257, 4099, 60, 13, 3, False),
-        (1000, D_MLP, 240, 14, 3, False),
-        (10, D_WRN, 2, 15, 3, False),
-    ]
-    for n, d, f, seed, reps, main in bf16_cases:
-        G = torch.from_numpy(cohort(n, d, f, "alie", seed)).cuda().bfloat16()
-        label = f"n={n} d={d} f={f} alie bf16 seed={seed} {gram_plan_of(G)}"
+    # Gram of them: the main path's shapes, the tensor-core tiling's edges
+    # (n at one instruction's columns and one past, 64 and 65 rows of a
+    # warpgroup; d below one k stage, not a multiple of 16), and ALIE rows
+    # that straddle a tile boundary (n = 257, rows 100 to 159).
+    bf16_cases = [  # (n, d, f, seed, reps, main-path?, crafted from)
+        (N_MAIN, D_MLP, F_MAIN, 11, 20, True, 0),
+        (60, D_MLP, 14, 16, 5, False, 0),
+        (129, 4099, 31, 12, 3, False, 0),
+        (257, 4099, 60, 13, 3, False, 0),
+        (257, 4099, 60, 17, 3, False, 100),
+        (1000, D_MLP, 240, 14, 3, False, 0),
+        (10, D_WRN, 2, 15, 3, False, 0),
+    ] + [(n, d, n // 4, 50 + i, 1, False, 0)
+         for i, (n, d) in enumerate(
+             (n, d) for n in (1, 2, 16, 17, 63, 64, 65, 128)
+             for d in (15, 16, 79, 4099))]
+    mm_missing = False
+    for n, d, f, seed, reps, main, at in bf16_cases:
+        G = torch.from_numpy(cohort(n, d, f, "alie", seed, at)).cuda()
+        G = G.bfloat16()
+        label = (f"n={n} d={d} f={f} alie rows {at}..{at + f - 1} bf16 "
+                 f"seed={seed} {gram_plan_of(G)}")
         G64 = G.double()
         sq64 = (G64 * G64).sum(1)
         ref2 = (sq64[:, None] + sq64[None, :] - 2.0 * (G64 @ G64.T)).clamp(
@@ -646,6 +734,7 @@ def check_kernels(peaks, failures):
         del G64
         band_k = d2_band(sq64, kernel_chain(d))
         band = band_k + d2_band(sq64, d)
+        crafted = slice(at, at + f)
         got = pairwise_distances(G)
         want = pairwise_distances_plain(G)
         got2, want2 = got.double() ** 2, want.double() ** 2
@@ -654,17 +743,23 @@ def check_kernels(peaks, failures):
               and bool(((got2 - ref2).abs() <= band_k).all())
               and bool((got == got.T).all())
               and bool((got.diagonal() == 0).all())
-              and bool((got[:f, :f] == 0).all()))
+              and bool((got[crafted, crafted] == 0).all()))
         name = "pairwise_distances[bf16]"
         bit_equal(name, label + " two launches", got, pairwise_distances(G),
                   failures)
         ms = time_ms(lambda: pairwise_distances(G), reps)
         pms = time_ms(lambda: pairwise_distances_plain(G), reps)
+        mm = mm_f32_out(G)
+        if mm is None:
+            mm_missing = True
 
-        def library(G=G):
-            # cuBLAS on the bf16 operands (a bf16 product), then the plain
-            # epilogue: a time only, its Gram is rounded to bf16.
-            g = (G @ G.T).float()
+            def mm():
+                # cuBLAS on the bf16 operands (a bf16 product): a time
+                # only, its Gram is rounded to bf16.
+                return (G @ G.T).float()
+
+        def library(G=G, mm=mm):
+            g = mm()
             sq = g.diagonal()
             D = torch.sqrt((sq[:, None] + sq[None, :] - 2.0 * g).clamp(
                 min=0.0))
@@ -681,17 +776,23 @@ def check_kernels(peaks, failures):
                          "ops/pallas_distances.py:92", [n, d]))
         e = torch.minimum(band.sqrt(), band / want.double().clamp(
             min=1e-30)).fill_diagonal_(0.0).sum(1)
-        for fk, reps_k in ((f, reps), (1, 1), (n, 1)):
+        for fk, reps_k in ((max(f, 1), reps), (1, 1), (n, 1)):
             check_krum(G, fk, e, label, reps_k, gram_ops,
                        main and fk == f and ("krum_scores.cu",
                                              "ops/pallas_defense.py:214",
                                              [n, d]))
-        if main:
+        if main or n == 1000:
             kernel_split([lambda: pairwise_distances(G),
                           lambda: krum_scores(G, f)], reps,
                          f"n={n} bf16")
         del G, got, want, got2, want2, ref2, band, band_k
         torch.cuda.empty_cache()
+    print("[kernel] bf16 library_ms: " + (
+        "torch.mm(G, G.T) in bf16, then widened (this torch has no "
+        "mm(..., out_dtype) on CUDA), plus the plain epilogue"
+        if mm_missing else "torch.mm(G, G.T, out_dtype=torch.float32), "
+        "bf16 operands and an f32 Gram, plus the plain epilogue"),
+        flush=True)
     return entries
 
 
@@ -2010,7 +2111,7 @@ def main() -> int:
           f" wall {time.perf_counter() - t0:.1f} s", flush=True)
     failures = []
     sort_route_build(failures)
-    gram_route_build()
+    gram_route_build(failures)
     # -- 3. kernels vs plain ----------------------------------------------
     entries = check_kernels(peaks, failures)
     # -- 4. small-input reference ------------------------------------------

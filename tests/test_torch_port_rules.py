@@ -224,15 +224,22 @@ def test_bf16_route_refuses_what_it_does_not_take(name):
 
 def test_the_gram_sources_build_both_routes_into_one_library():
     """Each source is one library, keyed by the source and every shared
-    header: the f32 and bf16 routes of a Gram kernel share it."""
+    header: the f32 route (gram_tile.cuh) and the bf16 route's tensor-core
+    stage 1 (gram_mma.cuh) of a Gram kernel share it."""
     for name in ("pairwise_distances", "krum_scores"):
         assert (_build.library_path(name)
                 == _build.library_path(f"{name}[bf16]"))
         source = (_build.CSRC / _build.KERNELS[name][0]).read_text()
         assert '#include "gram_tile.cuh"' in source
+        assert '#include "gram_mma.cuh"' in source
         assert "uint16_t" in source
-    assert "template <int KG, int VEC, typename T>" in (
-        _build.CSRC / "gram_tile.cuh").read_text()
+    mma = (_build.CSRC / "gram_mma.cuh").read_text()
+    assert "template <int WGS, int N, int KS>" in mma
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in mma
+    # The f32 header is f32 only again: no element-type template.
+    tile = (_build.CSRC / "gram_tile.cuh").read_text()
+    assert "template <int KG, int VEC>" in tile
+    assert "typename T" not in tile and "uint16_t" not in tile
 
 
 @pytest.mark.parametrize("name", sorted(_WRAPPERS))
