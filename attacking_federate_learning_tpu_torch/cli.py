@@ -6,13 +6,24 @@ short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
 ``--augment``, the ``--fault-*`` flags of the fault model, the round's
 knobs (``--participation``, ``--local-steps``, ``--partition`` with
 ``--dirichlet-alpha`` and ``--style-strength``, ``--krum-scoring-method``,
-``--bulyan-batch-select``, ``--distance-dtype``,
-``--server-uses-faded-lr``), plus ``--device``.  As in the JAX package,
+``--krum-paper-scoring``, ``--bulyan-batch-select``, ``--distance-dtype``,
+``--server-uses-faded-lr``, ``--remat``, which the config refuses), the
+run lifecycle's (``-o``, ``--log-dir``, ``--run-dir``,
+``--no-checkpoint``, ``--resume``, ``--checkpoint-every``,
+``--heartbeat``, ``--journal``, ``--run-id``), plus ``--device``.  As in the JAX package,
 ``grad_dtype`` and ``collect_metadata`` are config fields with no flag.
 It prints the same ``Test set: [ N] ... Accuracy: x/N`` lines, and
 under a backdoor (``-b``) the ``BEFORE:`` line and a ``##Test malicious
 net: [POST]`` line after each evaluation.
 The run is on the card unless ``--device cpu`` asks for the CPU.
+
+The run writes the JAX package's artifacts: the accuracy CSV and the
+schema-v14 event log under ``--log-dir``, checkpoints under
+``--run-dir``, and with ``--journal`` the exactly-once journal and
+manifest under ``<run-dir>/<run-id>/``.  SIGTERM or SIGINT, or the
+``FL_PREEMPT_AT_ROUND=k`` injection, checkpoints at the next host
+boundary and exits 75; ``--resume`` continues from the newest
+checkpoint.  A divergence past the watchdog's rollbacks exits 76.
 ``--attack backdoor_timed`` needs async rounds, which the port does not
 have yet: it is refused, and so is ``--krum-scoring-method`` other than
 'sort' (the JAX package's XLA-suite evaluators, which the port's Pallas
@@ -20,6 +31,11 @@ suite never reaches).
 
 Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 100 -m 0.24
+      FL_PREEMPT_AT_ROUND=8 python -m attacking_federate_learning_tpu_torch.cli \\
+          -s SYNTH_MNIST -n 100 -e 21 --journal --run-id r1 \\
+          --checkpoint-every 5                      # exits 75 at round 10
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -n 100 -e 21 --journal --run-id r1 --checkpoint-every 5 --resume
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 100 -m 0.24 -b pattern
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
@@ -36,6 +52,7 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
 from __future__ import annotations
 
 import argparse
+import os
 
 from attacking_federate_learning_tpu_torch import config as C
 from attacking_federate_learning_tpu_torch.config import ExperimentConfig
@@ -117,6 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "only (training stays f32): bfloat16 rides the "
                         "MXU at native throughput with f32 accumulation "
                         "— a flagged deviation for the 10k regime")
+    p.add_argument("--krum-paper-scoring", action="store_true",
+                   help="paper-faithful Krum scoring (n-f-2 closest) instead "
+                        "of the reference's n-f (defences.py:26)")
     p.add_argument("--server-uses-faded-lr", action="store_true",
                    help="paper-faithful mode: faded lr on the server step "
                         "(the reference uses the constant base lr, "
@@ -128,6 +148,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--batch-size", "--batch_size", dest="batch_size",
                    default=128, type=int)
     p.add_argument("-l", "--learning_rate", default=0.1, type=float)
+    p.add_argument("-o", "--output", type=str,
+                   help="output file for results (tee)")
     p.add_argument("--synth-train", default=ExperimentConfig.synth_train,
                    type=int,
                    help="training examples for SYNTH_* / fallback datasets")
@@ -138,6 +160,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test-step", default=ExperimentConfig.test_step,
                    type=int, help="evaluate every this many rounds")
     p.add_argument("--data-dir", default="data", type=str)
+    p.add_argument("--log-dir", default="logs", type=str,
+                   help="CSV/JSONL output dir (reference logs/, main.py:100)")
+    p.add_argument("--run-dir", default="runs", type=str,
+                   help="checkpoint dir (reference runs/, server.py:44)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize client activations in the backward "
+                        "pass (jax.checkpoint) — trades FLOPs for HBM at "
+                        "WRN/large-cohort scale")
+    p.add_argument("--no-checkpoint", action="store_true",
+                   help="disable the acc>70%% checkpoint (reference "
+                        "main.py:84-89 behavior is on by default)")
+    p.add_argument("--resume", nargs="?", const="auto", default=None,
+                   metavar="CKPT",
+                   help="resume from a checkpoint (.npz path, or no value "
+                        "to use the newest checkpoint in runs/<dataset>/ — "
+                        "auto-checkpoints included); continues from the "
+                        "saved round, fault state included")
+    p.add_argument("--checkpoint-every", default=0, type=int,
+                   metavar="N",
+                   help="write a rotated, atomically-replaced auto-"
+                        "checkpoint every N rounds (0 = off) — the "
+                        "--resume target after a kill and the rollback "
+                        "target for the fault watchdog")
     p.add_argument("--fault-dropout", default=0.0, type=float,
                    metavar="P",
                    help="per-client per-round dropout probability: the "
@@ -179,6 +224,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train-time reflect-pad-4 + random-crop + h-flip "
                         "(reference data_sets.py:157-166); 'auto' follows "
                         "the reference (CIFAR100 only)")
+    p.add_argument("--heartbeat", default=0.0, type=float, metavar="SECS",
+                   help="append a 'heartbeat' event every SECS seconds "
+                        "(round, rounds/s EMA, rss, last-event age) so "
+                        "a stalled run is distinguishable from a long "
+                        "compile by tailing the events file; 0 = off")
+    p.add_argument("--journal", action="store_true",
+                   help="keep an append-only per-run journal + resume "
+                        "manifest under runs/<run-id>/ "
+                        "(utils/lifecycle.py): rounds and evals are "
+                        "committed exactly once across any number of "
+                        "restarts, and a resumed run never re-emits "
+                        "events a previous attempt already recorded")
+    p.add_argument("--run-id", default=None, metavar="ID",
+                   help="journal identity override (implies --journal); "
+                        "default derives from the config hash.  The "
+                        "supervisor pins this so degraded restarts "
+                        "(halved batch, CPU fallback) still share one "
+                        "journal")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the card (default), or the CPU with the kernels' "
                         "plain PyTorch versions")
@@ -206,6 +269,7 @@ def config_from_args(args) -> ExperimentConfig:
         partition=args.partition, dirichlet_alpha=args.dirichlet_alpha,
         style_strength=args.style_strength,
         krum_scoring_method=args.krum_scoring_method,
+        krum_paper_scoring=args.krum_paper_scoring,
         distance_dtype=args.distance_dtype,
         bulyan_batch_select=args.bulyan_batch_select,
         server_uses_faded_lr=args.server_uses_faded_lr,
@@ -214,7 +278,9 @@ def config_from_args(args) -> ExperimentConfig:
         synth_train=args.synth_train, synth_test=args.synth_test,
         backdoor=args.backdoor, attack_direction=args.attack_direction,
         data_augment={"auto": None, "on": True, "off": False}[args.augment],
-        faults=faults)
+        remat=args.remat, faults=faults,
+        checkpoint_every=args.checkpoint_every, output=args.output,
+        log_dir=args.log_dir, run_dir=args.run_dir)
 
 
 def main(argv=None) -> dict:
@@ -224,6 +290,16 @@ def main(argv=None) -> dict:
     )
     from attacking_federate_learning_tpu_torch.data.datasets import (
         load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.utils.checkpoint import (
+        Checkpointer, import_reference_checkpoint
+    )
+    from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+        EXIT_DIVERGED, EXIT_PREEMPTED, GracefulShutdown, Preempted,
+        RunJournal, run_id_for
+    )
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        RunLogger
     )
 
     parser = build_parser()
@@ -241,17 +317,88 @@ def main(argv=None) -> dict:
                      "schedule (delay-0 emission); it requires "
                      "--aggregation async")
     cfg = config_from_args(args)
-    print(cfg)
     device = resolve_device(args.device)
-    dataset = load_dataset(cfg.dataset, cfg.data_dir, cfg.seed,
-                           synth_train=cfg.synth_train,
-                           synth_test=cfg.synth_test)
-    attacker = make_attacker(cfg, dataset=dataset,
-                             name=None if args.attack == "auto"
-                             else args.attack, device=device)
-    exp = FederatedExperiment(cfg, attacker=attacker, dataset=dataset,
-                              device=device)
-    return exp.run()
+    # A journaled run gets an event log of its own, named by its run id
+    # (the reference CSV name encodes no seed).
+    run_id = (args.run_id or run_id_for(cfg)
+              if (args.journal or args.run_id) else None)
+
+    # The JSONL handle is closed and the accuracy CSV written even when
+    # the run raises.
+    with RunLogger(cfg, cfg.output, cfg.log_dir, jsonl_name=run_id,
+                   heartbeat_every=args.heartbeat) as logger:
+        logger.dump_config()
+        dataset = load_dataset(cfg.dataset, cfg.data_dir, cfg.seed,
+                               synth_train=cfg.synth_train,
+                               synth_test=cfg.synth_test)
+        attacker = make_attacker(cfg, dataset=dataset,
+                                 name=None if args.attack == "auto"
+                                 else args.attack, device=device)
+        exp = FederatedExperiment(cfg, attacker=attacker, dataset=dataset,
+                                  device=device)
+        # The journal comes before the checkpointer: a journaled run's
+        # auto-checkpoints live in its own runs/<run_id>/.
+        journal = None
+        if run_id is not None:
+            journal = RunJournal(cfg.run_dir, run_id)
+            logger.print(f"[lifecycle] journal {journal.dir} "
+                         f"(attempts so far: {journal.attempt})")
+        auto_dir = journal.dir if journal is not None else None
+        checkpointer = (None if args.no_checkpoint
+                        else Checkpointer(cfg, auto_dir=auto_dir))
+        if args.resume is not None:
+            ckpt = checkpointer or Checkpointer(cfg, auto_dir=auto_dir)
+            # 'auto': the newest checkpoint by round, autos and the best
+            # one alike.
+            path = (args.resume if args.resume != "auto"
+                    else (ckpt.latest() or ckpt.path))
+            if not os.path.exists(path):
+                raise SystemExit(f"--resume: no checkpoint at {path}")
+            if path.endswith((".pth.tar", ".pth", ".pt")):
+                # A reference-produced torch checkpoint (reference
+                # server.py:40-48).
+                exp.state, ref_acc = import_reference_checkpoint(
+                    path, expected_dim=exp.flat.dim, device=device)
+                if checkpointer is not None:
+                    checkpointer.best_acc = ref_acc
+                logger.print(f"Imported reference checkpoint (acc {ref_acc})")
+            else:
+                exp.state, extra = ckpt.resume(path, with_extra=True,
+                                               device=device)
+                exp.restore_carry_state(extra)
+                if checkpointer is not None:
+                    # keep_best seeding: autos record accuracy -1, so the
+                    # best checkpoint's own accuracy still wins.
+                    import numpy as np
+
+                    with np.load(path) as z:
+                        acc = float(z["accuracy"])
+                    checkpointer.best_acc = max(
+                        acc, checkpointer.load_best_acc())
+            logger.print(f"Resumed from round {int(exp.state.round)}")
+        # SIGTERM/SIGINT become a checkpoint and exit 75 at the next host
+        # boundary; FL_PREEMPT_AT_ROUND is the deterministic injection.
+        pre_at = os.environ.get("FL_PREEMPT_AT_ROUND")
+        shutdown = GracefulShutdown(
+            preempt_at_round=int(pre_at) if pre_at else None)
+        try:
+            with shutdown:
+                result = exp.run(logger, checkpointer=checkpointer,
+                                 journal=journal, shutdown=shutdown)
+        except Preempted as e:
+            logger.print(f"[lifecycle] {e}")
+            raise SystemExit(EXIT_PREEMPTED)
+        except FloatingPointError as e:
+            # Deterministic numeric failure (watchdog rollbacks exhausted,
+            # or the backdoor's NaN guard): a retry would repeat it.
+            logger.record(kind="lifecycle", phase="fatal",
+                          failure="divergence", error=str(e))
+            logger.print(f"[lifecycle] fatal (divergence): {e}")
+            if journal is not None:
+                journal.finish("diverged", EXIT_DIVERGED, error=str(e))
+                journal.close()
+            raise SystemExit(EXIT_DIVERGED)
+    return result
 
 
 if __name__ == "__main__":

@@ -208,8 +208,12 @@ class ExperimentConfig:
     # clients and the attacker there).
     server_uses_faded_lr: bool = False
 
-    # --- evaluation -----------------------------------------------------
+    # --- evaluation, logging and checkpoints ----------------------------
     test_step: int = 5               # reference main.py:58
+    checkpoint_acc_threshold: float = 70.0  # reference main.py:84
+    output: Optional[str] = None     # tee file, reference main.py:13-18
+    log_dir: str = "logs"
+    run_dir: str = "runs"
     data_dir: str = "data"           # raw MNIST idx location
 
     # --- determinism and data -------------------------------------------
@@ -255,9 +259,9 @@ class ExperimentConfig:
     # equivalent dict, coerced below) with any rate > 0 turns on fault
     # injection, the quarantine mask and the divergence watchdog.
     faults: Optional[FaultConfig] = None
-    # Auto-checkpoints belong to the lifecycle slice of the port; until
-    # then only 0 (off) is accepted, and the watchdog's rollback target
-    # is the in-memory state at the start of run().
+    # Rotated auto-checkpoints every N rounds (0 = off,
+    # utils/checkpoint.py): the --resume target after a kill and the
+    # divergence watchdog's rollback target (core/engine.py).
     checkpoint_every: int = 0
 
     def __post_init__(self):
@@ -326,12 +330,10 @@ class ExperimentConfig:
                 f"got {self.attack_direction!r}")
         if isinstance(self.faults, dict):
             self.faults = FaultConfig(**self.faults)
-        if self.checkpoint_every != 0:
+        if self.checkpoint_every < 0:
             raise ValueError(
-                f"checkpoint_every={self.checkpoint_every}: auto-"
-                f"checkpoints are not ported yet (only 0 is accepted); "
-                f"the fault watchdog rolls back to the in-memory state "
-                f"at the start of run()")
+                f"checkpoint_every must be >= 0, got "
+                f"{self.checkpoint_every}")
         if self.num_std == "auto":
             from attacking_federate_learning_tpu_torch.attacks.alie import (
                 paper_z
@@ -359,3 +361,10 @@ class ExperimentConfig:
     def corrupted_count(self) -> int:
         # reference main.py:21 / server.py:87
         return int(self.mal_prop * self.users_count)
+
+    def csv_name(self) -> str:
+        # Filename schema of reference main.py:100.
+        return ("{}_stdev_{}_{}_backdoor-{}_mal_prop_{}_users_{}_alpha_{}_lr_{}"
+                ".csv").format(self.dataset, self.num_std, self.defense,
+                               self.backdoor, self.mal_prop, self.users_count,
+                               self.alpha, self.learning_rate)

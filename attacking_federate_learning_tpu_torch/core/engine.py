@@ -39,10 +39,21 @@ option selects the plain versions on the card.
 With ``cfg.faults`` (core/faults.py) each round injects the scheduled
 dropouts, stragglers and corruptions into the crafted matrix, quarantines
 what the server can see, and hands the effective-cohort mask to the
-defense.  The divergence watchdog checks the weights at every evaluation
-round and rolls back to the state at the start of :meth:`run` instead of
-aborting, at most ``max_rollbacks`` times (the JAX engine's span-boundary
-check, core/engine.py:_diverged/_rollback, without auto-checkpoints).
+defense.  The divergence watchdog checks the weights at every host
+boundary (below) and rolls back to the last auto-checkpointed state, or
+the state at the start of :meth:`run`, instead of aborting, at most
+``max_rollbacks`` times (the JAX engine's core/engine.py:_diverged/
+_rollback).
+
+:meth:`run` runs one round at a time, and stops on the host at the
+rounds where the JAX engine's default path ends a scanned span: every
+``test_step``-th round, the last round, and every ``checkpoint_every``-th
+round.  There it reads the fault counts, commits the rounds to the
+journal, checks the watchdog, evaluates (eval rounds), writes the
+auto-checkpoint (checkpoint rounds) and polls the shutdown request, so
+``FL_PREEMPT_AT_ROUND=k`` stops both engines at the same round.  Events
+are the JAX package's schema v14 (utils/metrics.py); the journal
+(utils/lifecycle.py) makes them exactly-once across restarts.
 
 With ``cfg.data_augment`` (by default on for CIFAR100 alone, the
 reference's rule) the round's gathered batch is reflect-cropped and
@@ -59,7 +70,10 @@ after the last one (reference main.py:73-95), and prints the reference's
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -95,6 +109,7 @@ from attacking_federate_learning_tpu_torch.defenses import (
 from attacking_federate_learning_tpu_torch.models.base import get_model
 from attacking_federate_learning_tpu_torch.utils import threefry
 from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
+from attacking_federate_learning_tpu_torch.utils.metrics import RunLogger
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -376,13 +391,60 @@ class FederatedExperiment:
                                      cfg.momentum)             # apply
         return self.state
 
-    def _snapshot(self):
-        """A copy of the server state and the fault ring: the watchdog's
-        rollback target."""
+    # --- carry state and rollback ---------------------------------------
+    def _host_state(self) -> ServerState:
+        """Owned host copies of the server state."""
         st = self.state
-        return (ServerState(st.weights.clone(), st.velocity.clone(),
-                            st.round),
-                {k: v.clone() for k, v in self.fault_state.items()})
+        return ServerState(st.weights.to("cpu", copy=True).numpy(),
+                           st.velocity.to("cpu", copy=True).numpy(),
+                           int(st.round))
+
+    def _place_state(self, st: ServerState) -> ServerState:
+        """A host (or any-device) server state as fresh f32 tensors on the
+        engine's device."""
+        def place(a):
+            return torch.as_tensor(a).to(self.device, torch.float32,
+                                         copy=True)
+        return ServerState(place(st.weights), place(st.velocity),
+                           int(st.round))
+
+    def carry_state_host(self):
+        """Host copy of the cross-round carry state for the Checkpointer's
+        ``extra=`` seam: the straggler ring ``{'stale': (delay, m, d)
+        f32}`` under fault injection with stragglers; None when the
+        engine carries nothing beyond the ServerState.  Async rounds'
+        ``async_*`` buffers will ride here too (the JAX engine's
+        carry_state_host)."""
+        if self.faults is None or not self.fault_state:
+            return None
+        return {k: v.to("cpu", copy=True).numpy()
+                for k, v in self.fault_state.items()}
+
+    def restore_carry_state(self, extra):
+        """Put checkpointed carry state (the straggler ring) back on the
+        device after a resume, so a resumed faulted run continues bit for
+        bit.  A ring of another shape than this engine's is refused."""
+        if not extra or self.faults is None or "stale" not in extra:
+            return
+        want = tuple(self.fault_state["stale"].shape)
+        ring = torch.as_tensor(extra["stale"]).to(self.device,
+                                                  torch.float32, copy=True)
+        if tuple(ring.shape) != want:
+            raise ValueError(
+                f"checkpointed straggler ring has shape "
+                f"{tuple(ring.shape)}, this engine's is {want} "
+                f"(straggler_delay, cohort rows, d)")
+        self.fault_state = {"stale": ring}
+
+    def restore_fault_state(self, extra):
+        """Alias of :meth:`restore_carry_state` (the JAX engine's older
+        name)."""
+        self.restore_carry_state(extra)
+
+    def fault_state_host(self):
+        """Alias of :meth:`carry_state_host` (the JAX engine's older
+        name)."""
+        return self.carry_state_host()
 
     def _diverged(self) -> bool:
         """Divergence predicate (one device-to-host read): non-finite
@@ -391,92 +453,263 @@ class FederatedExperiment:
         return not bool(torch.isfinite(w).all()) or float(
             torch.linalg.vector_norm(w)) > self.faults.watchdog_norm
 
-    def _rollback(self, log, epoch: int) -> None:
-        """Restore the last good snapshot; raise FloatingPointError once
-        more than max_rollbacks were needed (the state restored first, so
-        a caller that catches it holds a finite state)."""
+    def _rollback(self, logger, epoch: int, checkpointer) -> None:
+        """Restore the last good state (the latest auto-checkpoint
+        boundary's, else the start of :meth:`run`'s), emit a 'fault'
+        rolled_back event, persist the restored state as an on-failure
+        auto-checkpoint, and raise FloatingPointError once more than
+        max_rollbacks were needed (the state restored first, so a caller
+        that catches it holds a finite state)."""
         self._rollbacks += 1
-        self.state, self.fault_state = self._last_good
-        self._last_good = self._snapshot()    # the ring is updated in place
-        restored = self.state.round
-        log(f"!! server state diverged after round {epoch}; rolling "
+        st, carry = self._last_good
+        restored = int(st.round)
+        logger.record(kind="fault", round=int(epoch), rolled_back=1,
+                      restored_round=restored,
+                      rollbacks_total=self._rollbacks)
+        logger.print(
+            f"!! server state diverged after round {epoch}; rolling "
             f"back to round {restored} "
             f"(rollback {self._rollbacks}/{self.faults.max_rollbacks})")
+        self.state = self._place_state(st)
+        if carry is not None:
+            self.restore_carry_state(carry)
+        if checkpointer is not None:
+            # On-failure checkpoint: an external --resume lands on the
+            # round rolled back to.
+            checkpointer.save_auto(self.state, extra=carry)
         if self._rollbacks > self.faults.max_rollbacks:
             raise FloatingPointError(
                 f"server state diverged after round {epoch} and "
                 f"exhausted {self.faults.max_rollbacks} rollbacks "
                 f"(restored to round {restored})")
 
-    def run(self, log: Callable[[str], None] = print) -> dict:
+    def _preempt(self, logger, checkpointer, epoch, journal, shutdown):
+        """Honor a shutdown request at a host boundary: write an
+        auto-checkpoint (with a Checkpointer of its own when the caller
+        runs without one: a preempt must not lose the run), record a
+        'lifecycle' preempt event, mark the journal and raise Preempted
+        (utils/lifecycle.py)."""
+        from attacking_federate_learning_tpu_torch.utils.checkpoint import (
+            Checkpointer
+        )
+        from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+            EXIT_PREEMPTED, Preempted
+        )
+
+        ck = checkpointer or Checkpointer(
+            self.cfg, auto_dir=journal.dir if journal is not None else None)
+        path = ck.save_auto(self.state, extra=self.carry_state_host())
+        source = shutdown.source or "signal"
+        logger.record(kind="lifecycle", phase="preempt", round=int(epoch),
+                      source=source, checkpoint=path,
+                      attempt=journal.attempt if journal is not None else 1)
+        logger.print(f"!! preempted ({source}) after round {epoch}; "
+                     f"state checkpointed to {path}; "
+                     f"exiting {EXIT_PREEMPTED} (resumable)")
+        if journal is not None:
+            journal.finish("preempted", EXIT_PREEMPTED, checkpoint=path)
+            journal.close()
+        raise Preempted(epoch, source)
+
+    # --- the experiment loop -----------------------------------------------
+    def run(self, logger: Optional[RunLogger] = None, checkpointer=None,
+            journal=None, shutdown=None,
+            log: Optional[Callable[[str], None]] = None) -> dict:
         """Full experiment loop (reference main.py:64-95): ``cfg.epochs``
         rounds, evaluated every ``test_step`` rounds and after the last,
-        each evaluation reported as the reference's ``Test set:`` line
-        through ``log``.
+        with the JAX engine's ``run`` semantics (its core/engine.py).
 
-        With faults the result also holds ``faults``, one dict of counts
-        per round run (a rolled-back round appears again when it is run
-        again), read to the host at the evaluation rounds only; with the
-        watchdog on, a diverged state at an evaluation round is rolled
-        back before it is evaluated.
+        ``logger``: a utils.metrics.RunLogger (the reference's lines, the
+        accuracy CSV and the event log).  With ``log`` instead, the lines
+        go to that callable and the events stay in memory (a RunLogger
+        with ``log_dir=None``); with neither, the engine makes a
+        RunLogger of ``cfg.output`` / ``cfg.log_dir`` and closes it.
 
-        Under a backdoor (``cfg.backdoor`` and an attacker with
-        ``test_asr``) the result also holds ``asr``, the attack success
-        rate of the server weights at each evaluation."""
+        ``checkpointer``: a utils.checkpoint.Checkpointer.  The state is
+        saved above ``checkpoint_acc_threshold`` accuracy (keep-best) and,
+        with ``cfg.checkpoint_every``, as an auto-checkpoint at every
+        such boundary, the carry state (the straggler ring) in
+        ``extra=``.  A checkpoint boundary's state is also the
+        watchdog's new rollback target.
+
+        ``journal``: a utils.lifecycle.RunJournal.  Rounds and evals are
+        committed at the host boundaries exactly once across restarts;
+        'fault' events of rounds at or below its high-water mark and
+        committed evals are not emitted again.  It gets the 'lifecycle'
+        start/resume/complete events, the 'registry' stamp, the
+        manifest's summary and the run's index entry.
+
+        ``shutdown``: a utils.lifecycle.GracefulShutdown, polled at each
+        host boundary; a request checkpoints and raises Preempted.
+
+        Returns ``accuracies`` and ``epochs`` (this attempt's
+        evaluations), ``final_weights``, and with faults ``faults`` (one
+        dict of counts per round run in this attempt, a rolled-back
+        round again when it is run again), under a backdoor ``asr`` (the
+        attack success rate at each evaluation)."""
+        own = logger is None and log is None
+        if logger is None:
+            logger = (RunLogger(self.cfg, self.cfg.output, self.cfg.log_dir)
+                      if own else RunLogger(self.cfg, log_dir=None, log=log))
+        with contextlib.ExitStack() as stack:
+            if own:
+                stack.enter_context(logger)
+            return self._run_body(logger, checkpointer, journal, shutdown)
+
+    def _run_body(self, logger, checkpointer, journal, shutdown) -> dict:
         cfg = self.cfg
         test_size = len(self.dataset.test_y)
-        accuracies, epochs, fault_rows, pending = [], [], [], []
-        asr = []
         backdoor = bool(cfg.backdoor) and hasattr(self.attacker, "test_asr")
-        watchdog = self.faults is not None and self.faults.watchdog
-        self._rollbacks = 0
-        if watchdog:
-            self._last_good = self._snapshot()
         if cfg.backdoor:
             # Pre-training accuracy line (reference main.py:45-51).
             loss0, correct0 = self.evaluate(self.state.weights)
-            log("\nBEFORE: Test set. Average loss: {:.4f}, Accuracy: {}/{} "
+            logger.print(
+                "\nBEFORE: Test set. Average loss: {:.4f}, Accuracy: {}/{} "
                 "({:.2f}%)".format(float(loss0), int(correct0), test_size,
                                    100.0 * float(correct0) / test_size))
         else:
-            log("\nStarting Training...")
-        epoch = int(self.state.round)
+            logger.print("\nStarting Training...")
+
+        ckpt_every = cfg.checkpoint_every
+        watchdog = self.faults is not None and self.faults.watchdog
+        self._rollbacks = 0
+        if watchdog:
+            # The rollback target until the first checkpoint boundary.
+            self._last_good = (self._host_state(), self.carry_state_host())
+        # A resumed ServerState carries its round counter.
+        epoch = start_epoch = span_start = int(self.state.round)
+        fault_rows, pending, asr = [], [], []
+        last_asr = None
+        if journal is not None:
+            attempt = journal.start_attempt(epoch)
+            phase = "start" if attempt == 1 and epoch == 0 else "resume"
+            logger.record(kind="lifecycle", phase=phase, round=epoch,
+                          attempt=attempt, replay_high=journal.high)
+            if phase == "resume":
+                logger.print(
+                    f"[lifecycle] attempt {attempt} resumes at round "
+                    f"{epoch} (journal high-water {journal.high}: "
+                    f"replayed rounds/evals are not re-recorded)")
+
+        def fresh(t):
+            # Exactly-once events: a round at or below the journal's
+            # high-water mark was recorded by the attempt that ran it.
+            return journal is None or journal.fresh_round(t)
+
+        loop_t0 = time.perf_counter()
         while epoch < cfg.epochs:
             self.run_round(epoch)
             if self.faults is not None:
                 pending.append(self.last_round_faults)
-            if epoch % cfg.test_step and epoch != cfg.epochs - 1:
+            is_eval = epoch % cfg.test_step == 0 or epoch == cfg.epochs - 1
+            if not (is_eval or (ckpt_every and epoch % ckpt_every == 0)):
                 epoch += 1
                 continue
+            # A host boundary: where the JAX engine's span ends.
             if pending:
                 counts = torch.stack([r["quarantined"] for r in pending])
-                fault_rows += [{**row, "quarantined": q}
-                               for row, q in zip(pending, counts.tolist())]
+                for row, q in zip(pending, counts.tolist()):
+                    row = {**row, "quarantined": int(q)}
+                    fault_rows.append(row)
+                    if fresh(row["round"]):
+                        logger.record(kind="fault", **row)
                 pending = []
+            if journal is not None:
+                journal.commit_rounds(span_start, epoch)
             if watchdog and self._diverged():
-                self._rollback(log, epoch)
-                epoch = int(self.state.round)
+                # Restore the last good state and run again from there;
+                # the eval below never sees the diverged weights.
+                self._rollback(logger, epoch, checkpointer)
+                epoch = span_start = int(self.state.round)
                 continue
-            test_loss, correct = self.evaluate(self.state.weights)
-            accuracy = 100.0 * float(correct) / test_size
-            accuracies.append(accuracy)
-            epochs.append(epoch)
-            log("Test set: [{:3d}] Average loss: {:.4f}, "
-                "Accuracy: {}/{} ({:.2f}%)".format(
-                    epoch, float(test_loss), int(correct), test_size,
-                    accuracy))
-            if backdoor:
-                # Post-aggregation backdoor check, printed after the
-                # accuracy line as in the reference (main.py:91-95).
-                asr.append(self.attacker.test_asr(self.state.weights, log,
-                                                  tag="POST"))
+            if is_eval and (journal is None or journal.fresh_eval(epoch)):
+                test_loss, correct = self.evaluate(self.state.weights)
+                accuracy = logger.record_eval(epoch, test_loss, correct,
+                                              test_size)
+                if (accuracy > cfg.checkpoint_acc_threshold
+                        and checkpointer is not None):
+                    # The carry state rides every checkpoint: --resume
+                    # takes the newest by round, best saves included.
+                    checkpointer.save(self.state, accuracy,
+                                      extra=self.carry_state_host())
+                if backdoor:
+                    # Post-aggregation backdoor check, printed after the
+                    # accuracy line as in the reference (main.py:91-95).
+                    last_asr = float(self.attacker.test_asr(
+                        self.state.weights, logger.print, tag="POST"))
+                    asr.append(last_asr)
+                    logger.record(kind="asr", round=epoch,
+                                  attack_success_rate=last_asr)
+                if journal is not None:
+                    journal.commit_eval(epoch)
+            if ckpt_every and epoch % ckpt_every == 0 and (
+                    watchdog or checkpointer is not None):
+                # Periodic auto-checkpoint; the watchdog above has
+                # certified this state, so it is the new rollback target.
+                carry = self.carry_state_host()
+                if watchdog:
+                    self._last_good = (self._host_state(), carry)
+                if checkpointer is not None:
+                    checkpointer.save_auto(self.state, extra=carry)
+            if (shutdown is not None
+                    and shutdown.should_preempt(start_epoch, epoch)):
+                self._preempt(logger, checkpointer, epoch, journal,
+                              shutdown)
             epoch += 1
-        if accuracies:
-            log("Max accuracy: {}".format(max(accuracies)))
-        result = {"accuracies": accuracies, "epochs": epochs,
+            span_start = epoch
+
+        if journal is not None:
+            self._complete(logger, journal, start_epoch, loop_t0, last_asr)
+        logger.finish()
+        result = {"accuracies": logger.accuracies,
+                  "epochs": logger.accuracies_epochs,
                   "final_weights": self.state.weights}
         if self.faults is not None:
             result["faults"] = fault_rows
         if backdoor:
             result["asr"] = asr
         return result
+
+    def _complete(self, logger, journal, start_epoch, loop_t0, last_asr):
+        """A journaled run's end: the 'lifecycle' complete and 'registry'
+        events, the manifest's summary (trajectory endpoints, rounds/s,
+        the event log's path, the config), ``journal.finish('done')`` and
+        the run's entry appended to ``<run_dir>/index.jsonl``."""
+        import dataclasses
+
+        from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+            run_id_for
+        )
+        from attacking_federate_learning_tpu_torch.utils.registry import (
+            RunRegistry
+        )
+
+        cfg = self.cfg
+        rounds = int(self.state.round)
+        logger.record(kind="lifecycle", phase="complete", round=rounds - 1,
+                      attempt=journal.attempt)
+        summary = {}
+        if logger.jsonl_path:
+            summary["events"] = os.path.abspath(logger.jsonl_path)
+        loop_wall = time.perf_counter() - loop_t0
+        if rounds > start_epoch and loop_wall > 0:
+            summary["rounds_per_s"] = round(
+                (rounds - start_epoch) / loop_wall, 4)
+        if logger.accuracies:
+            summary["final_accuracy"] = round(
+                float(logger.accuracies[-1]), 4)
+            summary["max_accuracy"] = round(float(max(logger.accuracies)),
+                                            4)
+        if last_asr is not None:
+            summary["final_asr"] = round(last_asr, 4)
+        logger.record(kind="registry", run_id=journal.run_id, rounds=rounds,
+                      **summary)
+        journal.finish("done", config=dataclasses.asdict(cfg),
+                       config_hash=run_id_for(cfg).rsplit("_", 1)[-1],
+                       **summary)
+        journal.close()
+        try:
+            reg = RunRegistry(cfg.run_dir)
+            reg.stamp(reg._entry_for_run(journal.run_id))
+        except OSError as e:       # an unwritable index must not fail a
+            logger.print(f"[registry] stamp failed: {e}")  # finished run

@@ -121,8 +121,13 @@ success):
                and give finite accuracies; it prints its median round
                time, the deliver step's CUDA-event ms a round and its
                peak allocated memory.  Per model, one deliver of 2
-               clients x 8 images on the card against the CPU (fp32 and
-               fp64, a relative-L2 band per client), whether two
+               clients x 8 images (2 for the BatchNorm models) on the
+               card against the CPU (fp32 with oneDNN on, and fp64; a
+               relative-L2 band per client: log-probs and gradients of
+               both devices against fp64, the card's gradients against
+               the CPU's at twice the band; WRN-40-4 read at its seeded
+               initial weights, its CPU reading with oneDNN on and off
+               at 1 and N threads printed), whether two
                identical full delivers gave the same bits (printed only),
                one gradient of all n B images without the per-client
                split (timed, as a reference), and one round under
@@ -152,9 +157,39 @@ success):
                ms, deliver ms (the cohort's host draw, printed apart, is
                outside it) and peak GiB are printed.
 
-Output: one line per check, a {"kernels": [...]} JSON line, the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
-The script imports nothing of JAX or of the JAX package.
+9. lifecycle-- the run lifecycle on the card at phase 5's width (mnist_mlp,
+               n = 100, rounds 0..20, test_step 5, checkpoint_every 5),
+               each run with a RunLogger, a RunJournal and a Checkpointer
+               in a fresh temporary run_dir / log_dir: (a) ALIE under Krum
+               at f = 24 and (b) ALIE under TrimmedMean with phase 5's
+               faults at f = 10, each run uninterrupted, then again
+               preempted (GracefulShutdown(preempt_at_round=8): Preempted
+               at round 10, an auto-checkpoint of round counter 11, the
+               straggler ring in extra_stale for (b)) and resumed from
+               Checkpointer.latest() in a third engine, on the card; the
+               resumed run's final weights and velocity must equal the
+               uninterrupted run's bit for bit (else the first round
+               whose weights part is printed), the journal must verify,
+               every eval round appear once in the events, the manifest
+               say done; (b)'s per-round fault counts over both attempts
+               must equal a host replay and run 1's; each run must launch
+               its defense's kernel (Krum: krum_scores; faulted
+               TrimmedMean: masked_trimmed_mean, no krum_scores).  (c) the
+               watchdog with checkpoint_every 2 and a Checkpointer: the
+               rollback restores the last auto-checkpoint (round counter
+               5), writes it again, and FloatingPointError comes past
+               max_rollbacks with a finite state.  (d) the CLI as a
+               subprocess: FL_PREEMPT_AT_ROUND=8 exits 75, --resume 0;
+               a real SIGTERM after the first Test set line exits 75,
+               --resume 0; events valid, journals verified.  Printed,
+               not gated: save_auto and resume host ms and bytes for (a),
+               (b) and a WRN-40-4 engine, (a)'s median round ms beside
+               phase 5's Krum run.
+
+Output: one line per check, a {"kernels": [...]} JSON line (launches
+summed over phases 5-9), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.  The script imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -1253,7 +1288,8 @@ def drive(exp, kernels, banned, failures, label, excluded=None):
 
 
 def run_main_path(ds, failures):
-    """Phase 5.  Returns launches per kernel summed over the runs."""
+    """Phase 5.  Returns launches per kernel summed over the runs, and
+    the clean runs' median round ms by defense."""
     from attacking_federate_learning_tpu_torch.attacks import DriftAttack
     from attacking_federate_learning_tpu_torch.config import FaultConfig
     from attacking_federate_learning_tpu_torch.core.engine import (
@@ -1310,7 +1346,7 @@ def run_main_path(ds, failures):
             if line.startswith("Test set"):
                 print(f"[main]   {line}", flush=True)
     check_watchdog(ds, failures)
-    return totals
+    return totals, clean_ms
 
 
 # Phase 6's clean runs: (defense, must launch, must not launch), each the
@@ -1496,6 +1532,14 @@ FAULTED_KERNELS = {"TrimmedMean": ("masked_trimmed_mean",),
 # held to the tests' kink band, 2e-2.  The BatchNorm models' 8-image
 # gradient reading, and every model's log-probs with TF32 on, are printed
 # beside, not gated.
+# Which kinks flip in the CPU's fp32 gradients depends on the CPU's
+# convolution path (oneDNN or PyTorch's own), not on its thread count, and
+# on the weights, which a WRN run leaves different each time (cuDNN's
+# backward does not repeat).  So the CPU's fp32 leg runs on one pinned
+# path, oneDNN on, and WRN-40-4 is read at its seeded initial weights,
+# which no run changes; its line also prints the CPU's reading on both
+# paths at 1 and N threads.  Both devices' gradients are gated against
+# fp64 at the band, and the card's against the CPU's at twice it.
 DELIVER_IMAGES = {"cifar10_cnn": 8, "mnist_cnn": 8, "resnet20": 2,
                   "wideresnet40_4": 2}
 LOGPROB_BAND = 1e-5
@@ -1503,10 +1547,11 @@ GRAD_BAND = {"cifar10_cnn": 1e-5, "mnist_cnn": 1e-5, "resnet20": 1e-5,
              "wideresnet40_4": 2e-2}
 
 
-def check_deliver(exp, model, failures):
+def check_deliver(exp, model, failures, weights=None):
     """Two clients' log-probabilities and gradients from the round-0
     batch, on the card and on the CPU in fp32 and fp64 (the same flat
-    weights; cuDNN on one side, the CPU's convolutions on the other);
+    weights, ``weights`` or else the engine's current ones; cuDNN on one
+    side, the CPU's convolutions with oneDNN on the other);
     whether two identical full delivers on the card gave the same bits
     (printed, not gated: cuDNN's backward may be nondeterministic); and
     the time of one gradient of the mean loss over the same n B images
@@ -1526,7 +1571,8 @@ def check_deliver(exp, model, failures):
             reflect_crop_flip, round_augment_key
         )
         xs0 = reflect_crop_flip(xs0, round_augment_key(exp.cfg.seed, 0))
-    w = exp.state.weights
+    w = exp.state.weights if weights is None else weights
+    backends = torch.backends
 
     def log_probs(w_, xs):
         """Each client's log-probabilities, its BatchNorm over its own
@@ -1535,20 +1581,42 @@ def check_deliver(exp, model, failures):
         return vmap(lambda x: functional_call(exp.model, params, (x,)))(
             xs).reshape(xs.shape[0], -1)
 
-    def readings(fn, images):
+    def readings(fn, images, variants=False):
         """Relative L2 per client (worst of two) of ``fn`` on the card and
         on the CPU in fp32 against fp64, and of the card's against the
-        CPU's."""
+        CPU's; with ``variants`` also the CPU's fp32 reading with oneDNN
+        on and off at 1 and N threads (a dict)."""
         xs, ys = xs0[:2, :images], ys0[:2, :images]
         # The module's own parameters are never read: functional_call
         # takes the flat weights' views, on the inputs' device.
         card = fn(w, xs, ys).double().cpu()
-        cpu32 = fn(w.cpu(), xs.cpu(), ys.cpu()).double()
-        ref = fn(w.cpu().double(), xs.cpu().double(), ys.cpu())
+        mkldnn = backends.mkldnn.enabled
+        backends.mkldnn.enabled = True
+        try:
+            cpu32 = fn(w.cpu(), xs.cpu(), ys.cpu()).double()
+            ref = fn(w.cpu().double(), xs.cpu().double(), ys.cpu())
+        finally:
+            backends.mkldnn.enabled = mkldnn
 
         def rel(a, b):
             return float(((a - b).norm(dim=1) / ref.norm(dim=1)).max())
-        return rel(card, ref), rel(cpu32, ref), rel(card, cpu32)
+        out = (rel(card, ref), rel(cpu32, ref), rel(card, cpu32))
+        if not variants:
+            return out
+        seen = {}
+        threads, mkldnn = torch.get_num_threads(), backends.mkldnn.enabled
+        try:
+            for on in (True, False):
+                for t in (threads, 1):
+                    backends.mkldnn.enabled = on
+                    torch.set_num_threads(t)
+                    got = fn(w.cpu(), xs.cpu(), ys.cpu()).double()
+                    seen[f"onednn={'on' if on else 'off'},threads={t}"] = (
+                        rel(got, ref))
+        finally:
+            backends.mkldnn.enabled = mkldnn
+            torch.set_num_threads(threads)
+        return out, seen
 
     def deliver(w_, xs, ys):
         """The engine's own deliver function, at one local step."""
@@ -1556,12 +1624,20 @@ def check_deliver(exp, model, failures):
 
     images = DELIVER_IMAGES[model]
     lp = readings(lambda w_, xs, ys: log_probs(w_, xs), images)
-    gr = readings(deliver, images)
     band = GRAD_BAND[model]
-    ok = max(lp[:2]) <= LOGPROB_BAND and max(gr[:2]) <= band
+    cpu_paths = ""
+    if band > LOGPROB_BAND:
+        gr, seen = readings(deliver, images, variants=True)
+        cpu_paths = ("cpu-fp64 by CPU path " + " ".join(
+            f"{k}:{v:.3e}" for k, v in seen.items()) + " (gated: "
+            "onednn=on) ")
+    else:
+        gr = readings(deliver, images)
+    at = "trained" if weights is None else "initial"
+    ok = (max(lp[:2]) <= LOGPROB_BAND and max(gr[:2]) <= band
+          and gr[2] <= 2 * band)
     # What the log-prob band would see of a TF32 deliver: the card's
     # reading with TF32 on for this one call (printed, not gated).
-    backends = torch.backends
     saved = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
     backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
     try:
@@ -1587,7 +1663,8 @@ def check_deliver(exp, model, failures):
           f"images, rel_l2: log-probs card-fp64={lp[0]:.3e} cpu-fp64="
           f"{lp[1]:.3e} card-cpu={lp[2]:.3e} band={LOGPROB_BAND:.0e}; "
           f"gradients card-fp64={gr[0]:.3e} cpu-fp64={gr[1]:.3e} "
-          f"card-cpu={gr[2]:.3e} band={band:.0e}; ok={ok} {beside}"
+          f"card-cpu={gr[2]:.3e} band={band:.0e} (card-cpu "
+          f"{2 * band:.0e}) at {at} weights; ok={ok} {cpu_paths}{beside}"
           f"two_full_delivers_bit_equal={same} "
           f"one_grad_of_all_{xs.shape[0]}_images_ms={batched_ms:.3f}",
           flush=True)
@@ -1686,6 +1763,10 @@ def run_model_path(ds_mnist, failures):
             CLEAN_KERNELS[defense])
         kind = "faulted" if faulted else "clean"
         label = f"model {model} {attack} {defense} {kind}"
+        # The kink-band model's deliver is read at its seeded initial
+        # weights: a run leaves its trained weights different each time.
+        w_init = (exp.state.weights.clone() if model not in checked
+                  and GRAD_BAND[model] > LOGPROB_BAND else None)
         if attack == "backdoor":
             craft_ev = time_crafts(exp.attacker)
         run = drive(exp, kernels, banned, failures, label)
@@ -1722,11 +1803,11 @@ def run_model_path(ds_mnist, failures):
                 print(f"[model]   {line.strip()}", flush=True)
         if model not in checked:
             checked.add(model)
-            check_deliver(exp, model, failures)
+            check_deliver(exp, model, failures, w_init)
             profile_round(exp, model)
         # The timing wrappers hold the experiment in a reference cycle:
         # collect it, so that the next run's peak is its own.
-        del exp, run
+        del exp, run, w_init
         gc.collect()
         torch.cuda.empty_cache()
     return totals
@@ -2082,6 +2163,457 @@ def run_knobs_path(ds, failures):
 
 
 
+# Phase 9's runs: (label, defense, mal_prop, faulted, must launch, must not
+# launch), mnist_mlp at phase 5's width, rounds 0..20, test_step 5,
+# checkpoint_every 5, preempted at the first boundary at or past round 8.
+P9_TEST_STEP = 5
+P9_EVERY = 5
+P9_PREEMPT_AT = 8
+P9_RUNS = (("(a) ALIE Krum", "Krum", 0.24, False, ("krum_scores",), ()),
+           ("(b) ALIE TrimmedMean faulted", "TrimmedMean", 0.1, True,
+            ("masked_trimmed_mean",), ("krum_scores",)))
+
+
+def p9_config(defense, mal_prop, faulted, root, **kw):
+    """Phase 5's configuration with the lifecycle's cadence, its run_dir
+    and log_dir under ``root``."""
+    import dataclasses
+
+    from attacking_federate_learning_tpu_torch.config import FaultConfig
+
+    cfg = main_config(defense, mal_prop,
+                      FaultConfig(**FAULTS_MAIN) if faulted else None)
+    return dataclasses.replace(
+        cfg, test_step=P9_TEST_STEP, checkpoint_every=P9_EVERY,
+        run_dir=os.path.join(root, "runs"),
+        log_dir=os.path.join(root, "logs"), **kw)
+
+
+def p9_attempt(cfg, ds, run_id, failures, label, kernels, banned,
+               shutdown=None, resume=False):
+    """One attempt of a journaled run on the card: a fresh engine, its
+    own RunLogger (lines teed to ``<log_dir>/<run_id>.txt``), journal and
+    Checkpointer; resumed from ``Checkpointer.latest()`` with ``resume``.
+    Launch counters are zeroed just before run() and read just after.
+    Returns (engine, launches, per-round weight sums, round seconds,
+    the Preempted raised or None, the checkpointer)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.checkpoint import (
+        Checkpointer
+    )
+    from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+        Preempted, RunJournal
+    )
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        RunLogger
+    )
+
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda")
+    journal = RunJournal(cfg.run_dir, run_id)
+    ck = Checkpointer(cfg, auto_dir=journal.dir)
+    if resume:
+        state, extra = ck.resume(ck.latest(), with_extra=True,
+                                 device="cuda")
+        exp.state = state
+        exp.restore_carry_state(extra)
+        on_card = [t.device.type == "cuda" for t in
+                   (exp.state.weights, exp.state.velocity,
+                    *(exp.fault_state or {}).values())]
+        if not all(on_card):
+            failures.append(f"{label}: resumed state not on the card "
+                            f"{on_card}")
+    sums, round_s = [], []
+    inner = exp.run_round
+
+    def traced_round(t, inner=inner):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        state = inner(t)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - a)
+        sums.append((t, state.weights.double().sum()))
+        return state
+
+    exp.run_round = traced_round
+    stopped = None
+    with RunLogger(cfg, os.path.join(cfg.log_dir, run_id + ".txt"),
+                   cfg.log_dir, jsonl_name=run_id) as logger:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        try:
+            exp.run(logger, checkpointer=ck, journal=journal,
+                    shutdown=shutdown)
+        except Preempted as e:
+            stopped = e
+        launches = dict(_build.LAUNCHES)
+    missing = [k for k in kernels if launches[k] == 0]
+    extra_k = [k for k in banned if launches[k] != 0]
+    if missing or extra_k:
+        failures.append(f"{label}: missing launches {missing}, unexpected "
+                        f"launches {extra_k}")
+    sums = [(t, float(s)) for t, s in sums]
+    return exp, launches, sums, round_s, stopped, ck
+
+
+def p9_triplet(ds, label, defense, mal_prop, faulted, kernels, banned,
+               failures, root):
+    """(a)/(b): an uninterrupted journaled run, then the same config
+    preempted at the first boundary at or past round 8 and resumed in a
+    third engine.  Returns launches summed over the three runs and what
+    the caller prints."""
+    import numpy as np
+    import torch
+
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        fault_masks
+    )
+    from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+        GracefulShutdown, RunJournal
+    )
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        iter_events
+    )
+
+    one = p9_config(defense, mal_prop, faulted, os.path.join(root, "one"))
+    two = p9_config(defense, mal_prop, faulted, os.path.join(root, "two"))
+    rid = "p9"
+    totals = {}
+    full, l1, sums1, round_s, _, _ = p9_attempt(
+        one, ds, rid, failures, f"{label} run 1", kernels, banned)
+    first, l2, sums2, _, stopped, ck = p9_attempt(
+        two, ds, rid, failures, f"{label} run 2", kernels, banned,
+        shutdown=GracefulShutdown(preempt_at_round=P9_PREEMPT_AT))
+    latest = ck.latest()
+    with np.load(latest) as z:
+        saved_round = int(z["round"])
+        ring = z["extra_stale"].shape if "extra_stale" in z.files else None
+    last, l3, sums3, _, _, _ = p9_attempt(
+        two, ds, rid, failures, f"{label} run 3", kernels, banned,
+        resume=True)
+    for launches in (l1, l2, l3):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    bit_equal = (torch.equal(last.state.weights, full.state.weights)
+                 and torch.equal(last.state.velocity, full.state.velocity))
+    parted = None
+    if not bit_equal:
+        resumed = dict(sums2 + sums3)
+        parted = next((t for t, s in sums1 if resumed.get(t) != s), None)
+    problems = RunJournal(two.run_dir, rid).verify(epochs=one.epochs,
+                                                   test_step=P9_TEST_STEP)
+    manifest = RunJournal(two.run_dir, rid).read_manifest()
+    events = list(iter_events(os.path.join(two.log_dir, rid + ".jsonl")))
+    evals = sorted(e["round"] for e in events if e["kind"] == "eval")
+    want_evals = sorted(set(range(0, one.epochs, P9_TEST_STEP))
+                        | {one.epochs - 1})
+    ok = (stopped is not None and stopped.round == 10
+          and saved_round == 11 and bit_equal and problems == []
+          and evals == want_evals and manifest["status"] == "done")
+    counts_ok = True
+    if faulted:
+        keys = ("round", "injected_dropout", "injected_straggler",
+                "injected_corrupt", "quarantined")
+        got = [{k: e[k] for k in keys} for e in events
+               if e["kind"] == "fault"]
+        want = []
+        for t in range(one.epochs):
+            drop, stale, corrupt = fault_masks(full._fault_key, t, full.m,
+                                               full.m_mal, full.faults)
+            want.append({"round": t, "injected_dropout": int(drop.sum()),
+                         "injected_straggler": int(stale.sum()),
+                         "injected_corrupt": int(corrupt.sum()),
+                         "quarantined": int(drop.sum() + corrupt.sum())})
+        one_events = iter_events(os.path.join(one.log_dir, rid + ".jsonl"))
+        run1 = [{k: e[k] for k in keys} for e in one_events
+                if e["kind"] == "fault"]
+        counts_ok = got == want == run1
+        ok = ok and counts_ok and ring == (2, N_MAIN, D_MLP)
+    if not ok:
+        failures.append(
+            f"{label}: preempted at {stopped and stopped.round} (want 10), "
+            f"checkpoint round {saved_round} (want 11), bit_equal="
+            f"{bit_equal} (first parting round {parted}), journal "
+            f"{problems}, evals {evals}, status {manifest['status']}, "
+            f"fault counts ok {counts_ok}, ring {ring}")
+    out = {"full": full, "last": last, "ck": ck, "latest": latest,
+           "round_ms": 1e3 * statistics.median(round_s),
+           "rounds_per_s": RunJournal(one.run_dir, rid).read_manifest()[
+               "rounds_per_s"]}
+    print(f"[lifecycle] {label:29s} f={full.f}: preempted at round "
+          f"{stopped and stopped.round}, auto-checkpoint round "
+          f"{saved_round}{'' if ring is None else f' ring {ring}'}, "
+          f"resumed to round {last.state.round}: bit_equal={bit_equal} "
+          f"first_parting_round={parted} journal_verify={problems} "
+          f"evals={evals} manifest={manifest['status']} "
+          f"attempts={manifest['attempt']}"
+          + (f" fault_counts_match_replay_and_run1={counts_ok}"
+             if faulted else "")
+          + f" launches run1/2/3={[{k: v for k, v in x.items() if v} for x in (l1, l2, l3)]}"
+          f" ok={ok}", flush=True)
+    return totals, out
+
+
+def time_save_resume(exp, ck, smi, label, reps=3):
+    """Host ms (median of ``reps``) of one save_auto of ``exp``'s state
+    with its carry state (the device-to-host copy included) and of one
+    resume of that file onto the card (restore_carry_state and a
+    synchronise included), with the file's bytes; printed, not gated."""
+    import torch
+
+    save_s, resume_s = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        path = ck.save_auto(exp.state, extra=exp.carry_state_host())
+        save_s.append(time.perf_counter() - a)
+        a = time.perf_counter()
+        state, extra = ck.resume(path, with_extra=True, device="cuda")
+        exp.state = state
+        exp.restore_carry_state(extra)
+        torch.cuda.synchronize()
+        resume_s.append(time.perf_counter() - a)
+    size = os.path.getsize(path)
+    print(f"[lifecycle] {label}: save_auto_ms={1e3 * statistics.median(save_s):.3f} "
+          f"resume_ms={1e3 * statistics.median(resume_s):.3f} "
+          f"bytes={size} (median of {reps}; host clock, fsync included) "
+          f"on {smi}", flush=True)
+
+
+def check_watchdog_checkpoints(ds, failures, root):
+    """(c) Phase 5's bit-scaled corruption under NoDefense with
+    checkpoint_every 2 and a Checkpointer.  At phase 5's rate (0.3) a
+    row is corrupted in round 0, before any checkpoint; at 0.01 the
+    schedule (n = 100, f = 10) first corrupts round 5, so the boundary of
+    round 4 saves a good state first.  The rollback must restore that
+    state (round counter 5), not round 0, write it again as an
+    on-failure auto-checkpoint, and past max_rollbacks (1) raise
+    FloatingPointError with that state restored and finite."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        fault_masks
+    )
+    from attacking_federate_learning_tpu_torch.utils.checkpoint import (
+        Checkpointer
+    )
+
+    fc = FaultConfig(corrupt=0.01, corrupt_mode="scale", corrupt_scale=1e30,
+                     watchdog_norm=1e6, max_rollbacks=1)
+    cfg = ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
+                           mal_prop=0.1, batch_size=128, epochs=8,
+                           test_step=2, checkpoint_every=2,
+                           defense="NoDefense", synth_train=60_000,
+                           synth_test=10_000, faults=fc,
+                           run_dir=os.path.join(root, "runs"),
+                           log_dir=os.path.join(root, "logs"))
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda")
+    corrupted = [t for t in range(cfg.epochs)
+                 if fault_masks(exp._fault_key, t, exp.m, exp.m_mal,
+                                fc)[2].any()]
+    ck = Checkpointer(cfg)
+    saves, inner = [], ck.save_auto
+
+    def spy(state, extra=None, inner=inner):
+        saves.append(int(state.round))
+        return inner(state, extra)
+
+    ck.save_auto = spy
+    lines, raised = [], None
+    try:
+        exp.run(checkpointer=ck, log=lines.append)
+    except FloatingPointError as err:
+        raised = str(err)
+    rollbacks = [s for s in lines if s.startswith("!! server state")]
+    restored = ck.resume(ck.latest(), device="cuda")
+    ok = (corrupted[:1] == [5] and raised is not None
+          and saves == [1, 3, 5, 5, 5] and len(rollbacks) == 2
+          and all("rolling back to round 5" in s for s in rollbacks)
+          and exp.state.round == 5 == restored.round
+          and torch.equal(exp.state.weights, restored.weights)
+          and bool(torch.isfinite(exp.state.weights).all()))
+    print(f"[lifecycle] (c) watchdog with checkpoints: corrupted rounds "
+          f"{corrupted} auto_saves_at_rounds={saves} rollbacks="
+          f"{len(rollbacks)} {rollbacks[:1]} raised={raised!r} "
+          f"restored_round={exp.state.round} ok={ok}", flush=True)
+    if not ok:
+        failures.append(f"watchdog with checkpoints: corrupted {corrupted}, "
+                        f"saves {saves}, lines {rollbacks}, raised "
+                        f"{raised!r}, round {exp.state.round}")
+
+
+def check_cli_lifecycle(failures, root):
+    """(d) The CLI on the card as a subprocess: the injected preempt
+    (FL_PREEMPT_AT_ROUND=8) exits 75 and --resume exits 0; then a real
+    SIGTERM sent to a longer run once it has printed its first Test set
+    line exits 75, and --resume exits 0.  Each run's events pass the
+    port's validate_event and its journal verifies."""
+    import signal
+
+    from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+        RunJournal
+    )
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        iter_events
+    )
+
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    env.pop("FL_PREEMPT_AT_ROUND", None)
+
+    def argv(run_id, epochs, *extra):
+        return [sys.executable, "-m", f"{PKG}.cli", "-s", "SYNTH_MNIST",
+                "-n", str(N_MAIN), "-e", str(epochs), "--journal",
+                "--run-id", run_id, "--checkpoint-every", "5",
+                "--run-dir", os.path.join(root, "runs"),
+                "--log-dir", os.path.join(root, "logs"), *extra]
+
+    def audit(run_id, epochs):
+        problems = RunJournal(os.path.join(root, "runs"), run_id).verify(
+            epochs=epochs, test_step=5)
+        try:
+            n = sum(1 for _ in iter_events(
+                os.path.join(root, "logs", run_id + ".jsonl")))
+        except ValueError as e:
+            return problems + [str(e)], 0
+        return problems, n
+
+    t0 = time.perf_counter()
+    inj = {**env, "FL_PREEMPT_AT_ROUND": str(P9_PREEMPT_AT)}
+    rcs = [subprocess.run(argv("smoke", ROUNDS), env=inj, cwd=ROOT,
+                          capture_output=True, text=True,
+                          timeout=600).returncode]
+    rcs.append(subprocess.run(argv("smoke", ROUNDS, "--resume"), env=inj,
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=600).returncode)
+    problems, n_events = audit("smoke", ROUNDS)
+    ok = rcs == [75, 0] and problems == [] and n_events > 0
+    print(f"[lifecycle] (d) CLI FL_PREEMPT_AT_ROUND={P9_PREEMPT_AT}: exit "
+          f"codes {rcs} (want [75, 0]) events={n_events} journal_verify="
+          f"{problems} ok={ok} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not ok:
+        failures.append(f"CLI injected preempt: exit codes {rcs}, journal "
+                        f"{problems}, events {n_events}")
+
+    t0 = time.perf_counter()
+    long_rounds = 1000
+    proc = subprocess.Popen(argv("smoke_sig", long_rounds), env=env,
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        seen = False
+        for line in proc.stdout:
+            if line.startswith("Test set"):
+                proc.send_signal(signal.SIGTERM)
+                seen = True
+                break
+        proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rcs = [proc.returncode]
+    resumed = subprocess.run(argv("smoke_sig", long_rounds, "--resume"),
+                             env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=900)
+    rcs.append(resumed.returncode)
+    at = next((s for s in resumed.stdout.splitlines()
+               if s.startswith("Resumed from round")), None)
+    problems, n_events = audit("smoke_sig", long_rounds)
+    ok = seen and rcs == [75, 0] and problems == [] and n_events > 0
+    print(f"[lifecycle] (d) CLI real SIGTERM after the first Test set "
+          f"line: exit codes {rcs} (want [75, 0]) '{at}' of {long_rounds} "
+          f"events={n_events} journal_verify={problems} ok={ok} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not ok:
+        failures.append(f"CLI SIGTERM: saw Test set {seen}, exit codes "
+                        f"{rcs}, journal {problems}, events {n_events}")
+
+
+def run_lifecycle_path(ds, failures, smi, phase5_krum_ms):
+    """Phase 9.  Returns launches per kernel summed over (a) and (b)."""
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.checkpoint import (
+        Checkpointer
+    )
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p9_") as root:
+        for i, (label, defense, mal_prop, faulted, kernels,
+                banned) in enumerate(P9_RUNS):
+            launches, out = p9_triplet(
+                ds, label, defense, mal_prop, faulted, kernels, banned,
+                failures, os.path.join(root, str(i)))
+            for k, v in launches.items():
+                totals[k] += v
+            if not faulted:
+                print(f"[lifecycle] (a) median_round_ms={out['round_ms']:.3f}"
+                      f" with checkpoint_every {P9_EVERY} (run 1; the "
+                      f"boundaries' work is outside it), rounds_per_s="
+                      f"{out['rounds_per_s']} (run 1's loop, boundaries "
+                      f"included), beside phase 5's Krum "
+                      f"median_round_ms={phase5_krum_ms:.3f} on {smi}",
+                      flush=True)
+            time_save_resume(out["last"], out["ck"], smi,
+                             f"{label} state"
+                             + (" + straggler ring" if faulted else ""))
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+        check_watchdog_checkpoints(ds, failures, os.path.join(root, "c"))
+        # One save and resume of phase 7's WRN-40-4 engine (its state:
+        # the dataset is cut to 1,000 / 100 images, which leaves it as
+        # it is).
+        wrn = ExperimentConfig(dataset=C.CIFAR100, model="wideresnet40_4",
+                               users_count=10, mal_prop=0.2,
+                               defense="TrimmedMean", synth_train=1_000,
+                               synth_test=100,
+                               run_dir=os.path.join(root, "wrn"))
+        exp = FederatedExperiment(
+            wrn, DriftAttack(1.5), load_dataset(
+                wrn.dataset, seed=0, synth_train=1_000, synth_test=100),
+            device="cuda")
+        if exp.flat.dim != D_WRN:
+            failures.append(f"WRN-40-4 d={exp.flat.dim}")
+        time_save_resume(exp, Checkpointer(wrn), smi,
+                         f"WRN-40-4 state (d={exp.flat.dim})")
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_cli_lifecycle(failures, os.path.join(root, "d"))
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2127,16 +2659,19 @@ def main() -> int:
                       synth_test=10_000)
     print(f"[main] SYNTH_MNIST 60000/10000 made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    totals = run_main_path(ds, failures)
+    totals, clean_ms = run_main_path(ds, failures)
     # -- 6. attack layer -----------------------------------------------------
     attack_totals = run_attack_path(ds, failures)
     # -- 7. the model family -------------------------------------------------
     model_totals = run_model_path(ds, failures)
     # -- 8. the round's knobs ------------------------------------------------
     knob_totals = run_knobs_path(ds, failures)
+    # -- 9. the run lifecycle ------------------------------------------------
+    life_totals = run_lifecycle_path(ds, failures, smi, clean_ms["Krum"])
     for name, e in entries.items():
         e["launches"] = (totals[name] + attack_totals[name]
-                         + model_totals[name] + knob_totals[name])
+                         + model_totals[name] + knob_totals[name]
+                         + life_totals[name])
 
     if failures:
         for msg in failures:

@@ -363,11 +363,13 @@ def test_cli_attack_errors_are_jax_s(argv, capsys):
 
 @pytest.mark.parametrize("attack", ["signflip", "noise", "minmax",
                                     "minsum"])
-def test_cli_runs_each_attack_on_the_cpu(attack, capsys):
+def test_cli_runs_each_attack_on_the_cpu(attack, capsys, tmp_path):
     result = cli.main(["-s", C.SYNTH_MNIST_HARD, "-n", "7", "-m", "0.3",
                        "-e", "2", "-c", "8", "--attack", attack,
                        "-d", "TrimmedMean", "--synth-train", "100",
-                       "--synth-test", "20", "--device", "cpu"])
+                       "--synth-test", "20", "--device", "cpu",
+                       "--log-dir", str(tmp_path / "logs"),
+                       "--run-dir", str(tmp_path / "runs")])
     out = capsys.readouterr().out
     assert "Starting Training..." in out and "Max accuracy:" in out
     assert len(result["accuracies"]) == 2

@@ -392,11 +392,14 @@ def test_nan_guard_raises_in_the_craft_seam(datasets):
 
 
 @pytest.mark.parametrize("b,count", [("pattern", "200.0"), ("1", "1.0")])
-def test_cli_backdoor_prints_before_post_and_max(b, count, capsys):
+def test_cli_backdoor_prints_before_post_and_max(b, count, capsys,
+                                                 tmp_path):
     result = cli.main(["-s", C.SYNTH_MNIST_HARD, "-d", "Krum", "-n", "7",
                        "-m", "0.3", "-e", "3", "-c", "8", "-b", b,
                        "--test-step", "2", "--synth-train", "200",
-                       "--synth-test", "40", "--device", "cpu"])
+                       "--synth-test", "40", "--device", "cpu",
+                       "--log-dir", str(tmp_path / "logs"),
+                       "--run-dir", str(tmp_path / "runs")])
     lines = [s for s in capsys.readouterr().out.splitlines() if s]
     i = next(k for k, s in enumerate(lines) if s.startswith("BEFORE: "))
     body = lines[i + 1:]

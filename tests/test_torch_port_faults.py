@@ -234,8 +234,14 @@ def test_straggler_with_partial_participation_error_is_jax_s():
 
 
 def test_checkpoint_every_is_refused_until_the_lifecycle_slice():
-    with pytest.raises(ValueError, match="checkpoint_every=2: auto-"):
-        ExperimentConfig(checkpoint_every=2)
+    """The lifecycle slice has landed: any N >= 0 is accepted, and a
+    negative one is refused with the JAX package's message."""
+    assert ExperimentConfig(checkpoint_every=2).checkpoint_every == 2
+    with pytest.raises(ValueError) as je:
+        JConfig(checkpoint_every=-1)
+    with pytest.raises(ValueError) as te:
+        ExperimentConfig(checkpoint_every=-1)
+    assert str(te.value) == str(je.value)
 
 
 _FLAG_SETS = [[], ["--fault-dropout", "0.1", "--fault-straggler", "0.1"],

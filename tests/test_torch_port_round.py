@@ -165,6 +165,72 @@ def test_config_matches_the_jax_config():
         with pytest.raises(ValueError) as te:
             ExperimentConfig(num_std=bad)
         assert str(je.value) == str(te.value)
+    # The run lifecycle's fields: JAX's defaults, JAX's csv_name and
+    # JAX's refusal of a negative checkpoint_every.
+    a, b = JConfig(), ExperimentConfig()
+    for name in ("checkpoint_every", "checkpoint_acc_threshold", "output",
+                 "log_dir", "run_dir", "test_step", "data_dir"):
+        assert getattr(a, name) == getattr(b, name), name
+    assert (b.checkpoint_acc_threshold, b.log_dir, b.run_dir,
+            b.output) == (70.0, "logs", "runs", None)
+    kw = dict(dataset=C.SYNTH_CIFAR10, defense="Krum", backdoor="pattern",
+              users_count=100, mal_prop=0.24, checkpoint_every=5)
+    assert JConfig(**kw).csv_name() == ExperimentConfig(**kw).csv_name()
+    with pytest.raises(ValueError) as je:
+        JConfig(checkpoint_every=-3)
+    with pytest.raises(ValueError) as te:
+        ExperimentConfig(checkpoint_every=-3)
+    assert str(je.value) == str(te.value)
+
+
+# Paper scoring: Krum sums the n - f - 2 closest distances.  Krum runs the
+# fused kernel's plain version (unmasked) and, faulted, the masked sort;
+# Bulyan its selection loop.  Bulyan needs n >= 4f + 3: f = 4 of 19.
+_PAPER = [("Krum", None), ("Krum", FAULTS), ("Bulyan", None)]
+
+
+@pytest.mark.parametrize("defense,faults", _PAPER,
+                         ids=["Krum", "Krum-faulted", "Bulyan"])
+def test_paper_scoring_rounds_match_the_jax_engine(defense, faults,
+                                                   datasets):
+    """krum_paper_scoring (--krum-paper-scoring) through whole rounds:
+    three rounds of both engines from the same weights, as
+    test_three_rounds_match_the_jax_engine, with the winner of each
+    Krum round checked against the JAX engine's."""
+    kw = dict(dataset=C.SYNTH_MNIST_HARD, users_count=N, mal_prop=MAL_PROP,
+              batch_size=B, epochs=ROUNDS, defense=defense,
+              krum_paper_scoring=True, **SIZES)
+    jexp = JExperiment(JConfig(**kw, aggregation_impl="xla",
+                               log_round_stats=True,
+                               telemetry=faults is not None,
+                               faults=faults and JFaultConfig(**faults)),
+                       attacker=JDrift(1.5), dataset=datasets[0])
+    texp = FederatedExperiment(
+        ExperimentConfig(**kw, faults=faults and FaultConfig(**faults)),
+        DriftAttack(1.5), datasets[1], device="cpu")
+    params = jax.tree.map(np.asarray, jexp.flat.unravel(jexp.state.weights))
+    texp.state = init_server_state(from_jax_params(params))
+    assert texp.defense_fn.keywords["paper_scoring"] is True
+    winners = []
+    if defense == "Krum":
+        inner = texp.defense_fn
+
+        def spy(grads, n, f, **kw):
+            out = inner(grads, n, f, **kw)
+            winners.append(np.flatnonzero((grads == out).all(1).numpy()))
+            return out
+
+        texp.defense_fn = spy
+    for t in range(ROUNDS):
+        jexp.run_round(t)
+        texp.run_round(t)
+        if defense == "Krum" and faults is None:
+            assert int(jexp.last_round_stats["krum_selected"]) in winners[t]
+    np.testing.assert_allclose(texp.state.weights.numpy(),
+                               np.asarray(jexp.state.weights), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(texp.state.velocity.numpy(),
+                               np.asarray(jexp.state.velocity), atol=1e-5)
 
 
 def test_watchdog_rolls_back_then_raises(datasets):
