@@ -2,7 +2,8 @@ from attacking_federate_learning_tpu_torch.attacks.alie import (  # noqa: F401
     DriftAttack, paper_z
 )
 from attacking_federate_learning_tpu_torch.attacks.base import (  # noqa: F401
-    Attack, AttackContext, NoAttack, cohort_stats
+    Attack, AttackContext, NoAttack, cohort_stats, delivered_cohort_stats,
+    masked_cohort_stats
 )
 from attacking_federate_learning_tpu_torch.attacks.baselines import (  # noqa: F401
     GaussianNoiseAttack, SignFlipAttack
@@ -14,8 +15,7 @@ from attacking_federate_learning_tpu_torch.utils.plugins import Registry
 
 # Factories with the uniform signature (cfg, dataset, device) -> Attack, the
 # JAX package's registry (attacks/__init__.py there) with the device the
-# backdoor's poison set and shadow net live on.  'backdoor_timed' belongs
-# to async rounds, which the port does not have yet.
+# backdoor's poison set and shadow net live on.
 ATTACKS = Registry("attack")
 ATTACKS.register("none", lambda cfg, dataset=None, device="cuda": NoAttack())
 ATTACKS.register("alie", lambda cfg, dataset=None, device="cuda":
@@ -29,7 +29,15 @@ def _make_backdoor(cfg, dataset=None, device="cuda"):
     return BackdoorAttack(cfg, dataset=dataset, device=device)
 
 
+def _make_backdoor_timed(cfg, dataset=None, device="cuda"):
+    from attacking_federate_learning_tpu_torch.attacks.backdoor import (
+        TimedBackdoorAttack
+    )
+    return TimedBackdoorAttack(cfg, dataset=dataset, device=device)
+
+
 ATTACKS.register("backdoor", _make_backdoor)
+ATTACKS.register("backdoor_timed", _make_backdoor_timed)
 ATTACKS.register("signflip", lambda cfg, dataset=None, device="cuda":
                  SignFlipAttack(cfg.num_std))
 ATTACKS.register("noise", lambda cfg, dataset=None, device="cuda":

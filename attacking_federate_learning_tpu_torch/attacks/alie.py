@@ -12,7 +12,7 @@ from __future__ import annotations
 from statistics import NormalDist
 
 from attacking_federate_learning_tpu_torch.attacks.base import (
-    Attack, cohort_stats, wire_scalar
+    Attack, delivered_cohort_stats, wire_scalar
 )
 
 
@@ -40,5 +40,7 @@ class DriftAttack(Attack):
     name = "alie"
 
     def craft(self, mal_grads, ctx=None):
-        mean, stdev = cohort_stats(mal_grads)
+        # Async rounds: the statistics of the delivered malicious rows,
+        # the envelope the server actually aggregates.
+        mean, stdev = delivered_cohort_stats(mal_grads, ctx)
         return mean - wire_scalar(self.num_std, stdev) * stdev

@@ -47,7 +47,7 @@ import torch
 from torch.func import functional_call, grad
 
 from attacking_federate_learning_tpu_torch.attacks.base import (
-    Attack, cohort_stats, wire_scalar
+    Attack, delivered_cohort_stats, wire_scalar
 )
 from attacking_federate_learning_tpu_torch.core.engine import resolve_device
 from attacking_federate_learning_tpu_torch.core.evaluate import (
@@ -152,7 +152,10 @@ class BackdoorAttack(Attack):
         return w
 
     def craft(self, mal_grads, ctx):
-        mean, stdev = cohort_stats(mal_grads)
+        # Async rounds (ctx.staleness set): the clip envelope and the
+        # descent projection come from the DELIVERED malicious rows only;
+        # the server never aggregates the rest.
+        mean, stdev = delivered_cohort_stats(mal_grads, ctx)
         # The clip bounds stay in the wire's dtype (jnp's bf16 ops); the
         # shadow arithmetic is f32, as the f32 weights and lr promote a
         # bf16 mean in JAX (torch keeps a 0-d tensor's type out of it).
@@ -183,3 +186,19 @@ class BackdoorAttack(Attack):
                 "Accuracy: {}/{} ({:.2f}%)".format(
                     tag, float(loss), int(correct), self.poison_count, acc))
         return acc
+
+
+class TimedBackdoorAttack(BackdoorAttack):
+    """The async timing-channel backdoor: the same crafting pipeline, but
+    the attacker games the arrival schedule: its rows always emit with
+    delay 0 (``timed``, read by core/async_rounds.py:draw_delays), so
+    every delivered malicious row is fresh (full staleness weight), at
+    the price of FIFO priority (the freshest-born rows board the k-bus
+    last).  The attacker controls content and emission time only;
+    arrival timestamps, hence weights, are the server's.
+
+    Only meaningful under ``aggregation='async'``; the engine and the CLI
+    refuse it elsewhere."""
+
+    name = "backdoor_timed"
+    timed = True

@@ -12,7 +12,9 @@ matrix.  ``num_std == 0`` disables crafting (malicious.py:21-22).
 ``craft(mal_grads, ctx)`` takes an :class:`AttackContext`: what the
 reference stashes on user 0 (user.py:84-86), the round's broadcast
 weights and the faded learning rate, plus the round index that seeds the
-noise attack.
+noise attack and, in async rounds, the delivered rows' staleness: there
+the seam runs at delivery time, and crafting statistics come from the
+delivered malicious rows (:func:`delivered_cohort_stats`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ class AttackContext(NamedTuple):
     original_params: torch.Tensor  # (d,) weights broadcast this round
     learning_rate: torch.Tensor    # () f32 faded lr, reference server.py:50
     round: int = 0                 # round index (rng derivation)
+    # Async rounds only (core/async_rounds.py): the (m,) int32 staleness
+    # of the DELIVERED cohort, t - birth on delivered rows and -1 on the
+    # rest.  None under the flat round, where every row is fresh.
+    staleness: Optional[torch.Tensor] = None
 
 
 def cohort_stats(mal_grads: torch.Tensor):
@@ -40,6 +46,28 @@ def cohort_stats(mal_grads: torch.Tensor):
     mean = G.mean(0).to(dtype)
     stdev = torch.sqrt(G.var(0, correction=0).to(dtype))
     return mean, stdev
+
+
+def masked_cohort_stats(mal_grads: torch.Tensor, delivered: torch.Tensor):
+    """Mean and population std over the DELIVERED malicious rows only
+    (``delivered`` (f,) bool), with fixed shapes: the sums over the full
+    axis divided by the delivered count (at least 1).  With every row
+    delivered this is :func:`cohort_stats` up to summation order."""
+    e = torch.clamp(delivered.sum(), min=1)
+    sel = delivered[:, None]
+    mean = torch.where(sel, mal_grads, 0.0).sum(0) / e
+    var = torch.where(sel, (mal_grads - mean[None, :]) ** 2, 0.0).sum(0) / e
+    return mean, torch.sqrt(var)
+
+
+def delivered_cohort_stats(mal_grads: torch.Tensor, ctx):
+    """The crafting statistics of the attack seam: the full-cohort
+    :func:`cohort_stats` in the flat round, the delivered rows' in async
+    rounds (``ctx.staleness >= 0`` marks delivery)."""
+    if ctx is None or ctx.staleness is None:
+        return cohort_stats(mal_grads)
+    f = mal_grads.shape[0]
+    return masked_cohort_stats(mal_grads, ctx.staleness[:f] >= 0)
 
 
 def wire_scalar(x: float, like: torch.Tensor) -> float:

@@ -1,4 +1,4 @@
-"""Experiment CLI of the flat FedSGD round.
+"""Experiment CLI of the flat FedSGD round and the async buffered round.
 
 The flat flags of the JAX package's CLI, with the reference driver's
 short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
@@ -8,10 +8,13 @@ knobs (``--participation``, ``--local-steps``, ``--partition`` with
 ``--dirichlet-alpha`` and ``--style-strength``, ``--krum-scoring-method``,
 ``--krum-paper-scoring``, ``--bulyan-batch-select``, ``--distance-dtype``,
 ``--server-uses-faded-lr``, ``--remat``, which the config refuses), the
-run lifecycle's (``-o``, ``--log-dir``, ``--run-dir``,
-``--no-checkpoint``, ``--resume``, ``--checkpoint-every``,
-``--heartbeat``, ``--journal``, ``--run-id``), plus ``--device``.  As in the JAX package,
-``grad_dtype`` and ``collect_metadata`` are config fields with no flag.
+async buffered round's (``--aggregation``, ``--async-buffer``,
+``--async-max-staleness``, ``--staleness-weight``; 'hierarchical' is
+refused by the config, not ported yet), the run lifecycle's (``-o``,
+``--log-dir``, ``--run-dir``, ``--no-checkpoint``, ``--resume``,
+``--checkpoint-every``, ``--heartbeat``, ``--journal``, ``--run-id``),
+plus ``--device``.  As in the JAX package, ``grad_dtype`` and
+``collect_metadata`` are config fields with no flag.
 It prints the same ``Test set: [ N] ... Accuracy: x/N`` lines, and
 under a backdoor (``-b``) the ``BEFORE:`` line and a ``##Test malicious
 net: [POST]`` line after each evaluation.
@@ -24,10 +27,10 @@ manifest under ``<run-dir>/<run-id>/``.  SIGTERM or SIGINT, or the
 ``FL_PREEMPT_AT_ROUND=k`` injection, checkpoints at the next host
 boundary and exits 75; ``--resume`` continues from the newest
 checkpoint.  A divergence past the watchdog's rollbacks exits 76.
-``--attack backdoor_timed`` needs async rounds, which the port does not
-have yet: it is refused, and so is ``--krum-scoring-method`` other than
-'sort' (the JAX package's XLA-suite evaluators, which the port's Pallas
-suite never reaches).
+``--attack backdoor_timed`` needs ``--aggregation async``, as in the JAX
+package; ``--krum-scoring-method`` other than 'sort' is refused (the JAX
+package's XLA-suite evaluators, which the port's Pallas suite never
+reaches).
 
 Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 100 -m 0.24
@@ -42,6 +45,9 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d TrimmedMean -n 100 -m 0.24 --attack minmax
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Median -n 100 -m 0.1 --fault-dropout 0.1 --fault-straggler 0.1
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d TrimmedMean -n 100 -m 0.24 --aggregation async \\
+          --async-buffer 64 --staleness-weight poly
       python -m attacking_federate_learning_tpu_torch.cli \\
           -s SYNTH_CIFAR10_HARD -d TrimmedMean -n 100 -m 0.24 \\
           --synth-train 50000 --synth-test 10000
@@ -83,8 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "else ALIE, reference main.py:44-54); the rest are "
                         "beyond-reference baselines (attacks/); "
                         "'backdoor_timed' is the async timing-channel "
-                        "variant (needs --aggregation async, which the "
-                        "port does not have yet: refused)")
+                        "variant (emits with delay 0 so its rows always "
+                        "arrive fresh; needs --aggregation async)")
     p.add_argument("--attack-direction", default="std",
                    choices=["std", "sign", "unit"],
                    help="min-max/min-sum perturbation direction "
@@ -134,6 +140,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "only (training stays f32): bfloat16 rides the "
                         "MXU at native throughput with f32 accumulation "
                         "— a flagged deviation for the 10k regime")
+    p.add_argument("--aggregation", default="flat",
+                   choices=["flat", "hierarchical", "async"],
+                   help="'flat' = reference path (one (n, d) matrix, one "
+                        "defense call); 'hierarchical' streams the client "
+                        "axis through --megabatch-sized scan shards with "
+                        "per-shard tier-1 robust estimates and a tier-2 "
+                        "cross-shard reduction — the (n, d)/(n, n) arrays "
+                        "never materialize (ops/federated.py); 'async' = "
+                        "FedBuff-style buffered rounds — updates arrive "
+                        "PRNG-drawn rounds late, the server aggregates "
+                        "the first --async-buffer pending arrivals with "
+                        "staleness-weighted contributions "
+                        "(core/async_rounds.py)")
+    p.add_argument("--async-buffer", default=0, type=int, metavar="K",
+                   help="async mode's FedBuff buffer size: pending "
+                        "updates consumed per round, FIFO (required "
+                        ">= 1 under --aggregation async)")
+    p.add_argument("--async-max-staleness",
+                   default=ExperimentConfig.async_max_staleness,
+                   type=int, metavar="S",
+                   help="async staleness bound: arrival delays draw "
+                        "from [0, S], a pending update older than S "
+                        "rounds is evicted (masked, never aggregated)")
+    p.add_argument("--staleness-weight", default="none",
+                   choices=["none", "poly", "const"],
+                   help="async contribution discount by staleness s: "
+                        "'none' (pure first-k), 'poly' (1/sqrt(1+s), "
+                        "the FedBuff paper), 'const' (0.5 for any "
+                        "stale row) — threaded into the mask-aware "
+                        "kernels' weights= seam")
     p.add_argument("--krum-paper-scoring", action="store_true",
                    help="paper-faithful Krum scoring (n-f-2 closest) instead "
                         "of the reference's n-f (defences.py:26)")
@@ -278,7 +314,10 @@ def config_from_args(args) -> ExperimentConfig:
         synth_train=args.synth_train, synth_test=args.synth_test,
         backdoor=args.backdoor, attack_direction=args.attack_direction,
         data_augment={"auto": None, "on": True, "off": False}[args.augment],
-        remat=args.remat, faults=faults,
+        remat=args.remat, faults=faults, aggregation=args.aggregation,
+        async_buffer=args.async_buffer,
+        async_max_staleness=args.async_max_staleness,
+        staleness_weight=args.staleness_weight,
         checkpoint_every=args.checkpoint_every, output=args.output,
         log_dir=args.log_dir, run_dir=args.run_dir)
 
@@ -310,9 +349,8 @@ def main(argv=None) -> dict:
         # explicit --attack backdoor without one would build an empty set.
         parser.error(f"--attack {args.attack} requires a trigger: "
                      f"-b pattern|1|2|3")
-    if args.attack == "backdoor_timed":
-        # The timing channel only exists where arrival time matters; the
-        # port has no async aggregation yet.
+    if args.attack == "backdoor_timed" and args.aggregation != "async":
+        # The timing channel only exists where arrival time matters.
         parser.error("--attack backdoor_timed games the async arrival "
                      "schedule (delay-0 emission); it requires "
                      "--aggregation async")

@@ -7,8 +7,10 @@ defaults, the same derived values (``corrupted_count``, ``'auto'`` z,
 per-dataset fading rate, the dataset's default model, the ``-b``
 coercion) and the same validation messages (the model/dataset family
 check among them), plus the JAX package's ``FaultConfig`` (a copy: the
-port imports nothing of the JAX package).  Hierarchical/async
-aggregation, traffic, secagg, checkpoints and the observability knobs
+port imports nothing of the JAX package), the run lifecycle's fields and
+the asynchronous buffered round's (``aggregation='async'``,
+``async_buffer``, ``async_max_staleness``, ``staleness_weight``).
+Hierarchical aggregation, traffic, secagg and the observability knobs
 are later slices of the port.
 """
 
@@ -208,6 +210,29 @@ class ExperimentConfig:
     # clients and the attacker there).
     server_uses_faded_lr: bool = False
 
+    # --- topology of the round ----------------------------------------
+    # 'flat' (the default) is the reference path: one (n, d) gradient
+    # matrix, one defense call.  'async' is the FedBuff-style buffered
+    # round (core/async_rounds.py): every client computes a fresh update
+    # each round, but it ARRIVES a PRNG-drawn number of rounds later; the
+    # server consumes the first `async_buffer` pending arrivals per round
+    # FIFO, weighting each delivered row by its staleness through the
+    # mask-aware kernels' `weights=` seam.  'hierarchical' is the JAX
+    # package's third topology, not ported yet (refused).
+    aggregation: str = "flat"        # 'flat' | 'hierarchical' | 'async'
+    # k: pending updates aggregated per round (FIFO; required >= 1
+    # under aggregation='async').  The three async knobs are inert
+    # unless aggregation='async'.
+    async_buffer: int = 0
+    # Eviction bound: a pending update older than this many rounds is
+    # discarded (masked), never aggregated; arrival delays draw
+    # uniformly from [0, max_staleness] (ring depth = max_staleness+1).
+    async_max_staleness: int = 2
+    # Contribution discount by staleness s (core/async_rounds.py):
+    # 'none' = 1 (pure first-k), 'poly' = 1/sqrt(1+s) (the FedBuff
+    # paper's discount), 'const' = 0.5 for any stale row.
+    staleness_weight: str = "none"
+
     # --- evaluation, logging and checkpoints ----------------------------
     test_step: int = 5               # reference main.py:58
     checkpoint_acc_threshold: float = 70.0  # reference main.py:84
@@ -306,6 +331,29 @@ class ExperimentConfig:
             raise ValueError(
                 f"grad_dtype must be 'float32' or 'bfloat16', "
                 f"got {self.grad_dtype!r}")
+        if self.aggregation not in ("flat", "hierarchical", "async"):
+            raise ValueError(
+                f"aggregation must be 'flat', 'hierarchical' or "
+                f"'async', got {self.aggregation!r}")
+        if self.aggregation == "hierarchical":
+            raise ValueError(
+                "aggregation='hierarchical' is not ported yet: the port "
+                "runs the flat and the async rounds; the two-tier tree "
+                "(megabatch shards, tier-2 reduction) is a later slice "
+                "of the port")
+        if self.staleness_weight not in ("none", "poly", "const"):
+            raise ValueError(
+                f"staleness_weight must be 'none', 'poly' or 'const', "
+                f"got {self.staleness_weight!r}")
+        if self.async_buffer < 0 or self.async_max_staleness < 0:
+            raise ValueError(
+                f"async_buffer/async_max_staleness must be >= 0, got "
+                f"{self.async_buffer}/{self.async_max_staleness}")
+        if self.aggregation == "async" and self.async_buffer < 1:
+            raise ValueError(
+                "--aggregation async needs --async-buffer >= 1 (k, the "
+                "pending updates aggregated per round — FedBuff's "
+                "buffer size; core/async_rounds.py)")
         if self.bulyan_batch_select < 1:
             raise ValueError(
                 f"bulyan_batch_select must be >= 1, got "

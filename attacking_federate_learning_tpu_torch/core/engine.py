@@ -1,4 +1,5 @@
-"""Experiment engine: the flat, synchronous FedSGD round.
+"""Experiment engine: the flat, synchronous FedSGD round, and the
+asynchronous buffered round.
 
 The reference's round is four host-side phases over one process
 (reference main.py:64-71).  Here a round is
@@ -48,12 +49,29 @@ _rollback).
 :meth:`run` runs one round at a time, and stops on the host at the
 rounds where the JAX engine's default path ends a scanned span: every
 ``test_step``-th round, the last round, and every ``checkpoint_every``-th
-round.  There it reads the fault counts, commits the rounds to the
-journal, checks the watchdog, evaluates (eval rounds), writes the
+round.  There it reads the fault and async counts, commits the rounds to
+the journal, checks the watchdog, evaluates (eval rounds), writes the
 auto-checkpoint (checkpoint rounds) and polls the shutdown request, so
 ``FL_PREEMPT_AT_ROUND=k`` stops both engines at the same round.  Events
 are the JAX package's schema v14 (utils/metrics.py); the journal
 (utils/lifecycle.py) makes them exactly-once across restarts.
+
+Under ``cfg.aggregation='async'`` (core/async_rounds.py) a round is
+
+    grads = vmap(grad(loss))(w, batches)           # every client, fresh
+    dgrads, delivered, staleness = async_step(...) # ring -> pending -> k
+    dgrads = attack.apply(dgrads, m_mal, ctx)      # craft at delivery
+    w_s   = staleness_weights(staleness, delivered)
+    agg   = defense(dgrads, m, m_mal, mask=delivered, weights=w_s)
+    state = momentum_update(state, agg) if any(delivered) else state
+
+the JAX engine's ``async_core``: the attack crafts from the delivered
+malicious rows (``ctx.staleness``), the delivered rows are masked again
+after it, and a round that delivers nothing leaves weights and velocity
+as they were while the round counter advances (a select on the device,
+no host read).  Faults compose inside ``async_step``; the straggler ring
+of the flat round is never built.  The ring and the pending pool are the
+engine's carry state (:meth:`carry_state_host`).
 
 With ``cfg.data_augment`` (by default on for CIFAR100 alone, the
 reference's rule) the round's gathered batch is reflect-cropped and
@@ -85,6 +103,7 @@ from attacking_federate_learning_tpu_torch.attacks.base import (
 from attacking_federate_learning_tpu_torch.config import (
     CIFAR100, ExperimentConfig
 )
+from attacking_federate_learning_tpu_torch.core import async_rounds as A
 from attacking_federate_learning_tpu_torch.core import faults as F
 from attacking_federate_learning_tpu_torch.core.client import (
     make_client_update_fn
@@ -176,8 +195,20 @@ class FederatedExperiment:
                     f"participation={cfg.participation})")
         else:
             self.m, self.m_mal = self.n, self.f
-        # The defense sees the round cohort, not the population.
-        check_defense_args(cfg.defense, self.m, self.m_mal)
+        # The defense sees the round cohort, not the population, or in
+        # async rounds the delivered sub-cohort.
+        self.async_spec = None
+        if cfg.aggregation == "async":
+            self._init_async()
+        else:
+            check_defense_args(cfg.defense, self.m, self.m_mal)
+        if (getattr(self.attacker, "timed", False)
+                and cfg.aggregation != "async"):
+            raise ValueError(
+                "a timed attack (attacks/backdoor.py "
+                "TimedBackdoorAttack) games the async arrival schedule; "
+                "it requires aggregation='async' — under synchronous "
+                "topologies there is no arrival time to game")
         self._part_key = threefry.key(cfg.seed ^ 0x9A47)
         self.grad_dtype = _DTYPES[cfg.grad_dtype]
         # A FaultConfig with every rate 0 is the zero-fault round.
@@ -222,12 +253,21 @@ class FederatedExperiment:
         self.flat = FlatParams(self.model)
         self.state = init_server_state(self.flat.module_vector(self.model))
         self.fault_state = None
-        # The latest round's fault counts ('quarantined' a device tensor).
+        # The latest round's fault counts ('quarantined' a device tensor)
+        # and, in async rounds, its async stats (device tensors).
         self.last_round_faults = None
+        self.last_round_async = None
         if self.faults is not None:
             self._fault_key = F.fault_key(cfg)
-            self.fault_state = F.init_fault_state(self.faults, self.m,
-                                                  self.flat.dim, self.device)
+            if self.async_spec is None:
+                # Async rounds model stragglers as extra arrival delay in
+                # their own buffers: the straggler ring never exists.
+                self.fault_state = F.init_fault_state(
+                    self.faults, self.m, self.flat.dim, self.device)
+        self.async_state = None
+        if self.async_spec is not None:
+            self.async_state = A.init_async_state(
+                self.async_spec, self.m, self.flat.dim, self.device)
 
         shards = make_shards(cfg.partition, self.dataset.train_y, self.n,
                              cfg.seed, cfg.dirichlet_alpha)
@@ -252,6 +292,44 @@ class FederatedExperiment:
                                      self.dataset.test_x,
                                      self.dataset.test_y, cfg.batch_size,
                                      self.device)
+
+    def _init_async(self):
+        """Check and plan the buffered round, with the JAX engine's checks
+        and messages (its core/engine.py:_init_async): the async config
+        checks, a fusable attack, k <= m, the defense's bound at n = k
+        (a delivered round aggregates exactly k rows, the full f
+        colluders assumed delivered), and TrimmedMean's k - f - 1 >= 1."""
+        cfg = self.cfg
+        A.check_async_support(cfg)
+        if not getattr(self.attacker, "fusable", True):
+            raise ValueError(
+                "--aggregation async needs a fusable attack: delivery, "
+                "staleness weighting and the attack seam live inside "
+                "the fused round program")
+        if cfg.async_buffer > self.m:
+            raise ValueError(
+                f"--async-buffer {cfg.async_buffer} exceeds the cohort "
+                f"(m={self.m}): the FedBuff trigger would never fire — "
+                f"the pending pool holds at most one update per client")
+        try:
+            check_defense_args(cfg.defense, cfg.async_buffer, self.m_mal)
+        except ValueError as e:
+            raise ValueError(
+                f"--aggregation async aggregates exactly "
+                f"k=--async-buffer rows per applied round, so the "
+                f"defense bound applies at n=k: {e}") from e
+        if (cfg.defense == "TrimmedMean"
+                and cfg.async_buffer - self.m_mal - 1 < 1):
+            raise ValueError(
+                f"--aggregation async TrimmedMean keeps "
+                f"k - f - 1 rows per applied round; got "
+                f"k={cfg.async_buffer}, f={self.m_mal} — raise "
+                f"--async-buffer")
+        self.async_spec = A.AsyncSpec(
+            buffer=cfg.async_buffer, max_staleness=cfg.async_max_staleness,
+            weighting=cfg.staleness_weight,
+            timed=bool(getattr(self.attacker, "timed", False)))
+        self._async_key = A.async_key(cfg)
 
     def participants(self, t: int) -> Optional[np.ndarray]:
         """Round-t cohort ids, (m,) int32 on the host, or None under full
@@ -363,18 +441,21 @@ class FederatedExperiment:
         self.last_round_faults = {"round": t, **stats, **qstats}
         return clean, mask
 
-    def attack_context(self, t: int) -> AttackContext:
+    def attack_context(self, t: int, staleness=None) -> AttackContext:
         """The round-t attack context, with the faded lr (:func:`faded_lr`)
-        as an f32 device scalar."""
+        as an f32 device scalar and, in async rounds, the delivered rows'
+        staleness."""
         return AttackContext(
             original_params=self.state.weights,
             learning_rate=torch.full((), faded_lr(self.cfg, t),
                                      dtype=torch.float32,
                                      device=self.device),
-            round=t)
+            round=t, staleness=staleness)
 
     def run_round(self, t: int) -> ServerState:
         cfg = self.cfg
+        if self.async_spec is not None:
+            return self.run_async_round(t)
         grads = self.compute_grads(t, self.participants(t))
         grads = self.attacker.apply(grads, self.m_mal,
                                     self.attack_context(t))    # craft
@@ -389,6 +470,50 @@ class FederatedExperiment:
               else cfg.learning_rate)
         self.state = momentum_update(self.state, agg.float(), lr,
                                      cfg.momentum)             # apply
+        return self.state
+
+    def run_async_round(self, t: int) -> ServerState:
+        """One buffered round (the JAX engine's ``async_core``): fresh
+        updates into the ring, delivery, the attack on the delivered
+        matrix, the staleness-weighted masked defense, and the momentum
+        step only if a row was delivered.  Records the round's stats in
+        ``last_round_async`` (and the injected fault counts in
+        ``last_round_faults``)."""
+        cfg, spec = self.cfg, self.async_spec
+        grads = self.compute_grads(t)                           # deliver
+        dgrads, delivered, staleness, stats = A.async_step(
+            grads, t, self._async_key, spec, self.async_state, self.m_mal,
+            faults=self.faults,
+            fkey=self._fault_key if self.faults is not None else None)
+        if self.faults is not None:
+            self.last_round_faults = {
+                "round": t, **{k[len("fault_"):]: v for k, v in
+                               stats.items() if k.startswith("fault_")}}
+        # Craft at delivery; undelivered rows [0, f) get overwritten too,
+        # so the matrix is masked again before the defense.
+        crafted = self.attacker.apply(dgrads, self.m_mal,
+                                      self.attack_context(t, staleness))
+        agg_grads = torch.where(delivered[:, None], crafted, 0.0)
+        weights = A.staleness_weights(staleness, delivered, spec.weighting)
+        self.last_round_async = {
+            "round": t, "counts": stats["counts"],
+            "staleness_hist": stats["staleness_hist"],
+            "weight_mass": A.weight_mass(staleness, delivered, weights,
+                                         spec.depth),
+            "delivered_mask": delivered, "staleness": staleness}
+        kw = {} if weights is None else {"weights": weights}
+        agg = self.defense_fn(agg_grads, self.m, self.m_mal, mask=delivered,
+                              **kw)
+        lr = (faded_lr(cfg, t) if cfg.server_uses_faded_lr
+              else cfg.learning_rate)
+        upd = momentum_update(self.state, agg.float(), lr, cfg.momentum)
+        # An empty delivery is a server no-op: weights and velocity hold,
+        # the round counter advances.
+        any_del = delivered.any()
+        self.state = ServerState(
+            torch.where(any_del, upd.weights, self.state.weights),
+            torch.where(any_del, upd.velocity, self.state.velocity),
+            upd.round)
         return self.state
 
     # --- carry state and rollback ---------------------------------------
@@ -410,21 +535,44 @@ class FederatedExperiment:
 
     def carry_state_host(self):
         """Host copy of the cross-round carry state for the Checkpointer's
-        ``extra=`` seam: the straggler ring ``{'stale': (delay, m, d)
-        f32}`` under fault injection with stragglers; None when the
-        engine carries nothing beyond the ServerState.  Async rounds'
-        ``async_*`` buffers will ride here too (the JAX engine's
-        carry_state_host)."""
+        ``extra=`` seam, the JAX engine's layout: in async rounds the ring
+        and the pending pool, six arrays keyed ``async_buf``,
+        ``async_occ``, ``async_birth``, ``async_pbuf``, ``async_pocc``,
+        ``async_pbirth`` (f32, bool, int32); else the straggler ring
+        ``{'stale': (delay, m, d) f32}`` under fault injection with
+        stragglers; None when the engine carries nothing beyond the
+        ServerState."""
+        if self.async_state is not None:
+            return {"async_" + k: v.to("cpu", copy=True).numpy()
+                    for k, v in self.async_state.items()}
         if self.faults is None or not self.fault_state:
             return None
         return {k: v.to("cpu", copy=True).numpy()
                 for k, v in self.fault_state.items()}
 
     def restore_carry_state(self, extra):
-        """Put checkpointed carry state (the straggler ring) back on the
-        device after a resume, so a resumed faulted run continues bit for
-        bit.  A ring of another shape than this engine's is refused."""
-        if not extra or self.faults is None or "stale" not in extra:
+        """Put checkpointed carry state (the async buffers, or the
+        straggler ring) back on the device after a resume, so a resumed
+        run continues bit for bit.  Each array takes this engine's dtype;
+        one of another shape than this engine's is refused."""
+        if not extra:
+            return
+        if self.async_state is not None:
+            if any(k.startswith("async_") for k in extra):
+                restored = {}
+                for k, ref in self.async_state.items():
+                    arr = torch.as_tensor(extra["async_" + k]).to(
+                        self.device, ref.dtype, copy=True)
+                    if arr.shape != ref.shape:
+                        raise ValueError(
+                            f"checkpointed async_{k} has shape "
+                            f"{tuple(arr.shape)}, this engine's is "
+                            f"{tuple(ref.shape)} (async_max_staleness + "
+                            f"1, cohort rows, d)")
+                    restored[k] = arr
+                self.async_state = restored
+            return
+        if self.faults is None or "stale" not in extra:
             return
         want = tuple(self.fault_state["stale"].shape)
         ring = torch.as_tensor(extra["stale"]).to(self.device,
@@ -528,9 +676,9 @@ class FederatedExperiment:
         ``checkpointer``: a utils.checkpoint.Checkpointer.  The state is
         saved above ``checkpoint_acc_threshold`` accuracy (keep-best) and,
         with ``cfg.checkpoint_every``, as an auto-checkpoint at every
-        such boundary, the carry state (the straggler ring) in
-        ``extra=``.  A checkpoint boundary's state is also the
-        watchdog's new rollback target.
+        such boundary, the carry state (the async buffers or the
+        straggler ring) in ``extra=``.  A checkpoint boundary's state is
+        also the watchdog's new rollback target.
 
         ``journal``: a utils.lifecycle.RunJournal.  Rounds and evals are
         committed at the host boundaries exactly once across restarts;
@@ -545,8 +693,9 @@ class FederatedExperiment:
         Returns ``accuracies`` and ``epochs`` (this attempt's
         evaluations), ``final_weights``, and with faults ``faults`` (one
         dict of counts per round run in this attempt, a rolled-back
-        round again when it is run again), under a backdoor ``asr`` (the
-        attack success rate at each evaluation)."""
+        round again when it is run again), in async rounds ``async`` (the
+        'async' event of each round run in this attempt), under a
+        backdoor ``asr`` (the attack success rate at each evaluation)."""
         own = logger is None and log is None
         if logger is None:
             logger = (RunLogger(self.cfg, self.cfg.output, self.cfg.log_dir)
@@ -578,7 +727,7 @@ class FederatedExperiment:
             self._last_good = (self._host_state(), self.carry_state_host())
         # A resumed ServerState carries its round counter.
         epoch = start_epoch = span_start = int(self.state.round)
-        fault_rows, pending, asr = [], [], []
+        fault_rows, async_rows, pending, asr = [], [], [], []
         last_asr = None
         if journal is not None:
             attempt = journal.start_attempt(epoch)
@@ -599,20 +748,26 @@ class FederatedExperiment:
         loop_t0 = time.perf_counter()
         while epoch < cfg.epochs:
             self.run_round(epoch)
-            if self.faults is not None:
-                pending.append(self.last_round_faults)
+            if self.faults is not None or self.async_spec is not None:
+                pending.append((self.last_round_faults,
+                                self.last_round_async))
             is_eval = epoch % cfg.test_step == 0 or epoch == cfg.epochs - 1
             if not (is_eval or (ckpt_every and epoch % ckpt_every == 0)):
                 epoch += 1
                 continue
             # A host boundary: where the JAX engine's span ends.
             if pending:
-                counts = torch.stack([r["quarantined"] for r in pending])
-                for row, q in zip(pending, counts.tolist()):
-                    row = {**row, "quarantined": int(q)}
-                    fault_rows.append(row)
-                    if fresh(row["round"]):
-                        logger.record(kind="fault", **row)
+                for frow, arow in self._host_records(pending):
+                    if frow is not None:
+                        fault_rows.append(frow)
+                    if arow is not None:
+                        async_rows.append(arow)
+                    t_rec = (frow or arow)["round"]
+                    if fresh(t_rec):
+                        if frow is not None:
+                            logger.record(kind="fault", **frow)
+                        if arow is not None:
+                            logger.record(kind="async", **arow)
                 pending = []
             if journal is not None:
                 journal.commit_rounds(span_start, epoch)
@@ -666,9 +821,38 @@ class FederatedExperiment:
                   "final_weights": self.state.weights}
         if self.faults is not None:
             result["faults"] = fault_rows
+        if self.async_spec is not None:
+            result["async"] = async_rows
         if backdoor:
             result["asr"] = asr
         return result
+
+    @staticmethod
+    def _host_records(pending):
+        """The per-round 'fault' and 'async' records of a span, as host
+        values, with one device-to-host read: the flat round's
+        ``quarantined`` counts, or the async rounds' counts, staleness
+        histograms and weight masses, stacked and read at once.  The
+        'async' fields are the JAX engine's: counts as ints, the
+        histogram and the weight mass as lists of floats."""
+        fault = [f for f, _ in pending]
+        rows = [a for _, a in pending]
+        if rows[0] is None:
+            counts = torch.stack([f["quarantined"] for f in fault]).tolist()
+            return [({**f, "quarantined": int(q)}, None)
+                    for f, q in zip(fault, counts)]
+        host = torch.stack([
+            torch.cat([a["counts"].float(), a["staleness_hist"].float(),
+                       a["weight_mass"]]) for a in rows]).tolist()
+        n, D = len(A.COUNT_NAMES), rows[0]["staleness_hist"].shape[0]
+        out = []
+        for f, a, vals in zip(fault, rows, host):
+            rec = {"round": a["round"],
+                   **{k: int(v) for k, v in zip(A.COUNT_NAMES, vals[:n])},
+                   "staleness_hist": vals[n:n + D],
+                   "weight_mass": vals[n + D:]}
+            out.append((f, rec))
+        return out
 
     def _complete(self, logger, journal, start_epoch, loop_t0, last_asr):
         """A journaled run's end: the 'lifecycle' complete and 'registry'

@@ -16,6 +16,12 @@ domains belong to the hierarchical slice of the port):
   dropped rows, zeroes them (so the distance kernels never see NaN/Inf)
   and hands the effective-cohort mask to the defense's ``mask=`` seam.
 
+Under ``aggregation='async'`` the same schedule composes inside the
+buffered round (core/async_rounds.py:async_step): dropout means no
+submission, a straggler's update arrives ``straggler_delay`` rounds
+later still (so the straggler ring is never built), and corruption hits
+honest rows in flight, quarantined at delivery when non-finite.
+
 Per-round counts use the JAX 'fault' event's names: ``injected_dropout``,
 ``injected_straggler`` and ``injected_corrupt`` are host ints (the
 schedule is known on the host); ``quarantined`` depends on the data and

@@ -14,8 +14,9 @@ Event contract: one JSON object per line with a ``kind`` from
 table is the JAX package's schema v14 kind for kind, so the JAX
 package's readers (``iter_events``, ``tools/check_events.py``, the
 registry) read a port run's log unchanged.  The port emits ``eval``,
-``asr``, ``fault``, ``heartbeat``, ``lifecycle`` and ``registry``
-events today; the other kinds belong to slices not ported yet.
+``asr``, ``fault``, ``async`` (one a round in async rounds),
+``heartbeat``, ``lifecycle`` and ``registry`` events today; the other
+kinds belong to slices not ported yet.
 Readers accept every version; a newer-only kind stamped with an older
 version is an emitter bug, rejected (``KIND_MIN_VERSION``).
 """
@@ -71,11 +72,13 @@ EVENT_KINDS = {
     # runs/index.jsonl, with the trajectory summary riding along
     "registry": {"run_id"},
     "gate": {"cell", "status"},
+    # --- v7: asynchronous buffered rounds (core/async_rounds.py): one a
+    # round, the counts, the staleness histogram and the weight mass
+    "async": {"round", "delivered"},
     # --- v5 .. v14: kinds of slices the port has not reached yet ------------
     "secagg": {"round"},
     "shard_selection": {"round", "defense"},
     "forensics": {"verdict"},
-    "async": {"round", "delivered"},
     "campaign": {"campaign", "phase"},
     "stage_cost": {"name", "stages", "coverage"},
     "wire_bytes": {"topology", "seams", "total_bytes"},

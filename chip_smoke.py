@@ -185,9 +185,43 @@ success):
                not gated: save_auto and resume host ms and bytes for (a),
                (b) and a WRN-40-4 engine, (a)'s median round ms beside
                phase 5's Krum run.
+10. async   -- asynchronous buffered rounds (aggregation='async') through
+               run() at phase 5's width, rounds 0..20, async_max_staleness
+               2 (a ring of depth 3): (a) ALIE at f = 24, k = 64 under
+               NoDefense 'none', Krum 'poly', TrimmedMean 'poly' and
+               Median 'const'; (b) ALIE at f = 10, k = 50 under Bulyan
+               'none' and 'poly'; (c) phase 5's faults at f = 10, k = 50
+               under TrimmedMean 'poly', Median 'poly' and Krum 'const';
+               (d) backdoor_timed under TrimmedMean 'poly' (f = 24, k =
+               64, 50 shadow steps a round).  Each run's 'async' records
+               must equal the port's host replay of the schedule ((a),
+               (b), (d)), every round deliver 0 or k rows, round 0 of (a)
+               deliver none and leave weights and velocity bit-equal
+               (the round counter advancing); rounds 0..4 hold the card's
+               async step against the same step on the CPU on the card's
+               gradients (masks, staleness, counts and the delivered
+               matrix bit for bit) and the card's aggregate against the
+               plain versions on the CPU (phase 4's tolerances; a weighted
+               median's differing columns adjudicated in fp64: each pick
+               a lower weighted median within the weight sums' rounding);
+               (c)'s fault counts equal a host replay; (d)'s delivered
+               timed rows are all fresh; each run launches its kernels
+               and no other (kernels 3 and 4 and the fused Krum scores
+               never), and the masked sort kernels take the staleness
+               weights exactly in the 'poly'/'const' runs (their calls
+               counted by spies).  (e) (a)'s Krum 'poly' preempted at
+               round 10 with checkpoint_every 5 and resumed, the ring and
+               the pool in the checkpoint, bit for bit the whole run.
+               Printed: round ms, deliver ms, peak GiB, the step's host
+               ms (its schedule draw apart), one more round under
+               torch.profiler (kernel time over wall time, top kernels),
+               the staleness histogram, save/resume ms and bytes of the
+               async state,
+               and kernels 5 and 6 with poly weights at (100, 79,510), e
+               = 64 (ms, plain ms, bound).
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-9), the nvidia-smi line, and as the last line
+summed over phases 5-10), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -929,10 +963,12 @@ def check_coord_kernels(report, failures):
                 Gn, 0.5, dim=0, interpolation="midpoint"), reps)
         elif w is None:
             label += " library: none (too large)"
-        nbytes = 4 * (n * d + d) + n + (4 * n if w is not None else 0)
+        # The answer reads only the alive rows (and their weights).
+        e = int(mask.sum())
+        nbytes = 4 * (e * d + d) + n + (4 * e if w is not None else 0)
         report("masked_median", label, err, finite_rel(got, want),
                "exact" + (" (dyadic weights)" if w is not None else ""),
-               ok, ms, pms, lms, nbytes, n * d, entry_for)
+               ok, ms, pms, lms, nbytes, e * d, entry_for)
         return got
 
     def check_mtrim(G, mask, k_delta, w, label, reps, entry_for=None,
@@ -955,11 +991,11 @@ def check_coord_kernels(report, failures):
                      reps)
         pms = time_ms(lambda: masked_trimmed_mean_plain(G, mask, k_delta, w),
                       reps)
-        nbytes = 4 * (n * d + d) + n + (4 * n if w is not None else 0)
+        nbytes = 4 * (e * d + d) + n + (4 * e if w is not None else 0)
         report("masked_trimmed_mean", f"{label} e={e} k={k}", err,
                finite_rel(got, want), f"atol {atol:.2e} + rtol 1e-6, NaN "
                f"where plain is NaN", ok and nan_ok, ms, pms, None, nbytes,
-               3 * n * d, entry_for)
+               3 * e * d, entry_for)
 
     n, d, f = N_MAIN, D_MLP, F_FAULT
     select = TrimPlan("select", 0)      # the radix route at the same shape
@@ -1223,7 +1259,11 @@ def drive(exp, kernels, banned, failures, label, excluded=None):
 
     exp.run_round = timed_round
     seam_s = []
-    if fc is not None:
+    # Async rounds (phase 10) compose the faults inside the buffered
+    # round: no inject seam, and quarantine is counted in the 'async'
+    # records.
+    buffered = exp.async_spec is not None
+    if fc is not None and not buffered:
         # The fault seam's host time (schedule draw, pinned copy,
         # launches), with no synchronisation, so the round times
         # above are not perturbed.
@@ -1269,15 +1309,18 @@ def drive(exp, kernels, banned, failures, label, excluded=None):
             drop, stale, corrupt = fault_masks(exp._fault_key, t, exp.m,
                                                exp.m_mal, fc)
             draw_s.append(time.perf_counter() - a)
-            want.append({"round": t,
-                         "injected_dropout": int(drop.sum()),
-                         "injected_straggler": int(stale.sum()),
-                         "injected_corrupt": int(corrupt.sum()),
-                         "quarantined": int(drop.sum() + corrupt.sum())})
+            row = {"round": t, "injected_dropout": int(drop.sum()),
+                   "injected_straggler": int(stale.sum()),
+                   "injected_corrupt": int(corrupt.sum())}
+            if not buffered:
+                row["quarantined"] = int(drop.sum() + corrupt.sum())
+            want.append(row)
         out["counts_ok"] = result["faults"] == want
-        out["alive"] = [exp.m - r["quarantined"] for r in result["faults"]]
-        out["seam_ms"] = 1e3 * statistics.median(seam_s)
         out["draw_ms"] = 1e3 * statistics.median(draw_s)
+        if not buffered:
+            out["alive"] = [exp.m - r["quarantined"]
+                            for r in result["faults"]]
+            out["seam_ms"] = 1e3 * statistics.median(seam_s)
     if (missing or extra or not finite or not out["counts_ok"]
             or sorted(accs) != evals):
         failures.append(f"{label}: missing launches {missing}, unexpected "
@@ -1673,7 +1716,7 @@ def check_deliver(exp, model, failures, weights=None):
                         f"log-probs {lp}, gradients {gr}")
 
 
-def profile_round(exp, model, top=5):
+def profile_round(exp, model, top=5, tag="model"):
     """One more round of ``exp`` under torch.profiler: its kernel time
     summed over the round's wall time (the profiler's own host cost in
     the wall time) and the kernels that took the most of it.  Under 1 the
@@ -1693,16 +1736,16 @@ def profile_round(exp, model, top=5):
                    if e.device_time_total > 0),
                   key=lambda e: -e.device_time_total)
     if not rows:
-        print(f"[model] {model:14s} profile: not measured, the profiler saw "
+        print(f"[{tag}] {model:14s} profile: not measured, the profiler saw "
               f"no device time", flush=True)
         return
     busy = sum(e.device_time_total for e in rows)
-    print(f"[model] {model:14s} profile of one round: wall_ms="
+    print(f"[{tag}] {model:14s} profile of one round: wall_ms="
           f"{wall_us / 1e3:.3f} kernel_ms={busy / 1e3:.3f} kernel_over_wall="
           f"{busy / wall_us:.3f} kernels={len(rows)} launches="
           f"{sum(e.count for e in rows)}", flush=True)
     for e in rows[:top]:
-        print(f"[model]   {e.device_time_total / busy:6.1%} "
+        print(f"[{tag}]   {e.device_time_total / busy:6.1%} "
               f"calls={e.count:5d} {e.key[:90]}", flush=True)
 
 
@@ -2000,15 +2043,23 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs):
     The check's seconds, from the card's last kernel on, go to
     ``excluded``.
 
-    Bulyan's distance matrix on the card (the distance kernel at the
-    cohort's shape, f32 or bf16) is held against the plain version on
-    the CPU on the same operand, in phase 3's d^2 band, with a zero
-    diagonal and symmetric; (largest |D - plain|, ok) goes to
-    ``dist_errs``.  Bulyan's CPU twin then selects from the card's
-    matrix: the card puts identical rows exactly 0 apart and the plain
-    Gram does not, so the CPU may pick tied rows in another order, and a
-    tail that keeps 3 of 52 bf16 values breaks exact +-dev ties by that
-    order."""
+    Bulyan's and Krum's distance matrix on the card (the distance kernel
+    at the cohort's shape, f32 or bf16, where the defense calls it: always
+    for Bulyan and masked Krum, on the guard's fallback for fused Krum) is
+    held against the plain version on the CPU on the same operand, in
+    phase 3's d^2 band, with a zero diagonal and symmetric; (largest |D -
+    plain|, ok) goes to ``dist_errs``.  The CPU twin then selects from the
+    card's matrix: the card puts identical rows exactly 0 apart and the
+    plain Gram does not, so the CPU may pick tied rows in another order;
+    a Bulyan tail that keeps 3 of 52 bf16 values breaks exact +-dev ties
+    by that order, and a weighted Krum winner (scaled by its own staleness
+    weight) must be the same one of the identical crafted rows.
+
+    A weighted median (phase 10) is a pick decided by sums of the
+    weights: where the card and the CPU pick different values, each pick
+    must be a lower weighted median of the column in fp64 within the
+    weight sums' rounding (:func:`weighted_median_adjudicated`); the
+    count of such columns goes to the error's place in ``errs``."""
     import torch
 
     from attacking_federate_learning_tpu_torch.defenses import kernels as K
@@ -2036,7 +2087,7 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs):
         if len(errs) >= rounds:
             return inner(grads, n, f, **kw)
         seen = []
-        if defense == "Bulyan":
+        if defense in ("Bulyan", "Krum"):
             K.pairwise_distances = lambda G: seen.append(
                 (G, distances(G))) or seen[-1][1]
         try:
@@ -2054,16 +2105,62 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs):
         finally:
             K.pairwise_distances = distances
         g = got.float().cpu()
+        if defense == "Median" and kw.get("weights") is not None:
+            errs.append(weighted_median_adjudicated(
+                grads.cpu(), kw["mask"].cpu(), kw["weights"].cpu(), g, want))
+            excluded.append(time.perf_counter() - a)
+            return got
         atol = 0.0 if defense in ("Krum", "Median") else (
             2.0 * n * eps * float(grads.float().abs().max()))
         if defense == "NoDefense" and grads.dtype == torch.bfloat16:
             atol = atol + 2.0 ** -7 * want.abs()
-        err = (g - want).abs()
+        if kw.get("mask") is not None and not bool(kw["mask"].any()):
+            # A round that delivers nothing (phase 10) aggregates an empty
+            # mask: NaN or +inf on both devices, equal.
+            same = (g == want) | (torch.isnan(g) & torch.isnan(want))
+            err = torch.nan_to_num(torch.where(same, 0.0, (g - want).abs()),
+                                   nan=math.inf)
+        else:
+            err = (g - want).abs()
         errs.append((float(err.max()), bool((err <= atol).all())))
         excluded.append(time.perf_counter() - a)
         return got
 
     exp.defense_fn = checked
+
+
+def weighted_median_adjudicated(G, mask, w, got, want):
+    """(columns where ``got`` and ``want`` differ, ok) for two lower
+    weighted medians of the alive rows of the (n, d) CPU matrix ``G``.
+    The pick is the smallest alive value whose alive weight at or below
+    it reaches half the alive weight, a decision made on f32 sums whose
+    order differs between the kernel (row order) and the plain version
+    (sorted order); on non-dyadic weights (poly: 1, 1/sqrt 2, 1/sqrt 3)
+    a column whose weight below a value is exactly half in exact
+    arithmetic may go either way.  Equal columns pass; a differing
+    column passes when each pick is an alive value v with W(< v) < W/2 +
+    tol and W(<= v) >= W/2 - tol in fp64, tol = 2 n eps32 W (the f32
+    sums' rounding, twice)."""
+    import torch
+
+    differ = torch.nonzero(got != want).flatten()
+    if differ.numel() == 0:
+        return 0, True
+    Gc = G[:, differ].double()
+    wm = torch.where(mask, w, 0.0).double()[:, None]
+    total = float(wm.sum())
+    half = total / 2.0
+    tol = 2.0 * G.shape[0] * float(np.finfo(np.float32).eps) * total
+
+    def valid(v):
+        v = v.double()[None, :]
+        below = (wm * (Gc < v)).sum(0)
+        upto = (wm * (Gc <= v)).sum(0)
+        present = ((Gc == v) & mask[:, None]).any(0)
+        return present & (below < half + tol) & (upto >= half - tol)
+
+    ok = bool((valid(got[differ]) & valid(want[differ])).all())
+    return int(differ.numel()), ok
 
 
 def run_knobs_path(ds, failures):
@@ -2129,8 +2226,12 @@ def run_knobs_path(ds, failures):
                 and (part[exp.m_mal:] >= exp.f).all()
                 and len(set(part.tolist())) == exp.m))
             for t, part in cohorts)
+        # Fused Krum reaches the distance kernel only on its guard's
+        # fallback, masked Krum every round.
+        dist_counts = {"Bulyan": (3,), "Krum": (0, 1, 2, 3)}.get(defense,
+                                                                 (0,))
         agg_ok = (len(errs) == 3 and all(ok for _, ok in errs)
-                  and len(dist_errs) == (3 if defense == "Bulyan" else 0)
+                  and len(dist_errs) in dist_counts
                   and all(ok for _, ok in dist_errs))
         if not cohorts_ok or not agg_ok:
             failures.append(f"knobs {label} {defense}: cohorts_ok="
@@ -2225,7 +2326,8 @@ def p9_attempt(cfg, ds, run_id, failures, label, kernels, banned,
         exp.restore_carry_state(extra)
         on_card = [t.device.type == "cuda" for t in
                    (exp.state.weights, exp.state.velocity,
-                    *(exp.fault_state or {}).values())]
+                    *(exp.fault_state or {}).values(),
+                    *(exp.async_state or {}).values())]
         if not all(on_card):
             failures.append(f"{label}: resumed state not on the card "
                             f"{on_card}")
@@ -2263,11 +2365,13 @@ def p9_attempt(cfg, ds, run_id, failures, label, kernels, banned,
 
 
 def p9_triplet(ds, label, defense, mal_prop, faulted, kernels, banned,
-               failures, root):
+               failures, root, want_extra=None, tag="lifecycle", **kw):
     """(a)/(b): an uninterrupted journaled run, then the same config
     preempted at the first boundary at or past round 8 and resumed in a
-    third engine.  Returns launches summed over the three runs and what
-    the caller prints."""
+    third engine.  ``want_extra`` maps the carry arrays the checkpoint
+    must hold (``extra_*``) to their shapes; ``kw`` goes to the config
+    (phase 10's async knobs).  Returns launches summed over the three
+    runs and what the caller prints."""
     import numpy as np
     import torch
 
@@ -2281,8 +2385,10 @@ def p9_triplet(ds, label, defense, mal_prop, faulted, kernels, banned,
         iter_events
     )
 
-    one = p9_config(defense, mal_prop, faulted, os.path.join(root, "one"))
-    two = p9_config(defense, mal_prop, faulted, os.path.join(root, "two"))
+    one = p9_config(defense, mal_prop, faulted, os.path.join(root, "one"),
+                    **kw)
+    two = p9_config(defense, mal_prop, faulted, os.path.join(root, "two"),
+                    **kw)
     rid = "p9"
     totals = {}
     full, l1, sums1, round_s, _, _ = p9_attempt(
@@ -2293,7 +2399,7 @@ def p9_triplet(ds, label, defense, mal_prop, faulted, kernels, banned,
     latest = ck.latest()
     with np.load(latest) as z:
         saved_round = int(z["round"])
-        ring = z["extra_stale"].shape if "extra_stale" in z.files else None
+        extras = {k: z[k].shape for k in z.files if k.startswith("extra_")}
     last, l3, sums3, _, _, _ = p9_attempt(
         two, ds, rid, failures, f"{label} run 3", kernels, banned,
         resume=True)
@@ -2315,7 +2421,8 @@ def p9_triplet(ds, label, defense, mal_prop, faulted, kernels, banned,
                         | {one.epochs - 1})
     ok = (stopped is not None and stopped.round == 10
           and saved_round == 11 and bit_equal and problems == []
-          and evals == want_evals and manifest["status"] == "done")
+          and evals == want_evals and manifest["status"] == "done"
+          and extras == (want_extra or {}))
     counts_ok = True
     if faulted:
         keys = ("round", "injected_dropout", "injected_straggler",
@@ -2334,21 +2441,22 @@ def p9_triplet(ds, label, defense, mal_prop, faulted, kernels, banned,
         run1 = [{k: e[k] for k in keys} for e in one_events
                 if e["kind"] == "fault"]
         counts_ok = got == want == run1
-        ok = ok and counts_ok and ring == (2, N_MAIN, D_MLP)
+        ok = ok and counts_ok
     if not ok:
         failures.append(
             f"{label}: preempted at {stopped and stopped.round} (want 10), "
             f"checkpoint round {saved_round} (want 11), bit_equal="
             f"{bit_equal} (first parting round {parted}), journal "
             f"{problems}, evals {evals}, status {manifest['status']}, "
-            f"fault counts ok {counts_ok}, ring {ring}")
+            f"fault counts ok {counts_ok}, carry arrays {extras} (want "
+            f"{want_extra})")
     out = {"full": full, "last": last, "ck": ck, "latest": latest,
            "round_ms": 1e3 * statistics.median(round_s),
            "rounds_per_s": RunJournal(one.run_dir, rid).read_manifest()[
                "rounds_per_s"]}
-    print(f"[lifecycle] {label:29s} f={full.f}: preempted at round "
+    print(f"[{tag}] {label:29s} f={full.f}: preempted at round "
           f"{stopped and stopped.round}, auto-checkpoint round "
-          f"{saved_round}{'' if ring is None else f' ring {ring}'}, "
+          f"{saved_round}{''.join(f' {k} {v}' for k, v in extras.items())}, "
           f"resumed to round {last.state.round}: bit_equal={bit_equal} "
           f"first_parting_round={parted} journal_verify={problems} "
           f"evals={evals} manifest={manifest['status']} "
@@ -2360,7 +2468,7 @@ def p9_triplet(ds, label, defense, mal_prop, faulted, kernels, banned,
     return totals, out
 
 
-def time_save_resume(exp, ck, smi, label, reps=3):
+def time_save_resume(exp, ck, smi, label, reps=3, tag="lifecycle"):
     """Host ms (median of ``reps``) of one save_auto of ``exp``'s state
     with its carry state (the device-to-host copy included) and of one
     resume of that file onto the card (restore_carry_state and a
@@ -2380,7 +2488,7 @@ def time_save_resume(exp, ck, smi, label, reps=3):
         torch.cuda.synchronize()
         resume_s.append(time.perf_counter() - a)
     size = os.path.getsize(path)
-    print(f"[lifecycle] {label}: save_auto_ms={1e3 * statistics.median(save_s):.3f} "
+    print(f"[{tag}] {label}: save_auto_ms={1e3 * statistics.median(save_s):.3f} "
           f"resume_ms={1e3 * statistics.median(resume_s):.3f} "
           f"bytes={size} (median of {reps}; host clock, fsync included) "
           f"on {smi}", flush=True)
@@ -2573,7 +2681,9 @@ def run_lifecycle_path(ds, failures, smi, phase5_krum_ms):
                 banned) in enumerate(P9_RUNS):
             launches, out = p9_triplet(
                 ds, label, defense, mal_prop, faulted, kernels, banned,
-                failures, os.path.join(root, str(i)))
+                failures, os.path.join(root, str(i)),
+                want_extra=({"extra_stale": (2, N_MAIN, D_MLP)} if faulted
+                            else None))
             for k, v in launches.items():
                 totals[k] += v
             if not faulted:
@@ -2611,6 +2721,403 @@ def run_lifecycle_path(ds, failures, smi, phase5_krum_ms):
         gc.collect()
         torch.cuda.empty_cache()
         check_cli_lifecycle(failures, os.path.join(root, "d"))
+    return totals
+
+
+# Phase 10's runs: (label, defense, mal_prop, async_buffer k, staleness
+# weighting, faulted, attack, must launch), mnist_mlp at phase 5's width,
+# rounds 0..20, async_max_staleness 2 (a ring of depth 3).  Every other
+# kernel must not launch: a delivered round always passes a mask, so the
+# unmasked kernels 3 and 4 never run, and masked Krum scores by sort over
+# the distance kernel (never the fused score kernel), as in the JAX
+# package's Pallas suite.
+P10_STALENESS = 2
+P10_CHECKED = 5                  # rounds 0..4 held against the CPU
+P10_RUNS = (
+    ("(a)", "NoDefense", 0.24, 64, "none", False, "alie", ()),
+    ("(a)", "Krum", 0.24, 64, "poly", False, "alie",
+     ("pairwise_distances",)),
+    ("(a)", "TrimmedMean", 0.24, 64, "poly", False, "alie",
+     ("masked_trimmed_mean",)),
+    ("(a)", "Median", 0.24, 64, "const", False, "alie", ("masked_median",)),
+    # Bulyan's bound at n = k: k >= 4f + 3 = 43.
+    ("(b)", "Bulyan", 0.1, 50, "none", False, "alie",
+     ("pairwise_distances", "masked_trimmed_mean")),
+    ("(b)", "Bulyan", 0.1, 50, "poly", False, "alie",
+     ("pairwise_distances", "masked_trimmed_mean")),
+    ("(c)", "TrimmedMean", 0.1, 50, "poly", True, "alie",
+     ("masked_trimmed_mean",)),
+    ("(c)", "Median", 0.1, 50, "poly", True, "alie", ("masked_median",)),
+    ("(c)", "Krum", 0.1, 50, "const", True, "alie", ("pairwise_distances",)),
+    ("(d)", "TrimmedMean", 0.24, 64, "poly", False, "backdoor_timed",
+     ("masked_trimmed_mean",)),
+)
+# The sort kernels that take the staleness weights, and the defense module
+# whose name binds each wrapper.
+WEIGHTED_KERNELS = (("masked_trimmed_mean", "kernels"),
+                    ("masked_median", "median"))
+
+
+def async_config(defense, mal_prop, k, weighting, faulted, **kw):
+    """Phase 5's configuration as an async round."""
+    from attacking_federate_learning_tpu_torch.config import FaultConfig
+
+    return main_config(defense, mal_prop,
+                       FaultConfig(**FAULTS_MAIN) if faulted else None,
+                       aggregation="async", async_buffer=k,
+                       async_max_staleness=P10_STALENESS,
+                       staleness_weight=weighting, **kw)
+
+
+def spy_weighted_calls(calls):
+    """Wraps the masked sort kernels' wrappers where the defenses bind
+    them, counting their calls on the card in ``calls[(name,
+    weighted)]``; returns the undo."""
+    from attacking_federate_learning_tpu_torch.defenses import (
+        kernels as K, median as M
+    )
+
+    modules = {"kernels": K, "median": M}
+    saved = []
+    for name, where in WEIGHTED_KERNELS:
+        mod = modules[where]
+        inner = getattr(mod, name)
+
+        # The weights' place after (G, mask): masked_trimmed_mean(G,
+        # mask, k_delta, weights), masked_median(G, mask, weights).
+        at = 1 if name == "masked_trimmed_mean" else 0
+
+        def spy(G, mask, *args, inner=inner, name=name, at=at, **kw):
+            weights = args[at] if len(args) > at else kw.get("weights")
+            if G.is_cuda:
+                key = (name, weights is not None)
+                calls[key] = calls.get(key, 0) + 1
+            return inner(G, mask, *args, **kw)
+
+        saved.append((mod, name, inner))
+        setattr(mod, name, spy)
+
+    def undo():
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    return undo
+
+
+def async_twin(exp, excluded, results, host_s):
+    """Wraps core/async_rounds.py:async_step so that for rounds 0..4 the
+    card's step is held against the same step on the CPU, from a CPU
+    state of its own and on the card's gradients copied over: delivered
+    masks, staleness, counts, histograms and the delivered matrix must be
+    equal bit for bit (the step moves data and counts; it computes
+    nothing).  (round, ok) goes to ``results``, the check's seconds to
+    ``excluded``, and the card's step's host seconds (its schedule draw
+    and launches, no synchronisation) to ``host_s``.  Returns the
+    undo."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.core import async_rounds as A
+
+    real = A.async_step
+    cpu_state = A.init_async_state(exp.async_spec, exp.m, exp.flat.dim,
+                                   "cpu")
+
+    def twin(grads, t, key, spec, state, m_mal, faults=None, fkey=None):
+        a = time.perf_counter()
+        out = real(grads, t, key, spec, state, m_mal, faults, fkey)
+        host_s.append(time.perf_counter() - a)
+        if t >= P10_CHECKED:
+            return out
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        ref = real(grads.cpu(), t, key, spec, cpu_state, m_mal, faults,
+                   fkey)
+        ok = (all(torch.equal(x.cpu(), y) for x, y in zip(out[:3], ref[:3]))
+              and all(torch.equal(out[3][k].cpu(), ref[3][k])
+                      for k in ("counts", "staleness_hist")))
+        results.append((t, ok))
+        excluded.append(time.perf_counter() - a)
+        return out
+
+    A.async_step = twin
+
+    def undo():
+        A.async_step = real
+    return undo
+
+
+def replay_matches(rows, cfg, exp):
+    """The engine's per-round 'async' records against the port's host
+    replay of the schedule (counts and histograms; nothing quarantined
+    in a run without faults)."""
+    from attacking_federate_learning_tpu_torch.core.async_rounds import (
+        replay_schedule
+    )
+
+    want = replay_schedule(cfg, exp.m, exp.m_mal, cfg.epochs,
+                           timed=exp.async_spec.timed)
+    keys = ("delivered", "pending", "in_flight", "evicted", "superseded")
+    return len(rows) == len(want) and all(
+        all(r[k] == w[k] for k in keys) and r["quarantined"] == 0
+        and [int(x) for x in r["staleness_hist"]] == w["staleness_hist"]
+        for r, w in zip(rows, want))
+
+
+def time_weighted_kernels(failures, smi):
+    """Kernels 5 and 6 with staleness weights at the async path's shape:
+    (100, 79,510), the 64 rows delivered in round 1 of (a)'s schedule with
+    their poly weights, against the plain versions; the median's picks
+    adjudicated as in checked_defense, the trimmed mean within
+    check_mtrim's weighted band.  Prints each with its ms, plain ms and
+    bound by bytes; returns nothing."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.core.async_rounds import (
+        replay_schedule, staleness_weights
+    )
+    from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
+        masked_median, masked_median_plain, masked_trimmed_mean,
+        masked_trimmed_mean_plain
+    )
+
+    _, bytes_peak, _ = peaks_for(torch.cuda.get_device_name(0))[1]
+    cfg = async_config("TrimmedMean", 0.24, 64, "poly", False)
+    row = next(r for r in replay_schedule(cfg, N_MAIN, F_MAIN, 4)
+               if r["delivered"])
+    mask = torch.from_numpy(row["delivered_mask"]).cuda()
+    stal = torch.from_numpy(row["staleness"].astype(np.int32)).cuda()
+    w = staleness_weights(stal, mask, "poly")
+    G = torch.from_numpy(cohort(N_MAIN, D_MLP, F_MAIN, "alie", 71)).cuda()
+    n, d = G.shape
+    e = int(mask.sum())
+    eps = float(np.finfo(np.float32).eps)
+    # The answer reads only the delivered rows and their weights.
+    nbytes = 4 * (e * d + d) + n + 4 * e
+    bound = nbytes / bytes_peak * 1e3
+    k_delta = F_MAIN + 1
+    got = masked_trimmed_mean(G, mask, k_delta, w)
+    want = masked_trimmed_mean_plain(G, mask, k_delta, w)
+    k = max(e - k_delta, 1)
+    atol = 2.0 * k * eps * 2.0 * float(G[mask].abs().max())
+    err, ok = close(got, want, atol, 1e-6)
+    ms = time_ms(lambda: masked_trimmed_mean(G, mask, k_delta, w), 20)
+    pms = time_ms(lambda: masked_trimmed_mean_plain(G, mask, k_delta, w), 5)
+    print(f"[async kernel] masked_trimmed_mean weighted (poly) n={n} d={d} "
+          f"e={e} k={k} max_abs_err={err:.3e} tol atol {atol:.2e} + rtol "
+          f"1e-6 ok={ok} ms={ms:.4f} plain_ms={pms:.4f} bound_ms="
+          f"{bound:.4f} (bytes) on {smi}", flush=True)
+    if not ok:
+        failures.append(f"weighted masked_trimmed_mean at e={e}: {err:.3e}")
+    got = masked_median(G, mask, w)
+    want = masked_median_plain(G, mask, w)
+    cols, ok = weighted_median_adjudicated(G.cpu(), mask.cpu(), w.cpu(),
+                                           got.cpu(), want.cpu())
+    ms = time_ms(lambda: masked_median(G, mask, w), 20)
+    pms = time_ms(lambda: masked_median_plain(G, mask, w), 5)
+    print(f"[async kernel] masked_median weighted (poly) n={n} d={d} e={e} "
+          f"columns_differing={cols} (each pick a lower weighted median "
+          f"within the sums' rounding) ok={ok} ms={ms:.4f} plain_ms="
+          f"{pms:.4f} bound_ms={bound:.4f} (bytes) on {smi}", flush=True)
+    if not ok:
+        failures.append(f"weighted masked_median at e={e}: {cols} columns")
+    del G
+    torch.cuda.empty_cache()
+
+
+def run_async_path(ds, failures, smi):
+    """Phase 10: asynchronous buffered rounds through run() at full width
+    (mnist_mlp, SYNTH_MNIST 60,000 / 10,000, n = 100, B = 128, z = 1.5,
+    async_max_staleness 2): (a) ALIE at f = 24, k = 64 under NoDefense
+    'none', Krum 'poly', TrimmedMean 'poly' and Median 'const'; (b) ALIE
+    at f = 10, k = 50 under Bulyan 'none' and 'poly'; (c) phase 5's faults
+    at f = 10, k = 50 under TrimmedMean 'poly', Median 'poly' and Krum
+    'const'; (d) backdoor_timed under TrimmedMean 'poly' at f = 24, k =
+    64; (e) (a)'s Krum preempted at round 10 and resumed bit for bit,
+    the ring and the pool in the checkpoint.  Returns launches per kernel
+    summed over the runs."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import (
+        DriftAttack, make_attacker
+    )
+    from attacking_federate_learning_tpu_torch.core import async_rounds as A
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    time_weighted_kernels(failures, smi)
+    weighted_total = {}
+    for (label, defense, mal_prop, k, weighting, faulted, attack,
+         kernels) in P10_RUNS:
+        timed = attack == "backdoor_timed"
+        cfg = async_config(defense, mal_prop, k, weighting, faulted,
+                           **({"backdoor": "pattern"} if timed else {}))
+        att = (make_attacker(cfg, dataset=ds, name=attack, device="cuda")
+               if timed else DriftAttack(cfg.num_std))
+        exp = FederatedExperiment(cfg, att, ds, device="cuda")
+        assert exp.flat.dim == D_MLP and exp.async_spec.timed == timed
+        banned = tuple(name for name in _build.LAUNCHES
+                       if name not in kernels)
+        excluded, errs, dist_errs, twin_ok, stats = [], [], [], [], []
+        step_s = []
+        checked_defense(exp, P10_CHECKED, excluded, errs, dist_errs)
+        inner = exp.run_round
+        noop = []
+
+        def observed(t, inner=inner, stats=stats, noop=noop):
+            if t == 0:
+                a = time.perf_counter()
+                w0 = exp.state.weights.clone()
+                v0 = exp.state.velocity.clone()
+                excluded.append(time.perf_counter() - a)
+            out = inner(t)
+            stats.append(exp.last_round_async)
+            if t == 0:
+                a = time.perf_counter()
+                noop.append(torch.equal(out.weights, w0)
+                            and torch.equal(out.velocity, v0)
+                            and out.round == 1)
+                excluded.append(time.perf_counter() - a)
+            return out
+
+        exp.run_round = observed
+        craft_ev = time_crafts(att) if timed else []
+        calls = {}
+        undo_spy = spy_weighted_calls(calls)
+        undo_twin = async_twin(exp, excluded, twin_ok, step_s)
+        try:
+            run = drive(exp, kernels, banned, failures,
+                        f"async {label} {defense} {weighting}", excluded)
+        finally:
+            undo_twin()
+            undo_spy()
+        for name, count in run["launches"].items():
+            totals[name] += count
+        for key, count in calls.items():
+            weighted_total[key] = weighted_total.get(key, 0) + count
+        rows = run["result"]["async"]
+        delivered = [r["delivered"] for r in rows]
+        triggered = all(x in (0, k) for x in delivered)
+        noop_ok = (rows[0]["delivered"] != 0 or noop == [True]) and (
+            label != "(a)" or (rows[0]["delivered"] == 0 and noop == [True]))
+        replay_ok = faulted or replay_matches(rows, cfg, exp)
+        fresh_ok = True
+        if timed:
+            f = exp.m_mal
+            fresh_ok = all(
+                bool((s["staleness"][:f][s["delivered_mask"][:f]] == 0).all())
+                for s in stats)
+        wanted = {name: (weighting != "none" and name in kernels)
+                  for name, _ in WEIGHTED_KERNELS}
+        weighted_ok = all(
+            (calls.get((name, True), 0) > 0) == want
+            and (calls.get((name, False), 0) == 0 or not want)
+            for name, want in wanted.items())
+        agg_ok = (len(errs) == P10_CHECKED and all(ok for _, ok in errs)
+                  and all(ok for _, ok in dist_errs)
+                  and len(dist_errs) == (P10_CHECKED if defense in (
+                      "Bulyan", "Krum") else 0))
+        twins_ok = (len(twin_ok) == P10_CHECKED
+                    and all(ok for _, ok in twin_ok))
+        ok = (triggered and noop_ok and replay_ok and fresh_ok
+              and weighted_ok and agg_ok and twins_ok)
+        if not ok:
+            failures.append(
+                f"async {label} {defense} {weighting}: delivered {delivered}"
+                f" (k={k}), round-0 no-op {noop}, replay_ok={replay_ok}, "
+                f"timed rows fresh {fresh_ok}, weighted calls {calls}, "
+                f"aggregates vs CPU {errs} distances {dist_errs}, step vs "
+                f"CPU {twin_ok}")
+        hist = np.sum([r["staleness_hist"] for r in rows], axis=0)
+        # The schedule's host draw alone (inside the step's host time).
+        draw_s = []
+        for t in range(cfg.epochs):
+            a = time.perf_counter()
+            A.draw_delays(exp._async_key, t, exp.m, exp.m_mal,
+                          exp.async_spec, exp.faults,
+                          getattr(exp, "_fault_key", None))
+            draw_s.append(time.perf_counter() - a)
+        beside = (f"step_host_ms={1e3 * statistics.median(step_s):.3f} "
+                  f"draw_host_ms={1e3 * statistics.median(draw_s):.3f} ")
+        if faulted:
+            beside += (f"fault_counts_match_replay={run['counts_ok']} "
+                      f"quarantined={sum(r['quarantined'] for r in rows)} "
+                      f"evicted={sum(r['evicted'] for r in rows)} ")
+        if timed:
+            torch.cuda.synchronize()
+            asr = run["result"]["asr"]
+            craft_ms = statistics.median(a.elapsed_time(b)
+                                         for a, b in craft_ev)
+            lines_ok = backdoor_lines_ok(run["lines"], asr)
+            beside += (f"asr r0/r10/r20 = "
+                       f"{'/'.join(f'{a:.2f}' for a in asr)} % "
+                       f"craft_ms={craft_ms:.3f} early_out_rounds="
+                       f"{att.early_outs} lines_ok={lines_ok} "
+                       f"timed_rows_fresh={fresh_ok} ")
+            if not lines_ok:
+                failures.append(f"async {label}: BEFORE/Test set/POST "
+                                f"lines {run['lines']}")
+        named = {f"{n}[w]" if wt else n: c for (n, wt), c in calls.items()}
+        print(f"[async] {label} {defense:11s} {weighting:5s} f={exp.f} "
+              f"k={k} acc r0/r10/r20 = {run['acc_txt']} % "
+              f"median_round_ms={run['median_ms']:.3f} "
+              f"deliver_ms={run['deliver_ms']:.3f} "
+              f"peak_gib={run['peak_gib']:.2f} delivered_rounds="
+              f"{sum(x > 0 for x in delivered)}/{len(delivered)} "
+              f"fifo_trigger_ok={triggered} round0_noop={noop} "
+              f"replay_ok={replay_ok} staleness_hist={hist.tolist()} "
+              f"{beside}step_vs_cpu_ok={twins_ok} agg_vs_cpu="
+              f"{[(float(f'{e:.3e}'), o) for e, o in errs]} ok={agg_ok} "
+              f"sort_kernel_calls={named} "
+              f"launches={ {k2: v for k2, v in run['launches'].items() if v} } "
+              f"per_round={run['per_round']} finite={run['finite']} "
+              f"on {smi}", flush=True)
+        for line in run["lines"]:
+            if line.startswith(("Test set", "##Test")):
+                print(f"[async]   {line.strip()}", flush=True)
+        # One more round under torch.profiler: the device's busy share.
+        profile_round(exp, f"{label} {defense}", top=4, tag="async")
+        del exp, att
+        gc.collect()
+        torch.cuda.empty_cache()
+    named = {f"{n}[w]" if wt else n: c
+             for (n, wt), c in weighted_total.items()}
+    print(f"[async] sort-kernel calls on the card over (a)-(d), [w] with "
+          f"staleness weights: {named}", flush=True)
+    # -- (e) preempt and resume of (a)'s Krum 'poly' ------------------------
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p10_") as root:
+        launches, out = p9_triplet(
+            ds, "(e) async Krum poly", "Krum", 0.24, False,
+            ("pairwise_distances",),
+            tuple(n for n in _build.LAUNCHES if n != "pairwise_distances"),
+            failures, root, tag="async",
+            want_extra={"extra_async_buf": (P10_STALENESS + 1, N_MAIN, D_MLP),
+                        "extra_async_occ": (P10_STALENESS + 1, N_MAIN),
+                        "extra_async_birth": (P10_STALENESS + 1, N_MAIN),
+                        "extra_async_pbuf": (N_MAIN, D_MLP),
+                        "extra_async_pocc": (N_MAIN,),
+                        "extra_async_pbirth": (N_MAIN,)},
+            aggregation="async", async_buffer=64,
+            async_max_staleness=P10_STALENESS, staleness_weight="poly")
+        for k, v in launches.items():
+            totals[k] += v
+        carry = out["last"].carry_state_host()
+        same = all(np.array_equal(v, out["full"].carry_state_host()[k])
+                   for k, v in carry.items())
+        print(f"[async] (e) ring and pool after round 20, resumed vs whole: "
+              f"bit_equal={same}", flush=True)
+        if not same:
+            failures.append("async (e): resumed ring/pool differ")
+        time_save_resume(out["last"], out["ck"], smi,
+                         "(e) async state: weights + velocity + ring "
+                         "(3, 100, 79,510) + pool (100, 79,510)",
+                         tag="async")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
     return totals
 
 
@@ -2668,10 +3175,12 @@ def main() -> int:
     knob_totals = run_knobs_path(ds, failures)
     # -- 9. the run lifecycle ------------------------------------------------
     life_totals = run_lifecycle_path(ds, failures, smi, clean_ms["Krum"])
+    # -- 10. asynchronous buffered rounds ------------------------------------
+    async_totals = run_async_path(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = (totals[name] + attack_totals[name]
                          + model_totals[name] + knob_totals[name]
-                         + life_totals[name])
+                         + life_totals[name] + async_totals[name])
 
     if failures:
         for msg in failures:
