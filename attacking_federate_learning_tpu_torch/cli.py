@@ -10,7 +10,12 @@ knobs (``--participation``, ``--local-steps``, ``--partition`` with
 ``--server-uses-faded-lr``, ``--remat``, which the config refuses), the
 async buffered round's (``--aggregation``, ``--async-buffer``,
 ``--async-max-staleness``, ``--staleness-weight``; 'hierarchical' is
-refused by the config, not ported yet), the run lifecycle's (``-o``,
+refused by the config, not ported yet), the beyond-reference defenses'
+(``-d`` DnC/GeoMedian/CenteredClip/FLTrust/NormBound with
+``--dnc-iters``, ``--dnc-sketch-dim``, ``--dnc-filter-frac``,
+``--geomed-iters``, ``--geomed-eps``, ``--cclip-tau``, ``--cclip-iters``),
+the twelve ``--traffic-*`` flags of the population & traffic engine,
+the run lifecycle's (``-o``,
 ``--log-dir``, ``--run-dir``, ``--no-checkpoint``, ``--resume``,
 ``--checkpoint-every``, ``--heartbeat``, ``--journal``, ``--run-id``),
 plus ``--device``.  As in the JAX package, ``grad_dtype`` and
@@ -48,6 +53,11 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d TrimmedMean -n 100 -m 0.24 --aggregation async \\
           --async-buffer 64 --staleness-weight poly
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d DnC -n 100 -m 0.24 --attack minmax
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d Krum -n 100 -m 0.24 --traffic-population 100000 \\
+          --traffic-diurnal-amp 0.5
       python -m attacking_federate_learning_tpu_torch.cli \\
           -s SYNTH_CIFAR10_HARD -d TrimmedMean -n 100 -m 0.24 \\
           --synth-train 50000 --synth-test 10000
@@ -80,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: MLP for MNIST, CNN for CIFAR10, "
                         "WRN-40-4 for CIFAR100)")
     p.add_argument("-d", "--defense", default="NoDefense",
-                   choices=C.DEFENSE_NAMES)
+                   choices=list(C.DEFENSE_NAMES))
     p.add_argument("--attack", default="auto",
                    choices=["auto", "none", "alie", "backdoor",
                             "backdoor_timed", "signflip", "noise",
@@ -96,6 +106,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="min-max/min-sum perturbation direction "
                         "(attacks/minmax.py): cohort -std (the NDSS'21 "
                         "paper's best), -sign(mean), or -unit mean")
+    p.add_argument("--dnc-iters", default=ExperimentConfig.dnc_iters,
+                   type=int, help="DnC filtering iterations")
+    p.add_argument("--dnc-sketch-dim",
+                   default=ExperimentConfig.dnc_sketch_dim, type=int,
+                   help="DnC coordinate-sketch size per iteration")
+    p.add_argument("--dnc-filter-frac",
+                   default=ExperimentConfig.dnc_filter_frac, type=float,
+                   help="DnC outliers removed per iteration, as a "
+                        "fraction of f")
+    p.add_argument("--geomed-iters", default=ExperimentConfig.geomed_iters,
+                   type=int, help="GeoMedian Weiszfeld iterations")
+    p.add_argument("--geomed-eps", default=ExperimentConfig.geomed_eps,
+                   type=float,
+                   help="GeoMedian distance-smoothing floor")
+    p.add_argument("--cclip-tau", default=ExperimentConfig.cclip_tau,
+                   type=float,
+                   help="CenteredClip L2 clip radius (ICML'21)")
+    p.add_argument("--cclip-iters", default=ExperimentConfig.cclip_iters,
+                   type=int, help="CenteredClip re-centering trips")
     p.add_argument("-n", "-dispatch_weightsn", "--users-count", default=10,
                    type=int)
     p.add_argument("-m", "--mal-prop", default=0.24, type=float,
@@ -255,6 +284,65 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="K",
                    help="rounds a dead shard domain stays dead after "
                         "each failure onset (correlated outage width)")
+    p.add_argument("--traffic-population", default=0, type=int,
+                   metavar="P",
+                   help="population & traffic engine (core/population.py): "
+                        "sample each round's cohort from a registry of P "
+                        "clients (P >> cohort; per-client state is lazy — "
+                        "no (P,)-sized tensor ever exists) with diurnal "
+                        "arrival, correlated on/off churn, heavy-tail "
+                        "async latencies, and a defense-validity watchdog "
+                        "that degrades under-filled rounds through "
+                        "remask -> fallback defense -> hold, each "
+                        "decision a v11 'traffic' event; 0 = off (the "
+                        "legacy --participation draw)")
+    p.add_argument("--traffic-rate", default=0.9, type=float, metavar="R",
+                   help="base per-round arrival rate (scaled per client "
+                        "by its reliability profile)")
+    p.add_argument("--traffic-diurnal-amp", default=0.0, type=float,
+                   metavar="A",
+                   help="diurnal modulation amplitude in [0,1]: rate(t) = "
+                        "R*(1 + A*sin(2*pi*t/period))")
+    p.add_argument("--traffic-diurnal-period", default=24, type=int,
+                   metavar="T", help="diurnal period in rounds")
+    p.add_argument("--traffic-churn-dwell", default=4, type=int,
+                   metavar="K",
+                   help="mean on/off churn episode length in rounds "
+                        "(per-client Markov-style alternating renewal: "
+                        "one availability draw per K-round block)")
+    p.add_argument("--traffic-latency-scale", default=1.0, type=float,
+                   metavar="S",
+                   help="heavy-tail straggler latency scale (async "
+                        "engine: Pareto arrival delay replaces the "
+                        "uniform 0..D draw)")
+    p.add_argument("--traffic-latency-tail", default=1.5, type=float,
+                   metavar="A", help="Pareto tail exponent (smaller = "
+                                     "heavier straggler tail)")
+    p.add_argument("--traffic-sybil-period", default=0, type=int,
+                   metavar="T",
+                   help="time-correlated colluder arrival: colluders "
+                        "arrive only in a window of --traffic-sybil-width "
+                        "rounds every T rounds, boosted so their AVERAGE "
+                        "arrival mass matches uniform (fixed average f — "
+                        "participation as an attack axis); 0 = uniform "
+                        "colluder arrival")
+    p.add_argument("--traffic-sybil-width", default=1, type=int,
+                   metavar="W", help="sybil burst window width in rounds")
+    p.add_argument("--traffic-fallback", default="Median",
+                   choices=["Median", "TrimmedMean", "NoDefense"],
+                   help="ladder step 2: the bounds-valid defense an "
+                        "under-filled round falls back to when the "
+                        "configured defense's validity bound breaks")
+    p.add_argument("--traffic-min-cohort", default=1, type=int,
+                   metavar="M",
+                   help="floor on arrived clients below which the round "
+                        "degrades regardless of defense bounds")
+    p.add_argument("--traffic-seed", default=None, type=int,
+                   metavar="SEED",
+                   help="traffic schedule seed override (default: derived "
+                        "from the experiment seed) — lets a campaign "
+                        "sweep traffic realizations without moving the "
+                        "data/init/attack draws")
     p.add_argument("--augment", default="auto",
                    choices=["auto", "on", "off"],
                    help="train-time reflect-pad-4 + random-crop + h-flip "
@@ -296,6 +384,21 @@ def config_from_args(args) -> ExperimentConfig:
             corrupt_mode=args.fault_corrupt_mode,
             shard_dropout=args.fault_shard_dropout,
             shard_dropout_dwell=args.fault_shard_dropout_dwell)
+    traffic = None
+    if args.traffic_population > 0:
+        traffic = C.TrafficConfig(
+            population=args.traffic_population,
+            rate=args.traffic_rate,
+            diurnal_amp=args.traffic_diurnal_amp,
+            diurnal_period=args.traffic_diurnal_period,
+            churn_dwell=args.traffic_churn_dwell,
+            latency_scale=args.traffic_latency_scale,
+            latency_tail=args.traffic_latency_tail,
+            sybil_burst_period=args.traffic_sybil_period,
+            sybil_burst_width=args.traffic_sybil_width,
+            fallback_defense=args.traffic_fallback,
+            min_cohort=args.traffic_min_cohort,
+            seed=args.traffic_seed)
     return ExperimentConfig(
         users_count=args.users_count, mal_prop=args.mal_prop,
         dataset=args.dataset, model=args.model,
@@ -313,8 +416,13 @@ def config_from_args(args) -> ExperimentConfig:
         data_dir=args.data_dir, seed=args.seed,
         synth_train=args.synth_train, synth_test=args.synth_test,
         backdoor=args.backdoor, attack_direction=args.attack_direction,
+        dnc_iters=args.dnc_iters, dnc_sketch_dim=args.dnc_sketch_dim,
+        dnc_filter_frac=args.dnc_filter_frac,
+        geomed_iters=args.geomed_iters, geomed_eps=args.geomed_eps,
+        cclip_tau=args.cclip_tau, cclip_iters=args.cclip_iters,
         data_augment={"auto": None, "on": True, "off": False}[args.augment],
-        remat=args.remat, faults=faults, aggregation=args.aggregation,
+        remat=args.remat, faults=faults, traffic=traffic,
+        aggregation=args.aggregation,
         async_buffer=args.async_buffer,
         async_max_staleness=args.async_max_staleness,
         staleness_weight=args.staleness_weight,

@@ -9,9 +9,11 @@ coercion) and the same validation messages (the model/dataset family
 check among them), plus the JAX package's ``FaultConfig`` (a copy: the
 port imports nothing of the JAX package), the run lifecycle's fields and
 the asynchronous buffered round's (``aggregation='async'``,
-``async_buffer``, ``async_max_staleness``, ``staleness_weight``).
-Hierarchical aggregation, traffic, secagg and the observability knobs
-are later slices of the port.
+``async_buffer``, ``async_max_staleness``, ``staleness_weight``), the
+beyond-reference defenses' constants (``dnc_*``, ``geomed_*``,
+``cclip_*``) and the population & traffic model (``TrafficConfig``, a
+copy of the JAX package's).  Hierarchical aggregation, host streaming,
+secagg and the observability knobs are later slices of the port.
 """
 
 from __future__ import annotations
@@ -60,7 +62,11 @@ def default_model_for(dataset: str) -> str:
         CIFAR100: "wideresnet40_4",
     }.get(dataset, "mnist_mlp")
 
-DEFENSE_NAMES = ("NoDefense", "Krum", "TrimmedMean", "Bulyan", "Median")
+# The JAX CLI's -d choices, in its order: the reference's four, Median,
+# and the beyond-reference five (DnC, GeoMedian, CenteredClip, FLTrust,
+# NormBound), which are not mask-aware (core/faults.py).
+DEFENSE_NAMES = ("NoDefense", "Bulyan", "TrimmedMean", "Krum", "FLTrust",
+                 "Median", "GeoMedian", "NormBound", "DnC", "CenteredClip")
 
 
 @dataclasses.dataclass
@@ -141,6 +147,100 @@ class FaultConfig:
 
 
 @dataclasses.dataclass
+class TrafficConfig:
+    """Population & traffic model (core/population.py), the JAX package's
+    ``TrafficConfig`` field for field, defaults, checks and messages.
+
+    ``population`` > 0 turns the subsystem on: each round's cohort is
+    sampled from a registry of P clients whose per-client persistent
+    state (data-shard archetype, femnist-style transform, reliability,
+    churn dwell, latency profile) is derived lazily from counter-based
+    PRNG streams — never materialized as a (P,)-sized array.  The
+    arrival process is a diurnal-modulated base rate with per-client
+    blockwise on/off churn (correlated dropout episodes of ~churn_dwell
+    rounds) and heavy-tail (Pareto ``latency_tail``) straggler
+    latencies feeding the async delivery ring.  The schedule is a pure
+    function of ``(TrafficConfig, seed, round)``: replayable on the host
+    (population.replay_traffic), resume-exact with no carried state.
+
+    The sybil burst window makes participation an attack axis: with
+    ``sybil_burst_period`` > 0 colluders arrive only in the first
+    ``sybil_burst_width`` rounds of each period, boosted by
+    period/width so the AVERAGE arrived-colluder mass matches the
+    uniform profile (fixed average f).
+
+    Robustness half: when churn under-fills a round, the
+    defense-validity watchdog degrades through a declared ladder —
+    re-mask the configured defense to the arrived sub-cohort while its
+    bound holds (Krum m_eff >= 2f+3, Bulyan >= 4f+3), else run
+    ``fallback_defense``, else hold the round as a no-op — each
+    decision a versioned 'traffic' event (schema v11), never a crash
+    or a silent invalid aggregate.
+    """
+
+    population: int = 0          # P registered clients; 0 = disabled
+    rate: float = 0.9            # base per-round arrival probability scale
+    diurnal_amp: float = 0.0     # rate modulation amplitude in [0, 1]
+    diurnal_period: int = 24     # rounds per diurnal cycle
+    reliability_lo: float = 0.6  # per-client reliability spread
+    reliability_hi: float = 0.95
+    churn_dwell: int = 4         # mean on/off episode length (rounds)
+    latency_scale: float = 1.0   # async delay scale (rounds)
+    latency_tail: float = 1.5    # Pareto tail index (smaller = heavier)
+    sybil_burst_period: int = 0  # 0 = colluders arrive like honest clients
+    sybil_burst_width: int = 1   # rounds of each period colluders arrive in
+    fallback_defense: str = "Median"  # ladder step 2 kernel
+    min_cohort: int = 1          # hold below this many arrivals regardless
+    seed: Optional[int] = None   # None -> derived from the experiment seed
+
+    def __post_init__(self):
+        if self.population < 0:
+            raise ValueError(
+                f"traffic population must be >= 0, got {self.population}")
+        if self.rate <= 0:
+            raise ValueError(f"traffic rate must be > 0, got {self.rate}")
+        if not (0.0 <= self.diurnal_amp <= 1.0):
+            raise ValueError(
+                f"diurnal_amp must be in [0, 1], got {self.diurnal_amp}")
+        if self.diurnal_period < 1:
+            raise ValueError(
+                f"diurnal_period must be >= 1, got {self.diurnal_period}")
+        if not (0.0 < self.reliability_lo <= self.reliability_hi <= 1.0):
+            raise ValueError(
+                f"need 0 < reliability_lo <= reliability_hi <= 1, got "
+                f"{self.reliability_lo}/{self.reliability_hi}")
+        if self.churn_dwell < 1:
+            raise ValueError(
+                f"churn_dwell must be >= 1, got {self.churn_dwell}")
+        if self.latency_scale <= 0 or self.latency_tail <= 0:
+            raise ValueError(
+                f"latency_scale and latency_tail must be > 0, got "
+                f"{self.latency_scale}/{self.latency_tail}")
+        if self.sybil_burst_period < 0:
+            raise ValueError(
+                f"sybil_burst_period must be >= 0, got "
+                f"{self.sybil_burst_period}")
+        if self.sybil_burst_period > 0 and not (
+                1 <= self.sybil_burst_width <= self.sybil_burst_period):
+            raise ValueError(
+                f"sybil_burst_width must be in [1, period="
+                f"{self.sybil_burst_period}], got {self.sybil_burst_width}")
+        if self.fallback_defense not in ("Median", "TrimmedMean",
+                                         "NoDefense"):
+            raise ValueError(
+                f"fallback_defense must be 'Median', 'TrimmedMean' or "
+                f"'NoDefense' (the bounds-valid ladder kernels), got "
+                f"{self.fallback_defense!r}")
+        if self.min_cohort < 1:
+            raise ValueError(
+                f"min_cohort must be >= 1, got {self.min_cohort}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.population > 0
+
+
+@dataclasses.dataclass
 class ExperimentConfig:
     # --- topology -------------------------------------------------------
     users_count: int = 10            # reference main.py:118
@@ -185,6 +285,20 @@ class ExperimentConfig:
     # (attacks/minmax.py): cohort negative std ('std', the NDSS'21 paper's
     # best performer), -sign(mean) ('sign'), or negative unit mean ('unit').
     attack_direction: str = "std"
+    # DnC spectral defense constants (defenses/dnc.py).  Sketch keys
+    # derive from (seed, round, iter), so repeat runs with different
+    # seeds draw different coordinate subsets (the paper's
+    # random-subsampling assumption).
+    dnc_iters: int = 5
+    dnc_sketch_dim: int = 2048
+    dnc_filter_frac: float = 1.5
+    # GeoMedian smoothed-Weiszfeld constants (defenses/geomed.py).
+    geomed_iters: int = 10
+    geomed_eps: float = 1e-6
+    # CenteredClip constants (defenses/centeredclip.py, ICML'21): clip
+    # radius and fixed re-centering trips.
+    cclip_tau: float = 10.0
+    cclip_iters: int = 5
 
     # --- defense --------------------------------------------------------
     defense: str = "NoDefense"       # reference main.py:112
@@ -284,6 +398,14 @@ class ExperimentConfig:
     # equivalent dict, coerced below) with any rate > 0 turns on fault
     # injection, the quarantine mask and the divergence watchdog.
     faults: Optional[FaultConfig] = None
+    # --- population & traffic (core/population.py) ----------------------
+    # None (the default) is the resident-cohort round.  A TrafficConfig
+    # (or an equivalent dict, coerced below) with population > 0 samples
+    # each round's cohort from the lazy client registry, injects
+    # correlated churn and the defense-validity degradation ladder
+    # (flat), and draws async arrival delay from the latency profile
+    # (async).
+    traffic: Optional[TrafficConfig] = None
     # Rotated auto-checkpoints every N rounds (0 = off,
     # utils/checkpoint.py): the --resume target after a kill and the
     # divergence watchdog's rollback target (core/engine.py).
@@ -376,8 +498,25 @@ class ExperimentConfig:
             raise ValueError(
                 f"attack_direction must be 'std', 'sign' or 'unit', "
                 f"got {self.attack_direction!r}")
+        if self.dnc_iters < 1 or self.dnc_sketch_dim < 1:
+            raise ValueError(
+                f"dnc_iters/dnc_sketch_dim must be >= 1, got "
+                f"{self.dnc_iters}/{self.dnc_sketch_dim}")
+        if self.dnc_filter_frac <= 0:
+            raise ValueError(
+                f"dnc_filter_frac must be > 0, got {self.dnc_filter_frac}")
+        if self.cclip_iters < 1 or self.cclip_tau <= 0:
+            raise ValueError(
+                f"cclip_iters must be >= 1 and cclip_tau > 0, got "
+                f"{self.cclip_iters}/{self.cclip_tau}")
+        if self.geomed_iters < 1 or self.geomed_eps <= 0:
+            raise ValueError(
+                f"geomed_iters must be >= 1 and geomed_eps > 0, got "
+                f"{self.geomed_iters}/{self.geomed_eps}")
         if isinstance(self.faults, dict):
             self.faults = FaultConfig(**self.faults)
+        if isinstance(self.traffic, dict):
+            self.traffic = TrafficConfig(**self.traffic)
         if self.checkpoint_every < 0:
             raise ValueError(
                 f"checkpoint_every must be >= 0, got "

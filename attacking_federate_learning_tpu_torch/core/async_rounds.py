@@ -103,7 +103,7 @@ def init_async_state(spec: AsyncSpec, m: int, d: int, device) -> dict:
 
 
 def draw_delays(key, t: int, m: int, m_mal: int, spec: AsyncSpec,
-                faults=None, fkey=None):
+                faults=None, fkey=None, latency=None):
     """The round-t arrival schedule on the host: ``(delay, drop,
     corrupt)``, (m,) numpy int32, bool, bool.
 
@@ -113,15 +113,30 @@ def draw_delays(key, t: int, m: int, m_mal: int, spec: AsyncSpec,
     and 0 for the attacker's rows under a timed attack.  ``drop`` and
     ``corrupt`` are the fault schedule's masks (all False without
     faults), drawn from ``fkey`` (core/faults.py:fault_key; ``key`` when
-    it is None) as the flat round draws them."""
-    delay, drop, _, corrupt = _schedule(key, t, m, m_mal, spec, faults, fkey)
+    it is None) as the flat round draws them.
+
+    ``latency`` (the traffic engine, core/population.py): an optional
+    ``(scales, tail)`` pair, the per-row heavy-tail Pareto scales and the
+    shared tail exponent, that replaces the uniform draw with
+    :func:`~.population.traffic_delays` (still pure in ``(key, t)``,
+    clipped to the ring's depth the same way)."""
+    delay, drop, _, corrupt = _schedule(key, t, m, m_mal, spec, faults, fkey,
+                                        latency)
     return delay, drop, corrupt
 
 
-def _schedule(key, t, m, m_mal, spec, faults, fkey):
+def _schedule(key, t, m, m_mal, spec, faults, fkey, latency=None):
     """:func:`draw_delays` with the straggler mask as well: ``(delay,
     drop, stale, corrupt)``, one draw of the fault schedule."""
-    delay = threefry.randint(threefry.fold_in(key, t), (m,), 0, spec.depth)
+    if latency is not None:
+        from attacking_federate_learning_tpu_torch.core.population import (
+            traffic_delays
+        )
+        scales, tail = latency
+        delay = traffic_delays(key, t, scales, tail, spec.depth)
+    else:
+        delay = threefry.randint(threefry.fold_in(key, t), (m,), 0,
+                                 spec.depth)
     if faults is not None:
         drop, stale, corrupt = fault_masks(key if fkey is None else fkey, t,
                                            m, m_mal, faults)
@@ -151,7 +166,7 @@ def staleness_weights(staleness, delivered, weighting: str):
 
 
 def async_step(grads, t: int, key, spec: AsyncSpec, state: dict,
-               m_mal: int, faults=None, fkey=None):
+               m_mal: int, faults=None, fkey=None, latency=None):
     """One async round against the submitted (m, d) matrix: submit the
     round-t updates into the ring at their drawn slots, take delivery of
     slot ``t % D``, merge the arrivals into the pending pool, evict
@@ -175,7 +190,7 @@ def async_step(grads, t: int, key, spec: AsyncSpec, state: dict,
     dev = grads.device
     k = min(spec.buffer, m)
     delay, drop, stale, corrupt = _schedule(key, t, m, m_mal, spec, faults,
-                                            fkey)
+                                            fkey, latency)
 
     # The written cells (one (slot, row) per submitted row) and the
     # corruption mask cross to the device in one copy, pinned on the card
@@ -290,13 +305,22 @@ def replay_schedule(cfg, m, m_mal, epochs, timed=False):
             fault_key
         )
         fkey = fault_key(cfg)
+    latency = None
+    tr = getattr(cfg, "traffic", None)
+    if tr is not None and tr.enabled:
+        # The replay draws the heavy-tail latency delays the ring does.
+        from attacking_federate_learning_tpu_torch.core.population import (
+            async_latency_for_cfg
+        )
+        latency = async_latency_for_cfg(cfg, m)
     occ = np.zeros((D, m), bool)
     birth = np.zeros((D, m), np.int64)
     pocc = np.zeros((m,), bool)
     pbirth = np.zeros((m,), np.int64)
     rows = []
     for t in range(epochs):
-        delay, drop, _ = draw_delays(key, t, m, m_mal, spec, faults, fkey)
+        delay, drop, _ = draw_delays(key, t, m, m_mal, spec, faults, fkey,
+                                     latency)
         slots = (t + delay) % D
         superseded = int(occ[slots, np.arange(m)][~drop].sum())
         write = ~drop

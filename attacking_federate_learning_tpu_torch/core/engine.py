@@ -73,6 +73,22 @@ no host read).  Faults compose inside ``async_step``; the straggler ring
 of the flat round is never built.  The ring and the pending pool are the
 engine's carry state (:meth:`carry_state_host`).
 
+With ``cfg.traffic`` (core/population.py) a flat round's cohort comes
+from the host-planned traffic schedule: m population clients gathered by
+their shard archetype (data shard and style), the rows that did not
+arrive zeroed and masked after the craft, the faults composed on that
+mask, and the watchdog's ladder action: 'remask' runs the defense over
+the arrived rows, 'fallback' ``traffic.fallback_defense``, 'hold' leaves
+weights and velocity as they were (the round counter advances).  The v11
+'traffic' events go out at the host boundaries.  In async rounds the
+traffic latency profile replaces the uniform arrival draw.
+
+The beyond-reference defenses (DnC, GeoMedian, CenteredClip, FLTrust,
+NormBound) take their constants from the config; DnC gets the round
+index (``needs_round``: fresh sketches a round) and FLTrust the server's
+gradient over the metadata pool (``needs_server_grad``), as in the JAX
+engine.
+
 With ``cfg.data_augment`` (by default on for CIFAR100 alone, the
 reference's rule) the round's gathered batch is reflect-cropped and
 flipped before deliver (data/augment.py), bit for bit the JAX package's
@@ -105,8 +121,9 @@ from attacking_federate_learning_tpu_torch.config import (
 )
 from attacking_federate_learning_tpu_torch.core import async_rounds as A
 from attacking_federate_learning_tpu_torch.core import faults as F
+from attacking_federate_learning_tpu_torch.core import population as P
 from attacking_federate_learning_tpu_torch.core.client import (
-    make_client_update_fn
+    make_client_update_fn, make_loss_fn
 )
 from attacking_federate_learning_tpu_torch.core.evaluate import make_eval_fn
 from attacking_federate_learning_tpu_torch.core.server import (
@@ -116,9 +133,6 @@ from attacking_federate_learning_tpu_torch.data.augment import (
     reflect_crop_flip, round_augment_key
 )
 from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
-from attacking_federate_learning_tpu_torch.core.population import (
-    legacy_cohort
-)
 from attacking_federate_learning_tpu_torch.data.partition import (
     client_style_params, make_shards, round_batch_indices
 )
@@ -216,6 +230,28 @@ class FederatedExperiment:
                        and cfg.faults.enabled else None)
         if self.faults is not None:
             F.check_fault_support(cfg, cfg.participation)
+        # Population & traffic (core/population.py): a lazy registry of
+        # scalars, so memory scales with the cohort m, not the population.
+        self.traffic = self.registry = None
+        self._traffic_latency = None
+        if cfg.traffic is not None and cfg.traffic.enabled:
+            P.check_traffic_support(cfg)
+            if not getattr(self.attacker, "fusable", True):
+                raise ValueError(
+                    "the traffic engine requires a fusable attack (the "
+                    "staged host-eager path has no arrival seam)")
+            self.traffic = cfg.traffic
+            self.registry = P.PopulationRegistry(cfg.traffic, self.n, self.f,
+                                                 cfg.seed)
+            self._traffic_events = {}
+            if self.async_spec is not None:
+                # Async traffic: the latency profile's heavy-tail delays
+                # replace the uniform arrival draw in the ring.
+                self._traffic_latency = P.async_latency_for_cfg(cfg, self.m)
+            else:
+                # Ladder step 2: the bounds-valid fallback kernel.
+                self._traffic_fallback_fn = DEFENSES[
+                    cfg.traffic.fallback_defense]
         self.dataset = dataset or load_dataset(
             cfg.dataset, cfg.data_dir, cfg.seed,
             synth_train=cfg.synth_train, synth_test=cfg.synth_test)
@@ -246,6 +282,20 @@ class FederatedExperiment:
                 defense, paper_scoring=cfg.krum_paper_scoring,
                 distance_dtype=dist_dtype,
                 batch_select=cfg.bulyan_batch_select)
+        elif cfg.defense == "DnC":
+            # The sketch keys flow from the experiment seed, so runs with
+            # different seeds draw different coordinate subsets.
+            defense = functools.partial(
+                defense, n_iters=cfg.dnc_iters,
+                sketch_dim=cfg.dnc_sketch_dim,
+                filter_frac=cfg.dnc_filter_frac, seed=cfg.seed)
+            defense.needs_round = True     # a partial drops attributes
+        elif cfg.defense == "GeoMedian":
+            defense = functools.partial(defense, iters=cfg.geomed_iters,
+                                        eps=cfg.geomed_eps)
+        elif cfg.defense == "CenteredClip":
+            defense = functools.partial(defense, tau=cfg.cclip_tau,
+                                        iters=cfg.cclip_iters)
         self.defense_fn = defense
 
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -286,8 +336,21 @@ class FederatedExperiment:
                                              cfg.seed))
         self._client_update = make_client_update_fn(self.model, self.flat,
                                                     cfg.local_steps)
-        self.metadata = (self.collect_metadata() if cfg.collect_metadata
+        # Validation-data defense (FLTrust): the server's own gradient on
+        # the trusted metadata pool is the trust anchor; the pool is made
+        # whenever the defense needs it, and lives on the device.
+        self._needs_round = getattr(self.defense_fn, "needs_round", False)
+        self._needs_server_grad = getattr(self.defense_fn,
+                                          "needs_server_grad", False)
+        self.metadata = (self.collect_metadata()
+                         if cfg.collect_metadata or self._needs_server_grad
                          else None)
+        if self._needs_server_grad:
+            self._meta_x = torch.from_numpy(self.metadata[0]).to(self.device)
+            self._meta_y = torch.from_numpy(self.metadata[1]).to(
+                self.device, torch.int64)
+            self._server_grad_fn = torch.func.grad(
+                make_loss_fn(self.model, self.flat))
         self.evaluate = make_eval_fn(self.model, self.flat,
                                      self.dataset.test_x,
                                      self.dataset.test_y, cfg.batch_size,
@@ -337,8 +400,8 @@ class FederatedExperiment:
         ones, the JAX package's draw (core/population.py)."""
         if self.cfg.participation >= 1.0:
             return None
-        return legacy_cohort(self._part_key, t, self.n, self.f, self.m,
-                             self.m_mal)
+        return P.legacy_cohort(self._part_key, t, self.n, self.f, self.m,
+                               self.m_mal)
 
     def collect_metadata(self):
         """The metadata pool (reference C12, server.py:58-77): each
@@ -452,24 +515,96 @@ class FederatedExperiment:
                                      device=self.device),
             round=t, staleness=staleness)
 
-    def run_round(self, t: int) -> ServerState:
+    def server_grad(self) -> torch.Tensor:
+        """(d,) f32: the server's gradient of the mean loss over the whole
+        metadata pool at the current weights (FLTrust's trust anchor;
+        BatchNorm models normalize with the pool's batch statistics)."""
+        return self._server_grad_fn(self.state.weights, self._meta_x,
+                                    self._meta_y)
+
+    def aggregate(self, grads: torch.Tensor, t: int, **kw) -> torch.Tensor:
+        """tier1_aggregate: the configured defense over the round's
+        matrix, with the seams it asks for: the round index
+        (``needs_round``, DnC's fresh sketches) and the server gradient
+        (``needs_server_grad``, FLTrust); ``kw`` carries ``mask`` and
+        ``weights``."""
+        if self._needs_round:
+            kw["round"] = t
+        if self._needs_server_grad:
+            kw["server_grad"] = self.server_grad()
+        return self.defense_fn(grads, self.m, self.m_mal, **kw)
+
+    def _apply(self, agg: torch.Tensor, t: int) -> ServerState:
+        """apply: the momentum step on the aggregate, at the constant base
+        lr on the server (reference server.py:89) unless
+        server_uses_faded_lr."""
         cfg = self.cfg
+        lr = (faded_lr(cfg, t) if cfg.server_uses_faded_lr
+              else cfg.learning_rate)
+        return momentum_update(self.state, agg.float(), lr, cfg.momentum)
+
+    def run_round(self, t: int) -> ServerState:
         if self.async_spec is not None:
             return self.run_async_round(t)
+        if self.traffic is not None:
+            return self.run_traffic_round(t)
         grads = self.compute_grads(t, self.participants(t))
         grads = self.attacker.apply(grads, self.m_mal,
                                     self.attack_context(t))    # craft
         if self.faults is None:
-            agg = self.defense_fn(grads, self.m, self.m_mal)   # aggregate
+            agg = self.aggregate(grads, t)                     # aggregate
         else:
             grads, mask = self.inject_and_quarantine(grads, t)
-            agg = self.defense_fn(grads, self.m, self.m_mal, mask=mask)
-        # Reference parity: the constant base lr on the server
-        # (server.py:89) unless server_uses_faded_lr.
-        lr = (faded_lr(cfg, t) if cfg.server_uses_faded_lr
-              else cfg.learning_rate)
-        self.state = momentum_update(self.state, agg.float(), lr,
-                                     cfg.momentum)             # apply
+            agg = self.aggregate(grads, t, mask=mask)
+        self.state = self._apply(agg, t)                       # apply
+        return self.state
+
+    def traffic_plan(self, t0: int, count: int) -> P.TrafficSchedule:
+        """The host-sampled traffic schedule of rounds [t0, t0 + count):
+        cohort shard ids, arrival masks and ladder actions, and the v11
+        'traffic' events.  Pure in the traffic seed and the round index,
+        so a resumed run regenerates it (no carry state)."""
+        return P.traffic_schedule(
+            self.registry, t0, count, self.m, self.m_mal, self.cfg.defense,
+            self.traffic.fallback_defense, self.traffic.min_cohort)
+
+    def run_traffic_round(self, t: int) -> ServerState:
+        """One flat traffic round (the JAX engine's traffic branch of
+        ``fused_core``): the round's schedule row from the host; deliver
+        and craft over all m cohort rows, gathered by shard id (a
+        population client is its archetype's data shard and style); then
+        the rows that did not arrive are zeroed and masked; then the
+        faults, masked with ``arrived & fmask``; then the ladder's action.
+        'remask' runs the configured defense with the mask, 'fallback'
+        the fallback defense with it, 'hold' no defense: weights and
+        velocity stay bit for bit, the round counter advances.  The JAX
+        engine computes both defenses and selects; the unselected one
+        never reaches the state, so running the named one alone gives
+        the same state."""
+        sched = self.traffic_plan(t, 1)
+        self._traffic_events[t] = sched.events[0]
+        action = int(sched.action[0])
+        grads = self.compute_grads(t, sched.shard_ids[0])      # deliver
+        grads = self.attacker.apply(grads, self.m_mal,
+                                    self.attack_context(t))    # craft
+        host = torch.from_numpy(sched.arrived[0])
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        mask = host.to(self.device, non_blocking=True)
+        grads = torch.where(mask[:, None], grads, torch.zeros_like(grads))
+        if self.faults is not None:
+            grads, fmask = self.inject_and_quarantine(grads, t)
+            mask = mask & fmask
+        if action == P.TRAFFIC_HOLD:
+            st = self.state
+            self.state = ServerState(st.weights, st.velocity, st.round + 1)
+            return self.state
+        if action == P.TRAFFIC_REMASK:
+            agg = self.aggregate(grads, t, mask=mask)
+        else:
+            agg = self._traffic_fallback_fn(grads, self.m, self.m_mal,
+                                            mask=mask)
+        self.state = self._apply(agg, t)
         return self.state
 
     def run_async_round(self, t: int) -> ServerState:
@@ -479,12 +614,13 @@ class FederatedExperiment:
         step only if a row was delivered.  Records the round's stats in
         ``last_round_async`` (and the injected fault counts in
         ``last_round_faults``)."""
-        cfg, spec = self.cfg, self.async_spec
+        spec = self.async_spec
         grads = self.compute_grads(t)                           # deliver
         dgrads, delivered, staleness, stats = A.async_step(
             grads, t, self._async_key, spec, self.async_state, self.m_mal,
             faults=self.faults,
-            fkey=self._fault_key if self.faults is not None else None)
+            fkey=self._fault_key if self.faults is not None else None,
+            latency=self._traffic_latency)
         if self.faults is not None:
             self.last_round_faults = {
                 "round": t, **{k[len("fault_"):]: v for k, v in
@@ -502,11 +638,8 @@ class FederatedExperiment:
                                          spec.depth),
             "delivered_mask": delivered, "staleness": staleness}
         kw = {} if weights is None else {"weights": weights}
-        agg = self.defense_fn(agg_grads, self.m, self.m_mal, mask=delivered,
-                              **kw)
-        lr = (faded_lr(cfg, t) if cfg.server_uses_faded_lr
-              else cfg.learning_rate)
-        upd = momentum_update(self.state, agg.float(), lr, cfg.momentum)
+        agg = self.aggregate(agg_grads, t, mask=delivered, **kw)
+        upd = self._apply(agg, t)
         # An empty delivery is a server no-op: weights and velocity hold,
         # the round counter advances.
         any_del = delivered.any()
@@ -694,8 +827,10 @@ class FederatedExperiment:
         evaluations), ``final_weights``, and with faults ``faults`` (one
         dict of counts per round run in this attempt, a rolled-back
         round again when it is run again), in async rounds ``async`` (the
-        'async' event of each round run in this attempt), under a
-        backdoor ``asr`` (the attack success rate at each evaluation)."""
+        'async' event of each round run in this attempt), in flat traffic
+        rounds ``traffic`` (the 'traffic' event of each round run in this
+        attempt), under a backdoor ``asr`` (the attack success rate at
+        each evaluation)."""
         own = logger is None and log is None
         if logger is None:
             logger = (RunLogger(self.cfg, self.cfg.output, self.cfg.log_dir)
@@ -727,7 +862,8 @@ class FederatedExperiment:
             self._last_good = (self._host_state(), self.carry_state_host())
         # A resumed ServerState carries its round counter.
         epoch = start_epoch = span_start = int(self.state.round)
-        fault_rows, async_rows, pending, asr = [], [], [], []
+        fault_rows, async_rows, traffic_rows, pending, asr = (
+            [], [], [], [], [])
         last_asr = None
         if journal is not None:
             attempt = journal.start_attempt(epoch)
@@ -769,6 +905,16 @@ class FederatedExperiment:
                         if arow is not None:
                             logger.record(kind="async", **arow)
                 pending = []
+            if self.traffic is not None:
+                # Traffic events are host-born (the schedule knows the
+                # arrivals and actions before the device runs), emitted at
+                # the same exactly-once boundary, after the span's others.
+                for tt in range(span_start, epoch + 1):
+                    ev = self._traffic_events.pop(tt, None)
+                    if ev is not None:
+                        traffic_rows.append(ev)
+                        if fresh(tt):
+                            logger.record(kind="traffic", **ev)
             if journal is not None:
                 journal.commit_rounds(span_start, epoch)
             if watchdog and self._diverged():
@@ -823,6 +969,8 @@ class FederatedExperiment:
             result["faults"] = fault_rows
         if self.async_spec is not None:
             result["async"] = async_rows
+        if self.traffic is not None and self.async_spec is None:
+            result["traffic"] = traffic_rows
         if backdoor:
             result["asr"] = asr
         return result

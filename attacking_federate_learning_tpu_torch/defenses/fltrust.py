@@ -1,0 +1,66 @@
+"""FLTrust-style validation-data defense (Cao et al., NDSS'21), the JAX
+package's ``defenses/fltrust.py``: the server computes its own gradient
+g0 on the trusted metadata pool (the reference's unconsumed metadata
+hook, server.py:62-77), scores each client gradient by its clipped
+cosine to g0, ``ts_i = relu(cos(g_i, g0))``, rescales every client
+gradient to ||g0|| and returns the trust-weighted average.
+
+The engine hands ``server_grad`` in when the defense carries
+``needs_server_grad = True`` (core/engine.py).
+
+The JAX function does not cast ``users_grads``, so on a bf16 wire its
+dtypes are JAX's promotions, reproduced here step by step:
+
+- ``gi_norm`` is a bf16 norm: ``sqrt(sum(x * x))`` with JAX's f32 sum
+  of a bf16 product, which XLA computes with the product itself in f32
+  (its allowed excess precision: the bf16 rounding of the squares is
+  dropped), then the sum rounded to bf16 and its square root rounded to
+  bf16;
+- ``users_grads @ g0`` promotes the wire to f32 (exact) against the f32
+  server gradient;
+- ``gi_norm * g0_norm`` and ``g0_norm / (gi_norm + eps)`` are f32 over
+  bf16 operands, the denominator's ``+ eps`` rounded to bf16 first;
+- the rescaled rows and the average are f32.
+
+On an f32 wire every step is f32.  Plain tensor code, as it is plain XLA
+in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from attacking_federate_learning_tpu_torch.defenses.kernels import DEFENSES
+
+
+def row_norms(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """``jnp.linalg.norm(x, axis=dim)`` as XLA computes it, in x's dtype:
+    the squares and their sum in f32, the sum rounded to x's dtype, then
+    its square root (rounded to x's dtype)."""
+    w = x.float()
+    s = (w * w).sum() if dim is None else (w * w).sum(dim)
+    return torch.sqrt(s.to(x.dtype))
+
+
+def trust_scores(users_grads, server_grad):
+    """((n,) f32 trust weights ``relu(cos(g_i, g0))``, (n,) f32 rescale
+    factors ``||g0|| / (||g_i|| + eps)``), with JAX's dtypes."""
+    g0_norm = row_norms(server_grad)
+    gi_norm = row_norms(users_grads, 1)
+    eps = 1e-12
+    cos = (users_grads.float() @ server_grad) / (
+        gi_norm.float() * g0_norm + eps)
+    return (torch.clamp(cos, min=0.0),                  # relu-clipped trust
+            g0_norm / (gi_norm + eps).float())
+
+
+def fltrust(users_grads, users_count, corrupted_count, server_grad=None):
+    if server_grad is None:
+        raise ValueError("FLTrust requires the server gradient")
+    ts, rescale = trust_scores(users_grads, server_grad)
+    scaled = users_grads.float() * rescale[:, None]
+    return (ts @ scaled) / (ts.sum() + 1e-12)
+
+
+fltrust.needs_server_grad = True
+DEFENSES["FLTrust"] = fltrust

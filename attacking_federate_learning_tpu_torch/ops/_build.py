@@ -12,6 +12,8 @@ the f32 route's runs on the FMA units (gram_tile.cuh, plan
 bf16 route's on the tensor cores with wgmma (csrc/gram_mma.cuh, plan
 :func:`~.distances.mma_plan`), bound by bytes up to about n = 150 and
 by operations at 989 TFLOP/s above.
+``threefry_bits`` (csrc/threefry_bits.cu) ports no TPU kernel: it draws
+DnC's sketch bits on the card (ops/threefry_bits.py).
 No PyTorch header is compiled, so a build takes seconds.  The libraries
 go into ``_build/`` beside this package (listed in ``.gitignore``), named
 by a hash of the sources and flags, so an edited source is rebuilt and a
@@ -66,6 +68,9 @@ KERNELS = {
                             (_P, _P, _P, _I, _LL, _I, _I, _I, _P, _P)),
     "masked_median": ("masked_median.cu", "fl_masked_median",
                       (_P, _P, _P, _I, _LL, _I, _I, _P, _P)),
+    # No TPU kernel's port: DnC's sketch bits (ops/threefry_bits.py).
+    "threefry_bits": ("threefry_bits.cu", "fl_threefry_bits",
+                      (_P, _I, _LL, _P, _P)),
 }
 # -Xptxas -v: each kernel's registers, stack frame and spills, kept in
 # the build's log (ptxas_log).

@@ -137,7 +137,7 @@ _IDENTITY_EXCLUDED = ("output", "log_dir", "run_dir")
 def run_id_for(cfg) -> str:
     """Deterministic run id: a restarted process (same config) finds the
     same journal.  The digest is of the port's ``ExperimentConfig``
-    (49 of the JAX config's 79 fields), so it differs
+    (57 of the JAX config's 79 fields), so it differs
     from the JAX package's id for the same experiment; an explicit
     ``--run-id`` overrides it."""
     d = dataclasses.asdict(cfg)

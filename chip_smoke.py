@@ -125,8 +125,9 @@ success):
                card against the CPU (fp32 with oneDNN on, and fp64; a
                relative-L2 band per client: log-probs and gradients of
                both devices against fp64, the card's gradients against
-               the CPU's at twice the band; WRN-40-4 read at its seeded
-               initial weights, its CPU reading with oneDNN on and off
+               the CPU's at twice the band; the BatchNorm models read at
+               their seeded initial weights, WRN-40-4's CPU reading with
+               oneDNN on and off
                at 1 and N threads printed), whether two
                identical full delivers gave the same bits (printed only),
                one gradient of all n B images without the per-client
@@ -219,9 +220,51 @@ success):
                async state,
                and kernels 5 and 6 with poly weights at (100, 79,510), e
                = 64 (ms, plain ms, bound).
+11. defense -- the beyond-reference defenses through run() at full width:
+               first the threefry kernel (csrc/threefry_bits.cu, DnC's
+               sketch bits; it ports no TPU kernel) at one round's draw,
+               (10, 79,510), bit for bit its plain version on the card
+               and the host's bits, the sketch the host's choice; then
+               (a) mnist_mlp at n = 100, ALIE f = 24, 21 rounds, under
+               DnC, GeoMedian, CenteredClip, FLTrust and NormBound; (b)
+               min-max and min-sum under DnC; (c) the clipped backdoor
+               under NormBound; (d) FLTrust on a bf16 wire; (e) DnC at
+               participation 0.6; (f) FLTrust and CenteredClip on
+               cifar10_cnn (SYNTH_CIFAR10_HARD 50,000 / 10,000); (g)
+               GeoMedian on WRN-40-4 at n = 10 (d = 8,972,340, CIFAR100's
+               stand-in, rounds 0..2).  Rounds 0..2 hold the card's
+               aggregate against the same function on the CPU over the
+               card's wire (bands in checked_new_defense), DnC's sketch
+               against the host's choice and its keep sets against the
+               CPU's where decisive, FLTrust's trust decisions where the
+               fp64 cosine is clear of 0; CenteredClip must launch the
+               median kernel once a round, DnC the threefry kernel, the
+               other three no kernel.  (h) DnC preempted at round 10 and
+               resumed, bit for bit the whole run.  Printed: round ms,
+               deliver ms, peak GiB, DnC's draw ms (device and host),
+               FLTrust's server-gradient ms, a profiled DnC and FLTrust
+               round.
+12. traffic -- population & traffic through run() at phase 5's width, 21
+               rounds: (a) Krum over 100,000 clients, diurnal amplitude
+               0.5; (b) Krum over an unreliable 150 (rate 0.75,
+               reliability 0.3-0.6, dwell 2), whose ladder walks remask
+               (Krum), fallback (Median) and hold; (c) TrimmedMean with
+               phase 5's faults at f = 10; (d) Median with a sybil burst
+               window (period 4, width 1); (e) async TrimmedMean 'poly',
+               k = 64, with the latency profile; (f) (b) preempted at
+               round 10 and resumed.  Each run's 'traffic' events must
+               equal the host replay, each round launch exactly the
+               kernels of its action (Krum: the distance kernel; the
+               fallback Median: the masked median; hold: none), a hold
+               round leave weights and velocity bit for bit, rounds 0..2
+               hold the aggregates against the CPU as phase 10 does;
+               (e)'s records and delays equal the host replay and differ
+               from the uniform draw; (f) bit for bit, its stitched
+               events the replay's.  Printed: the schedule's host ms a
+               round, the actions, arrivals and f_eff.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-10), the nvidia-smi line, and as the last line
+summed over phases 5-12), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1139,6 +1182,9 @@ def check_reference(failures):
     from attacking_federate_learning_tpu_torch.core.engine import (
         FederatedExperiment
     )
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        MASK_AWARE_DEFENSES
+    )
     from attacking_federate_learning_tpu_torch.data.datasets import (
         load_dataset
     )
@@ -1148,8 +1194,8 @@ def check_reference(failures):
                       synth_test=500)
     faults = FaultConfig(dropout=0.15, straggler=0.15, straggler_delay=1,
                          corrupt=0.1)
-    runs = ([(d, None) for d in C.DEFENSE_NAMES]
-            + [(d, faults) for d in C.DEFENSE_NAMES])
+    runs = ([(d, None) for d in MASK_AWARE_DEFENSES]
+            + [(d, faults) for d in MASK_AWARE_DEFENSES])
     for defense, fc in runs:
         # Faulted Bulyan at f = 1: at f = 4 its masked tail keeps one value
         # of an often even count, where the two middle values tie about
@@ -1577,10 +1623,13 @@ FAULTED_KERNELS = {"TrimmedMean": ("masked_trimmed_mean",),
 # beside, not gated.
 # Which kinks flip in the CPU's fp32 gradients depends on the CPU's
 # convolution path (oneDNN or PyTorch's own), not on its thread count, and
-# on the weights, which a WRN run leaves different each time (cuDNN's
-# backward does not repeat).  So the CPU's fp32 leg runs on one pinned
-# path, oneDNN on, and WRN-40-4 is read at its seeded initial weights,
-# which no run changes; its line also prints the CPU's reading on both
+# on the weights, which a ResNet run leaves different each time (cuDNN's
+# backward does not repeat; at some trained weights one kink flips in
+# resnet20's 2-image gradient on both devices alike: 6.339e-4 from fp64
+# on the card and on the CPU, 6.4e-7 apart, once on an H100).  So the CPU's
+# fp32 leg runs on one pinned path, oneDNN on, and both BatchNorm models
+# (resnet20, WRN-40-4) are read at their seeded initial weights, which no
+# run changes; WRN-40-4's line also prints the CPU's reading on both
 # paths at 1 and N threads.  Both devices' gradients are gated against
 # fp64 at the band, and the card's against the CPU's at twice it.
 DELIVER_IMAGES = {"cifar10_cnn": 8, "mnist_cnn": 8, "resnet20": 2,
@@ -1806,10 +1855,10 @@ def run_model_path(ds_mnist, failures):
             CLEAN_KERNELS[defense])
         kind = "faulted" if faulted else "clean"
         label = f"model {model} {attack} {defense} {kind}"
-        # The kink-band model's deliver is read at its seeded initial
-        # weights: a run leaves its trained weights different each time.
+        # The BatchNorm models' deliver is read at their seeded initial
+        # weights: a run leaves their trained weights different each time.
         w_init = (exp.state.weights.clone() if model not in checked
-                  and GRAD_BAND[model] > LOGPROB_BAND else None)
+                  and getattr(exp.model, "batch_stats", False) else None)
         if attack == "backdoor":
             craft_ev = time_crafts(exp.attacker)
         run = drive(exp, kernels, banned, failures, label)
@@ -2033,8 +2082,11 @@ KNOB_RUNS = (
                        ("TrimmedMean", ("trimmed_mean",), _BF16_GRAM))])
 
 
-def checked_defense(exp, rounds, excluded, errs, dist_errs):
-    """Wraps ``exp.defense_fn`` so that for the first ``rounds`` calls the
+def checked_defense(exp, rounds, excluded, errs, dist_errs,
+                    attr="defense_fn", defense=None):
+    """Wraps ``exp.defense_fn`` (or the engine's attribute ``attr``, the
+    defense named ``defense``: phase 12's traffic fallback) so that for
+    the first ``rounds`` calls the
     aggregate on the card is held against the plain versions on the CPU
     on the same wire and mask (phase 4's tolerances: Krum's and the
     median's pick exact; a mean within n rounding steps of the largest
@@ -2068,7 +2120,7 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs):
     )
 
     eps = float(np.finfo(np.float32).eps)
-    inner, defense = exp.defense_fn, exp.cfg.defense
+    inner, defense = getattr(exp, attr), defense or exp.cfg.defense
     distances = K.pairwise_distances
 
     def check_distances(G, D):
@@ -2126,7 +2178,7 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs):
         excluded.append(time.perf_counter() - a)
         return got
 
-    exp.defense_fn = checked
+    setattr(exp, attr, checked)
 
 
 def weighted_median_adjudicated(G, mask, w, got, want):
@@ -2821,16 +2873,17 @@ def async_twin(exp, excluded, results, host_s):
     cpu_state = A.init_async_state(exp.async_spec, exp.m, exp.flat.dim,
                                    "cpu")
 
-    def twin(grads, t, key, spec, state, m_mal, faults=None, fkey=None):
+    def twin(grads, t, key, spec, state, m_mal, faults=None, fkey=None,
+             latency=None):
         a = time.perf_counter()
-        out = real(grads, t, key, spec, state, m_mal, faults, fkey)
+        out = real(grads, t, key, spec, state, m_mal, faults, fkey, latency)
         host_s.append(time.perf_counter() - a)
         if t >= P10_CHECKED:
             return out
         torch.cuda.synchronize()
         a = time.perf_counter()
         ref = real(grads.cpu(), t, key, spec, cpu_state, m_mal, faults,
-                   fkey)
+                   fkey, latency)
         ok = (all(torch.equal(x.cpu(), y) for x, y in zip(out[:3], ref[:3]))
               and all(torch.equal(out[3][k].cpu(), ref[3][k])
                       for k in ("counts", "staleness_hist")))
@@ -3121,6 +3174,595 @@ def run_async_path(ds, failures, smi):
     return totals
 
 
+# -- phase 11: the beyond-reference defenses ----------------------------------
+
+# The six kernels that port a TPU kernel (the threefry kernel ports none).
+SIX_KERNELS = ("pairwise_distances", "pairwise_distances[bf16]",
+               "krum_scores", "krum_scores[bf16]", "trimmed_mean", "median",
+               "masked_trimmed_mean", "masked_median")
+P11_CHECKED = 3                  # rounds 0..2 held against the CPU
+P11_SKETCH_BAND = 1e-4           # DnC scores, relative to the largest
+# (label, model, dataset, n, mal_prop, defense, attack, rounds, config)
+P11_RUNS = (
+    ("(a)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "DnC", "alie", ROUNDS,
+     {}),
+    ("(a)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "GeoMedian", "alie",
+     ROUNDS, {}),
+    ("(a)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "CenteredClip", "alie",
+     ROUNDS, {}),
+    ("(a)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "FLTrust", "alie",
+     ROUNDS, {}),
+    ("(a)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "NormBound", "alie",
+     ROUNDS, {}),
+    ("(b)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "DnC", "minmax",
+     ROUNDS, {}),
+    ("(b)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "DnC", "minsum",
+     ROUNDS, {}),
+    ("(c)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "NormBound",
+     "backdoor", ROUNDS, {"backdoor": "pattern"}),
+    ("(d)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "FLTrust", "alie",
+     ROUNDS, {"grad_dtype": "bfloat16"}),
+    ("(e)", "mnist_mlp", "SYNTH_MNIST", N_MAIN, 0.24, "DnC", "alie", ROUNDS,
+     {"participation": 0.6}),
+    ("(f)", "cifar10_cnn", "SYNTH_CIFAR10_HARD", N_MAIN, 0.24, "FLTrust",
+     "alie", ROUNDS, {}),
+    ("(f)", "cifar10_cnn", "SYNTH_CIFAR10_HARD", N_MAIN, 0.24,
+     "CenteredClip", "alie", ROUNDS, {}),
+    ("(g)", "wideresnet40_4", "CIFAR100", 10, 0.2, "GeoMedian", "alie", 3,
+     {}),
+)
+
+
+def check_threefry_kernel(peaks, failures):
+    """The threefry kernel (csrc/threefry_bits.cu, DnC's sketch bits) at
+    the main path's shape: one DnC round at d = 79,510 draws 5 iterations
+    x 2 shuffle rounds of d bits in one launch.  The bits must equal the
+    plain version's on the card and the host's (utils/threefry.py) bit for
+    bit; the sketch drawn on the card must equal the host's choice.
+    Returns the kernel's entry of the kernels line."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.defenses import dnc as D
+    from attacking_federate_learning_tpu_torch.ops import threefry_bits as R
+    from attacking_federate_learning_tpu_torch.utils import threefry
+
+    flops_peak, bytes_peak, _ = peaks
+    d, r, iters = D_MLP, 2048, 5
+    keys = D.sketch_keys(0, 3, iters)
+    subs = []
+    for k in keys[:, 0]:
+        for _ in range(R.shuffle_rounds(d)):
+            k, sub = threefry.split(k)
+            subs.append(sub)
+    words = torch.from_numpy(np.asarray(subs).astype(np.int64)).cuda()
+    K = words.shape[0]
+    got = R.threefry_bits(words, d)
+    plain = R.threefry_bits_plain(words, d)
+    host = np.stack([threefry.random_bits(k, (d,)) for k in subs])
+    ok = (torch.equal(got, plain)
+          and np.array_equal(got.cpu().numpy(), host.astype(np.int64))
+          and torch.equal(got, R.threefry_bits(words, d)))
+    idx, _ = D.draw_sketches(0, 3, iters, d, r, "cuda")
+    sketch_ok = all(np.array_equal(idx[i].cpu().numpy(),
+                                   threefry.choice(keys[i, 0], d, r))
+                    for i in range(iters))
+    ms = time_ms(lambda: R.threefry_bits(words, d), 50)
+    pms = time_ms(lambda: R.threefry_bits_plain(words, d), 10)
+    # Bytes: the int64 output (the keys are 16 bytes a row); operations:
+    # about 80 integer operations an element, at the fp32 rate (the card
+    # retires 32-bit integer adds, shifts and xors on the same units).
+    nbytes, nops = 8 * K * d + 16 * K, 80 * K * d
+    t_b, t_o = nbytes / bytes_peak * 1e3, nops / flops_peak * 1e3
+    b_ms, b_by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+    draw_ms = time_ms(lambda: D.draw_sketches(0, 3, iters, d, r, "cuda"), 20)
+    print(f"[defense kernel] threefry_bits K={K} n={d} (one DnC round's "
+          f"shuffle bits) bit_equal_plain_and_host={ok} "
+          f"sketch_equals_host_choice={sketch_ok} ms={ms:.4f} "
+          f"plain_ms={pms:.4f} library_ms=n/a bound_ms={b_ms:.4f} ({b_by}) "
+          f"whole_draw_ms={draw_ms:.4f} (keys on the host, bits, 2 sorts, "
+          f"normals)", flush=True)
+    if not (ok and sketch_ok):
+        failures.append(f"threefry_bits: bit_equal={ok} sketch={sketch_ok}")
+    return {"name": "threefry_bits", "route": "cuda",
+            "source": f"{PKG}/csrc/threefry_bits.cu",
+            "replaces": "attacking_federate_learning_tpu/defenses/dnc.py:88 "
+                        "(jax.random.choice, XLA threefry: no TPU kernel)",
+            "launches": 0, "max_abs_err": 0.0 if ok else float("inf"),
+            "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": [K, d]}
+
+
+def dnc_iteration_scores(G, f, cfg, rnd):
+    """Every DnC iteration's scores of the f32 matrix ``G`` on its device,
+    as the defense computes them (defenses/dnc.py:iteration_scores), with
+    the keep count and the sketch."""
+    from attacking_federate_learning_tpu_torch.defenses import dnc as D
+
+    sc, idx = D.iteration_scores(G, cfg.dnc_iters, cfg.dnc_sketch_dim,
+                                 cfg.seed, rnd)
+    keep = G.shape[0] - min(int(cfg.dnc_filter_frac * f), G.shape[0] - 1)
+    return sc, keep, idx
+
+
+def checked_new_defense(exp, rounds, excluded, errs, notes):
+    """Wraps ``exp.defense_fn`` (DnC, GeoMedian, CenteredClip, FLTrust,
+    NormBound) so that for the first ``rounds`` calls the card's aggregate
+    is held against the same function on the CPU over the card's wire,
+    round index and server gradient.  Bands (f32 eps, n rows, d
+    coordinates, |G| the largest wire element):
+
+    - DnC: its survivors' mean, 2 n eps |G|; the sketch drawn on the card
+      must equal the host's choice bit for bit, and each iteration's keep
+      set the CPU's wherever the gap at its boundary exceeds 1e-4 of the
+      largest score (the erfinv start and sums in other orders; a flip
+      inside the band is allowed, printed).
+    - GeoMedian: iters (2 n + sqrt d) eps |G| (each Weiszfeld step a
+      weighted mean of n rows, its weights norms of d-term sums).
+    - CenteredClip: iters (2 n + sqrt d) eps 2 |G| (the median anchor
+      exact, then clipped means).
+    - NormBound: (2 n + 2 sqrt d) eps |G|.
+    - FLTrust: (2 n + 4 sqrt d) eps |G| max rescale; its trust weights
+      must be zero on both devices, or on neither, wherever the fp64
+      cosine is further than 1e-5 from 0.
+
+    (error, ok, band) goes to ``errs``, what else was checked to
+    ``notes``, the check's seconds to ``excluded``.  The check's own
+    launches on the card (the DnC sketch drawn again) are taken off the
+    launch counters: they are no launches of the main path."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.defenses import (
+        dnc as D, fltrust as FT
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils import threefry
+
+    eps = float(np.finfo(np.float32).eps)
+    inner, defense, cfg = exp.defense_fn, exp.cfg.defense, exp.cfg
+    draw = D.draw_sketches
+
+    def checked(grads, n, f, **kw):
+        if len(errs) >= rounds:
+            return inner(grads, n, f, **kw)
+        got = inner(grads, n, f, **kw)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        counted = dict(_build.LAUNCHES)
+        G = grads.cpu()
+        want = inner(G, n, f, **{k: v.cpu() if torch.is_tensor(v) else v
+                                 for k, v in kw.items()}).float()
+        err = float((got.float().cpu() - want).abs().max())
+        big = float(G.float().abs().max())
+        d = G.shape[1]
+        ok = True
+        if defense == "DnC":
+            band = 2 * n * eps * big
+            timed, D.draw_sketches = D.draw_sketches, draw
+            try:
+                card, keep, idx = dnc_iteration_scores(grads.float(), f, cfg,
+                                                       kw["round"])
+                cpu, _, _ = dnc_iteration_scores(G.float(), f, cfg,
+                                                 kw["round"])
+            finally:
+                D.draw_sketches = timed
+            flips = 0
+            if idx is not None:
+                keys = D.sketch_keys(cfg.seed, kw["round"], len(card))
+                ok &= all(np.array_equal(idx[i].cpu().numpy(),
+                                         threefry.choice(keys[i, 0], d,
+                                                         idx.shape[1]))
+                          for i in range(len(card)))
+            for sc, sp in zip(card, cpu):
+                sc, sp = sc.cpu().double(), sp.double()
+                sband = P11_SKETCH_BAND * float(sp.max())
+                ok &= bool(((sc - sp).abs() <= sband).all())
+                kc = torch.sort(sc.float(), stable=True).indices[:keep]
+                kp = torch.sort(sp.float(), stable=True).indices[:keep]
+                if set(kc.tolist()) != set(kp.tolist()):
+                    srt = torch.sort(sp).values
+                    gap = float(srt[keep] - srt[keep - 1])
+                    flips += 1
+                    ok &= gap <= 2 * sband
+            notes.append(f"r{kw['round']}: sketch_equals_host=True "
+                         f"keep_set_flips_in_band={flips}" if ok else
+                         f"r{kw['round']}: DnC sketch or keep sets differ")
+        elif defense == "GeoMedian":
+            band = cfg.geomed_iters * (2 * n + math.sqrt(d)) * eps * big
+        elif defense == "CenteredClip":
+            band = cfg.cclip_iters * (2 * n + math.sqrt(d)) * eps * 2 * big
+        elif defense == "NormBound":
+            band = (2 * n + 2 * math.sqrt(d)) * eps * big
+        else:  # FLTrust
+            g0 = kw["server_grad"]
+            ts_c, sc_c = FT.trust_scores(grads, g0)
+            ts_p, sc_p = FT.trust_scores(G, g0.cpu())
+            band = (2 * n + 4 * math.sqrt(d)) * eps * big * float(
+                sc_p.max())
+            G64, g64 = G.double(), g0.cpu().double()
+            cos64 = (G64 @ g64) / (G64.norm(dim=1) * g64.norm())
+            decisive = cos64.abs() > 1e-5
+            same = (ts_c.cpu() > 0) == (ts_p > 0)
+            ok &= bool(same[decisive].all())
+            notes.append(f"r{len(errs)}: trusted {int((ts_c > 0).sum())}/"
+                         f"{n}, decisive {int(decisive.sum())}, trust "
+                         f"decisions equal={bool(same[decisive].all())}")
+        errs.append((err, ok and err <= band, band))
+        _build.LAUNCHES.update(counted)
+        excluded.append(time.perf_counter() - a)
+        return got
+
+    exp.defense_fn = checked
+
+
+def run_defense_path(ds_mnist, failures, smi):
+    """Phase 11: the beyond-reference defenses through run() at full width
+    (P11_RUNS), then (h) DnC preempted at round 10 and resumed.  Returns
+    launches per kernel summed over the runs."""
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import make_attacker
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.defenses import dnc as D
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    sets = {"SYNTH_MNIST": ds_mnist}
+    for (label, model, dataset, n, mal_prop, defense, attack, rounds,
+         extra) in P11_RUNS:
+        if dataset not in sets:
+            t0 = time.perf_counter()
+            sets[dataset] = load_dataset(dataset, seed=0, synth_train=50_000,
+                                         synth_test=10_000)
+            print(f"[defense] {dataset} 50000/10000 made in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ds = sets[dataset]
+        cfg = ExperimentConfig(
+            dataset=dataset, model=model, users_count=n, mal_prop=mal_prop,
+            batch_size=128, epochs=rounds, num_std=1.5, learning_rate=0.1,
+            momentum=0.9, defense=defense,
+            test_step=TEST_STEP if rounds == ROUNDS else rounds - 1,
+            synth_train=50_000 if dataset != "SYNTH_MNIST" else 60_000,
+            synth_test=10_000, **extra)
+        exp = FederatedExperiment(cfg, make_attacker(cfg, ds, name=attack,
+                                                     device="cuda"),
+                                  ds, device="cuda")
+        kernels = {"DnC": ("threefry_bits",),
+                   "CenteredClip": ("median",)}.get(defense, ())
+        banned = tuple(k for k in _build.LAUNCHES if k not in kernels)
+        excluded, errs, notes = [], [], []
+        checked_new_defense(exp, P11_CHECKED, excluded, errs, notes)
+        draw_ev, draw_host, sg_ev = [], [], []
+        real_draw = D.draw_sketches
+
+        def timed_draw(*args, real_draw=real_draw, draw_ev=draw_ev,
+                       draw_host=draw_host):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            h = time.perf_counter()
+            a.record()
+            out = real_draw(*args)
+            b.record()
+            draw_host.append(time.perf_counter() - h)
+            draw_ev.append((a, b))
+            return out
+
+        if defense == "FLTrust":
+            real_sg = exp.server_grad
+
+            def timed_sg(real_sg=real_sg, sg_ev=sg_ev):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = real_sg()
+                b.record()
+                sg_ev.append((a, b))
+                return out
+
+            exp.server_grad = timed_sg
+        craft_ev = time_crafts(exp.attacker) if attack == "backdoor" else []
+        D.draw_sketches = timed_draw
+        try:
+            run = drive(exp, kernels, banned, failures,
+                        f"defense {label} {model} {attack} {defense}",
+                        excluded)
+        finally:
+            D.draw_sketches = real_draw
+        for name, count in run["launches"].items():
+            totals[name] += count
+        torch.cuda.synchronize()
+        beside = ""
+        if defense == "CenteredClip" and run["launches"]["median"] != rounds:
+            failures.append(f"defense {label} CenteredClip: median launched "
+                            f"{run['launches']['median']} times in {rounds} "
+                            f"rounds (want one a round)")
+        if defense == "DnC":
+            per = run["launches"]["threefry_bits"] / rounds
+            beside += (f"draw_device_ms={statistics.median(a.elapsed_time(b) for a, b in draw_ev):.3f} "
+                       f"draw_host_ms={1e3 * statistics.median(draw_host):.3f} "
+                       f"threefry_launches_per_round={per:.0f} ")
+        if sg_ev:
+            beside += (f"server_grad_ms={statistics.median(a.elapsed_time(b) for a, b in sg_ev):.3f} "
+                       f"pool_rows={len(exp.metadata[1])} ")
+        if craft_ev:
+            asr = run["result"]["asr"]
+            beside += (f"asr r0/r10/r20 = {'/'.join(f'{x:.2f}' for x in asr)}"
+                       f" % craft_ms={statistics.median(a.elapsed_time(b) for a, b in craft_ev):.3f} ")
+            if not backdoor_lines_ok(run["lines"], asr):
+                failures.append(f"defense {label}: BEFORE/Test set/POST "
+                                f"lines {run['lines']}")
+        agg_ok = len(errs) == P11_CHECKED and all(ok for _, ok, _ in errs)
+        if not agg_ok:
+            failures.append(f"defense {label} {model} {defense}: aggregates "
+                            f"vs CPU {errs} {notes}")
+        evals = "/".join(f"r{x}" for x in eval_rounds(cfg))
+        knob = "".join(f" {k}={v}" for k, v in extra.items()
+                       if k != "backdoor")
+        print(f"[defense] {label} {model:14s} {attack:8s} {defense:12s}"
+              f"{knob} n={n} f={exp.f} d={exp.flat.dim} acc {evals} = "
+              f"{run['acc_txt']} % median_round_ms={run['median_ms']:.3f} "
+              f"deliver_ms={run['deliver_ms']:.3f} peak_GiB="
+              f"{run['peak_gib']:.2f} {beside}agg_vs_cpu="
+              f"{[(float(f'{e:.3e}'), o, float(f'{b:.2e}')) for e, o, b in errs]} "
+              f"{' '.join(notes)} launches="
+              f"{ {k: v for k, v in run['launches'].items() if v} } "
+              f"finite={run['finite']} on {smi}", flush=True)
+        for line in run["lines"]:
+            if line.startswith(("Test set", "##Test")):
+                print(f"[defense]   {line.strip()}", flush=True)
+        if label == "(a)" and defense in ("DnC", "FLTrust"):
+            profile_round(exp, f"{defense}", top=4, tag="defense")
+        del exp, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sets
+    gc.collect()
+    # -- (h) DnC preempted at round 10 and resumed --------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p11_") as root:
+        launches, out = p9_triplet(
+            ds_mnist, "(h) DnC preempt/resume", "DnC", 0.24, False,
+            ("threefry_bits",), SIX_KERNELS, failures, root, tag="defense")
+        for k, v in launches.items():
+            totals[k] += v
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+# -- phase 12: population & traffic ------------------------------------------
+
+# The kernel each defense launches on the traffic path (masked: the
+# arrival mask always reaches it).
+TRAFFIC_KERNELS = {"Krum": ("pairwise_distances",),
+                   "TrimmedMean": ("masked_trimmed_mean",),
+                   "Median": ("masked_median",), "NoDefense": ()}
+P12_LADDER = dict(population=150, rate=0.75, reliability_lo=0.3,
+                  reliability_hi=0.6, churn_dwell=2)
+# (label, defense, mal_prop, traffic, faulted)
+P12_RUNS = (
+    ("(a) large population", "Krum", 0.24,
+     dict(population=100_000, diurnal_amp=0.5), False),
+    ("(b) unreliable", "Krum", 0.24, P12_LADDER, False),
+    ("(c) faulted", "TrimmedMean", 0.1, dict(population=1000), True),
+    ("(d) sybil burst", "Median", 0.24,
+     dict(population=1000, sybil_burst_period=4, sybil_burst_width=1),
+     False),
+)
+
+
+def run_traffic_path(ds, failures, smi):
+    """Phase 12: population & traffic through run() at phase 5's width
+    (P12_RUNS), then (e) async k = 64 with the latency profile and (f)
+    (b) preempted and resumed.  Returns launches per kernel summed over
+    the runs."""
+    import collections
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import (
+        FaultConfig, TrafficConfig
+    )
+    from attacking_federate_learning_tpu_torch.core import async_rounds as A
+    from attacking_federate_learning_tpu_torch.core import population as P
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        iter_events
+    )
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    for label, defense, mal_prop, traffic, faulted in P12_RUNS:
+        cfg = main_config(defense, mal_prop,
+                          FaultConfig(**FAULTS_MAIN) if faulted else None,
+                          traffic=TrafficConfig(**traffic))
+        plan_s = []
+        for t in range(cfg.epochs):
+            a = time.perf_counter()
+            P.traffic_schedule(P.PopulationRegistry(cfg.traffic, N_MAIN,
+                                                    cfg.corrupted_count,
+                                                    cfg.seed),
+                               t, 1, N_MAIN, cfg.corrupted_count,
+                               defense, cfg.traffic.fallback_defense,
+                               cfg.traffic.min_cohort)
+            plan_s.append(time.perf_counter() - a)
+        want = P.replay_traffic(cfg, cfg.epochs)
+        actions = collections.Counter(e["action"] for e in want)
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda")
+        fb = cfg.traffic.fallback_defense
+        may = set(TRAFFIC_KERNELS[defense])
+        if actions["fallback"]:
+            may |= set(TRAFFIC_KERNELS[fb])
+        kernels = tuple(TRAFFIC_KERNELS[defense]) if actions["remask"] else ()
+        banned = tuple(k for k in _build.LAUNCHES if k not in may)
+        excluded, errs, dist_errs, fb_errs, fb_dist = [], [], [], [], []
+        checked_defense(exp, P11_CHECKED, excluded, errs, dist_errs)
+        checked_defense(exp, P11_CHECKED, excluded, fb_errs, fb_dist,
+                        attr="_traffic_fallback_fn", defense=fb)
+        inner = exp.run_round
+        per_round, holds = [], []
+
+        def observed(t, inner=inner, per_round=per_round, holds=holds):
+            a = time.perf_counter()
+            before = dict(_build.LAUNCHES)
+            w0 = exp.state.weights.clone()
+            v0 = exp.state.velocity.clone()
+            excluded.append(time.perf_counter() - a)
+            out = inner(t)
+            a = time.perf_counter()
+            action = exp._traffic_events[t]["action"]
+            ran = {k for k, v in _build.LAUNCHES.items() if v > before[k]}
+            want_k = set({"remask": TRAFFIC_KERNELS[defense],
+                          "fallback": TRAFFIC_KERNELS[fb],
+                          "hold": ()}[action])
+            per_round.append((t, action, ran == want_k))
+            if action == "hold":
+                holds.append(torch.equal(out.weights, w0)
+                             and torch.equal(out.velocity, v0)
+                             and out.round == t + 1)
+            excluded.append(time.perf_counter() - a)
+            return out
+
+        exp.run_round = observed
+        run = drive(exp, kernels, banned, failures,
+                    f"traffic {label} {defense}", excluded)
+        for name, count in run["launches"].items():
+            totals[name] += count
+        events_ok = run["result"]["traffic"] == want
+        kernels_ok = all(ok for _, _, ok in per_round)
+        holds_ok = all(holds) and len(holds) == actions["hold"]
+        agg_ok = (all(ok for _, ok in errs + fb_errs + dist_errs + fb_dist)
+                  and len(errs) + len(fb_errs) >= min(
+                      P11_CHECKED, actions["remask"] + actions["fallback"]))
+        ladder_ok = label != "(b) unreliable" or len(actions) == 3
+        f_eff = [e["f_eff"] for e in want]
+        sybil_ok = label != "(d) sybil burst" or all(
+            (x == 0) == (t % 4 != 0) for t, x in enumerate(f_eff))
+        if not (events_ok and kernels_ok and holds_ok and agg_ok
+                and ladder_ok and sybil_ok):
+            failures.append(
+                f"traffic {label}: events_equal_replay={events_ok} "
+                f"kernels_per_action={[x for x in per_round if not x[2]]} "
+                f"holds={holds} aggregates {errs} {fb_errs} distances "
+                f"{dist_errs} {fb_dist} actions={dict(actions)} "
+                f"sybil f_eff={f_eff}")
+        print(f"[traffic] {label:20s} {defense:11s} f={exp.f} P="
+              f"{cfg.traffic.population} acc r0/r10/r20 = {run['acc_txt']} "
+              f"% median_round_ms={run['median_ms']:.3f} deliver_ms="
+              f"{run['deliver_ms']:.3f} peak_GiB={run['peak_gib']:.2f} "
+              f"schedule_host_ms={1e3 * statistics.median(plan_s):.3f} "
+              f"actions={dict(actions)} arrived="
+              f"{[e['arrived'] for e in want]} f_eff={f_eff} "
+              f"events_equal_replay={events_ok} kernels_per_action_ok="
+              f"{kernels_ok} hold_rounds_bit_equal={holds} agg_vs_cpu="
+              f"{[(float(f'{e:.3e}'), o) for e, o in errs + fb_errs]} "
+              + (f"fault_counts_match_replay={run['counts_ok']} "
+                 if faulted else "")
+              + f"launches={ {k: v for k, v in run['launches'].items() if v} }"
+              f" finite={run['finite']} on {smi}", flush=True)
+        del exp, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    # -- (e) async k = 64 with the latency profile --------------------------
+    traffic = TrafficConfig(population=100_000, latency_scale=1.0,
+                            latency_tail=1.5)
+    cfg = async_config("TrimmedMean", 0.24, 64, "poly", False,
+                       traffic=traffic)
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda")
+    assert exp._traffic_latency is not None
+    kernels = ("masked_trimmed_mean",)
+    banned = tuple(k for k in _build.LAUNCHES if k not in kernels)
+    excluded, errs, dist_errs, twin_ok, step_s = [], [], [], [], []
+    checked_defense(exp, P10_CHECKED, excluded, errs, dist_errs)
+    undo = async_twin(exp, excluded, twin_ok, step_s)
+    try:
+        run = drive(exp, kernels, banned, failures,
+                    "traffic (e) async latency", excluded)
+    finally:
+        undo()
+    for name, count in run["launches"].items():
+        totals[name] += count
+    rows = run["result"]["async"]
+    replay_ok = replay_matches(rows, cfg, exp)
+    uniform = A.replay_schedule(dataclasses.replace(cfg, traffic=None),
+                                exp.m, exp.m_mal, cfg.epochs)
+    latency_used = [r["staleness_hist"] for r in rows] != [
+        r["staleness_hist"] for r in uniform]
+    scales, tail = exp._traffic_latency
+    delays = [A.draw_delays(exp._async_key, t, exp.m, exp.m_mal,
+                            exp.async_spec, latency=(scales, tail))[0]
+              for t in range(cfg.epochs)]
+    delays_ok = all(np.array_equal(dl, P.traffic_delays(
+        exp._async_key, t, scales, tail, exp.async_spec.depth))
+        for t, dl in enumerate(delays))
+    ok = (replay_ok and latency_used and delays_ok
+          and all(o for _, o in twin_ok) and len(twin_ok) == P10_CHECKED
+          and all(o for _, o in errs))
+    if not ok:
+        failures.append(f"traffic (e) async latency: replay_ok={replay_ok} "
+                        f"latency_used={latency_used} delays={delays_ok} "
+                        f"step vs CPU {twin_ok} aggregates {errs}")
+    hist = np.sum([r["staleness_hist"] for r in rows], axis=0)
+    print(f"[traffic] (e) async latency TrimmedMean poly k=64 acc r0/r10/r20"
+          f" = {run['acc_txt']} % median_round_ms={run['median_ms']:.3f} "
+          f"deliver_ms={run['deliver_ms']:.3f} peak_GiB="
+          f"{run['peak_gib']:.2f} step_host_ms="
+          f"{1e3 * statistics.median(step_s):.3f} delivered_rounds="
+          f"{sum(r['delivered'] > 0 for r in rows)}/{len(rows)} "
+          f"staleness_hist={hist.tolist()} replay_ok={replay_ok} "
+          f"differs_from_uniform={latency_used} delays_equal_host={delays_ok}"
+          f" step_vs_cpu_ok={all(o for _, o in twin_ok)} agg_vs_cpu="
+          f"{[(float(f'{e:.3e}'), o) for e, o in errs]} launches="
+          f"{ {k: v for k, v in run['launches'].items() if v} } on {smi}",
+          flush=True)
+    del exp, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (f) (b) preempted and resumed --------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as root:
+        launches, out = p9_triplet(
+            ds, "(f) traffic ladder resume", "Krum", 0.24, False,
+            ("pairwise_distances",),
+            tuple(k for k in _build.LAUNCHES
+                  if k not in ("pairwise_distances", "masked_median")),
+            failures, root, tag="traffic",
+            traffic=TrafficConfig(**P12_LADDER))
+        for k, v in launches.items():
+            totals[k] += v
+        cfg = out["full"].cfg
+        keys = ("round", "arrived", "f_eff", "cohort", "action", "defense")
+        got = [{k: e[k] for k in keys} for e in iter_events(
+            os.path.join(root, "two", "logs", "p9.jsonl"))
+            if e["kind"] == "traffic"]
+        want = P.replay_traffic(cfg, cfg.epochs)
+        print(f"[traffic] (f) stitched traffic events over both attempts "
+              f"equal the replay (each round once): {got == want}",
+              flush=True)
+        if got != want:
+            failures.append("traffic (f): stitched events differ from the "
+                            "replay")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3177,10 +3819,15 @@ def main() -> int:
     life_totals = run_lifecycle_path(ds, failures, smi, clean_ms["Krum"])
     # -- 10. asynchronous buffered rounds ------------------------------------
     async_totals = run_async_path(ds, failures, smi)
+    # -- 11. the beyond-reference defenses ------------------------------------
+    entries["threefry_bits"] = check_threefry_kernel(peaks, failures)
+    defense_totals = run_defense_path(ds, failures, smi)
+    # -- 12. population & traffic ---------------------------------------------
+    traffic_totals = run_traffic_path(ds, failures, smi)
     for name, e in entries.items():
-        e["launches"] = (totals[name] + attack_totals[name]
-                         + model_totals[name] + knob_totals[name]
-                         + life_totals[name] + async_totals[name])
+        e["launches"] = sum(t[name] for t in (
+            totals, attack_totals, model_totals, knob_totals, life_totals,
+            async_totals, defense_totals, traffic_totals))
 
     if failures:
         for msg in failures:

@@ -114,8 +114,9 @@ def test_no_defense_is_the_mean():
 
 
 def test_registry_and_validity_bounds():
-    assert sorted(DEFENSES) == ["Bulyan", "Krum", "Median", "NoDefense",
-                                "TrimmedMean"]
+    assert sorted(DEFENSES) == ["Bulyan", "CenteredClip", "DnC", "FLTrust",
+                                "GeoMedian", "Krum", "Median", "NoDefense",
+                                "NormBound", "TrimmedMean"]
     check_defense_args("Bulyan", 19, 4)
     with pytest.raises(ValueError, match="4\\*corrupted_count \\+ 3"):
         check_defense_args("Bulyan", 18, 4)

@@ -39,6 +39,9 @@ from attacking_federate_learning_tpu.defenses.median import (
 from attacking_federate_learning_tpu.ops.pallas_defense import (
     pallas_masked_median, pallas_masked_trimmed_mean, pallas_median_of
 )
+from attacking_federate_learning_tpu_torch.core.faults import (
+    MASK_AWARE_DEFENSES
+)
 from attacking_federate_learning_tpu_torch.defenses import DEFENSES
 from attacking_federate_learning_tpu_torch.defenses import kernels as tk
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
@@ -224,7 +227,7 @@ def _masked_inputs(n, d, f, attack, seed=0):
     return G, m
 
 
-@pytest.mark.parametrize("name", sorted(DEFENSES))
+@pytest.mark.parametrize("name", sorted(MASK_AWARE_DEFENSES))
 @pytest.mark.parametrize("n,d,f,attack", _DEF_CASES)
 def test_masked_defense_matches_jax(name, n, d, f, attack):
     G, m = _masked_inputs(n, d, f, attack)
@@ -237,7 +240,7 @@ def test_masked_defense_matches_jax(name, n, d, f, attack):
     np.testing.assert_allclose(got, want, rtol=3e-6, atol=3e-6)
 
 
-@pytest.mark.parametrize("name", sorted(DEFENSES))
+@pytest.mark.parametrize("name", sorted(MASK_AWARE_DEFENSES))
 @pytest.mark.parametrize("n,d,f,attack", _DEF_CASES[:2])
 def test_weighted_masked_defense_matches_jax(name, n, d, f, attack):
     G, m = _masked_inputs(n, d, f, attack, seed=1)
@@ -250,7 +253,7 @@ def test_weighted_masked_defense_matches_jax(name, n, d, f, attack):
     np.testing.assert_allclose(got, want, rtol=3e-6, atol=3e-6)
 
 
-@pytest.mark.parametrize("name", sorted(DEFENSES))
+@pytest.mark.parametrize("name", sorted(MASK_AWARE_DEFENSES))
 def test_masked_defense_matches_survivor_submatrix(name):
     """tests/test_faults.py:test_masked_kernel_matches_survivor_submatrix
     for the port: the quarantine mask reproduces the shrunk-cohort
@@ -269,7 +272,7 @@ def test_masked_defense_matches_survivor_submatrix(name):
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", sorted(DEFENSES))
+@pytest.mark.parametrize("name", sorted(MASK_AWARE_DEFENSES))
 def test_all_alive_mask_matches_unmasked(name):
     rng = np.random.default_rng(11)
     n, f = 12, 2
@@ -280,7 +283,7 @@ def test_all_alive_mask_matches_unmasked(name):
         atol=1e-6)
 
 
-@pytest.mark.parametrize("name", sorted(DEFENSES))
+@pytest.mark.parametrize("name", sorted(MASK_AWARE_DEFENSES))
 def test_weights_without_a_mask_are_refused(name):
     G = torch.zeros(9, 4)
     with pytest.raises(ValueError, match="weights= requires mask="):

@@ -34,6 +34,9 @@ from attacking_federate_learning_tpu_torch.attacks import DriftAttack, paper_z
 from attacking_federate_learning_tpu_torch.config import (
     ExperimentConfig, FaultConfig
 )
+from attacking_federate_learning_tpu_torch.core.faults import (
+    MASK_AWARE_DEFENSES
+)
 from attacking_federate_learning_tpu_torch.core.engine import (
     FederatedExperiment
 )
@@ -83,8 +86,10 @@ def _pair(defense, datasets, faults=None, mal_prop=MAL_PROP):
 # tail keeps about ten values.
 # Clean Krum also runs at mal_prop 0 (f = 0), where the complement
 # c = f - 1 is negative and the scores come from the exact sort.
-_CASES = ([(d, None, MAL_PROP) for d in C.DEFENSE_NAMES]
-          + [(d, FAULTS, MAL_PROP) for d in C.DEFENSE_NAMES
+# The five mask-aware defenses (the beyond-reference five are held in
+# tests/test_torch_port_extensions.py).
+_CASES = ([(d, None, MAL_PROP) for d in MASK_AWARE_DEFENSES]
+          + [(d, FAULTS, MAL_PROP) for d in MASK_AWARE_DEFENSES
              if d != "Bulyan"] + [("Bulyan", FAULTS, 0.06)]
           + [("Krum", None, 0.0)])
 

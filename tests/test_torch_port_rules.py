@@ -34,6 +34,9 @@ from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
 from attacking_federate_learning_tpu_torch.ops.distances import (
     pairwise_distances
 )
+from attacking_federate_learning_tpu_torch.ops.threefry_bits import (
+    threefry_bits
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent
@@ -104,7 +107,11 @@ def test_the_scan_covers_the_whole_port():
                    "ops/defense_kernels.py", "defenses/kernels.py",
                    "defenses/median.py", "attacks/backdoor.py",
                    "attacks/baselines.py", "attacks/minmax.py",
-                   "data/triggers.py", "utils/plugins.py"):
+                   "data/triggers.py", "utils/plugins.py",
+                   "ops/threefry_bits.py", "defenses/dnc.py",
+                   "defenses/geomed.py", "defenses/centeredclip.py",
+                   "defenses/fltrust.py", "defenses/normbound.py",
+                   "core/async_rounds.py"):
         assert module in names
 
 
@@ -270,17 +277,64 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(name):
         _WRAPPERS[name](torch.zeros(4, 8, device="meta"))
 
 
+class _CudaKeys:
+    """Stands in for the (3, 2) int64 CUDA key words of the threefry
+    kernel."""
+
+    device = torch.device("cuda", 0)
+    dtype = torch.int64
+    shape = (3, 2)
+
+    def dim(self):
+        return 2
+
+    def is_contiguous(self):
+        return True
+
+
+# The one kernel that ports no TPU kernel: DnC's sketch bits on the card.
+_KEY_WRAPPERS = {"threefry_bits": lambda K: threefry_bits(K, 16)}
+
+
 def test_every_kernel_has_a_source_and_a_counter():
     assert sorted(_build.KERNELS) == sorted(_build.LAUNCHES) == sorted(
-        {**_WRAPPERS, **_BF16_WRAPPERS})
-    for source, symbol, _ in _build.KERNELS.values():
+        {**_WRAPPERS, **_BF16_WRAPPERS, **_KEY_WRAPPERS})
+    for name, (source, symbol, _) in _build.KERNELS.items():
         text = (_build.CSRC / source).read_text()
         assert f'extern "C" int {symbol}(' in text
-        assert "Replaces the TPU kernel" in text
+        assert ("Replaces no TPU kernel" if name in _KEY_WRAPPERS
+                else "Replaces the TPU kernel") in text
     # The library name follows the sources, so an edited kernel rebuilds.
     paths = {_build.library_path(n) for n in _build.KERNELS}
-    assert len(paths) == 6 and all(p.parent == _build.BUILD_DIR
+    assert len(paths) == 7 and all(p.parent == _build.BUILD_DIR
                                    for p in paths)
+
+
+def test_threefry_kernel_raises_for_cuda_without_a_kernel(tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setenv("NVCC", str(tmp_path / "no-nvcc"))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no nvcc found"):
+        _KEY_WRAPPERS["threefry_bits"](_CudaKeys())
+    assert _build.LAUNCHES == before
+
+
+def test_threefry_kernel_refuses_what_it_does_not_take():
+    class Int32Keys(_CudaKeys):
+        dtype = torch.int32
+
+    class WideKeys(_CudaKeys):
+        shape = (3, 3)
+
+    before = dict(_build.LAUNCHES)
+    for bad in (Int32Keys(), WideKeys()):
+        with pytest.raises(ValueError, match=r"\(K, 2\) int64 keys"):
+            threefry_bits(bad, 16)
+    with pytest.raises(ValueError, match="32-bit counter"):
+        threefry_bits(_CudaKeys(), 2 ** 32)
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("name", ["masked_trimmed_mean", "masked_median"])
