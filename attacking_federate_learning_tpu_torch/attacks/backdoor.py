@@ -60,6 +60,10 @@ from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
 
 class BackdoorAttack(Attack):
     name = "backdoor"
+    # The crafted vector is checked for non-finite values: in the craft
+    # (ctx.check_finite), or by the hierarchical round's per-megabatch
+    # flags.
+    checks_finite = True
 
     def __init__(self, cfg, dataset, device="cuda"):
         super().__init__(cfg.num_std)
@@ -171,7 +175,7 @@ class BackdoorAttack(Attack):
         new_params = mal_params + lr * mean
         new_grads = (start - new_params) / lr
         out = torch.clamp(new_grads, lo.float(), hi.float())
-        if not bool(torch.isfinite(out).all()):
+        if ctx.check_finite and not bool(torch.isfinite(out).all()):
             raise FloatingPointError("Got nan in backdoor shadow training")
         return out
 

@@ -32,6 +32,11 @@ class AttackContext(NamedTuple):
     # of the DELIVERED cohort, t - birth on delivered rows and -1 on the
     # rest.  None under the flat round, where every row is fresh.
     staleness: Optional[torch.Tensor] = None
+    # Whether an attack that checks its crafted vector for non-finite
+    # values (``checks_finite``) raises in the craft itself.  The
+    # hierarchical round sets it False and reduces each megabatch's flag
+    # on the device once a round instead.
+    check_finite: bool = True
 
 
 def cohort_stats(mal_grads: torch.Tensor):

@@ -1,4 +1,5 @@
-"""Experiment CLI of the flat FedSGD round and the async buffered round.
+"""Experiment CLI of the flat FedSGD round, the async buffered round and
+the hierarchical two-tier round.
 
 The flat flags of the JAX package's CLI, with the reference driver's
 short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
@@ -9,8 +10,10 @@ knobs (``--participation``, ``--local-steps``, ``--partition`` with
 ``--krum-paper-scoring``, ``--bulyan-batch-select``, ``--distance-dtype``,
 ``--server-uses-faded-lr``, ``--remat``, which the config refuses), the
 async buffered round's (``--aggregation``, ``--async-buffer``,
-``--async-max-staleness``, ``--staleness-weight``; 'hierarchical' is
-refused by the config, not ported yet), the beyond-reference defenses'
+``--async-max-staleness``, ``--staleness-weight``), the hierarchical
+round's (``--megabatch``, ``--tier2-defense``, ``--mal-placement``,
+``--tier1-corrupted``, ``--tier2-corrupted``), the beyond-reference
+defenses'
 (``-d`` DnC/GeoMedian/CenteredClip/FLTrust/NormBound with
 ``--dnc-iters``, ``--dnc-sketch-dim``, ``--dnc-filter-frac``,
 ``--geomed-iters``, ``--geomed-eps``, ``--cclip-tau``, ``--cclip-iters``),
@@ -53,6 +56,9 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d TrimmedMean -n 100 -m 0.24 --aggregation async \\
           --async-buffer 64 --staleness-weight poly
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d Krum -n 1000 -m 0.24 --aggregation hierarchical \\
+          --megabatch 100 --tier2-defense Median
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d DnC -n 100 -m 0.24 --attack minmax
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
@@ -199,6 +205,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "the FedBuff paper), 'const' (0.5 for any "
                         "stale row) — threaded into the mask-aware "
                         "kernels' weights= seam")
+    p.add_argument("--megabatch", default=0, type=int, metavar="M",
+                   help="hierarchical tier-1 shard size m (must divide "
+                        "--users-count, >= 2 shards); round peak memory "
+                        "scales with m*d instead of n*d")
+    p.add_argument("--tier2-defense", default=None,
+                   choices=["NoDefense", "Krum", "TrimmedMean", "Bulyan",
+                            "Median"],
+                   help="tier-2 reducer over the (n/m, d) shard-estimate "
+                        "matrix (defenses/kernels.py shard_* entries); "
+                        "default: same family as -d/--defense")
+    p.add_argument("--mal-placement", default="spread",
+                   choices=["spread", "concentrated"],
+                   help="colluder placement across megabatches: 'spread' "
+                        "deals the malicious ids round-robin, "
+                        "'concentrated' packs them into the fewest shards "
+                        "(the colluders-own-a-shard scenario; only "
+                        "meaningful under --aggregation hierarchical)")
+    p.add_argument("--tier1-corrupted", default=None, type=int,
+                   metavar="F1",
+                   help="assumed per-shard corrupted bound for tier-1 "
+                        "(default: ceil(f / num_shards), the spread "
+                        "worst case)")
+    p.add_argument("--tier2-corrupted", default=None, type=int,
+                   metavar="F2",
+                   help="assumed corrupted-shard bound for tier-2 "
+                        "(default: ceil(f / megabatch))")
     p.add_argument("--krum-paper-scoring", action="store_true",
                    help="paper-faithful Krum scoring (n-f-2 closest) instead "
                         "of the reference's n-f (defences.py:26)")
@@ -278,8 +310,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault-shard-dropout", default=0.0, type=float,
                    metavar="P",
                    help="per-SHARD-DOMAIN per-round failure onset "
-                        "probability (hierarchical aggregation only, "
-                        "which the port does not have yet: refused)")
+                        "probability (hierarchical only): a dead domain "
+                        "loses its whole megabatch for "
+                        "--fault-shard-dropout-dwell rounds, its tier-1 "
+                        "estimate is excluded at tier-2 (alive_counts "
+                        "seam) and the host-planned remask -> fallback "
+                        "-> hold ladder degrades the tier-2 kernel when "
+                        "too few shards survive (core/faults.py)")
     p.add_argument("--fault-shard-dropout-dwell", default=1, type=int,
                    metavar="K",
                    help="rounds a dead shard domain stays dead after "
@@ -426,6 +463,10 @@ def config_from_args(args) -> ExperimentConfig:
         async_buffer=args.async_buffer,
         async_max_staleness=args.async_max_staleness,
         staleness_weight=args.staleness_weight,
+        megabatch=args.megabatch, tier2_defense=args.tier2_defense,
+        mal_placement=args.mal_placement,
+        tier1_corrupted=args.tier1_corrupted,
+        tier2_corrupted=args.tier2_corrupted,
         checkpoint_every=args.checkpoint_every, output=args.output,
         log_dir=args.log_dir, run_dir=args.run_dir)
 

@@ -12,7 +12,10 @@ the asynchronous buffered round's (``aggregation='async'``,
 ``async_buffer``, ``async_max_staleness``, ``staleness_weight``), the
 beyond-reference defenses' constants (``dnc_*``, ``geomed_*``,
 ``cclip_*``) and the population & traffic model (``TrafficConfig``, a
-copy of the JAX package's).  Hierarchical aggregation, host streaming,
+copy of the JAX package's), and the hierarchical two-tier round's
+(``aggregation='hierarchical'``, ``megabatch``, ``tier2_defense``,
+``mal_placement``, ``tier1_corrupted``, ``tier2_corrupted``).  The
+device mesh (``mesh_shape``, the SPMD client map), host streaming,
 secagg and the observability knobs are later slices of the port.
 """
 
@@ -95,7 +98,8 @@ class FaultConfig:
       (finite garbage for the robust aggregation, or failing that the
       divergence watchdog, to absorb).
     - ``shard_dropout``: correlated shard-domain death, for hierarchical
-      aggregation only; the port's flat round rejects it.
+      aggregation only: a dead domain loses its whole megabatch for
+      ``shard_dropout_dwell`` rounds; flat and async rounds reject it.
 
     The watchdog fields govern server-side graceful degradation
     (core/engine.py): at each evaluation round a non-finite or
@@ -331,9 +335,28 @@ class ExperimentConfig:
     # each round, but it ARRIVES a PRNG-drawn number of rounds later; the
     # server consumes the first `async_buffer` pending arrivals per round
     # FIFO, weighting each delivered row by its staleness through the
-    # mask-aware kernels' `weights=` seam.  'hierarchical' is the JAX
-    # package's third topology, not ported yet (refused).
+    # mask-aware kernels' `weights=` seam.  'hierarchical' streams the
+    # client axis through megabatches of static size `megabatch` (m << n):
+    # per-megabatch tier-1 robust estimates (the same mask-aware kernels,
+    # `defense`), then a tier-2 robust reduction over the (n/m, d)
+    # estimate matrix (defenses/kernels.py shard_* entries); the full
+    # (n, d) matrix never exists (ops/federated.py).
     aggregation: str = "flat"        # 'flat' | 'hierarchical' | 'async'
+    # Megabatch (tier-1 shard) size m; must divide users_count with at
+    # least 2 shards.  Peak round memory scales with m*d, not n*d.
+    megabatch: int = 0
+    # Tier-2 reducer over shard estimates; None = same family as
+    # `defense`.  Restricted to the mask-aware kernel set.
+    tier2_defense: Optional[str] = None
+    # Colluder placement across megabatches: 'spread' deals the malicious
+    # ids [0, f) round-robin over shards, 'concentrated' packs them into
+    # the fewest shards.
+    mal_placement: str = "spread"
+    # Assumed corrupted bounds per tier; None derives the spread worst
+    # case defaults ceil(f/S) and ceil(f/m) (ops/federated.py
+    # tier1_assumed/tier2_assumed).
+    tier1_corrupted: Optional[int] = None
+    tier2_corrupted: Optional[int] = None
     # k: pending updates aggregated per round (FIFO; required >= 1
     # under aggregation='async').  The three async knobs are inert
     # unless aggregation='async'.
@@ -457,12 +480,6 @@ class ExperimentConfig:
             raise ValueError(
                 f"aggregation must be 'flat', 'hierarchical' or "
                 f"'async', got {self.aggregation!r}")
-        if self.aggregation == "hierarchical":
-            raise ValueError(
-                "aggregation='hierarchical' is not ported yet: the port "
-                "runs the flat and the async rounds; the two-tier tree "
-                "(megabatch shards, tier-2 reduction) is a later slice "
-                "of the port")
         if self.staleness_weight not in ("none", "poly", "const"):
             raise ValueError(
                 f"staleness_weight must be 'none', 'poly' or 'const', "
@@ -476,6 +493,34 @@ class ExperimentConfig:
                 "--aggregation async needs --async-buffer >= 1 (k, the "
                 "pending updates aggregated per round — FedBuff's "
                 "buffer size; core/async_rounds.py)")
+        if self.mal_placement not in ("spread", "concentrated"):
+            raise ValueError(
+                f"mal_placement must be 'spread' or 'concentrated', "
+                f"got {self.mal_placement!r}")
+        if self.megabatch < 0:
+            raise ValueError(f"megabatch must be >= 0, got {self.megabatch}")
+        _TIER2 = ("NoDefense", "Krum", "TrimmedMean", "Bulyan", "Median")
+        if self.tier2_defense is not None and self.tier2_defense not in _TIER2:
+            raise ValueError(
+                f"tier2_defense must be one of {_TIER2}, "
+                f"got {self.tier2_defense!r}")
+        for name in ("tier1_corrupted", "tier2_corrupted"):
+            v = getattr(self, name)
+            if v is not None and v < 0:
+                raise ValueError(f"{name} must be >= 0, got {v}")
+        if self.aggregation == "hierarchical":
+            if self.megabatch < 1:
+                raise ValueError(
+                    "hierarchical aggregation needs megabatch >= 1 "
+                    "(the tier-1 shard size; --megabatch)")
+            if self.users_count % self.megabatch:
+                raise ValueError(
+                    f"megabatch must divide users_count "
+                    f"({self.users_count} % {self.megabatch} != 0)")
+            if self.users_count // self.megabatch < 2:
+                raise ValueError(
+                    f"hierarchical aggregation needs >= 2 shards "
+                    f"(n={self.users_count}, m={self.megabatch})")
         if self.bulyan_batch_select < 1:
             raise ValueError(
                 f"bulyan_batch_select must be >= 1, got "

@@ -1,5 +1,5 @@
-"""Experiment engine: the flat, synchronous FedSGD round, and the
-asynchronous buffered round.
+"""Experiment engine: the flat, synchronous FedSGD round, the
+asynchronous buffered round and the hierarchical two-tier round.
 
 The reference's round is four host-side phases over one process
 (reference main.py:64-71).  Here a round is
@@ -83,6 +83,31 @@ weights and velocity as they were (the round counter advances).  The v11
 'traffic' events go out at the host boundaries.  In async rounds the
 traffic latency profile replaces the uniform arrival draw.
 
+Under ``cfg.aggregation='hierarchical'`` (ops/federated.py) the client
+axis streams through S = n/m megabatches of ``cfg.megabatch`` clients,
+placed by ``make_placement`` with the malicious ids first in each:
+
+    for s in megabatches:                        # in megabatch order
+        grads = vmap(grad(loss))(w, batches[s])  # deliver: (m, d)
+        grads = attack.apply(grads, c_mal[s], ctx)  # craft from s's rows
+        est[s] = defense(grads, m, f1[, mask])   # tier-1 estimate (d,)
+    agg   = tier2(est, S, f2[, alive_counts])    # shard reduce over (S, d)
+    state = momentum_update(state, agg)
+
+Only one megabatch's (m, d) matrix is live at a time; the (S, d)
+estimates go into a preallocated buffer, and the (n, d) matrix never
+exists.  The engine adds no host synchronization inside the loop: an
+attack that checks its crafted vector (the backdoor) leaves a flag per
+megabatch on the device, read once a round before the state is
+committed.  With faults each megabatch draws its own per-client faults
+(keyed by its shard id) and hands its (m,) quarantine mask to the
+tier-1 defense, the straggler ring has a shard axis, and dead shard
+domains reach tier 2 with an alive count of 0; the host plans the tier-2
+ladder (the configured tier-2 defense, the masked shard median, or hold)
+from the surviving-shard count.  Under traffic every megabatch slot
+re-draws its population archetype each round
+(core/population.py:resample_slots).
+
 The beyond-reference defenses (DnC, GeoMedian, CenteredClip, FLTrust,
 NormBound) take their constants from the config; DnC gets the round
 index (``needs_round``: fresh sketches a round) and FLTrust the server's
@@ -139,7 +164,11 @@ from attacking_federate_learning_tpu_torch.data.partition import (
 from attacking_federate_learning_tpu_torch.defenses import (
     DEFENSES, check_defense_args
 )
+from attacking_federate_learning_tpu_torch.defenses.kernels import (
+    TIER2_DEFENSES, check_tier2_args
+)
 from attacking_federate_learning_tpu_torch.models.base import get_model
+from attacking_federate_learning_tpu_torch.ops import federated as FD
 from attacking_federate_learning_tpu_torch.utils import threefry
 from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
 from attacking_federate_learning_tpu_torch.utils.metrics import RunLogger
@@ -178,9 +207,10 @@ def faded_lr(cfg: ExperimentConfig, t: int) -> float:
 
 
 class FederatedExperiment:
-    """The flat FedSGD experiment of ``cfg`` on ``device`` (default
-    ``cuda``).  ``dataset`` defaults to ``load_dataset`` of the config;
-    ``attacker`` defaults to no attack."""
+    """The FedSGD experiment of ``cfg`` (a flat, async or hierarchical
+    round, ``cfg.aggregation``) on ``device`` (default ``cuda``).
+    ``dataset`` defaults to ``load_dataset`` of the config; ``attacker``
+    defaults to no attack."""
 
     def __init__(self, cfg: ExperimentConfig,
                  attacker: Optional[Attack] = None, dataset=None,
@@ -209,11 +239,15 @@ class FederatedExperiment:
                     f"participation={cfg.participation})")
         else:
             self.m, self.m_mal = self.n, self.f
-        # The defense sees the round cohort, not the population, or in
-        # async rounds the delivered sub-cohort.
+        # The defense sees the round cohort, not the population, in async
+        # rounds the delivered sub-cohort, in hierarchical rounds one
+        # megabatch (tier 1) and the shard-estimate matrix (tier 2).
         self.async_spec = None
+        self._placement = None
         if cfg.aggregation == "async":
             self._init_async()
+        elif cfg.aggregation == "hierarchical":
+            self._init_hierarchical()
         else:
             check_defense_args(cfg.defense, self.m, self.m_mal)
         if (getattr(self.attacker, "timed", False)
@@ -244,11 +278,14 @@ class FederatedExperiment:
             self.registry = P.PopulationRegistry(cfg.traffic, self.n, self.f,
                                                  cfg.seed)
             self._traffic_events = {}
+            # Hierarchical traffic is slot resampling only (its own key):
+            # rounds stay full, no schedule, no ladder.
+            self._traffic_key = P.traffic_key(cfg)
             if self.async_spec is not None:
                 # Async traffic: the latency profile's heavy-tail delays
                 # replace the uniform arrival draw in the ring.
                 self._traffic_latency = P.async_latency_for_cfg(cfg, self.m)
-            else:
+            elif self._placement is None:
                 # Ladder step 2: the bounds-valid fallback kernel.
                 self._traffic_fallback_fn = DEFENSES[
                     cfg.traffic.fallback_defense]
@@ -309,7 +346,14 @@ class FederatedExperiment:
         self.last_round_async = None
         if self.faults is not None:
             self._fault_key = F.fault_key(cfg)
-            if self.async_spec is None:
+            if self._placement is not None:
+                # One (m, d) slab per shard per delay slot; the ladder's
+                # fallback is the masked shard median.
+                self.fault_state = F.init_hier_fault_state(
+                    self.faults, self._placement.num_shards,
+                    self._placement.megabatch, self.flat.dim, self.device)
+                self._tier2_fallback_fn = TIER2_DEFENSES[F.TIER2_FALLBACK]
+            elif self.async_spec is None:
                 # Async rounds model stragglers as extra arrival delay in
                 # their own buffers: the straggler ring never exists.
                 self.fault_state = F.init_fault_state(
@@ -318,6 +362,15 @@ class FederatedExperiment:
         if self.async_spec is not None:
             self.async_state = A.init_async_state(
                 self.async_spec, self.m, self.flat.dim, self.device)
+        if self._placement is not None:
+            # The (S, d) tier-1 estimates, written in place a round, and
+            # the placement's id grid on the device.
+            self._estimates = torch.empty(
+                (self._placement.num_shards, self.flat.dim),
+                dtype=torch.float32, device=self.device)
+            self._grid = torch.from_numpy(self._placement.grid).to(
+                self.device, torch.int64)
+            self.last_round_slots = None
 
         shards = make_shards(cfg.partition, self.dataset.train_y, self.n,
                              cfg.seed, cfg.dirichlet_alpha)
@@ -394,6 +447,65 @@ class FederatedExperiment:
             timed=bool(getattr(self.attacker, "timed", False)))
         self._async_key = A.async_key(cfg)
 
+    def _init_hierarchical(self):
+        """Check and plan the two-tier round, with the JAX engine's checks
+        and messages (its core/engine.py:_init_hierarchical): full
+        participation, the fused backdoor, a tier-1 defense of the
+        mask-aware set, a fusable attack; the placement, the assumed
+        corrupted bounds per tier (ceil(f/S) and ceil(f/m) unless the
+        config sets them) and each tier's validity bound.  The device
+        mesh and secure aggregation are refused: they are later slices
+        of the port."""
+        cfg = self.cfg
+        if getattr(cfg, "mesh_shape", None) is not None:
+            raise ValueError(
+                "--mesh-shape is not ported yet: the SPMD client_map over "
+                "a device mesh is the multi-GPU slice of the port; the "
+                "port runs the hierarchical round's megabatches in order "
+                "on one device (drop --mesh-shape)")
+        if getattr(cfg, "secagg", "off") != "off":
+            raise ValueError(
+                "--secagg is not ported yet: group-wise secure "
+                "aggregation over the hierarchical round's megabatch "
+                "sums is a later slice of the port (drop --secagg)")
+        if cfg.participation < 1.0:
+            raise ValueError(
+                "hierarchical aggregation requires full participation "
+                "(placement assigns every client to a megabatch)")
+        if cfg.backdoor and not cfg.backdoor_fused:
+            raise ValueError(
+                "hierarchical aggregation needs the fused backdoor "
+                "path (drop --backdoor-staged)")
+        if cfg.defense not in TIER2_DEFENSES:
+            raise ValueError(
+                f"hierarchical tier-1 defense must be one of "
+                f"{sorted(TIER2_DEFENSES)} (the mask-aware kernel "
+                f"set), got {cfg.defense!r}")
+        if not getattr(self.attacker, "fusable", True):
+            raise ValueError(
+                "hierarchical aggregation needs a fusable attack: the "
+                "client axis lives inside a scanned device program")
+        place = FD.make_placement(self.n, self.f, cfg.megabatch,
+                                  cfg.mal_placement)
+        S = place.num_shards
+        self._placement = place
+        self._tier1_f = (cfg.tier1_corrupted
+                         if cfg.tier1_corrupted is not None
+                         else FD.tier1_assumed(self.f, S))
+        self._tier2_f = (cfg.tier2_corrupted
+                         if cfg.tier2_corrupted is not None
+                         else FD.tier2_assumed(self.f, cfg.megabatch))
+        self._tier2_name = cfg.tier2_defense or cfg.defense
+        check_tier2_args(cfg.defense, cfg.megabatch, self._tier1_f)
+        check_tier2_args(self._tier2_name, S, self._tier2_f)
+        self._tier2_fn = TIER2_DEFENSES[self._tier2_name]
+        # The crafted-rows NaN guard (the backdoor's), one flag a
+        # megabatch on the device.
+        self._check_attack_nan = (
+            getattr(self.attacker, "checks_finite", False)
+            and self.m_mal > 0
+            and getattr(self.attacker, "num_std", 1) != 0)
+
     def participants(self, t: int) -> Optional[np.ndarray]:
         """Round-t cohort ids, (m,) int32 on the host, or None under full
         participation: the first m_mal malicious ids (< f), then honest
@@ -463,25 +575,26 @@ class FederatedExperiment:
         shape = (xs.shape[0],) + (1,) * (xs.ndim - 1)
         return a.reshape(shape) * xs + b.reshape(shape)
 
-    def compute_grads(self, t: int,
-                      part: Optional[np.ndarray] = None) -> torch.Tensor:
+    def compute_grads(self, t: int, part=None) -> torch.Tensor:
         """deliver: the cohort's (m, d) updates at the server weights of
         round t on the wire (grad_dtype): gradients, or with local steps
         the pseudo-gradients, on the round-t styled and augmented batch.
         ``part`` is the round's cohort (:meth:`participants`), drawn here
-        when it is not given."""
+        when it is not given, or a megabatch's ids (an int64 device
+        tensor, hierarchical rounds)."""
         cfg = self.cfg
         if part is None:
             part = self.participants(t)
-        if part is not None:    # one host-to-device copy a round
+        if isinstance(part, np.ndarray):    # one host-to-device copy
             part = torch.from_numpy(part).to(self.device, torch.int64)
+        rows = self.m if part is None else part.shape[0]
         xs, ys = self.gather_batches(t, part)
         xs = self.apply_style(xs, part)
         if self.augment:
             xs = reflect_crop_flip(xs, round_augment_key(cfg.seed, t))
         k, B = cfg.local_steps, cfg.batch_size
-        xs = xs.reshape((self.m, k, B) + xs.shape[2:])
-        ys = ys.reshape((self.m, k, B))
+        xs = xs.reshape((rows, k, B) + xs.shape[2:])
+        ys = ys.reshape((rows, k, B))
         # Clients train at the faded lr the server dispatches; the
         # pseudo-gradient divides by the lr the server multiplies back.
         lr_train = torch.full((), faded_lr(cfg, t), dtype=torch.float32,
@@ -504,7 +617,8 @@ class FederatedExperiment:
         self.last_round_faults = {"round": t, **stats, **qstats}
         return clean, mask
 
-    def attack_context(self, t: int, staleness=None) -> AttackContext:
+    def attack_context(self, t: int, staleness=None,
+                       check_finite: bool = True) -> AttackContext:
         """The round-t attack context, with the faded lr (:func:`faded_lr`)
         as an f32 device scalar and, in async rounds, the delivered rows'
         staleness."""
@@ -513,7 +627,7 @@ class FederatedExperiment:
             learning_rate=torch.full((), faded_lr(self.cfg, t),
                                      dtype=torch.float32,
                                      device=self.device),
-            round=t, staleness=staleness)
+            round=t, staleness=staleness, check_finite=check_finite)
 
     def server_grad(self) -> torch.Tensor:
         """(d,) f32: the server's gradient of the mean loss over the whole
@@ -543,9 +657,18 @@ class FederatedExperiment:
               else cfg.learning_rate)
         return momentum_update(self.state, agg.float(), lr, cfg.momentum)
 
+    def _hold(self) -> ServerState:
+        """A no-op round: weights and velocity stay bit for bit, the round
+        counter advances."""
+        st = self.state
+        self.state = ServerState(st.weights, st.velocity, st.round + 1)
+        return self.state
+
     def run_round(self, t: int) -> ServerState:
         if self.async_spec is not None:
             return self.run_async_round(t)
+        if self._placement is not None:
+            return self.run_hier_round(t)
         if self.traffic is not None:
             return self.run_traffic_round(t)
         grads = self.compute_grads(t, self.participants(t))
@@ -587,24 +710,116 @@ class FederatedExperiment:
         grads = self.compute_grads(t, sched.shard_ids[0])      # deliver
         grads = self.attacker.apply(grads, self.m_mal,
                                     self.attack_context(t))    # craft
-        host = torch.from_numpy(sched.arrived[0])
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        mask = host.to(self.device, non_blocking=True)
+        mask = F.to_device(sched.arrived[0], self.device)
         grads = torch.where(mask[:, None], grads, torch.zeros_like(grads))
         if self.faults is not None:
             grads, fmask = self.inject_and_quarantine(grads, t)
             mask = mask & fmask
         if action == P.TRAFFIC_HOLD:
-            st = self.state
-            self.state = ServerState(st.weights, st.velocity, st.round + 1)
-            return self.state
+            return self._hold()
         if action == P.TRAFFIC_REMASK:
             agg = self.aggregate(grads, t, mask=mask)
         else:
             agg = self._traffic_fallback_fn(grads, self.m, self.m_mal,
                                             mask=mask)
         self.state = self._apply(agg, t)
+        return self.state
+
+    def slot_ids(self, t: int) -> np.ndarray:
+        """Round t's (S, m) megabatch slots under traffic: every
+        placement row resampled (core/population.py:resample_slots)."""
+        place = self._placement
+        return np.stack([
+            P.resample_slots(self._traffic_key, t,
+                             place.grid[s].astype(np.int64),
+                             place.mal_counts[s], self.f, self.n)
+            for s in range(place.num_shards)])
+
+    def run_hier_round(self, t: int) -> ServerState:
+        """One hierarchical round (the JAX engine's ``hier_core``, and
+        ``fault_hier_core`` under faults): for each megabatch in order,
+        deliver its (m, d) gradients, craft from its malicious rows, and
+        write its tier-1 estimate into the (S, d) buffer; then the tier-2
+        reduction and the momentum step.
+
+        With faults, the round's draws are made on the host at once (the
+        per-shard masks, the domain row, the ladder's action) and cross
+        to the device in one copy; each megabatch injects its faults
+        (its straggler slab updated in place), quarantines, and runs the
+        masked tier-1 defense; its alive count is its quarantine
+        survivors times its domain's liveness.  A shard with no alive row
+        has its estimate zeroed.  The host-planned action runs the
+        configured tier-2 defense over the alive shards ('remask'), the
+        masked shard median ('fallback'), or holds.  Records the counts
+        in ``last_round_faults``."""
+        place, fc = self._placement, self.faults
+        S, m, f1 = place.num_shards, place.megabatch, self._tier1_f
+        grid = self._grid
+        if self.traffic is not None:
+            self.last_round_slots = self.slot_ids(t)
+            grid = F.to_device(self.last_round_slots, self.device)
+        action = P.TRAFFIC_REMASK
+        if fc is not None:
+            masks, dom, row = F.hier_round_faults(self._fault_key, t, place,
+                                                  fc)
+            action = int(F.plan_tier2_actions(
+                [row["shards_alive"]], self._tier2_name, self._tier2_f)[0])
+            masks = F.to_device(masks, self.device)          # (S, 3, m)
+            dom = F.to_device(dom, self.device)
+            alive = torch.empty(S, dtype=torch.int64, device=self.device)
+            quar = torch.empty(S, dtype=torch.int64, device=self.device)
+        bad = (torch.zeros(S, dtype=torch.bool, device=self.device)
+               if self._check_attack_nan else None)
+        ctx = self.attack_context(t, check_finite=bad is None)
+
+        def shard_fn(sid, _ids, c):
+            # The megabatch's ids on the device: the placement's, or the
+            # round's resampled slots.  Its matrix is freed on return,
+            # before the next megabatch's deliver.
+            grads = self.compute_grads(t, grid[sid])             # deliver
+            grads = self.attacker.apply(grads, c, ctx)           # craft
+            if bad is not None and c > 0:
+                bad[sid] = ~torch.isfinite(grads[:c]).all()
+            if fc is None:
+                return self.defense_fn(grads, m, f1)             # tier 1
+            slab = (self.fault_state["stale"][t % fc.straggler_delay, sid]
+                    if fc.straggler > 0 else None)
+            grads, drop = F.apply_shard_faults(grads, masks[sid], slab, fc)
+            grads, qmask, q = F.quarantine(grads, drop)
+            quar[sid] = q["quarantined"]
+            alive[sid] = qmask.sum() * dom[sid]
+            return self.defense_fn(grads, m, f1, mask=qmask)
+
+        est = FD.client_map(shard_fn, place, with_sid=True,
+                            out=self._estimates)
+        f2 = self._tier2_f
+        if fc is None:
+            agg = FD.shard_reduce(self._tier2_fn, est, S, f2)    # tier 2
+        else:
+            # A shard with no aggregable row has an undefined estimate;
+            # tier 2's mask excludes it, and it is zeroed so nothing
+            # non-finite can leak.
+            est.masked_fill_((alive == 0)[:, None], 0.0)
+            self.last_round_faults = {
+                **{k: row[k] for k in ("round", "injected_dropout",
+                                       "injected_straggler",
+                                       "injected_corrupt")},
+                "quarantined": quar.sum(),
+                "shards_dead": row["shards_dead"],
+                "shard_alive": alive,
+                "shards_alive": (alive > 0).sum(),
+                "tier2_action": action}
+            agg = None
+            if action != P.TRAFFIC_HOLD:
+                fn = (self._tier2_fn if action == P.TRAFFIC_REMASK
+                      else self._tier2_fallback_fn)
+                agg = FD.shard_reduce(fn, est, S, f2, alive_counts=alive)
+        if bad is not None and bool(bad.any()):
+            # The state stays at the last finished round.
+            raise FloatingPointError("Got nan in backdoor shadow training")
+        if agg is None:
+            return self._hold()
+        self.state = self._apply(agg, t)                         # apply
         return self.state
 
     def run_async_round(self, t: int) -> ServerState:
@@ -673,8 +888,8 @@ class FederatedExperiment:
         ``async_occ``, ``async_birth``, ``async_pbuf``, ``async_pocc``,
         ``async_pbirth`` (f32, bool, int32); else the straggler ring
         ``{'stale': (delay, m, d) f32}`` under fault injection with
-        stragglers; None when the engine carries nothing beyond the
-        ServerState."""
+        stragglers, ``(delay, S, m, d)`` in hierarchical rounds; None
+        when the engine carries nothing beyond the ServerState."""
         if self.async_state is not None:
             return {"async_" + k: v.to("cpu", copy=True).numpy()
                     for k, v in self.async_state.items()}
@@ -711,10 +926,11 @@ class FederatedExperiment:
         ring = torch.as_tensor(extra["stale"]).to(self.device,
                                                   torch.float32, copy=True)
         if tuple(ring.shape) != want:
+            axes = ("straggler_delay, S, m, d" if self._placement is not None
+                    else "straggler_delay, cohort rows, d")
             raise ValueError(
                 f"checkpointed straggler ring has shape "
-                f"{tuple(ring.shape)}, this engine's is {want} "
-                f"(straggler_delay, cohort rows, d)")
+                f"{tuple(ring.shape)}, this engine's is {want} ({axes})")
         self.fault_state = {"stale": ring}
 
     def restore_fault_state(self, extra):
@@ -969,7 +1185,8 @@ class FederatedExperiment:
             result["faults"] = fault_rows
         if self.async_spec is not None:
             result["async"] = async_rows
-        if self.traffic is not None and self.async_spec is None:
+        if (self.traffic is not None and self.async_spec is None
+                and self._placement is None):
             result["traffic"] = traffic_rows
         if backdoor:
             result["asr"] = asr
@@ -978,17 +1195,31 @@ class FederatedExperiment:
     @staticmethod
     def _host_records(pending):
         """The per-round 'fault' and 'async' records of a span, as host
-        values, with one device-to-host read: the flat round's
-        ``quarantined`` counts, or the async rounds' counts, staleness
-        histograms and weight masses, stacked and read at once.  The
-        'async' fields are the JAX engine's: counts as ints, the
-        histogram and the weight mass as lists of floats."""
+        values, with one device-to-host read: the fault records' device
+        counts (``quarantined``; in hierarchical rounds also
+        ``shard_alive`` and ``shards_alive``), or the async rounds'
+        counts, staleness histograms and weight masses, stacked and read
+        at once.  Counts land as ints (a per-shard vector as a list of
+        ints); the 'async' fields are the JAX engine's: counts as ints,
+        the histogram and the weight mass as lists of floats."""
         fault = [f for f, _ in pending]
         rows = [a for _, a in pending]
         if rows[0] is None:
-            counts = torch.stack([f["quarantined"] for f in fault]).tolist()
-            return [({**f, "quarantined": int(q)}, None)
-                    for f, q in zip(fault, counts)]
+            keys = [k for k, v in fault[0].items()
+                    if isinstance(v, torch.Tensor)]
+            host = torch.stack([
+                torch.cat([f[k].reshape(-1).long() for k in keys])
+                for f in fault]).tolist()
+            out = []
+            for f, vals in zip(fault, host):
+                rec, i = dict(f), 0
+                for k in keys:
+                    size = f[k].numel()
+                    rec[k] = (int(vals[i]) if f[k].dim() == 0
+                              else [int(v) for v in vals[i:i + size]])
+                    i += size
+                out.append((rec, None))
+            return out
         host = torch.stack([
             torch.cat([a["counts"].float(), a["staleness_hist"].float(),
                        a["weight_mass"]]) for a in rows]).tolist()

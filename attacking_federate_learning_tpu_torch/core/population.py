@@ -24,8 +24,10 @@ the JAX package, not even its numpy modules).
   :func:`traffic_delays`, a discretized Pareto delay per cohort row drawn
   from the JAX package's threefry bits.
 
-The hierarchical engine's slot resampling (``resample_slots``) belongs
-to the hierarchical slice of the port.
+- The hierarchical round's slot resampling (:func:`resample_slots`):
+  each megabatch slot re-draws its population archetype every round,
+  malicious slots from [0, f) and honest ones from [f, n), with JAX's
+  ``randint`` bits.
 """
 
 from __future__ import annotations
@@ -356,6 +358,22 @@ def traffic_delays(key, t: int, scales, tail: float, depth: int):
     p = torch.pow(torch.from_numpy(u), -1.0 / tail).numpy()
     raw = np.asarray(scales, f32) * (p - f32(1.0))
     return np.clip(raw, f32(0), f32(depth - 1)).astype(np.int32)
+
+
+def resample_slots(key: np.ndarray, t: int, ids: np.ndarray, c_mal: int,
+                   f: int, n: int) -> np.ndarray:
+    """One megabatch's client slots resampled for round t (the
+    hierarchical round under traffic): malicious slots (the first
+    ``c_mal``) draw a shard archetype from [0, f), honest slots from
+    [f, n).  Rounds stay full and the ladder does not apply: this is
+    cohort identity only.  Pure in ``(key, t, ids[0])`` (placement id
+    sets are disjoint, so the first id decorrelates megabatches)."""
+    kt = threefry.fold_in(threefry.fold_in(key, t), int(ids[0]))
+    k1, k2 = threefry.split(kt)
+    mal = threefry.randint(k1, ids.shape, 0, max(f, 1))
+    hon = f + threefry.randint(k2, ids.shape, 0, n - f)
+    slot_mal = np.arange(ids.shape[0]) < c_mal
+    return np.where(slot_mal, mal, hon).astype(ids.dtype)
 
 
 def check_traffic_support(cfg):

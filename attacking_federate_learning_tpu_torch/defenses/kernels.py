@@ -321,6 +321,87 @@ DEFENSES = {"NoDefense": no_defense, "Krum": krum,
             "TrimmedMean": trimmed_mean, "Bulyan": bulyan}
 
 
+# --- tier-2 (cross-shard) entries of the hierarchical round ---------------
+#
+# The hierarchical round (ops/federated.py, core/engine.py) reduces the
+# per-megabatch tier-1 estimates with a second robust pass over the (S, d)
+# shard-estimate matrix.  Each shard_* entry is the flat defense on that
+# matrix: rows are shard estimates, ``shard_count`` plays users_count,
+# ``corrupted_shards`` is the assumed number of colluder-controlled
+# shards, and ``alive_counts`` (S,) int, each shard's effective cohort
+# under faults, becomes the defenses' quarantine ``mask=`` (a shard with
+# no alive row can never win a selection or enter a trim).  No new
+# estimator and no new kernel: the flat defenses' kernels run at S rows.
+
+def _alive_to_mask(alive_counts):
+    return None if alive_counts is None else alive_counts > 0
+
+
+def shard_mean(shard_estimates, shard_count, corrupted_shards,
+               alive_counts=None):
+    """Tier-2 NoDefense: the alive-count-weighted mean of the shard
+    estimates (with equal megabatches and no faults the flat mean up to
+    the order of summation; with faults the weights restore the flat
+    masked mean's per-client weighting)."""
+    del shard_count, corrupted_shards
+    if alive_counts is None:
+        return shard_estimates.mean(0)
+    w = alive_counts.float()
+    return (w @ shard_estimates) / torch.clamp(w.sum(), min=1.0)
+
+
+def shard_krum(shard_estimates, shard_count, corrupted_shards,
+               alive_counts=None):
+    """Tier-2 Krum over shard estimates: the fused score kernel under its
+    guard without faults, exact sort scoring over the alive shards with
+    alive counts."""
+    return krum(shard_estimates, shard_count, corrupted_shards,
+                method="fused", mask=_alive_to_mask(alive_counts))
+
+
+def shard_trimmed_mean(shard_estimates, shard_count, corrupted_shards,
+                       alive_counts=None):
+    """Tier-2 median-anchored trimmed mean over shard estimates."""
+    return trimmed_mean(shard_estimates, shard_count, corrupted_shards,
+                        mask=_alive_to_mask(alive_counts))
+
+
+def shard_bulyan(shard_estimates, shard_count, corrupted_shards,
+                 alive_counts=None):
+    """Tier-2 Bulyan over shard estimates; its (S, S) distance pass is
+    small."""
+    return bulyan(shard_estimates, shard_count, corrupted_shards,
+                  mask=_alive_to_mask(alive_counts))
+
+
+def shard_median(shard_estimates, shard_count, corrupted_shards,
+                 alive_counts=None):
+    """Tier-2 coordinate-wise median over shard estimates."""
+    # defenses/median.py imports this module.
+    from attacking_federate_learning_tpu_torch.defenses.median import median
+    return median(shard_estimates, shard_count, corrupted_shards,
+                  mask=_alive_to_mask(alive_counts))
+
+
+# The tier-2 names (config.tier2_defense); the hierarchical round's tier-1
+# defense is restricted to the same mask-aware set.
+TIER2_DEFENSES = {"NoDefense": shard_mean, "Krum": shard_krum,
+                  "TrimmedMean": shard_trimmed_mean,
+                  "Bulyan": shard_bulyan, "Median": shard_median}
+
+
+def check_tier2_args(name, shard_count, corrupted_shards):
+    """Validity of a tier's reduction: the Krum/Bulyan bounds of
+    :func:`check_defense_args`, plus the trimmed mean's keep-count floor
+    (S - f2 - 1 >= 1), which the flat round never meets since n >> f."""
+    check_defense_args(name, shard_count, corrupted_shards)
+    if (name in ("TrimmedMean",)
+            and shard_count - corrupted_shards - 1 < 1):
+        raise ValueError(
+            f"tier-2 TrimmedMean keeps shard_count - corrupted_shards - 1 "
+            f"estimates; got S={shard_count}, f2={corrupted_shards}")
+
+
 def check_defense_args(name, users_count, corrupted_count):
     """Host-side guards mirroring the reference asserts (defences.py:25
     n >= 2f+1 for Krum; defences.py:56 n >= 4f+3 for Bulyan)."""

@@ -52,8 +52,9 @@ class Checkpointer:
     checkpoint.  Auto-checkpoints rotate (``keep_last``).
 
     ``extra``: named arrays saved beside the server state; the engine
-    puts its carry state there (the straggler ring, ``extra_stale``),
-    so a resumed faulted run continues bit for bit.
+    puts its carry state there (the straggler ring, ``extra_stale``:
+    (delay, m, d), or (delay, S, m, d) in hierarchical rounds), so a
+    resumed faulted run continues bit for bit.
 
     ``auto_dir``: where the auto-checkpoints live.  By default the
     best-checkpoint dir ``runs/<dataset>/`` (the reference's path,

@@ -14,7 +14,9 @@ Event contract: one JSON object per line with a ``kind`` from
 table is the JAX package's schema v14 kind for kind, so the JAX
 package's readers (``iter_events``, ``tools/check_events.py``, the
 registry) read a port run's log unchanged.  The port emits ``eval``,
-``asr``, ``fault``, ``async`` (one a round in async rounds),
+``asr``, ``fault`` (in hierarchical rounds with the v13 fields
+``shard_alive``, ``shards_dead``, ``shards_alive`` and ``tier2_action``),
+``async`` (one a round in async rounds),
 ``heartbeat``, ``lifecycle`` and ``registry`` events today; the other
 kinds belong to slices not ported yet.
 Readers accept every version; a newer-only kind stamped with an older

@@ -263,8 +263,34 @@ success):
                events the replay's.  Printed: the schedule's host ms a
                round, the actions, arrivals and f_eff.
 
+13. hier   -- the hierarchical two-tier round through run() at phase 5's
+               width, batch 32, megabatches of 100 (S = n / 100), mal_prop
+               0.24: [hier kernel] lines first, each kernel of the path
+               against its plain version at the tier-1 shape (100,
+               79,510) and tier 2's (10, 79,510), unmasked and masked
+               (alive counts with two dead shards); (a) n = 1,000 (S =
+               10, f1 = 24, f2 = 3) under Krum/Krum, Bulyan/TrimmedMean,
+               TrimmedMean/Median, Median/Median, NoDefense/NoDefense,
+               and Krum/Krum 'concentrated', 6 rounds; (b) faulted
+               TrimmedMean/Krum (dropout, NaN corruption, shard-domain
+               dropout 0.2 with dwell 2, stragglers at delay 2; 8 rounds
+               walking remask, fallback and hold), its 'fault' events and
+               actions equal to hier_fault_schedule + plan_tier2_actions,
+               then checkpointed after round 3 (the (2, 10, 100, d) ring)
+               and resumed bit for bit; (c) Krum/Krum over 100,000
+               clients, the slots the card used equal to the host's draw;
+               (d) the backdoor under TrimmedMean, 3 rounds, one craft a
+               megabatch; (e) Bulyan/Bulyan at n = 10,000 (S = 100, f1 =
+               f2 = 24) on 320,000 images, 32 a client, its peak above
+               the resting state under 1 GB.  Each round must launch S
+               tier-1 calls' and one tier-2 call's kernels (the action's
+               under faults) and no other; the first two calls of each
+               tier are held against the CPU as phases 10 to 12 do.
+               Printed: round ms (host clock and CUDA events), deliver ms
+               per megabatch, peak, launches.
+
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-12), the nvidia-smi line, and as the last line
+summed over phases 5-13), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1346,7 +1372,21 @@ def drive(exp, kernels, banned, failures, label, excluded=None):
            "acc_txt": "/".join(f"{accs[r]:.2f}" if r in accs else "none"
                                for r in evals),
            "counts_ok": True}
-    if fc is not None:
+    if fc is not None and getattr(exp, "_placement", None) is not None:
+        # Hierarchical rounds (phase 13): the per-shard counts, the dead
+        # domains and the ladder's actions against the host replay.
+        from attacking_federate_learning_tpu_torch.core.faults import (
+            hier_fault_schedule, plan_tier2_actions
+        )
+
+        rows = hier_fault_schedule(exp._fault_key, 0, rounds,
+                                   exp._placement, fc)
+        acts = plan_tier2_actions([r["shards_alive"] for r in rows],
+                                  exp._tier2_name, exp._tier2_f)
+        out["actions"] = acts.tolist()
+        out["counts_ok"] = result["faults"] == [
+            {**r, "tier2_action": int(a)} for r, a in zip(rows, acts)]
+    elif fc is not None:
         # The counts the engine reported, against a host replay of
         # the schedule (NaN corruption is quarantined with dropout).
         want, draw_s = [], []
@@ -2153,7 +2193,8 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs,
             K.pairwise_distances = lambda G: seen[0][1].cpu()
         try:
             want = inner(grads.cpu(), n, f,
-                         **{k: v.cpu() for k, v in kw.items()}).float()
+                         **{k: v if v is None else v.cpu()
+                            for k, v in kw.items()}).float()
         finally:
             K.pairwise_distances = distances
         g = got.float().cpu()
@@ -3763,6 +3804,449 @@ def run_traffic_path(ds, failures, smi):
     return totals
 
 
+# -- phase 13: the hierarchical round --------------------------------------------
+N_HIER, M_HIER, B_HIER = 1000, 100, 32   # S = 10; f = 240: f1 = 24, f2 = 3
+N_HIER_E = 10_000                        # (e): S = 100; f1 = f2 = 24
+P13_ROUNDS = 6                           # rounds 0..5, evaluated at 0 and 5
+P13_CHECKED = 2        # tier-1 calls, and tier-2 calls, held against the CPU
+# Launches of one defense call over an unmasked matrix (both tiers of a
+# clean round) and over a masked one (faulted rounds: tier 1 with the
+# quarantine mask, tier 2 with the alive counts).
+HIER_UNMASKED = {"NoDefense": {}, "Krum": {"krum_scores": 1},
+                 "TrimmedMean": {"trimmed_mean": 1},
+                 "Median": {"median": 1},
+                 "Bulyan": {"pairwise_distances": 1, "trimmed_mean": 1}}
+HIER_MASKED = {"NoDefense": {}, "Krum": {"pairwise_distances": 1},
+               "TrimmedMean": {"masked_trimmed_mean": 1},
+               "Median": {"masked_median": 1},
+               "Bulyan": {"pairwise_distances": 1,
+                          "masked_trimmed_mean": 1}}
+# (a): (label, tier 1, tier 2, placement)
+P13_RUNS = (
+    ("(a) Krum/Krum", "Krum", "Krum", "spread"),
+    ("(a) Bulyan/TrimmedMean", "Bulyan", "TrimmedMean", "spread"),
+    ("(a) TrimmedMean/Median", "TrimmedMean", "Median", "spread"),
+    ("(a) Median/Median", "Median", "Median", "spread"),
+    ("(a) NoDefense/NoDefense", "NoDefense", "NoDefense", "spread"),
+    ("(a) Krum/Krum concentrated", "Krum", "Krum", "concentrated"),
+)
+# (b): seed 4's plan over rounds 0..7 (hier_fault_schedule and
+# plan_tier2_actions on the host): remask, hold, hold, fallback, remask,
+# fallback, fallback, fallback; 9, 5, 5, 7, 9, 7, 7, 8 shards alive.
+P13_FAULTS = dict(dropout=0.1, corrupt=0.05, corrupt_mode="nan",
+                  shard_dropout=0.2, shard_dropout_dwell=2, straggler=0.1,
+                  straggler_delay=2, seed=4)
+P13_FAULT_ROUNDS, P13_RESUME_AT = 8, 4
+
+
+def hier_config(defense, tier2, placement="spread", n=N_HIER,
+                epochs=P13_ROUNDS, test_step=5, synth_train=60_000, **kw):
+    """Phase 13's configuration: mnist_mlp at phase 5's width, mal_prop
+    0.24, megabatches of 100 clients, batch 32 (every client of n = 1,000
+    holds 60 of the 60,000 images, of n = 10,000 the 32 of 320,000)."""
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(
+        dataset=C.SYNTH_MNIST, users_count=n, mal_prop=0.24,
+        batch_size=B_HIER, epochs=epochs, num_std=1.5, learning_rate=0.1,
+        momentum=0.9, defense=defense, test_step=test_step,
+        synth_train=synth_train, synth_test=10_000,
+        aggregation="hierarchical", megabatch=M_HIER, tier2_defense=tier2,
+        mal_placement=placement, **kw)
+
+
+def hier_expected(exp, action):
+    """Launches per kernel one round of ``exp`` must make: S tier-1 calls
+    and one tier-2 call (the configured tier-2 defense under 'remask', the
+    masked shard median under 'fallback', none under 'hold')."""
+    table = HIER_MASKED if exp.faults is not None else HIER_UNMASKED
+    S = exp._placement.num_shards
+    want = {k: S * v for k, v in table[exp.cfg.defense].items()}
+    tier2 = (exp._tier2_name, "Median", None)[action]
+    for k, v in (table[tier2].items() if tier2 else ()):
+        want[k] = want.get(k, 0) + v
+    return want
+
+
+def hier_drive(exp, failures, label):
+    """One phase-13 run through ``drive``: the first P13_CHECKED tier-1
+    calls and tier-2 calls (the fallback's too) held against the plain
+    versions on the CPU (``checked_defense``'s bands), each round's
+    launches equal to :func:`hier_expected` of its action, a hold round's
+    weights and velocity bit for bit, the round's device time from CUDA
+    events.  Returns drive's result, the rounds' records, the CPU errors
+    and the device round ms."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    excluded, errs, dist_errs, t2_errs, t2_dist = [], [], [], [], []
+    checked_defense(exp, P13_CHECKED, excluded, errs, dist_errs)
+    checked_defense(exp, P13_CHECKED, excluded, t2_errs, t2_dist,
+                    attr="_tier2_fn", defense=exp._tier2_name)
+    if exp.faults is not None:
+        checked_defense(exp, P13_CHECKED, excluded, t2_errs, t2_dist,
+                        attr="_tier2_fallback_fn", defense="Median")
+    per_round, inner = [], exp.run_round
+
+    def observed(t):
+        a = time.perf_counter()
+        before = dict(_build.LAUNCHES)
+        w0, v0 = exp.state.weights.clone(), exp.state.velocity.clone()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        excluded.append(time.perf_counter() - a)
+        ev[0].record()
+        out = inner(t)
+        ev[1].record()
+        a = time.perf_counter()
+        action = (0 if exp.faults is None
+                  else exp.last_round_faults["tier2_action"])
+        got = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+               if v > before[k]}
+        hold_ok = action != 2 or (torch.equal(out.weights, w0)
+                                  and torch.equal(out.velocity, v0)
+                                  and out.round == t + 1)
+        per_round.append({"t": t, "action": action, "launches": got,
+                          "ok": got == hier_expected(exp, action)
+                          and hold_ok, "ev": ev})
+        excluded.append(time.perf_counter() - a)
+        return out
+
+    exp.run_round = observed
+    actions = {0} if exp.faults is None else {0, 1, 2}
+    may = set()
+    for act in actions:
+        may |= set(hier_expected(exp, act))
+    kernels = tuple(hier_expected(exp, 0))
+    banned = tuple(k for k in _build.LAUNCHES if k not in may)
+    run = drive(exp, kernels, banned, failures, f"hier {label}", excluded)
+    dev_ms = statistics.median(r["ev"][0].elapsed_time(r["ev"][1])
+                               for r in per_round)
+    bad = [(r["t"], r["action"], r["launches"]) for r in per_round
+           if not r["ok"]]
+    cpu = errs + t2_errs + dist_errs + t2_dist
+    if bad or not all(ok for _, ok in cpu) or len(errs) < P13_CHECKED:
+        failures.append(f"hier {label}: rounds with other launches than "
+                        f"their defenses' {bad}; aggregates vs CPU {errs} "
+                        f"tier 2 {t2_errs} distances {dist_errs} {t2_dist}")
+    return run, per_round, errs + t2_errs, dev_ms
+
+
+def hier_line(tag, label, exp, run, per_round, errs, dev_ms, smi, extra=""):
+    S = exp._placement.num_shards
+    print(f"[hier] {tag} {label:26s} n={exp.n} S={S} f={exp.f} "
+          f"f1={exp._tier1_f} f2={exp._tier2_f} mal_counts[:3]="
+          f"{list(exp._placement.mal_counts[:3])} acc={run['acc_txt']} % "
+          f"median_round_ms={run['median_ms']:.3f} (host clock) "
+          f"device_round_ms={dev_ms:.3f} (CUDA events) "
+          f"deliver_ms={run['deliver_ms']:.3f} per megabatch "
+          f"peak_GiB={run['peak_gib']:.3f} launches_round_1="
+          f"{per_round[min(1, len(per_round) - 1)]['launches']} "
+          f"launches_ok={all(r['ok'] for r in per_round)} agg_vs_cpu="
+          f"{[(float(f'{e:.3e}'), o) for e, o in errs]} {extra}"
+          f"finite={run['finite']} on {smi}", flush=True)
+
+
+def check_hier_kernels(failures, smi):
+    """Each kernel of the hierarchical path against its plain version on
+    the card at the tier-1 shape (100, 79,510), f1 = 24, and at tier 2's
+    (10, 79,510), f2 = 3 (the sort route pads 10 rows to 32), unmasked
+    and masked: tier 1 with a drawn quarantine mask, tier 2 with the
+    mask of alive counts that lost two shards.  Distances within phase
+    3's d^2 band, symmetric with a zero diagonal; Krum's scores within
+    the band's sum and its winner exact or tied within it; the medians
+    exact; the trimmed means within k rounding steps of the largest |g|
+    (2x margin)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
+        krum_scores, krum_scores_plain, masked_median, masked_median_plain,
+        masked_trimmed_mean, masked_trimmed_mean_plain, median_of,
+        median_of_plain, trimmed_mean_of, trimmed_mean_of_plain
+    )
+    from attacking_federate_learning_tpu_torch.ops.distances import (
+        pairwise_distances, pairwise_distances_plain
+    )
+
+    eps = float(np.finfo(np.float32).eps)
+    alive = torch.tensor([100, 0, 97, 100, 100, 0, 99, 100, 100, 98])
+    shapes = (("tier 1", 100, 24, torch.from_numpy(drawn_mask(100, 3, 24))),
+              ("tier 2", 10, 3, alive > 0))
+    for tier, n, f, mask in shapes:
+        G = torch.from_numpy(cohort(n, D_MLP, f, "alie", 40 + n)).cuda()
+        mask = mask.cuda()
+        e = int(mask.sum())
+        G64 = G.double()
+        sq64 = (G64 * G64).sum(1)
+        band = d2_band(sq64, kernel_chain(D_MLP)) + d2_band(sq64, D_MLP)
+        D = pairwise_distances(G)
+        Dp = pairwise_distances_plain(G)
+        checks = [("pairwise_distances",
+                   float((D - Dp).abs().max()),
+                   bool(((D.double() ** 2 - Dp.double() ** 2).abs()
+                         <= band).all()) and bool((D == D.T).all())
+                   and bool((D.diagonal() == 0).all()),
+                   lambda: pairwise_distances(G),
+                   lambda: pairwise_distances_plain(G))]
+        (gs, gr), (ws, wr) = krum_scores(G, f), krum_scores_plain(G, f)
+        eij = torch.minimum(band.sqrt(), band / Dp.double().clamp(
+            min=1e-30)).sum(1)
+        tol = eij + 2.0 * n * eps * wr.double().abs()
+        ga, wa = int(torch.argmin(gs)), int(torch.argmin(ws))
+        ok = (bool(((gs.double() - ws.double()).abs() <= 2 * tol).all())
+              and bool(((gr.double() - wr.double()).abs() <= tol).all())
+              and (ga == wa or abs(float(ws[ga] - ws[wa]))
+                   <= float(2 * (tol[ga] + tol[wa]))))
+        checks.append(("krum_scores", float((gs - ws).abs().max()), ok,
+                       lambda: krum_scores(G, f),
+                       lambda: krum_scores_plain(G, f)))
+        k = n - f - 1
+        atol = 2.0 * k * eps * float(G.abs().max())
+        got, want = trimmed_mean_of(G, k), trimmed_mean_of_plain(G, k)
+        checks.append(("trimmed_mean", *close(got, want, atol, 1e-6),
+                       lambda: trimmed_mean_of(G, k),
+                       lambda: trimmed_mean_of_plain(G, k)))
+        checks.append(("median", *exact(median_of(G), median_of_plain(G)),
+                       lambda: median_of(G), lambda: median_of_plain(G)))
+        got = masked_trimmed_mean(G, mask, f + 1)
+        want = masked_trimmed_mean_plain(G, mask, f + 1)
+        atol = 2.0 * e * eps * float(G[mask].abs().max())
+        checks.append(("masked_trimmed_mean", *close(got, want, atol, 1e-6),
+                       lambda: masked_trimmed_mean(G, mask, f + 1),
+                       lambda: masked_trimmed_mean_plain(G, mask, f + 1)))
+        checks.append(("masked_median",
+                       *exact(masked_median(G, mask),
+                              masked_median_plain(G, mask)),
+                       lambda: masked_median(G, mask),
+                       lambda: masked_median_plain(G, mask)))
+        for name, err, ok, fn, plain in checks:
+            print(f"[hier kernel] {name:19s} {tier} ({n}, {D_MLP}) f={f} "
+                  f"alive={e} max_abs_err={err:.3e} ok={ok} "
+                  f"ms={time_ms(fn, 5):.4f} plain_ms={time_ms(plain, 5):.4f}"
+                  f" on {smi}", flush=True)
+            if not ok:
+                failures.append(f"hier kernel {name} {tier}: max_abs_err "
+                                f"{err:.3e}")
+
+
+def run_hier_path(ds, failures, smi):
+    """Phase 13: the hierarchical round through run() at mnist_mlp's
+    width: (a) P13_RUNS at n = 1,000, S = 10; (b) faulted TrimmedMean /
+    Krum walking the tier-2 ladder, then a checkpoint and a bit-equal
+    resume; (c) Krum / Krum over 100,000 clients (slot resampling); (d)
+    the backdoor; (e) Bulyan / Bulyan at n = 10,000, S = 100, its peak
+    above the resting state under 1 GB.  Returns launches per kernel
+    summed over the runs."""
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import (
+        DriftAttack, make_attacker
+    )
+    from attacking_federate_learning_tpu_torch.config import (
+        FaultConfig, TrafficConfig
+    )
+    from attacking_federate_learning_tpu_torch.core import population as P
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        hier_round_faults
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.checkpoint import (
+        Checkpointer
+    )
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            totals[k] += v
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    check_hier_kernels(failures, smi)
+    # -- (a) the tier pairs ---------------------------------------------------
+    for label, t1, t2, placement in P13_RUNS:
+        cfg = hier_config(t1, t2, placement)
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda")
+        run, per_round, errs, dev_ms = hier_drive(exp, failures, label)
+        add(run)
+        hier_line("(a)", label[4:], exp, run, per_round, errs, dev_ms, smi)
+        del exp, run
+        release()
+    # -- (b) faults, the ladder, a checkpoint and a resume -------------------
+    cfg = hier_config("TrimmedMean", "Krum", epochs=P13_FAULT_ROUNDS,
+                      test_step=4, faults=FaultConfig(**P13_FAULTS))
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda")
+    draw_s = []
+    for t in range(cfg.epochs):
+        a = time.perf_counter()
+        hier_round_faults(exp._fault_key, t, exp._placement, exp.faults)
+        draw_s.append(time.perf_counter() - a)
+    run, per_round, errs, dev_ms = hier_drive(exp, failures,
+                                              "(b) faulted TrimmedMean/Krum")
+    add(run)
+    actions = [r["action"] for r in per_round]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p13_") as root:
+        first = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                    device="cuda")
+        for t in range(P13_RESUME_AT):
+            first.run_round(t)
+        ck = Checkpointer(cfg, run_dir=root)
+        a = time.perf_counter()
+        path = ck.save_auto(first.state, extra=first.carry_state_host())
+        save_ms = 1e3 * (time.perf_counter() - a)
+        nbytes = os.path.getsize(path)
+        del first
+        release()
+        second = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                     device="cuda")
+        a = time.perf_counter()
+        second.state, extra = ck.resume(path, with_extra=True,
+                                        device="cuda")
+        second.restore_carry_state(extra)
+        resume_ms = 1e3 * (time.perf_counter() - a)
+        ring_shape = tuple(second.fault_state["stale"].shape)
+        for t in range(P13_RESUME_AT, cfg.epochs):
+            second.run_round(t)
+        resumed_ok = (torch.equal(second.state.weights, exp.state.weights)
+                      and torch.equal(second.state.velocity,
+                                      exp.state.velocity)
+                      and torch.equal(second.fault_state["stale"],
+                                      exp.fault_state["stale"]))
+        del second, extra
+    ladder_ok = set(actions) == {0, 1, 2} and actions == run.get("actions")
+    if not (ladder_ok and resumed_ok and run["counts_ok"]):
+        failures.append(f"hier (b): actions {actions} (plan "
+                        f"{run.get('actions')}), events = replay "
+                        f"{run['counts_ok']}, resume bit-equal {resumed_ok}")
+    hier_line("(b)", "faulted TrimmedMean/Krum", exp, run, per_round, errs,
+              dev_ms, smi,
+              f"actions={actions} shards_alive="
+              f"{[r['shards_alive'] for r in run['result']['faults']]} "
+              f"fault_events_equal_replay={run['counts_ok']} "
+              f"draw_host_ms={1e3 * statistics.median(draw_s):.3f} "
+              f"ring={ring_shape} checkpoint_bytes={nbytes} save_ms="
+              f"{save_ms:.1f} resume_ms={resume_ms:.1f} resumed_at="
+              f"{P13_RESUME_AT} bit_equal={resumed_ok} ")
+    del exp, run
+    release()
+    # -- (c) slot resampling over 100,000 clients ----------------------------
+    cfg = hier_config("Krum", "Krum", epochs=4, test_step=3,
+                      traffic=TrafficConfig(population=100_000))
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda")
+    parts, grads_fn = [], exp.compute_grads
+
+    def recorded(t, part=None, grads_fn=grads_fn):
+        parts.append(part)
+        return grads_fn(t, part)
+
+    exp.compute_grads = recorded
+    run, per_round, errs, dev_ms = hier_drive(exp, failures,
+                                              "(c) Krum/Krum P=100,000")
+    add(run)
+    place, slot_s = exp._placement, []
+    want = []
+    for t in range(cfg.epochs):
+        a = time.perf_counter()
+        want.append(np.stack([P.resample_slots(
+            exp._traffic_key, t, place.grid[s].astype(np.int64),
+            place.mal_counts[s], exp.f, exp.n)
+            for s in range(place.num_shards)]))
+        slot_s.append(time.perf_counter() - a)
+    used = torch.stack(parts).cpu().numpy().reshape(
+        cfg.epochs, place.num_shards, place.megabatch)
+    slots_ok = np.array_equal(used, np.stack(want))
+    if not slots_ok:
+        failures.append("hier (c): the device's slots differ from the "
+                        "host's draw")
+    hier_line("(c)", "Krum/Krum P=100,000", exp, run, per_round, errs,
+              dev_ms, smi,
+              f"slots_equal_host_draw={slots_ok} slot_draw_host_ms="
+              f"{1e3 * statistics.median(slot_s):.3f} ")
+    del exp, run, parts
+    release()
+    # -- (d) the backdoor, once per megabatch ----------------------------------
+    cfg = hier_config("TrimmedMean", "TrimmedMean", epochs=3, test_step=1,
+                      backdoor="pattern")
+    att = make_attacker(cfg, dataset=ds, device="cuda")
+    crafts, craft = [], att.craft
+
+    def timed_craft(mal, ctx, craft=craft):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = craft(mal, ctx)
+        b.record()
+        crafts.append((a, b, mal.shape[0], ctx.check_finite))
+        return out
+
+    att.craft = timed_craft
+    exp = FederatedExperiment(cfg, att, ds, device="cuda")
+    run, per_round, errs, dev_ms = hier_drive(exp, failures,
+                                              "(d) backdoor")
+    add(run)
+    craft_ms = statistics.median(a.elapsed_time(b) for a, b, _, _ in crafts)
+    crafts_ok = [(c, chk) for _, _, c, chk in crafts] == [
+        (c, False) for c in exp._placement.mal_counts if c] * cfg.epochs
+    lines_ok = backdoor_lines_ok(run["lines"], run["result"]["asr"])
+    if not (crafts_ok and lines_ok):
+        failures.append(f"hier (d): crafts per megabatch ok={crafts_ok}, "
+                        f"lines ok={lines_ok}")
+    hier_line("(d)", "backdoor TrimmedMean", exp, run, per_round, errs,
+              dev_ms, smi,
+              f"crafts={len(crafts)} craft_ms={craft_ms:.3f} "
+              f"early_outs={att.early_outs} ASR={run['result']['asr']} ")
+    del exp, run, att
+    release()
+    # -- (e) n = 10,000 in S = 100 megabatches ------------------------------
+    a = time.perf_counter()
+    ds_e = load_dataset(C.SYNTH_MNIST, seed=0,
+                        synth_train=N_HIER_E * B_HIER, synth_test=10_000)
+    made_s = time.perf_counter() - a
+    cfg = hier_config("Bulyan", "Bulyan", n=N_HIER_E, epochs=2, test_step=1,
+                      synth_train=N_HIER_E * B_HIER)
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds_e,
+                              device="cuda")
+    shard_len = int(exp.shards.shape[1])
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()
+    run, per_round, errs, dev_ms = hier_drive(exp, failures,
+                                              "(e) Bulyan/Bulyan n=10,000")
+    add(run)
+    above = run["peak_gib"] * 2 ** 30 - rest
+    full = N_HIER_E * exp.flat.dim * 4
+    if not (above < 1e9 and shard_len >= B_HIER):
+        failures.append(f"hier (e): peak above rest {above / 1e9:.3f} GB "
+                        f"(limit 1 GB), shard_len {shard_len}")
+    hier_line("(e)", "Bulyan/Bulyan n=10,000", exp, run, per_round, errs,
+              dev_ms, smi,
+              f"synth_train={N_HIER_E * B_HIER} (made in {made_s:.1f} s) "
+              f"images_per_client={shard_len} batch={B_HIER} rest_GB="
+              f"{rest / 1e9:.3f} peak_above_rest_GB={above / 1e9:.3f} "
+              f"(the (n, d) matrix alone: {full / 1e9:.2f} GB) ")
+    del exp, run, ds_e
+    release()
+    print(f"[hier] phase 13 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -3824,10 +4308,12 @@ def main() -> int:
     defense_totals = run_defense_path(ds, failures, smi)
     # -- 12. population & traffic ---------------------------------------------
     traffic_totals = run_traffic_path(ds, failures, smi)
+    # -- 13. the hierarchical round -------------------------------------------
+    hier_totals = run_hier_path(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
-            async_totals, defense_totals, traffic_totals))
+            async_totals, defense_totals, traffic_totals, hier_totals))
 
     if failures:
         for msg in failures:

@@ -512,9 +512,17 @@ def test_config_defaults_are_jax_s():
 
 
 def test_hierarchical_is_refused_as_not_ported():
+    """The hierarchical round is ported now
+    (tests/test_torch_port_hierarchy.py): the config takes it with a
+    megabatch, as JAX's does, and refuses it without one with JAX's
+    message."""
     JConfig(aggregation="hierarchical", megabatch=5)
-    with pytest.raises(ValueError, match="'hierarchical' is not ported"):
+    ExperimentConfig(aggregation="hierarchical", megabatch=5)
+    with pytest.raises(ValueError) as je:
+        JConfig(aggregation="hierarchical")
+    with pytest.raises(ValueError) as te:
         ExperimentConfig(aggregation="hierarchical")
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("kw", [

@@ -74,6 +74,12 @@ def forbidden_imports(source: str):
     return found
 
 
+def test_the_scan_covers_the_hierarchical_modules():
+    for rel in ("ops/federated.py", "core/faults.py", "core/population.py",
+                "defenses/kernels.py", "core/engine.py"):
+        assert PORT_DIR / rel in SOURCES, rel
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_import(path):
