@@ -12,8 +12,9 @@ knobs (``--participation``, ``--local-steps``, ``--partition`` with
 async buffered round's (``--aggregation``, ``--async-buffer``,
 ``--async-max-staleness``, ``--staleness-weight``), the hierarchical
 round's (``--megabatch``, ``--tier2-defense``, ``--mal-placement``,
-``--tier1-corrupted``, ``--tier2-corrupted``), the beyond-reference
-defenses'
+``--tier1-corrupted``, ``--tier2-corrupted``), secure aggregation's
+``--secagg`` (vanilla on the flat round, groupwise on the hierarchical
+one), the beyond-reference defenses'
 (``-d`` DnC/GeoMedian/CenteredClip/FLTrust/NormBound with
 ``--dnc-iters``, ``--dnc-sketch-dim``, ``--dnc-filter-frac``,
 ``--geomed-iters``, ``--geomed-eps``, ``--cclip-tau``, ``--cclip-iters``),
@@ -59,6 +60,11 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 1000 -m 0.24 --aggregation hierarchical \\
           --megabatch 100 --tier2-defense Median
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d NoDefense -n 100 -m 0.24 --secagg vanilla --fault-dropout 0.1
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d NoDefense -n 1000 -m 0.24 --aggregation hierarchical \\
+          --megabatch 100 --tier2-defense Krum --secagg groupwise
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d DnC -n 100 -m 0.24 --attack minmax
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
@@ -231,6 +237,18 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="F2",
                    help="assumed corrupted-shard bound for tier-2 "
                         "(default: ceil(f / megabatch))")
+    p.add_argument("--secagg", default="off",
+                   choices=["off", "vanilla", "groupwise"],
+                   help="secure-aggregation protocol layer "
+                        "(protocols/secagg.py): 'vanilla' = Bonawitz-"
+                        "style pairwise-masked cohort sum (requires -d "
+                        "NoDefense — the server sees no per-client "
+                        "rows; --fault-dropout becomes a mask-"
+                        "reconstruction round), 'groupwise' = NET-SA-"
+                        "style per-megabatch sums composed with "
+                        "--aggregation hierarchical (tier-2 robust "
+                        "kernels run over group sums via "
+                        "--tier2-defense)")
     p.add_argument("--krum-paper-scoring", action="store_true",
                    help="paper-faithful Krum scoring (n-f-2 closest) instead "
                         "of the reference's n-f (defences.py:26)")
@@ -466,7 +484,7 @@ def config_from_args(args) -> ExperimentConfig:
         megabatch=args.megabatch, tier2_defense=args.tier2_defense,
         mal_placement=args.mal_placement,
         tier1_corrupted=args.tier1_corrupted,
-        tier2_corrupted=args.tier2_corrupted,
+        tier2_corrupted=args.tier2_corrupted, secagg=args.secagg,
         checkpoint_every=args.checkpoint_every, output=args.output,
         log_dir=args.log_dir, run_dir=args.run_dir)
 

@@ -14,9 +14,11 @@ beyond-reference defenses' constants (``dnc_*``, ``geomed_*``,
 ``cclip_*``) and the population & traffic model (``TrafficConfig``, a
 copy of the JAX package's), and the hierarchical two-tier round's
 (``aggregation='hierarchical'``, ``megabatch``, ``tier2_defense``,
-``mal_placement``, ``tier1_corrupted``, ``tier2_corrupted``).  The
-device mesh (``mesh_shape``, the SPMD client map), host streaming,
-secagg and the observability knobs are later slices of the port.
+``mal_placement``, ``tier1_corrupted``, ``tier2_corrupted``), and secure
+aggregation (``secagg``: 'off', 'vanilla' on the flat round,
+'groupwise' on the hierarchical one).  The device mesh (``mesh_shape``,
+the SPMD client map), host streaming and the observability knobs are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -434,6 +436,26 @@ class ExperimentConfig:
     # divergence watchdog's rollback target (core/engine.py).
     checkpoint_every: int = 0
 
+    # --- secure aggregation (protocols/secagg.py) -----------------------
+    # Server-visibility mode for client updates:
+    #   'off'       the reference fiction — the server sees every row in
+    #               the clear
+    #   'vanilla'   Bonawitz-style pairwise-masked sums: per-pair
+    #               counter-based PRNG masks in the uint32 bitcast domain
+    #               (bit-exact cancellation), the server sees only the
+    #               masked wire + the recovered sum.  Robust per-client
+    #               defenses CANNOT run (no rows to defend over) —
+    #               NoDefense is required, and a --fault-dropout round
+    #               becomes a mask-reconstruction round (simulated
+    #               seed-reveal, exact sum recovery).
+    #   'groupwise' NET-SA-style group-wise secagg composed with
+    #               aggregation='hierarchical': each megabatch's sum is
+    #               secure-aggregated (masks within the group, keyed on
+    #               global client ids) and the server sees per-GROUP
+    #               sums — tier-2 robust kernels (--tier2-defense) run
+    #               over the (n/m, d) group-sum matrix.
+    secagg: str = "off"
+
     def __post_init__(self):
         if self.model is not None and self.model in MODEL_FAMILY:
             want = DATASET_FAMILY.get(self.dataset)
@@ -532,7 +554,9 @@ class ExperimentConfig:
             raise ValueError(
                 f"participation must be in (0, 1], got "
                 f"{self.participation}")
-        if self.backdoor and not self.backdoor_fused:
+        if (self.backdoor and not self.backdoor_fused
+                and self.secagg == "off"):
+            # Under secagg the check below names --secagg's reason.
             raise ValueError(
                 "--backdoor-staged aggregates eagerly on the host "
                 "between compute and craft; the Pallas defense "
@@ -566,6 +590,62 @@ class ExperimentConfig:
             raise ValueError(
                 f"checkpoint_every must be >= 0, got "
                 f"{self.checkpoint_every}")
+        if self.secagg not in ("off", "vanilla", "groupwise"):
+            raise ValueError(
+                f"--secagg must be 'off', 'vanilla' or 'groupwise', "
+                f"got {self.secagg!r}")
+        if self.secagg != "off":
+            # Secure aggregation inverts the server's visibility: every
+            # feature that reads per-client rows server-side is rejected
+            # here, with the offending flag named (the JAX package's
+            # messages; its --telemetry and --round-stats rows come with
+            # those fields).
+            if self.defense != "NoDefense":
+                hint = ("use --secagg groupwise with --tier2-defense to "
+                        "defend over per-group sums"
+                        if self.secagg == "vanilla" else
+                        "move the robust kernel to --tier2-defense (it "
+                        "runs over the per-group sums)")
+                raise ValueError(
+                    f"--secagg {self.secagg}: defense {self.defense!r} "
+                    f"cannot run — the server never sees per-client "
+                    f"updates, so there are no rows to defend over; "
+                    f"set -d NoDefense ({hint})")
+            if self.secagg == "vanilla" and self.aggregation != "flat":
+                raise ValueError(
+                    "--secagg vanilla masks the whole cohort into one "
+                    "sum and requires --aggregation flat; use --secagg "
+                    "groupwise for the hierarchical composition")
+            if self.secagg == "groupwise" and self.aggregation != (
+                    "hierarchical"):
+                raise ValueError(
+                    "--secagg groupwise exposes per-megabatch sums and "
+                    "requires --aggregation hierarchical (+ --megabatch)")
+            if self.backdoor and not self.backdoor_fused:
+                raise ValueError(
+                    "--backdoor-staged crafts on the host between "
+                    "compute and aggregation; --secagg masks inside "
+                    "the fused round program (drop --backdoor-staged)")
+            if self.participation < 1.0:
+                raise ValueError(
+                    "--secagg requires --participation 1.0: pairwise "
+                    "masks are keyed on client identity, and partial "
+                    "cohorts re-key every row each round")
+            if self.grad_dtype != "float32":
+                raise ValueError(
+                    f"--secagg masks in the uint32 bitcast domain of "
+                    f"f32 wire updates; grad_dtype={self.grad_dtype!r} "
+                    f"is not maskable (set grad_dtype='float32')")
+            if self.faults is not None and (self.faults.straggler > 0
+                                            or self.faults.corrupt > 0):
+                raise ValueError(
+                    "--secagg composes only with --fault-dropout / "
+                    "--fault-shard-dropout (dropout is the secure-"
+                    "aggregation protocol event: a mask-reconstruction "
+                    "round; a dead shard domain drops its whole "
+                    "group); --fault-straggler/--fault-corrupt mutate "
+                    "the masked wire, which the protocol cannot model "
+                    "yet")
         if self.num_std == "auto":
             from attacking_federate_learning_tpu_torch.attacks.alie import (
                 paper_z

@@ -169,6 +169,7 @@ from attacking_federate_learning_tpu_torch.defenses.kernels import (
 )
 from attacking_federate_learning_tpu_torch.models.base import get_model
 from attacking_federate_learning_tpu_torch.ops import federated as FD
+from attacking_federate_learning_tpu_torch.protocols import secagg as SA
 from attacking_federate_learning_tpu_torch.utils import threefry
 from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
 from attacking_federate_learning_tpu_torch.utils.metrics import RunLogger
@@ -239,6 +240,19 @@ class FederatedExperiment:
                     f"participation={cfg.participation})")
         else:
             self.m, self.m_mal = self.n, self.f
+        # Secure aggregation (protocols/secagg.py; cfg.secagg): the config
+        # refuses what it cannot compose with; a non-fusable attacker
+        # handed in programmatically is refused here, as in the JAX
+        # engine.
+        self._secagg = None
+        self.last_round_secagg = None
+        if cfg.secagg != "off":
+            if not getattr(self.attacker, "fusable", True):
+                raise ValueError(
+                    "--secagg masks inside the fused round program and "
+                    "needs a fusable attack (drop --backdoor-staged)")
+            self._secagg = cfg.secagg
+            self._secagg_key = SA.secagg_key(cfg)
         # The defense sees the round cohort, not the population, in async
         # rounds the delivered sub-cohort, in hierarchical rounds one
         # megabatch (tier 1) and the shard-estimate matrix (tier 2).
@@ -454,8 +468,7 @@ class FederatedExperiment:
         mask-aware set, a fusable attack; the placement, the assumed
         corrupted bounds per tier (ceil(f/S) and ceil(f/m) unless the
         config sets them) and each tier's validity bound.  The device
-        mesh and secure aggregation are refused: they are later slices
-        of the port."""
+        mesh is refused: it is a later slice of the port."""
         cfg = self.cfg
         if getattr(cfg, "mesh_shape", None) is not None:
             raise ValueError(
@@ -463,11 +476,6 @@ class FederatedExperiment:
                 "a device mesh is the multi-GPU slice of the port; the "
                 "port runs the hierarchical round's megabatches in order "
                 "on one device (drop --mesh-shape)")
-        if getattr(cfg, "secagg", "off") != "off":
-            raise ValueError(
-                "--secagg is not ported yet: group-wise secure "
-                "aggregation over the hierarchical round's megabatch "
-                "sums is a later slice of the port (drop --secagg)")
         if cfg.participation < 1.0:
             raise ValueError(
                 "hierarchical aggregation requires full participation "
@@ -674,13 +682,30 @@ class FederatedExperiment:
         grads = self.compute_grads(t, self.participants(t))
         grads = self.attacker.apply(grads, self.m_mal,
                                     self.attack_context(t))    # craft
-        if self.faults is None:
-            agg = self.aggregate(grads, t)                     # aggregate
-        else:
+        mask = None
+        if self.faults is not None:
             grads, mask = self.inject_and_quarantine(grads, t)
-            agg = self.aggregate(grads, t, mask=mask)
+        if self._secagg is not None:
+            grads = self.protect(grads, mask, t)               # protect
+        kw = {} if mask is None else {"mask": mask}
+        agg = self.aggregate(grads, t, **kw)                   # aggregate
         self.state = self._apply(agg, t)                       # apply
         return self.state
+
+    def protect(self, grads: torch.Tensor, mask, t: int) -> torch.Tensor:
+        """protect: vanilla secure aggregation between the quarantine and
+        the (NoDefense) aggregation, the JAX engine's ``secagg_step``:
+        every submitted row is masked in the uint32 bitcast domain, then
+        recovered and verified server-side (protocols/secagg.py), with
+        ``mask`` (the quarantine's) as the alive rows.  Returns the
+        recovered matrix, bit for bit the clear one with the dead rows
+        zeroed, and records the round's stats in ``last_round_secagg``.
+        With a mask, the dead rows' pair masks (dropped or quarantined
+        as non-finite) are re-derived every round."""
+        recovered, stats = SA.secagg_cohort(grads, mask, self._secagg_key, t)
+        self.last_round_secagg = {
+            "round": t, **{k[len("secagg_"):]: v for k, v in stats.items()}}
+        return recovered
 
     def traffic_plan(self, t0: int, count: int) -> P.TrafficSchedule:
         """The host-sampled traffic schedule of rounds [t0, t0 + count):
@@ -751,7 +776,18 @@ class FederatedExperiment:
         has its estimate zeroed.  The host-planned action runs the
         configured tier-2 defense over the alive shards ('remask'), the
         masked shard median ('fallback'), or holds.  Records the counts
-        in ``last_round_faults``."""
+        in ``last_round_faults``.
+
+        Under groupwise secure aggregation each megabatch's rows go
+        through the protocol (protocols/secagg.py), masks keyed on its
+        global client ids, before its tier-1 (NoDefense) mean: the pair
+        keys of all S groups are drawn on the host at once and cross in
+        one copy, the per-group sum checks and pair counts land in (S,)
+        device buffers, and the round's 'secagg' stats (the group sums'
+        norms among them) go to ``last_round_secagg``.  With faults a
+        group's alive rows are its undropped members (the JAX engine's
+        ``qmask = ~drop``); a dead domain still runs its group's
+        protocol."""
         place, fc = self._placement, self.faults
         S, m, f1 = place.num_shards, place.megabatch, self._tier1_f
         grid = self._grid
@@ -759,11 +795,22 @@ class FederatedExperiment:
             self.last_round_slots = self.slot_ids(t)
             grid = F.to_device(self.last_round_slots, self.device)
         action = P.TRAFFIC_REMASK
+        sec = self._secagg is not None
+        if sec:
+            keys, ids = SA.round_tables(
+                threefry.fold_in(self._secagg_key, t), place.grid,
+                self.device)
+            sec_ok = torch.ones(S, dtype=torch.int32, device=self.device)
+            sec_pairs = torch.zeros(S, dtype=torch.int32,
+                                    device=self.device)
+            drops = np.zeros(S, np.int64)
         if fc is not None:
             masks, dom, row = F.hier_round_faults(self._fault_key, t, place,
                                                   fc)
             action = int(F.plan_tier2_actions(
                 [row["shards_alive"]], self._tier2_name, self._tier2_f)[0])
+            if sec:
+                drops = masks[:, 0].sum(1)
             masks = F.to_device(masks, self.device)          # (S, 3, m)
             dom = F.to_device(dom, self.device)
             alive = torch.empty(S, dtype=torch.int64, device=self.device)
@@ -781,12 +828,21 @@ class FederatedExperiment:
             if bad is not None and c > 0:
                 bad[sid] = ~torch.isfinite(grads[:c]).all()
             if fc is None:
+                if sec:                                          # protect
+                    grads, _ = SA.protect(grads, (keys[sid], ids[sid]),
+                                          ok=sec_ok[sid])
                 return self.defense_fn(grads, m, f1)             # tier 1
             slab = (self.fault_state["stale"][t % fc.straggler_delay, sid]
                     if fc.straggler > 0 else None)
             grads, drop = F.apply_shard_faults(grads, masks[sid], slab, fc)
-            grads, qmask, q = F.quarantine(grads, drop)
-            quar[sid] = q["quarantined"]
+            if sec:
+                qmask = ~drop
+                grads, _ = SA.protect(grads, (keys[sid], ids[sid]), qmask,
+                                      ok=sec_ok[sid], count=sec_pairs[sid])
+                quar[sid] = m - qmask.sum()
+            else:
+                grads, qmask, q = F.quarantine(grads, drop)
+                quar[sid] = q["quarantined"]
             alive[sid] = qmask.sum() * dom[sid]
             return self.defense_fn(grads, m, f1, mask=qmask)
 
@@ -814,6 +870,20 @@ class FederatedExperiment:
                 fn = (self._tier2_fn if action == P.TRAFFIC_REMASK
                       else self._tier2_fallback_fn)
                 agg = FD.shard_reduce(fn, est, S, f2, alive_counts=alive)
+        if sec:
+            # The per-group sums are what the server sees (each estimate
+            # is sum / m): their norms, dead shards' zeroed.  The squares
+            # go through torch.sum, whose pairwise sum on the CPU keeps
+            # the f32 norm within an ulp or two of XLA's (the CPU's
+            # vector_norm is off by about 1e-6 at d = 79,510).
+            dropped = int(drops.sum())
+            self.last_round_secagg = {
+                "round": t,
+                "sum_check_ok": (sec_ok > 0).all().to(torch.int32),
+                "groups": S, "dropped": dropped,
+                "masks_reconstructed": sec_pairs.sum(),
+                "recovery": int(dropped > 0),
+                "group_sum_norms": est.square().sum(1).sqrt() * m}
         if bad is not None and bool(bad.any()):
             # The state stays at the last finished round.
             raise FloatingPointError("Got nan in backdoor shadow training")
@@ -1078,8 +1148,8 @@ class FederatedExperiment:
             self._last_good = (self._host_state(), self.carry_state_host())
         # A resumed ServerState carries its round counter.
         epoch = start_epoch = span_start = int(self.state.round)
-        fault_rows, async_rows, traffic_rows, pending, asr = (
-            [], [], [], [], [])
+        fault_rows, async_rows, traffic_rows, secagg_rows, pending, asr = (
+            [], [], [], [], [], [])
         last_asr = None
         if journal is not None:
             attempt = journal.start_attempt(epoch)
@@ -1100,26 +1170,32 @@ class FederatedExperiment:
         loop_t0 = time.perf_counter()
         while epoch < cfg.epochs:
             self.run_round(epoch)
-            if self.faults is not None or self.async_spec is not None:
+            if (self.faults is not None or self.async_spec is not None
+                    or self._secagg is not None):
                 pending.append((self.last_round_faults,
-                                self.last_round_async))
+                                self.last_round_async,
+                                self.last_round_secagg))
             is_eval = epoch % cfg.test_step == 0 or epoch == cfg.epochs - 1
             if not (is_eval or (ckpt_every and epoch % ckpt_every == 0)):
                 epoch += 1
                 continue
             # A host boundary: where the JAX engine's span ends.
             if pending:
-                for frow, arow in self._host_records(pending):
+                for frow, arow, srow in self._host_records(pending):
                     if frow is not None:
                         fault_rows.append(frow)
                     if arow is not None:
                         async_rows.append(arow)
-                    t_rec = (frow or arow)["round"]
+                    if srow is not None:
+                        secagg_rows.append(srow)
+                    t_rec = (frow or arow or srow)["round"]
                     if fresh(t_rec):
                         if frow is not None:
                             logger.record(kind="fault", **frow)
                         if arow is not None:
                             logger.record(kind="async", **arow)
+                        if srow is not None:
+                            logger.record(kind="secagg", **srow)
                 pending = []
             if self.traffic is not None:
                 # Traffic events are host-born (the schedule knows the
@@ -1185,6 +1261,8 @@ class FederatedExperiment:
             result["faults"] = fault_rows
         if self.async_spec is not None:
             result["async"] = async_rows
+        if self._secagg is not None:
+            result["secagg"] = secagg_rows
         if (self.traffic is not None and self.async_spec is None
                 and self._placement is None):
             result["traffic"] = traffic_rows
@@ -1194,32 +1272,41 @@ class FederatedExperiment:
 
     @staticmethod
     def _host_records(pending):
-        """The per-round 'fault' and 'async' records of a span, as host
+        """The per-round 'fault', 'async' and 'secagg' records of a span
+        (``pending``: one ``(fault, async)`` or ``(fault, async, secagg)``
+        tuple a round, each None where the round has none), as host
         values, with one device-to-host read: the fault records' device
         counts (``quarantined``; in hierarchical rounds also
-        ``shard_alive`` and ``shards_alive``), or the async rounds'
-        counts, staleness histograms and weight masses, stacked and read
-        at once.  Counts land as ints (a per-shard vector as a list of
-        ints); the 'async' fields are the JAX engine's: counts as ints,
-        the histogram and the weight mass as lists of floats."""
-        fault = [f for f, _ in pending]
-        rows = [a for _, a in pending]
+        ``shard_alive`` and ``shards_alive``) and the secagg records'
+        (the sum check, the reconstructed pairs, the groupwise sums'
+        norms), or the async rounds' counts, staleness histograms and
+        weight masses, read at once.  Returns tuples as wide as the
+        given ones.  Counts land as ints (a per-shard vector as a list
+        of ints), the group sums' norms as a list of floats; the 'async'
+        fields are the JAX engine's: counts as ints, the histogram and
+        the weight mass as lists of floats."""
+        width = len(pending[0])
+        fault = [p[0] for p in pending]
+        rows = [p[1] for p in pending]
         if rows[0] is None:
-            keys = [k for k, v in fault[0].items()
-                    if isinstance(v, torch.Tensor)]
-            host = torch.stack([
-                torch.cat([f[k].reshape(-1).long() for k in keys])
-                for f in fault]).tolist()
-            out = []
-            for f, vals in zip(fault, host):
-                rec, i = dict(f), 0
-                for k in keys:
-                    size = f[k].numel()
-                    rec[k] = (int(vals[i]) if f[k].dim() == 0
-                              else [int(v) for v in vals[i:i + size]])
-                    i += size
-                out.append((rec, None))
-            return out
+            sec = [p[2] if width > 2 else None for p in pending]
+            recs = [r for pair in zip(fault, sec) for r in pair]
+            tensors = [v for r in recs if r is not None
+                       for v in r.values() if isinstance(v, torch.Tensor)]
+            flat = (torch.cat([v.reshape(-1).double() for v in tensors])
+                    .tolist() if tensors else [])
+            host, i = [], 0
+            for r in recs:
+                rec = None if r is None else dict(r)
+                for k, v in (r or {}).items():
+                    if isinstance(v, torch.Tensor):
+                        kind = float if v.is_floating_point() else int
+                        vals = [kind(x) for x in flat[i:i + v.numel()]]
+                        rec[k] = vals[0] if v.dim() == 0 else vals
+                        i += v.numel()
+                host.append(rec)
+            return [(host[2 * j], None, host[2 * j + 1])[:width]
+                    for j in range(len(pending))]
         host = torch.stack([
             torch.cat([a["counts"].float(), a["staleness_hist"].float(),
                        a["weight_mass"]]) for a in rows]).tolist()
@@ -1230,7 +1317,7 @@ class FederatedExperiment:
                    **{k: int(v) for k, v in zip(A.COUNT_NAMES, vals[:n])},
                    "staleness_hist": vals[n:n + D],
                    "weight_mass": vals[n + D:]}
-            out.append((f, rec))
+            out.append((f, rec, None)[:width])
         return out
 
     def _complete(self, logger, journal, start_epoch, loop_t0, last_asr):

@@ -13,7 +13,9 @@ bf16 route's on the tensor cores with wgmma (csrc/gram_mma.cuh, plan
 :func:`~.distances.mma_plan`), bound by bytes up to about n = 150 and
 by operations at 989 TFLOP/s above.
 ``threefry_bits`` (csrc/threefry_bits.cu) ports no TPU kernel: it draws
-DnC's sketch bits on the card (ops/threefry_bits.py).
+DnC's sketch bits on the card (ops/threefry_bits.py); nor do
+``secagg_deltas``, ``secagg_residue`` and ``secagg_unmask_sum``
+(csrc/secagg_masks.cu), secure aggregation's masks (ops/secagg_masks.py).
 No PyTorch header is compiled, so a build takes seconds.  The libraries
 go into ``_build/`` beside this package (listed in ``.gitignore``), named
 by a hash of the sources and flags, so an edited source is rebuilt and a
@@ -71,6 +73,14 @@ KERNELS = {
     # No TPU kernel's port: DnC's sketch bits (ops/threefry_bits.py).
     "threefry_bits": ("threefry_bits.cu", "fl_threefry_bits",
                       (_P, _I, _LL, _P, _P)),
+    # No TPU kernel's port: secure aggregation's masks
+    # (ops/secagg_masks.py), three entry points of one source.
+    "secagg_deltas": ("secagg_masks.cu", "fl_secagg_deltas",
+                      (_P, _P, _I, _LL, _I, _I, _P, _P)),
+    "secagg_residue": ("secagg_masks.cu", "fl_secagg_residue",
+                       (_P, _P, _P, _I, _LL, _P, _P, _P)),
+    "secagg_unmask_sum": ("secagg_masks.cu", "fl_secagg_unmask_sum",
+                          (_P, _P, _P, _P, _I, _LL, _P, _P, _P)),
 }
 # -Xptxas -v: each kernel's registers, stack frame and spills, kept in
 # the build's log (ptxas_log).

@@ -72,6 +72,30 @@ def fold_in(k: np.ndarray, data: int) -> np.ndarray:
     return np.array([y0[0], y1[0]], np.uint32)
 
 
+def pair_keys(key_t: np.ndarray, ids) -> np.ndarray:
+    """Secure aggregation's pair keys: ``fold_in(fold_in(key_t, lo), hi)``
+    with ``lo, hi`` the smaller and larger id of the rows a < b of
+    ``ids`` (the JAX package's ``protocols/secagg.py:_pair_key``), for
+    every row pair in row-major upper-triangle order ((0, 1), (0, 2),
+    ..., (1, 2), ...).  ``ids`` is (n,) or a batch (..., n) of
+    non-negative ids; returns (..., n (n - 1) / 2, 2) uint32.  The first
+    fold is drawn once an id and gathered."""
+    ids = np.asarray(ids, np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= 2 ** 32):
+        raise OverflowError("pair_keys: ids must lie in [0, 2**32)")
+    n = ids.shape[-1]
+    a, b = np.triu_indices(n, k=1)
+    ia, ib = ids[..., a], ids[..., b]
+    lo_row = np.where(ia < ib, a, b)
+    words = ids.astype(np.uint32)
+    f0, f1 = threefry2x32(key_t, np.zeros_like(words), words)
+    k0 = np.take_along_axis(f0, lo_row, axis=-1)
+    k1 = np.take_along_axis(f1, lo_row, axis=-1)
+    hi = np.maximum(ia, ib).astype(np.uint32)
+    y0, y1 = threefry2x32((k0, k1), np.zeros_like(hi), hi)
+    return np.stack([y0, y1], axis=-1)
+
+
 def split(k: np.ndarray, num: int = 2) -> np.ndarray:
     """``jax.random.split``: (num, 2) uint32 keys."""
     y0, y1 = threefry2x32(k, np.zeros(num, np.uint32),

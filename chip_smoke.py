@@ -288,9 +288,34 @@ success):
                tier are held against the CPU as phases 10 to 12 do.
                Printed: round ms (host clock and CUDA events), deliver ms
                per megabatch, peak, launches.
+14. secagg -- secure aggregation: first the mask kernel
+               (csrc/secagg_masks.cu, no TPU kernel's port; ptxas's
+               registers, no stack or spill allowed) at (3, 257), (19,
+               257), (32, 4,099), (129, 4,099) and (100, 79,510), each
+               entry point bit for bit its plain version on the card: the
+               net masks (two launches equal, a sample of columns equal to
+               the host's threefry, every column summing to 0 mod 2**32),
+               the residue and its pair count under all-true, one-dead,
+               one-alive and random masks, the unmask pass's recovered
+               rows and flag (0 when a dead row's residue is left out);
+               ms, plain ms and bound at (100, 79,510) ([secagg kernel]
+               lines).  Then, each against its clear twin run in the
+               phase, weights and velocity byte-equal: (b) vanilla ALIE
+               NoDefense at n = 100, f = 24, 21 rounds, one deltas draw
+               and one unmask a round and no residue; (c) with dropout
+               0.1, the 'secagg' events equal to the host replay's drops,
+               a residue every round (an alive mask); (d) groupwise at n =
+               1,000, S = 10, batch 32 under tier-2 NoDefense, Krum and
+               Median, S draws and S unmasks a round; (e) groupwise with
+               dropout 0.1 and shard-domain dropout 0.2 (dwell 2), 8
+               rounds walking the tier-2 ladder, a residue in every group
+               a round, preempted after round 4 and resumed, bit for
+               bit with its events.  Printed ([secagg] lines): round ms
+               beside the clear twin's, the protect stage's CUDA-event
+               ms a call (draw, residue, unmask), launches.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-13), the nvidia-smi line, and as the last line
+summed over phases 5-14), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -4247,6 +4272,460 @@ def run_hier_path(ds, failures, smi):
     return totals
 
 
+# -- phase 14: secure aggregation ----------------------------------------------
+
+# The mask kernel's shapes, (n, d): small and ragged cohorts, a crossing
+# of its column tile, a megabatch past 128 rows, and the main path's
+# cohort (and groupwise megabatch) at mnist_mlp's width.
+P14_SHAPES = ((3, 257), (19, 257), (32, 4099), (129, 4099), (N_MAIN, D_MLP))
+P14_SAMPLE = 16                  # columns held against the host's threefry
+P14_DROPPED = 10                 # rows dropped for the timed residue
+# Integer operations of one drawn word in csrc/secagg_masks.cu, counted
+# from the source: 20 rounds of add, rotate (one funnel shift) and xor
+# (60), 5 key injections of 3 adds (15), the third key word (2 xors),
+# the counter add, the output xor and the signed accumulate (3).  The
+# card's int32 rate is a quarter of its fp32 rate: 64 int32 lanes an SM
+# against 128 fp32 lanes of 2 operations (16.75 T/s on the SXM part).
+OPS_PER_WORD = 80
+P14_ROUNDS = ROUNDS              # (b), (c): phase 5's 21 rounds
+P14_FAULT_ROUNDS, P14_RESUME_AT = 8, 4
+P14_FAULTS = dict(dropout=0.1, shard_dropout=0.2, shard_dropout_dwell=2,
+                  seed=4)
+SECAGG_KERNELS = ("secagg_deltas", "secagg_residue", "secagg_unmask_sum")
+
+
+def host_delta_columns(key_t, ids, cols):
+    """The net masks at columns ``cols``, drawn on the host with
+    utils/threefry.py: (n, len(cols)) uint32."""
+    from attacking_federate_learning_tpu_torch.utils import threefry
+
+    n = len(ids)
+    keys = threefry.pair_keys(key_t, ids)
+    a, b = np.triu_indices(n, k=1)
+    c = np.broadcast_to(cols.astype(np.uint32), (len(a), len(cols)))
+    y0, y1 = threefry.threefry2x32((keys[:, 0:1], keys[:, 1:2]),
+                                   np.zeros_like(c), c)
+    m = (y0 ^ y1).astype(np.uint64)
+    ma = np.where((ids[a] < ids[b])[:, None], m, (2 ** 32 - m) % 2 ** 32)
+    out = np.zeros((n, len(cols)), np.uint64)
+    np.add.at(out, a, ma)
+    np.add.at(out, b, (2 ** 32 - ma) % 2 ** 32)
+    return (out % 2 ** 32).astype(np.uint32)
+
+
+def p14_alive(kind, n, rng):
+    alive = np.ones(n, bool)
+    if kind == "one-dead":
+        alive[n // 2] = False
+    elif kind == "one-alive":
+        alive[:] = False
+        alive[n - 1] = True
+    elif kind == "random":
+        alive = rng.random(n) > 0.3
+        alive[:2] = [False, True]
+    elif kind == "timed":
+        alive[rng.permutation(n)[:min(P14_DROPPED, n - 1)]] = False
+    return alive
+
+
+def check_secagg_kernels(peaks, failures, smi):
+    """The mask kernel's three entry points (csrc/secagg_masks.cu) at
+    P14_SHAPES, each against its plain version on the card bit for bit:
+    the net masks (two launches equal too, a sample of columns equal to
+    the host's threefry, every column summing to 0 mod 2**32), the
+    residue and its pair count under all-true, one-dead, one-alive and
+    random masks, and the unmask pass's recovered rows and flag without
+    and with drops (and the flag 0 when a dead row's residue is left
+    out).  Times at (100, 79,510).  Returns their kernels-line entries."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.ops import secagg_masks as K
+    from attacking_federate_learning_tpu_torch.protocols import secagg as SA
+    from attacking_federate_learning_tpu_torch.utils import threefry
+
+    flops_peak, bytes_peak, _ = peaks
+    int_rate = flops_peak / 4
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    for name, regs, frame, st, ld in ptxas_entries(
+            _build.ptxas_log("secagg_deltas")):
+        found = re.search(r"secagg_[a-z_]+?_kernel", name)
+        short = found.group(0) if found else name
+        print(f"[secagg kernel] ptxas {short}: {regs} registers, {frame} "
+              f"bytes stack frame, {st}/{ld} bytes spill stores/loads",
+              flush=True)
+        if frame or st or ld:
+            failures.append(f"{short}: stack frame {frame}, spills "
+                            f"{st}/{ld}")
+    ok_all = {name: True for name in SECAGG_KERNELS}
+    for n, d in P14_SHAPES:
+        rng = np.random.default_rng(n * 31 + d)
+        ids = rng.permutation(100_000)[:n]
+        key_t = threefry.fold_in(threefry.key(n), d)
+        keys, idt = SA.round_tables(key_t, ids, "cuda")
+        got = K.secagg_deltas(keys, idt, d)
+        plain = K.secagg_deltas_plain(keys, idt, d)
+        cols = np.unique(np.r_[0, d - 1,
+                               rng.integers(0, d, P14_SAMPLE - 2)])
+        host = host_delta_columns(key_t, ids, cols)
+        zero = (K.from_words(got).sum(0) & 0xFFFFFFFF) == 0
+        ok_d = (torch.equal(got, plain)
+                and torch.equal(got, K.secagg_deltas(keys, idt, d))
+                and np.array_equal(
+                    got[:, torch.from_numpy(cols).cuda()].cpu().numpy()
+                    .view(np.uint32), host)
+                and bool(zero.all()))
+        ok_r, pairs = True, {}
+        for kind in ("all", "one-dead", "one-alive", "random"):
+            alive = torch.from_numpy(p14_alive(kind, n, rng)).cuda()
+            r, c = K.secagg_residue(keys, idt, alive, d)
+            rp, cp = K.secagg_residue_plain(keys, idt, alive, d)
+            na = int(alive.sum())
+            pairs[kind] = int(c)
+            ok_r &= (torch.equal(r, rp) and int(c) == int(cp)
+                     == na * (n - na))
+        G = torch.from_numpy(cohort(n, d, 0, "none", n + d)
+                             * np.float32(10.0) ** rng.integers(
+                                 -8, 8, (n, d)).astype(np.float32)).cuda()
+        G[0, :4] = torch.tensor([float("nan"), float("inf"),
+                                 -float("inf"), -0.0])
+        alive = torch.from_numpy(p14_alive("random", n, rng)).cuda()
+        res, _ = K.secagg_residue(keys, idt, alive, d)
+        ok_u, flags = True, []
+        for r, al, want in ((None, None, 1), (res, alive, 1),
+                            (None, alive, 0)):
+            rec, ok = K.secagg_unmask_sum(G, got, r, al)
+            recp, okp = K.secagg_unmask_sum_plain(G, got, r, al)
+            clear = G if al is None else torch.where(al[:, None], G, 0.0)
+            flags.append(int(ok))
+            ok_u &= (torch.equal(rec.view(torch.int32),
+                                 recp.view(torch.int32))
+                     and torch.equal(rec.view(torch.int32),
+                                     clear.view(torch.int32))
+                     and int(ok) == int(okp) == want)
+        ok_all["secagg_deltas"] &= ok_d
+        ok_all["secagg_residue"] &= ok_r
+        ok_all["secagg_unmask_sum"] &= ok_u
+        print(f"[secagg kernel] ({n}, {d}) deltas bit_equal_plain_and_"
+              f"host_columns={ok_d} residue bit_equal_plain={ok_r} "
+              f"pairs={pairs} unmask bit_equal_plain={ok_u} flags="
+              f"{flags} (want [1, 1, 0])", flush=True)
+    # Times at the main path's shape, its plan's grid beside.
+    n, d = N_MAIN, D_MLP
+    rng = np.random.default_rng(7)
+    ids = rng.permutation(100_000)[:n]
+    keys, idt = SA.round_tables(threefry.fold_in(threefry.key(5), 1), ids,
+                                "cuda")
+    deltas = K.secagg_deltas(keys, idt, d)
+    alive = torch.from_numpy(p14_alive("timed", n, rng)).cuda()
+    res, _ = K.secagg_residue(keys, idt, alive, d)
+    G = torch.from_numpy(cohort(n, d, F_MAIN, "alie", 14)).cuda()
+    na = int(alive.sum())
+    P, cross = n * (n - 1) // 2, na * (n - na)
+    work = {
+        "secagg_deltas": (P * d * OPS_PER_WORD, 4 * n * d + 8 * P + 8 * n,
+                          lambda: K.secagg_deltas(keys, idt, d),
+                          lambda: K.secagg_deltas_plain(keys, idt, d), 2,
+                          "protocols/secagg.py:94 (pairwise_deltas)"),
+        "secagg_residue": (cross * d * OPS_PER_WORD, 4 * d + 8 * P + 9 * n,
+                           lambda: K.secagg_residue(keys, idt, alive, d),
+                           lambda: K.secagg_residue_plain(keys, idt, alive,
+                                                          d), 3,
+                           "protocols/secagg.py:148 (recovery_residue)"),
+        "secagg_unmask_sum": (0, 12 * n * d + 4 * d + n,
+                              lambda: K.secagg_unmask_sum(G, deltas, res,
+                                                          alive),
+                              lambda: K.secagg_unmask_sum_plain(
+                                  G, deltas, res, alive), 5,
+                              "protocols/secagg.py:174 (unmask_sum)"),
+    }
+    plan = K.deltas_plan(n, d, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    entries = {}
+    for name, (ops, nbytes, fn, plain, reps, where) in work.items():
+        ms = time_ms(fn, 20)
+        pms = time_ms(plain, reps)
+        t_b, t_o = nbytes / bytes_peak * 1e3, ops / int_rate * 1e3
+        b_ms, b_by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        print(f"[secagg kernel] {name:17s} ({n}, {d}) ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+              f"{ops / 1e9:.2f} G int32 operations at "
+              f"{int_rate / 1e12:.2f} T/s, {nbytes / 1e6:.1f} MB) "
+              f"library_ms=none plan={tuple(plan)} dropped={n - na} "
+              f"on {smi}", flush=True)
+        if not ok_all[name]:
+            failures.append(f"{name}: not bit-equal to its plain version "
+                            f"(or the host's bits)")
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/csrc/secagg_masks.cu",
+            "replaces": f"attacking_federate_learning_tpu/{where}, XLA "
+                        f"threefry and sums: no TPU kernel",
+            "launches": 0,
+            "max_abs_err": 0.0 if ok_all[name] else float("inf"),
+            "ms": ms, "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": [n, d]}
+    del deltas, res, G
+    return entries
+
+
+def timed_protect(store):
+    """Patch protocols/secagg.py's protect (the protocol round: draw,
+    residue, unmask) with CUDA events around each call; returns the
+    restore function."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.protocols import secagg as SA
+
+    inner = SA.protect
+
+    def protect(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(*args, **kw)
+        b.record()
+        store.append((a, b))
+        return out
+
+    SA.protect = protect
+
+    def restore():
+        SA.protect = inner
+
+    return restore
+
+
+def byte_equal(x, y):
+    import torch
+
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def run_secagg_path(ds, failures, smi):
+    """Phase 14: secure aggregation through run() at mnist_mlp's width:
+    the mask kernel against its plain version; (b) vanilla ALIE NoDefense
+    at n = 100, f = 24, 21 rounds, and (c) with dropout 0.1, each
+    byte-equal to its clear twin; (d) groupwise at n = 1,000, S = 10
+    under tier-2 NoDefense, Krum and Median, byte-equal to the clear
+    hierarchical twins; (e) groupwise with dropout and shard-domain
+    dropout, byte-equal to its clear twin, preempted after round 4 and
+    resumed bit for bit.  Launches checked exactly: one deltas draw and
+    one unmask a cohort or megabatch, a residue only where a row
+    dropped.  Returns launches per kernel summed over the runs."""
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import FaultConfig
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.core.faults import (
+        hier_round_faults
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.checkpoint import (
+        Checkpointer
+    )
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def pair(cfg_clear, cfg_masked, kernels, label, allowed=()):
+        """The clear twin's run and the masked one's, drive() each (the
+        ``kernels`` must launch, those and ``allowed`` may); the masked
+        run with the protect stage timed."""
+        runs = []
+        for cfg, secure in ((cfg_clear, False), (cfg_masked, True)):
+            exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                      device="cuda")
+            must = kernels + (("secagg_deltas", "secagg_unmask_sum")
+                              if secure else ())
+            may = must + allowed + (("secagg_residue",) if secure
+                                    and exp.faults is not None else ())
+            banned = tuple(k for k in _build.LAUNCHES if k not in may)
+            events = []
+            restore = timed_protect(events)
+            kind = "masked" if secure else "clear"
+            try:
+                run = drive(exp, must, banned, failures,
+                            f"secagg {label} {kind}")
+            finally:
+                restore()
+            torch.cuda.synchronize()
+            run["protect_ms"] = [a.elapsed_time(b) for a, b in events]
+            run["exp"] = exp
+            for k, v in run["launches"].items():
+                totals[k] += v
+            runs.append(run)
+        clear, masked = runs
+        same = (byte_equal(masked["exp"].state.weights,
+                           clear["exp"].state.weights)
+                and byte_equal(masked["exp"].state.velocity,
+                               clear["exp"].state.velocity))
+        return clear, masked, same
+
+    def line(tag, label, clear, masked, same, ok, extra=""):
+        exp = masked["exp"]
+        per = masked["protect_ms"]
+        rounds = exp.cfg.epochs
+        calls = len(per) // rounds
+        print(f"[secagg] {tag} {label:22s} n={exp.n} f={exp.f} "
+              f"acc={masked['acc_txt']} % median_round_ms="
+              f"{masked['median_ms']:.3f} clear_twin_round_ms="
+              f"{clear['median_ms']:.3f} protect_ms="
+              f"{statistics.median(per):.3f} a call ({calls} a round) "
+              f"deliver_ms={masked['deliver_ms']:.3f} peak_GiB="
+              f"{masked['peak_gib']:.3f}"
+              f" byte_equal_clear={same} launches={masked['launches']} "
+              f"checks_ok={ok} {extra}on {smi}", flush=True)
+
+    entries = check_secagg_kernels(peaks_for(
+        torch.cuda.get_device_name(0))[1], failures, smi)
+    n = N_MAIN
+    # -- (b) vanilla, clean ---------------------------------------------------
+    clear, masked, same = pair(main_config("NoDefense", 0.24),
+                               main_config("NoDefense", 0.24,
+                                           secagg="vanilla"),
+                               (), "(b) vanilla")
+    rows = masked["result"]["secagg"]
+    got = {k: masked["launches"][k] for k in SECAGG_KERNELS}
+    ok = (same and got == {"secagg_deltas": P14_ROUNDS,
+                           "secagg_residue": 0,
+                           "secagg_unmask_sum": P14_ROUNDS}
+          and [r["round"] for r in rows] == list(range(P14_ROUNDS))
+          and all(r["sum_check_ok"] == 1 and r["dropped"] == 0 for r in rows))
+    if not ok:
+        failures.append(f"secagg (b): byte_equal={same} launches={got} "
+                        f"events={rows[:3]}")
+    line("(b)", "vanilla ALIE NoDefense", clear, masked, same, ok)
+    del clear, masked
+    release()
+    # -- (c) vanilla with dropout ------------------------------------------
+    fc = FaultConfig(dropout=0.1)
+    clear, masked, same = pair(main_config("NoDefense", 0.24, fc),
+                               main_config("NoDefense", 0.24, fc,
+                                           secagg="vanilla"),
+                               (), "(c) vanilla dropout")
+    rows, frows = masked["result"]["secagg"], masked["result"]["faults"]
+    drops = [f["injected_dropout"] for f in frows]
+    got = {k: masked["launches"][k] for k in SECAGG_KERNELS}
+    want = {"secagg_deltas": P14_ROUNDS, "secagg_residue": P14_ROUNDS,
+            "secagg_unmask_sum": P14_ROUNDS}
+    events_ok = rows == [
+        {"round": t, "sum_check_ok": 1, "dropped": k,
+         "masks_reconstructed": (n - k) * k, "recovery": int(k > 0)}
+        for t, k in enumerate(drops)]
+    ok = same and got == want and events_ok and masked["counts_ok"]
+    if not ok:
+        failures.append(f"secagg (c): byte_equal={same} launches={got} "
+                        f"(want {want}) events_ok={events_ok} "
+                        f"fault_counts_ok={masked['counts_ok']}")
+    line("(c)", "vanilla dropout 0.1", clear, masked, same, ok,
+         f"drops={drops} events_equal_replay={events_ok} ")
+    del clear, masked
+    release()
+    # -- (d) groupwise ------------------------------------------------------
+    for t2 in ("NoDefense", "Krum", "Median"):
+        clear, masked, same = pair(
+            hier_config("NoDefense", t2),
+            hier_config("NoDefense", t2, secagg="groupwise"),
+            tuple(HIER_UNMASKED[t2]), f"(d) groupwise {t2}")
+        exp = masked["exp"]
+        S, rounds = exp._placement.num_shards, exp.cfg.epochs
+        rows = masked["result"]["secagg"]
+        got = {k: masked["launches"][k] for k in SECAGG_KERNELS}
+        want = {"secagg_deltas": S * rounds, "secagg_residue": 0,
+                "secagg_unmask_sum": S * rounds}
+        tier2 = {k: masked["launches"][k] for k in HIER_UNMASKED[t2]}
+        ok = (same and got == want
+              and tier2 == {k: v * rounds
+                            for k, v in HIER_UNMASKED[t2].items()}
+              and all(r["sum_check_ok"] == 1 and r["groups"] == S
+                      and len(r["group_sum_norms"]) == S
+                      and all(math.isfinite(x) and x > 0
+                              for x in r["group_sum_norms"])
+                      for r in rows))
+        if not ok:
+            failures.append(f"secagg (d) {t2}: byte_equal={same} launches="
+                            f"{got} (want {want}) tier 2 {tier2}")
+        norms = [round(x, 3) for x in rows[0]["group_sum_norms"][:3]]
+        line("(d)", f"groupwise NoDefense/{t2}", clear, masked, same, ok,
+             f"S={S} group_sum_norms_r0[:3]={norms} ")
+        del clear, masked, exp
+        release()
+    # -- (e) groupwise, faulted, preempted and resumed ------------------------
+    fc = FaultConfig(**P14_FAULTS)
+    kw = dict(epochs=P14_FAULT_ROUNDS, test_step=4, faults=fc)
+    clear, masked, same = pair(
+        hier_config("NoDefense", "Krum", **kw),
+        hier_config("NoDefense", "Krum", secagg="groupwise", **kw),
+        (), "(e) groupwise faulted",
+        allowed=("pairwise_distances", "masked_median"))
+    exp = masked["exp"]
+    place, m = exp._placement, exp._placement.megabatch
+    drops = [hier_round_faults(exp._fault_key, t, place, fc)[0][:, 0]
+             .sum(1) for t in range(P14_FAULT_ROUNDS)]
+    rows = masked["result"]["secagg"]
+    got = {k: masked["launches"][k] for k in SECAGG_KERNELS}
+    S = place.num_shards
+    want = {k: S * P14_FAULT_ROUNDS for k in SECAGG_KERNELS}
+    events_ok = all(
+        r["dropped"] == int(k.sum())
+        and r["masks_reconstructed"] == int(((m - k) * k).sum())
+        and r["recovery"] == int(k.sum() > 0) and r["sum_check_ok"] == 1
+        for r, k in zip(rows, drops))
+    cfg = hier_config("NoDefense", "Krum", secagg="groupwise", **kw)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p14_") as root:
+        first = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                    device="cuda")
+        for t in range(P14_RESUME_AT):
+            first.run_round(t)
+        ck = Checkpointer(cfg, run_dir=root)
+        path = ck.save_auto(first.state, extra=first.carry_state_host())
+        del first
+        second = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                     device="cuda")
+        second.state, extra = ck.resume(path, with_extra=True,
+                                        device="cuda")
+        second.restore_carry_state(extra)
+        resumed_rows = []
+        for t in range(P14_RESUME_AT, cfg.epochs):
+            second.run_round(t)
+            (_, _, rec), = second._host_records(
+                [(None, None, second.last_round_secagg)])
+            resumed_rows.append(rec)
+        resumed_ok = (byte_equal(second.state.weights, exp.state.weights)
+                      and byte_equal(second.state.velocity,
+                                     exp.state.velocity)
+                      and resumed_rows == rows[P14_RESUME_AT:]
+                      and not extra)
+        del second
+    ok = same and got == want and events_ok and resumed_ok and masked[
+        "counts_ok"]
+    if not ok:
+        failures.append(f"secagg (e): byte_equal={same} launches={got} "
+                        f"(want {want}) events_ok={events_ok} resumed "
+                        f"bit for bit {resumed_ok} fault events = replay "
+                        f"{masked['counts_ok']}")
+    line("(e)", "groupwise faulted", clear, masked, same, ok,
+         f"drops_per_round={[int(k.sum()) for k in drops]} "
+         f"residues={want['secagg_residue']} actions="
+         f"{masked.get('actions')} events_ok={events_ok} resumed_at="
+         f"{P14_RESUME_AT} resume_bit_equal={resumed_ok} ")
+    del clear, masked, exp
+    release()
+    print(f"[secagg] phase 14 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries, totals
+
+
 def main() -> int:
     import torch
 
@@ -4310,10 +4789,14 @@ def main() -> int:
     traffic_totals = run_traffic_path(ds, failures, smi)
     # -- 13. the hierarchical round -------------------------------------------
     hier_totals = run_hier_path(ds, failures, smi)
+    # -- 14. secure aggregation ----------------------------------------------
+    secagg_entries, secagg_totals = run_secagg_path(ds, failures, smi)
+    entries.update(secagg_entries)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
-            async_totals, defense_totals, traffic_totals, hier_totals))
+            async_totals, defense_totals, traffic_totals, hier_totals,
+            secagg_totals))
 
     if failures:
         for msg in failures:

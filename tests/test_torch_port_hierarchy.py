@@ -20,8 +20,8 @@ versions):
   rows of one megabatch in the colluders' hands), and with the backdoor:
   the weights within a relative L2 error of 1e-6 (measured below 1e-7);
 - the config's, the engine's and the CLI's messages and help texts equal
-  to JAX's; the refusals of what the port has not ported (the device
-  mesh, secure aggregation); a CLI run.
+  to JAX's; the refusal of what the port has not ported (the device
+  mesh); a CLI run.
 """
 
 import dataclasses
@@ -492,8 +492,7 @@ def test_engine_messages_are_jax_s(kw, datasets):
 
 
 @pytest.mark.parametrize("knob,value,word", [
-    ("mesh_shape", (2, 1), "multi-GPU slice"),
-    ("secagg", "groupwise", "secure aggregation")])
+    ("mesh_shape", (2, 1), "multi-GPU slice")])
 def test_what_is_not_ported_is_refused(knob, value, word, datasets):
     cfg = ExperimentConfig(**_base(defense="Krum"))
     setattr(cfg, knob, value)

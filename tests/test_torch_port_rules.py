@@ -117,7 +117,8 @@ def test_the_scan_covers_the_whole_port():
                    "ops/threefry_bits.py", "defenses/dnc.py",
                    "defenses/geomed.py", "defenses/centeredclip.py",
                    "defenses/fltrust.py", "defenses/normbound.py",
-                   "core/async_rounds.py"):
+                   "core/async_rounds.py", "protocols/secagg.py",
+                   "ops/secagg_masks.py"):
         assert module in names
 
 
@@ -298,21 +299,26 @@ class _CudaKeys:
         return True
 
 
-# The one kernel that ports no TPU kernel: DnC's sketch bits on the card.
+# The kernels that port no TPU kernel: DnC's sketch bits on the card, and
+# secure aggregation's masks (tests/test_torch_port_secagg.py holds their
+# wrappers' refusals).
 _KEY_WRAPPERS = {"threefry_bits": lambda K: threefry_bits(K, 16)}
+_SECAGG_KERNELS = ("secagg_deltas", "secagg_residue", "secagg_unmask_sum")
 
 
 def test_every_kernel_has_a_source_and_a_counter():
     assert sorted(_build.KERNELS) == sorted(_build.LAUNCHES) == sorted(
-        {**_WRAPPERS, **_BF16_WRAPPERS, **_KEY_WRAPPERS})
+        {**_WRAPPERS, **_BF16_WRAPPERS, **_KEY_WRAPPERS,
+         **dict.fromkeys(_SECAGG_KERNELS)})
     for name, (source, symbol, _) in _build.KERNELS.items():
         text = (_build.CSRC / source).read_text()
         assert f'extern "C" int {symbol}(' in text
-        assert ("Replaces no TPU kernel" if name in _KEY_WRAPPERS
+        assert ("Replaces no TPU kernel"
+                if name in _KEY_WRAPPERS or name in _SECAGG_KERNELS
                 else "Replaces the TPU kernel") in text
     # The library name follows the sources, so an edited kernel rebuilds.
     paths = {_build.library_path(n) for n in _build.KERNELS}
-    assert len(paths) == 7 and all(p.parent == _build.BUILD_DIR
+    assert len(paths) == 8 and all(p.parent == _build.BUILD_DIR
                                    for p in paths)
 
 
