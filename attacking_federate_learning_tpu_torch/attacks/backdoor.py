@@ -56,6 +56,7 @@ from attacking_federate_learning_tpu_torch.core.evaluate import (
 from attacking_federate_learning_tpu_torch.data import triggers
 from attacking_federate_learning_tpu_torch.models.base import get_model
 from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
+from attacking_federate_learning_tpu_torch.utils.numerics import row_norms
 
 
 class BackdoorAttack(Attack):
@@ -178,6 +179,45 @@ class BackdoorAttack(Attack):
         if ctx.check_finite and not bool(torch.isfinite(out).all()):
             raise FloatingPointError("Got nan in backdoor shadow training")
         return out
+
+    def envelope_stats(self, users_grads, corrupted_count, ctx=None):
+        """The ALIE clip envelope the crafted gradient is laundered
+        through (its ||z sigma|| halfwidth) and the shadow objective's
+        state: the poisoned set's loss and accuracy under the round's
+        global weights."""
+        f = corrupted_count
+        if f == 0 or self.num_std == 0:
+            return {}
+        _, stdev = delivered_cohort_stats(users_grads[:f], ctx)
+        loss, correct = self.poison_metrics(ctx.original_params)
+        z = torch.tensor(float(self.num_std), dtype=torch.float32,
+                         device=users_grads.device)
+        return {"z": z, "clip_halfwidth_norm": z * row_norms(stdev),
+                "shadow_loss": loss,
+                "poison_acc": 100.0 * correct / self.poison_count}
+
+    def margin_stats(self, users_grads, corrupted_count, ctx=None,
+                     crafted=None):
+        """Boost headroom: how hard the crafted rows press against the
+        clip envelope they were laundered through, measured on the
+        POST-attack rows against the PRE-attack envelope (no shadow
+        training again).  ``clip_saturation``: the fraction of malicious
+        coordinates at a clip edge; ``boost_headroom``: the mean distance
+        to the nearer edge over the halfwidth (0 at the edge, 1 at the
+        honest mean)."""
+        f = corrupted_count
+        if f == 0 or self.num_std == 0 or crafted is None:
+            return {}
+        mean, stdev = delivered_cohort_stats(users_grads[:f], ctx)
+        # An f32 z promotes a bf16 wire's envelope to f32, as in JAX.
+        half = float(np.float32(self.num_std)) * stdev.float()
+        lo, hi = mean.float() - half, mean.float() + half
+        rows = crafted[:f].float()
+        sat = ((rows <= lo[None, :]) | (rows >= hi[None, :])).float().mean()
+        head = torch.minimum(hi[None, :] - rows, rows - lo[None, :])
+        return {"clip_saturation": sat,
+                "boost_headroom": (head / torch.clamp(half[None, :],
+                                                      min=1e-12)).mean()}
 
     def test_asr(self, flat_w, log=None, tag="POST"):
         """Attack success rate of the *server* weights on the poisoned set

@@ -108,6 +108,25 @@ class Attack:
         users_grads[:f] = crafted[None, :]
         return users_grads
 
+    def envelope_stats(self, users_grads: torch.Tensor,
+                       corrupted_count: int,
+                       ctx: Optional[AttackContext] = None) -> dict:
+        """The telemetry seam (``cfg.telemetry``): fixed-shape device
+        stats of the crafting envelope, on the PRE-attack matrix (the
+        honest malicious-cohort view ``craft`` derives its statistics
+        from); no host read.  Default: nothing to report."""
+        return {}
+
+    def margin_stats(self, users_grads: torch.Tensor, corrupted_count: int,
+                     ctx: Optional[AttackContext] = None,
+                     crafted: Optional[torch.Tensor] = None) -> dict:
+        """The margin seam (``cfg.margins``): fixed-shape device stats of
+        how much of the defense-evading envelope the attack spends.
+        ``users_grads`` is the PRE-attack matrix, ``crafted`` the
+        POST-attack one (for stats of the delivered rows); no host read.
+        Default: nothing to report."""
+        return {}
+
 
 class NoAttack(Attack):
     name = "none"

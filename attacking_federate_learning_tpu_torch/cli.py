@@ -249,6 +249,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "--aggregation hierarchical (tier-2 robust "
                         "kernels run over group sums via "
                         "--tier2-defense)")
+    p.add_argument("--round-stats", action="store_true",
+                   help="record per-round gradient/update norm diagnostics "
+                        "in the JSONL log")
+    p.add_argument("--telemetry", action="store_true",
+                   help="per-round aggregation forensics: defense "
+                        "selection masks/scores, trim/clip/trust "
+                        "diagnostics, attack envelope stats, per-client "
+                        "norms, written as 'defense'/'attack'/"
+                        "'selection_hist' events.  Under --aggregation "
+                        "hierarchical (and --secagg groupwise) the same "
+                        "flag emits per-shard tier-1 + tier-2 "
+                        "'shard_selection' events")
+    p.add_argument("--margins", action="store_true",
+                   help="robustness-margin observatory (utils/margins.py): "
+                        "the defense's decision margins (Krum "
+                        "winner/runner-up gap + per-row distance to the "
+                        "selection threshold, trim boundary distances + "
+                        "kept fractions, Bulyan selection slack) and the "
+                        "attack's envelope utilization, rolled up into "
+                        "one schema-v12 'margin' event per round.  "
+                        "Requires a margin-bearing defense "
+                        "(Krum/TrimmedMean/Median/Bulyan)")
+    p.add_argument("--numerics", action="store_true",
+                   help="numerics & determinism observatory "
+                        "(utils/numerics.py): per-stage nonfinite counts, "
+                        "gradient-norm dynamic range, distance-Gram "
+                        "cancellation depth, and tie-proximity counters "
+                        "banded at k ulp of the margin decision "
+                        "boundaries, one schema-v14 'numerics' event per "
+                        "round.  Works with any defense; the tie and "
+                        "cancellation counters need a margin-bearing one")
     p.add_argument("--krum-paper-scoring", action="store_true",
                    help="paper-faithful Krum scoring (n-f-2 closest) instead "
                         "of the reference's n-f (defences.py:26)")
@@ -485,6 +516,8 @@ def config_from_args(args) -> ExperimentConfig:
         mal_placement=args.mal_placement,
         tier1_corrupted=args.tier1_corrupted,
         tier2_corrupted=args.tier2_corrupted, secagg=args.secagg,
+        log_round_stats=args.round_stats, telemetry=args.telemetry,
+        margins=args.margins, numerics=args.numerics,
         checkpoint_every=args.checkpoint_every, output=args.output,
         log_dir=args.log_dir, run_dir=args.run_dir)
 

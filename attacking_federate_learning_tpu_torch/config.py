@@ -1,24 +1,30 @@
-"""Experiment configuration of the flat FedSGD round.
+"""Experiment configuration of the port, a copy of the JAX package's
+``ExperimentConfig`` for the rounds the port runs (it imports nothing of
+the JAX package).
 
-A flat-only subset of the JAX package's ``ExperimentConfig``: the fields
-the flat, synchronous round reads, partial participation, local steps,
-the bf16 wire and the selection knobs among them, with the same
-defaults, the same derived values (``corrupted_count``, ``'auto'`` z,
-per-dataset fading rate, the dataset's default model, the ``-b``
-coercion) and the same validation messages (the model/dataset family
-check among them), plus the JAX package's ``FaultConfig`` (a copy: the
-port imports nothing of the JAX package), the run lifecycle's fields and
-the asynchronous buffered round's (``aggregation='async'``,
-``async_buffer``, ``async_max_staleness``, ``staleness_weight``), the
-beyond-reference defenses' constants (``dnc_*``, ``geomed_*``,
-``cclip_*``) and the population & traffic model (``TrafficConfig``, a
-copy of the JAX package's), and the hierarchical two-tier round's
-(``aggregation='hierarchical'``, ``megabatch``, ``tier2_defense``,
-``mal_placement``, ``tier1_corrupted``, ``tier2_corrupted``), and secure
-aggregation (``secagg``: 'off', 'vanilla' on the flat round,
-'groupwise' on the hierarchical one).  The device mesh (``mesh_shape``,
-the SPMD client map), host streaming and the observability knobs are
-later slices of the port.
+The fields, with the JAX package's defaults, derived values
+(``corrupted_count``, ``'auto'`` z, the per-dataset fading rate, the
+dataset's default model, the ``-b`` coercion) and validation messages:
+
+- the flat synchronous round: the reference's constants, partial
+  participation, local steps, the bf16 wire and the selection knobs,
+  and ``FaultConfig`` (fault injection and the divergence watchdog);
+- the run lifecycle (checkpoints, the journal, the run directory);
+- the asynchronous buffered round (``aggregation='async'``,
+  ``async_buffer``, ``async_max_staleness``, ``staleness_weight``);
+- the beyond-reference defenses' constants (``dnc_*``, ``geomed_*``,
+  ``cclip_*``) and the population & traffic model (``TrafficConfig``);
+- the hierarchical two-tier round (``aggregation='hierarchical'``,
+  ``megabatch``, ``tier2_defense``, ``mal_placement``,
+  ``tier1_corrupted``, ``tier2_corrupted``);
+- secure aggregation (``secagg``: 'off', 'vanilla' on the flat round,
+  'groupwise' on the hierarchical one);
+- the observatories (``log_round_stats``, ``telemetry``, ``margins``,
+  ``numerics``).
+
+The device mesh (``mesh_shape``, the SPMD client map), host streaming
+and the rest of the observability knobs (profiling, traces, the walls)
+are later slices of the port.
 """
 
 from __future__ import annotations
@@ -34,6 +40,10 @@ SYNTH_MNIST = "SYNTH_MNIST"            # MNIST-shaped deterministic synthetic
 SYNTH_CIFAR10 = "SYNTH_CIFAR10"        # CIFAR10-shaped deterministic synthetic
 SYNTH_MNIST_HARD = "SYNTH_MNIST_HARD"  # low-SNR variant for behavioral tests
 SYNTH_CIFAR10_HARD = "SYNTH_CIFAR10_HARD"  # low-SNR CIFAR-shaped variant
+
+# The defenses that report decision margins (--margins), and with
+# --numerics their tie and cancellation counters.
+MARGIN_DEFENSES = ("Krum", "TrimmedMean", "Median", "Bulyan")
 
 # The JAX CLI's -s choices, in its order.
 DATASETS = (MNIST, CIFAR10, CIFAR100, SYNTH_MNIST, SYNTH_CIFAR10,
@@ -456,6 +466,35 @@ class ExperimentConfig:
     #               over the (n/m, d) group-sum matrix.
     secagg: str = "off"
 
+    # --- observability (the observatories, utils/margins.py and
+    # utils/numerics.py); each off by default, and with all four off a
+    # round runs exactly the operations it runs without them.
+    # Per-round diagnostics (gradient-norm stats, the update norm, the
+    # faded lr; under Krum the winner and whether it was malicious): one
+    # 'round' event a round.
+    log_round_stats: bool = False
+    # Aggregation forensics: the defense's diagnostics (selection masks
+    # and scores, trim fractions, clip counts, trust scores, ...), the
+    # attack's envelope stats and the per-client norms and cosine to the
+    # mean, as 'defense' / 'attack' events and an end-of-run
+    # 'selection_hist'; in hierarchical rounds the stacked per-shard
+    # tier-1 diagnostics and the tier-2 record as 'shard_selection'
+    # events (under --secagg groupwise only the tier-2 view).  Device
+    # tensors, read at the host boundaries.
+    telemetry: bool = False
+    # Decision margins: each row's signed distance to the defense's
+    # decision boundary (Krum's winner/runner-up gap, trim boundary
+    # distances and kept fractions, Bulyan's selection slack) and the
+    # attack's envelope utilization, rolled up into one 'margin' event
+    # a round (the colluder-survival ledger).  Krum, TrimmedMean, Median
+    # and Bulyan only.
+    margins: bool = False
+    # Numeric health: non-finite counts by stage, the gradient-norm
+    # dynamic range, and on a margin-bearing defense the tie-proximity
+    # and cancellation counters that band the margins: one 'numerics'
+    # event a round.
+    numerics: bool = False
+
     def __post_init__(self):
         if self.model is not None and self.model in MODEL_FAMILY:
             want = DATASET_FAMILY.get(self.dataset)
@@ -550,6 +589,14 @@ class ExperimentConfig:
         if self.local_steps < 1:
             raise ValueError(
                 f"local_steps must be >= 1, got {self.local_steps}")
+        if self.margins and self.defense not in MARGIN_DEFENSES:
+            # The JAX package's message; its '*_impl=host' rows have no
+            # counterpart here (the port has no host impl knobs).
+            raise ValueError(
+                f"--margins measures a robust defense's decision "
+                f"margins; defense {self.defense!r} makes no "
+                f"selection/trim decision to measure (use one of "
+                f"{'/'.join(MARGIN_DEFENSES)})")
         if not (0.0 < self.participation <= 1.0):
             raise ValueError(
                 f"participation must be in (0, 1], got "
@@ -598,8 +645,7 @@ class ExperimentConfig:
             # Secure aggregation inverts the server's visibility: every
             # feature that reads per-client rows server-side is rejected
             # here, with the offending flag named (the JAX package's
-            # messages; its --telemetry and --round-stats rows come with
-            # those fields).
+            # messages).
             if self.defense != "NoDefense":
                 hint = ("use --secagg groupwise with --tier2-defense to "
                         "defend over per-group sums"
@@ -621,6 +667,20 @@ class ExperimentConfig:
                 raise ValueError(
                     "--secagg groupwise exposes per-megabatch sums and "
                     "requires --aggregation hierarchical (+ --megabatch)")
+            if self.telemetry and self.secagg == "vanilla":
+                raise ValueError(
+                    "--telemetry is server-side forensics; under "
+                    "--secagg vanilla the server sees only one masked "
+                    "cohort sum — there is nothing per-client OR "
+                    "per-group to observe (groupwise supports "
+                    "--telemetry: tier-2 selection over group sums is "
+                    "server-visible)")
+            if self.log_round_stats and self.secagg == "vanilla":
+                raise ValueError(
+                    "--round-stats reads per-client gradient norms "
+                    "server-side; under --secagg vanilla the server "
+                    "sees no per-client rows (groupwise supports "
+                    "--round-stats over the per-group sums)")
             if self.backdoor and not self.backdoor_fused:
                 raise ValueError(
                     "--backdoor-staged crafts on the host between "

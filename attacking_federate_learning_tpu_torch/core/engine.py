@@ -108,6 +108,18 @@ from the surviving-shard count.  Under traffic every megabatch slot
 re-draws its population archetype each round
 (core/population.py:resample_slots).
 
+The observatories (``cfg.telemetry``, ``margins``, ``numerics``,
+``log_round_stats``; utils/margins.py, utils/numerics.py) ride every
+round: the defense returns its diagnostics beside the aggregate (the
+same selections and bits), the attack its envelope stats, the engine
+adds the population stats, the stage health counters and the round
+stats, all as device tensors in ``last_round_telemetry`` and
+``last_round_stats``.  They join the fault, async and secagg records in
+the one read at each host boundary and go out as the JAX engine's
+'round', 'defense', 'attack', 'margin', 'numerics' and (hierarchical)
+'shard_selection' events, and a 'selection_hist' at the end.  With the
+four flags off no observatory code runs.
+
 The beyond-reference defenses (DnC, GeoMedian, CenteredClip, FLTrust,
 NormBound) take their constants from the config; DnC gets the round
 index (``needs_round``: fresh sketches a round) and FLTrust the server's
@@ -142,7 +154,7 @@ from attacking_federate_learning_tpu_torch.attacks.base import (
     Attack, AttackContext, NoAttack
 )
 from attacking_federate_learning_tpu_torch.config import (
-    CIFAR100, ExperimentConfig
+    CIFAR100, MARGIN_DEFENSES, ExperimentConfig
 )
 from attacking_federate_learning_tpu_torch.core import async_rounds as A
 from attacking_federate_learning_tpu_torch.core import faults as F
@@ -165,16 +177,46 @@ from attacking_federate_learning_tpu_torch.defenses import (
     DEFENSES, check_defense_args
 )
 from attacking_federate_learning_tpu_torch.defenses.kernels import (
-    TIER2_DEFENSES, check_tier2_args
+    TIER2_DEFENSES, check_tier2_args, population_telemetry
 )
 from attacking_federate_learning_tpu_torch.models.base import get_model
 from attacking_federate_learning_tpu_torch.ops import federated as FD
 from attacking_federate_learning_tpu_torch.protocols import secagg as SA
 from attacking_federate_learning_tpu_torch.utils import threefry
 from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
+from attacking_federate_learning_tpu_torch.utils.margins import mean_as_xla
 from attacking_federate_learning_tpu_torch.utils.metrics import RunLogger
+from attacking_federate_learning_tpu_torch.utils.numerics import (
+    nonfinite_count, norm_dynamic_range, row_norms
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _jsonable(v):
+    """A host telemetry leaf as JSON: a scalar as a float, a vector as a
+    list of floats, a matrix (the hierarchical (S, m) stacks) as nested
+    lists, as the JAX engine writes them."""
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return float(a)
+    if a.ndim == 1:
+        return [float(x) for x in a]
+    return a.astype(float).tolist()
+
+
+class Observation:
+    """One round's observatory record while the round runs: ``tele``, the
+    telemetry tensors keyed as the JAX engine keys them (``attack_*``,
+    ``margin_attack_*``, ``defense_*``, ``num_*``, ``shard_*``,
+    ``tier2_*``, population stats), and the Krum winner for the round
+    stats."""
+
+    __slots__ = ("tele", "krum_selected")
+
+    def __init__(self):
+        self.tele = {}
+        self.krum_selected = None
 
 
 def resolve_device(device) -> torch.device:
@@ -348,6 +390,7 @@ class FederatedExperiment:
             defense = functools.partial(defense, tau=cfg.cclip_tau,
                                         iters=cfg.cclip_iters)
         self.defense_fn = defense
+        self._init_observatories()
 
         gen = torch.Generator().manual_seed(cfg.seed)
         self.model = get_model(cfg.model, gen).to(self.device)
@@ -422,6 +465,131 @@ class FederatedExperiment:
                                      self.dataset.test_x,
                                      self.dataset.test_y, cfg.batch_size,
                                      self.device)
+
+    def _init_observatories(self):
+        """The observatories' plan (cfg.telemetry, margins, numerics,
+        log_round_stats), the JAX engine's: the defense returns its
+        diagnostics when telemetry or margins are on, or numerics on a
+        margin-bearing defense (whose tie counters band the margins, so
+        margins ride along and are filtered out of the events when
+        --margins is off).  With all four off nothing here runs in a
+        round."""
+        cfg = self.cfg
+        kernel_num = cfg.numerics and (
+            cfg.aggregation == "hierarchical"
+            or cfg.defense in MARGIN_DEFENSES)
+        self._observing = (cfg.telemetry or cfg.margins or cfg.numerics
+                           or cfg.log_round_stats)
+        self._diag_kw = None
+        if cfg.telemetry or cfg.margins or kernel_num:
+            self._diag_kw = {"telemetry": True}
+            if cfg.margins or kernel_num:
+                self._diag_kw["margins"] = True
+            if kernel_num:
+                self._diag_kw["numerics"] = True
+        # Krum under --round-stats alone: the winner from the defense's
+        # own selection (one score evaluation), as the JAX engine's
+        # pre-empted selection gives it; not under faults or traffic.
+        self._select_kw = (
+            {"telemetry": True}
+            if (cfg.log_round_stats and self._diag_kw is None
+                and cfg.defense == "Krum" and cfg.aggregation == "flat"
+                and cfg.faults is None and cfg.traffic is None) else None)
+        self.last_round_telemetry = None
+        self.last_round_stats = None
+        self._telemetry_winners = []
+
+    def _keep_diag(self, key: str) -> bool:
+        """The three-way filter: margin fields ride iff --margins, num_
+        fields iff --numerics, everything else iff --telemetry."""
+        cfg = self.cfg
+        if key.startswith("margin_"):
+            return cfg.margins
+        if key.startswith("num_"):
+            return cfg.numerics
+        return cfg.telemetry
+
+    def _begin_observation(self) -> Optional[Observation]:
+        return Observation() if self._observing else None
+
+    def _finish_telemetry(self, obs: Observation, grads, ddiag) -> None:
+        """The defense's diagnostics into the round's telemetry, through
+        the three-way filter, plus the population stats of the matrix the
+        defense aggregated (--telemetry); under Krum the winner."""
+        for k, v in ddiag.items():
+            if self._keep_diag(k):
+                obs.tele["defense_" + k] = v
+        if self.cfg.telemetry:
+            obs.tele.update(population_telemetry(grads))
+        if (self.cfg.defense == "Krum" and self.async_spec is None
+                and "selection_mask" in ddiag):
+            obs.krum_selected = torch.argmax(
+                ddiag["selection_mask"]).to(torch.int32)
+
+    def _craft(self, grads: torch.Tensor, ctx, obs) -> torch.Tensor:
+        """craft: the attack on the round's matrix.  With observation on,
+        the attack's envelope stats before it (--telemetry), and its
+        envelope utilization on the pre-attack copy and the crafted rows
+        after it (--margins)."""
+        if obs is None:
+            return self.attacker.apply(grads, self.m_mal, ctx)
+        cfg, tele = self.cfg, obs.tele
+        if cfg.telemetry:
+            tele.update({"attack_" + k: v for k, v in
+                         self.attacker.envelope_stats(
+                             grads, self.m_mal, ctx).items()})
+        # The attack writes its rows in place.
+        pre = grads.clone() if cfg.margins else None
+        crafted = self.attacker.apply(grads, self.m_mal, ctx)
+        if cfg.margins:
+            tele.update({"margin_attack_" + k: v for k, v in
+                         self.attacker.margin_stats(
+                             pre, self.m_mal, ctx, crafted=crafted).items()})
+        return crafted
+
+    def _wire_health(self, obs, grads, mask=None) -> None:
+        """--numerics at the delivery seam: the crafted wire before any
+        quarantine can hide a non-finite row, and its norm range."""
+        if obs is not None and self.cfg.numerics:
+            obs.tele["num_nonfinite_pre"] = nonfinite_count(grads)
+            obs.tele["num_range_log2"] = norm_dynamic_range(grads, mask=mask)
+
+    def _post_health(self, obs, grads, mask=None) -> None:
+        """--numerics after the quarantine: what the defense aggregates."""
+        if obs is not None and self.cfg.numerics:
+            obs.tele["num_nonfinite_post"] = nonfinite_count(grads, mask=mask)
+
+    def _end_observation(self, obs, norms, t: int, extra=None) -> None:
+        """Close the round's record: the applied update's health
+        (--numerics), the telemetry in ``last_round_telemetry`` and the
+        round stats (--round-stats) in ``last_round_stats``: the
+        gradient-norm mean/max/min of ``norms`` (per-client norms; None
+        to leave them out), the update norm, the faded lr, ``extra``
+        fields and under Krum the winner and whether it was malicious."""
+        if obs is None:
+            return
+        cfg = self.cfg
+        if cfg.numerics:
+            obs.tele["num_nonfinite_agg"] = nonfinite_count(
+                self.state.velocity)
+        self.last_round_telemetry = (
+            obs.tele if (cfg.telemetry or cfg.margins or cfg.numerics)
+            else None)
+        if not cfg.log_round_stats:
+            return
+        stats = {}
+        if norms is not None:
+            stats.update(grad_norm_mean=mean_as_xla(norms.reshape(-1), 0),
+                         grad_norm_max=norms.max(),
+                         grad_norm_min=norms.min())
+        stats["update_norm"] = row_norms(self.state.velocity)
+        stats["faded_lr"] = faded_lr(cfg, t)
+        stats.update(extra or {})
+        if obs.krum_selected is not None:
+            sel = obs.krum_selected
+            stats["krum_selected"] = sel
+            stats["malicious_selected"] = (sel < self.m_mal).to(torch.int32)
+        self.last_round_stats = stats
 
     def _init_async(self):
         """Check and plan the buffered round, with the JAX engine's checks
@@ -644,17 +812,28 @@ class FederatedExperiment:
         return self._server_grad_fn(self.state.weights, self._meta_x,
                                     self._meta_y)
 
-    def aggregate(self, grads: torch.Tensor, t: int, **kw) -> torch.Tensor:
+    def aggregate(self, grads: torch.Tensor, t: int, obs=None,
+                  **kw) -> torch.Tensor:
         """tier1_aggregate: the configured defense over the round's
         matrix, with the seams it asks for: the round index
         (``needs_round``, DnC's fresh sketches) and the server gradient
         (``needs_server_grad``, FLTrust); ``kw`` carries ``mask`` and
-        ``weights``."""
+        ``weights``.  With an :class:`Observation` the defense also
+        returns its diagnostics, which go into ``obs``."""
         if self._needs_round:
             kw["round"] = t
         if self._needs_server_grad:
             kw["server_grad"] = self.server_grad()
-        return self.defense_fn(grads, self.m, self.m_mal, **kw)
+        dkw = None if obs is None else (self._diag_kw or self._select_kw)
+        if dkw is None:
+            return self.defense_fn(grads, self.m, self.m_mal, **kw)
+        agg, ddiag = self.defense_fn(grads, self.m, self.m_mal, **kw, **dkw)
+        if self._diag_kw is None:       # the winner only (--round-stats)
+            obs.krum_selected = torch.argmax(
+                ddiag["selection_mask"]).to(torch.int32)
+        else:
+            self._finish_telemetry(obs, grads, ddiag)
+        return agg
 
     def _apply(self, agg: torch.Tensor, t: int) -> ServerState:
         """apply: the momentum step on the aggregate, at the constant base
@@ -679,18 +858,28 @@ class FederatedExperiment:
             return self.run_hier_round(t)
         if self.traffic is not None:
             return self.run_traffic_round(t)
+        obs = self._begin_observation()
         grads = self.compute_grads(t, self.participants(t))
-        grads = self.attacker.apply(grads, self.m_mal,
-                                    self.attack_context(t))    # craft
+        grads = self._craft(grads, self.attack_context(t), obs)  # craft
+        self._wire_health(obs, grads)
+        # The round stats read the crafted matrix before the faults.
+        crafted = grads if obs is not None else None
         mask = None
         if self.faults is not None:
             grads, mask = self.inject_and_quarantine(grads, t)
         if self._secagg is not None:
             grads = self.protect(grads, mask, t)               # protect
+        self._post_health(obs, grads, mask)
         kw = {} if mask is None else {"mask": mask}
-        agg = self.aggregate(grads, t, **kw)                   # aggregate
+        agg = self.aggregate(grads, t, obs, **kw)              # aggregate
         self.state = self._apply(agg, t)                       # apply
+        self._end_observation(obs, self._client_norms(crafted), t)
         return self.state
+
+    def _client_norms(self, grads):
+        """Per-client update norms for the round stats (None when off)."""
+        return (row_norms(grads) if grads is not None
+                and self.cfg.log_round_stats else None)
 
     def protect(self, grads: torch.Tensor, mask, t: int) -> torch.Tensor:
         """protect: vanilla secure aggregation between the quarantine and
@@ -728,26 +917,34 @@ class FederatedExperiment:
         velocity stay bit for bit, the round counter advances.  The JAX
         engine computes both defenses and selects; the unselected one
         never reaches the state, so running the named one alone gives
-        the same state."""
+        the same state.  The diagnostics (with observation on) are the
+        configured defense's whatever the action, as in the JAX engine,
+        so that defense also runs for them in 'fallback' and 'hold'
+        rounds."""
         sched = self.traffic_plan(t, 1)
         self._traffic_events[t] = sched.events[0]
         action = int(sched.action[0])
+        obs = self._begin_observation()
         grads = self.compute_grads(t, sched.shard_ids[0])      # deliver
-        grads = self.attacker.apply(grads, self.m_mal,
-                                    self.attack_context(t))    # craft
+        grads = self._craft(grads, self.attack_context(t), obs)  # craft
+        self._wire_health(obs, grads)
+        crafted = grads if obs is not None else None
         mask = F.to_device(sched.arrived[0], self.device)
         grads = torch.where(mask[:, None], grads, torch.zeros_like(grads))
         if self.faults is not None:
             grads, fmask = self.inject_and_quarantine(grads, t)
             mask = mask & fmask
-        if action == P.TRAFFIC_HOLD:
-            return self._hold()
+        self._post_health(obs, grads, mask)
         if action == P.TRAFFIC_REMASK:
-            agg = self.aggregate(grads, t, mask=mask)
+            agg = self.aggregate(grads, t, obs, mask=mask)
         else:
-            agg = self._traffic_fallback_fn(grads, self.m, self.m_mal,
-                                            mask=mask)
-        self.state = self._apply(agg, t)
+            if obs is not None and self._diag_kw is not None:
+                self.aggregate(grads, t, obs, mask=mask)
+            agg = (None if action == P.TRAFFIC_HOLD else
+                   self._traffic_fallback_fn(grads, self.m, self.m_mal,
+                                             mask=mask))
+        self.state = self._hold() if agg is None else self._apply(agg, t)
+        self._end_observation(obs, self._client_norms(crafted), t)
         return self.state
 
     def slot_ids(self, t: int) -> np.ndarray:
@@ -787,7 +984,13 @@ class FederatedExperiment:
         norms among them) go to ``last_round_secagg``.  With faults a
         group's alive rows are its undropped members (the JAX engine's
         ``qmask = ~drop``); a dead domain still runs its group's
-        protocol."""
+        protocol.
+
+        With the observatories on, each megabatch's tier-1 diagnostics
+        (and in the clear modes its rows' norms) are kept and stacked
+        (S, ...) after the loop; the tier-2 diagnostics always read the
+        configured tier-2 defense, which also runs for them in
+        'fallback' and 'hold' rounds (:meth:`_hier_telemetry`)."""
         place, fc = self._placement, self.faults
         S, m, f1 = place.num_shards, place.megabatch, self._tier1_f
         grid = self._grid
@@ -796,6 +999,12 @@ class FederatedExperiment:
             grid = F.to_device(self.last_round_slots, self.device)
         action = P.TRAFFIC_REMASK
         sec = self._secagg is not None
+        obs = self._begin_observation()
+        dkw = self._diag_kw if obs is not None else None
+        # Per-client norms are server-visible in the clear modes only.
+        want_norms = obs is not None and not sec and (
+            self.cfg.telemetry or self.cfg.log_round_stats)
+        diags, norms = [], []
         if sec:
             keys, ids = SA.round_tables(
                 threefry.fold_in(self._secagg_key, t), place.grid,
@@ -819,6 +1028,18 @@ class FederatedExperiment:
                if self._check_attack_nan else None)
         ctx = self.attack_context(t, check_finite=bad is None)
 
+        def tier1(grads, **kw):
+            # The tier-1 defense; with observation on, the rows' norms
+            # and its diagnostics (filtered) go on the shard stacks.
+            if want_norms:
+                norms.append(row_norms(grads))
+            if dkw is None:
+                return self.defense_fn(grads, m, f1, **kw)
+            est, diag = self.defense_fn(grads, m, f1, **kw, **dkw)
+            diags.append({k: v for k, v in diag.items()
+                          if self._keep_diag(k)})
+            return est
+
         def shard_fn(sid, _ids, c):
             # The megabatch's ids on the device: the placement's, or the
             # round's resampled slots.  Its matrix is freed on return,
@@ -831,7 +1052,7 @@ class FederatedExperiment:
                 if sec:                                          # protect
                     grads, _ = SA.protect(grads, (keys[sid], ids[sid]),
                                           ok=sec_ok[sid])
-                return self.defense_fn(grads, m, f1)             # tier 1
+                return tier1(grads)                              # tier 1
             slab = (self.fault_state["stale"][t % fc.straggler_delay, sid]
                     if fc.straggler > 0 else None)
             grads, drop = F.apply_shard_faults(grads, masks[sid], slab, fc)
@@ -844,13 +1065,17 @@ class FederatedExperiment:
                 grads, qmask, q = F.quarantine(grads, drop)
                 quar[sid] = q["quarantined"]
             alive[sid] = qmask.sum() * dom[sid]
-            return self.defense_fn(grads, m, f1, mask=qmask)
+            return tier1(grads, mask=qmask)
 
         est = FD.client_map(shard_fn, place, with_sid=True,
                             out=self._estimates)
         f2 = self._tier2_f
+        agg = diag2 = None
         if fc is None:
-            agg = FD.shard_reduce(self._tier2_fn, est, S, f2)    # tier 2
+            agg = FD.shard_reduce(self._tier2_fn, est, S, f2,     # tier 2
+                                  **(dkw or {}))
+            if dkw is not None:
+                agg, diag2 = agg
         else:
             # A shard with no aggregable row has an undefined estimate;
             # tier 2's mask excludes it, and it is zeroed so nothing
@@ -865,11 +1090,19 @@ class FederatedExperiment:
                 "shard_alive": alive,
                 "shards_alive": (alive > 0).sum(),
                 "tier2_action": action}
-            agg = None
-            if action != P.TRAFFIC_HOLD:
-                fn = (self._tier2_fn if action == P.TRAFFIC_REMASK
-                      else self._tier2_fallback_fn)
-                agg = FD.shard_reduce(fn, est, S, f2, alive_counts=alive)
+            # The diagnostics read the configured tier-2 defense whatever
+            # the action (the JAX engine's); only the aggregate follows it.
+            if dkw is not None:
+                cfg_agg, diag2 = FD.shard_reduce(self._tier2_fn, est, S, f2,
+                                                 alive_counts=alive, **dkw)
+                if action == P.TRAFFIC_REMASK:
+                    agg = cfg_agg
+            elif action == P.TRAFFIC_REMASK:
+                agg = FD.shard_reduce(self._tier2_fn, est, S, f2,
+                                      alive_counts=alive)
+            if action == P.TRAFFIC_FALLBACK:
+                agg = FD.shard_reduce(self._tier2_fallback_fn, est, S, f2,
+                                      alive_counts=alive)
         if sec:
             # The per-group sums are what the server sees (each estimate
             # is sum / m): their norms, dead shards' zeroed.  The squares
@@ -884,13 +1117,51 @@ class FederatedExperiment:
                 "masks_reconstructed": sec_pairs.sum(),
                 "recovery": int(dropped > 0),
                 "group_sum_norms": est.square().sum(1).sqrt() * m}
+            if obs is not None and self.cfg.telemetry:
+                # The envelope the server can still compute when groups,
+                # not clients, are what it sees.
+                self.last_round_secagg["group_cos_to_mean"] = (
+                    SA.group_envelope_stats(est, m)["group_cos_to_mean"])
         if bad is not None and bool(bad.any()):
             # The state stays at the last finished round.
             raise FloatingPointError("Got nan in backdoor shadow training")
+        if obs is not None:
+            self._hier_telemetry(obs, est, diags, norms, diag2)
         if agg is None:
-            return self._hold()
-        self.state = self._apply(agg, t)                         # apply
+            self._hold()
+        else:
+            self.state = self._apply(agg, t)                     # apply
+        if obs is not None:
+            extra = None
+            if sec:
+                gs = row_norms(est) * m
+                extra = {"group_sum_norm_mean": mean_as_xla(gs, 0),
+                         "group_sum_norm_max": gs.max(),
+                         "group_sum_norm_min": gs.min()}
+            self._end_observation(
+                obs, torch.stack(norms) if want_norms else None, t, extra)
         return self.state
+
+    def _hier_telemetry(self, obs, est, diags, norms, diag2) -> None:
+        """A hierarchical round's telemetry: the tier-1 diagnostics
+        stacked (S, ...) as ``shard_*`` (with --telemetry the rows' norms
+        as ``shard_grad_norms``), the tier-2 ones as ``tier2_*`` (and the
+        estimates' norms as ``tier2_est_norms``), and with --numerics the
+        health of the (S, d) estimate matrix tier 2 reduces."""
+        cfg, tele = self.cfg, obs.tele
+        if diags:
+            for k, v in FD.stack_shards(diags).items():
+                tele["shard_" + k] = v
+        if norms and cfg.telemetry:
+            tele["shard_grad_norms"] = torch.stack(norms)
+        for k, v in (diag2 or {}).items():
+            if self._keep_diag(k):
+                tele["tier2_" + k] = v
+        if cfg.telemetry:
+            tele["tier2_est_norms"] = row_norms(est)
+        if cfg.numerics:
+            tele["num_nonfinite_post"] = nonfinite_count(est)
+            tele["num_range_log2"] = norm_dynamic_range(est)
 
     def run_async_round(self, t: int) -> ServerState:
         """One buffered round (the JAX engine's ``async_core``): fresh
@@ -900,7 +1171,11 @@ class FederatedExperiment:
         ``last_round_async`` (and the injected fault counts in
         ``last_round_faults``)."""
         spec = self.async_spec
+        obs = self._begin_observation()
         grads = self.compute_grads(t)                           # deliver
+        # The round stats read the computed cohort (what the clients
+        # submitted this round); the delivered view is in 'async'.
+        norms = self._client_norms(grads if obs is not None else None)
         dgrads, delivered, staleness, stats = A.async_step(
             grads, t, self._async_key, spec, self.async_state, self.m_mal,
             faults=self.faults,
@@ -912,9 +1187,10 @@ class FederatedExperiment:
                                stats.items() if k.startswith("fault_")}}
         # Craft at delivery; undelivered rows [0, f) get overwritten too,
         # so the matrix is masked again before the defense.
-        crafted = self.attacker.apply(dgrads, self.m_mal,
-                                      self.attack_context(t, staleness))
+        crafted = self._craft(dgrads, self.attack_context(t, staleness), obs)
+        self._wire_health(obs, crafted, delivered)
         agg_grads = torch.where(delivered[:, None], crafted, 0.0)
+        self._post_health(obs, agg_grads, delivered)
         weights = A.staleness_weights(staleness, delivered, spec.weighting)
         self.last_round_async = {
             "round": t, "counts": stats["counts"],
@@ -923,7 +1199,7 @@ class FederatedExperiment:
                                          spec.depth),
             "delivered_mask": delivered, "staleness": staleness}
         kw = {} if weights is None else {"weights": weights}
-        agg = self.aggregate(agg_grads, t, mask=delivered, **kw)
+        agg = self.aggregate(agg_grads, t, obs, mask=delivered, **kw)
         upd = self._apply(agg, t)
         # An empty delivery is a server no-op: weights and velocity hold,
         # the round counter advances.
@@ -932,6 +1208,7 @@ class FederatedExperiment:
             torch.where(any_del, upd.weights, self.state.weights),
             torch.where(any_del, upd.velocity, self.state.velocity),
             upd.round)
+        self._end_observation(obs, norms, t)
         return self.state
 
     # --- carry state and rollback ---------------------------------------
@@ -1168,35 +1445,53 @@ class FederatedExperiment:
             return journal is None or journal.fresh_round(t)
 
         loop_t0 = time.perf_counter()
+        rounds_pending = []
         while epoch < cfg.epochs:
             self.run_round(epoch)
             if (self.faults is not None or self.async_spec is not None
-                    or self._secagg is not None):
+                    or self._secagg is not None or self._observing):
                 pending.append((self.last_round_faults,
                                 self.last_round_async,
-                                self.last_round_secagg))
+                                self.last_round_secagg,
+                                self.last_round_telemetry,
+                                self.last_round_stats))
+                rounds_pending.append(epoch)
             is_eval = epoch % cfg.test_step == 0 or epoch == cfg.epochs - 1
             if not (is_eval or (ckpt_every and epoch % ckpt_every == 0)):
                 epoch += 1
                 continue
             # A host boundary: where the JAX engine's span ends.
             if pending:
-                for frow, arow, srow in self._host_records(pending):
+                recs = self._host_records(pending)
+                for t_rec, (frow, arow, srow, tele, rstats) in zip(
+                        rounds_pending, recs):
                     if frow is not None:
                         fault_rows.append(frow)
                     if arow is not None:
                         async_rows.append(arow)
                     if srow is not None:
                         secagg_rows.append(srow)
-                    t_rec = (frow or arow or srow)["round"]
                     if fresh(t_rec):
+                        if rstats is not None:
+                            logger.record(kind="round", round=t_rec,
+                                          **rstats)
                         if frow is not None:
                             logger.record(kind="fault", **frow)
                         if arow is not None:
                             logger.record(kind="async", **arow)
                         if srow is not None:
                             logger.record(kind="secagg", **srow)
-                pending = []
+                        if tele is not None:
+                            self._emit_round_telemetry(logger, t_rec, tele)
+                    if cfg.log_round_stats and self.traffic is not None:
+                        # Round by round, as the JAX engine's per-round
+                        # path emits them under --round-stats.
+                        ev = self._traffic_events.pop(t_rec, None)
+                        if ev is not None:
+                            traffic_rows.append(ev)
+                            if fresh(t_rec):
+                                logger.record(kind="traffic", **ev)
+                pending, rounds_pending = [], []
             if self.traffic is not None:
                 # Traffic events are host-born (the schedule knows the
                 # arrivals and actions before the device runs), emitted at
@@ -1251,6 +1546,8 @@ class FederatedExperiment:
             epoch += 1
             span_start = epoch
 
+        if cfg.telemetry:
+            self._emit_selection_hist(logger)
         if journal is not None:
             self._complete(logger, journal, start_epoch, loop_t0, last_asr)
         logger.finish()
@@ -1272,53 +1569,193 @@ class FederatedExperiment:
 
     @staticmethod
     def _host_records(pending):
-        """The per-round 'fault', 'async' and 'secagg' records of a span
-        (``pending``: one ``(fault, async)`` or ``(fault, async, secagg)``
-        tuple a round, each None where the round has none), as host
-        values, with one device-to-host read: the fault records' device
-        counts (``quarantined``; in hierarchical rounds also
-        ``shard_alive`` and ``shards_alive``) and the secagg records'
-        (the sum check, the reconstructed pairs, the groupwise sums'
-        norms), or the async rounds' counts, staleness histograms and
-        weight masses, read at once.  Returns tuples as wide as the
-        given ones.  Counts land as ints (a per-shard vector as a list
-        of ints), the group sums' norms as a list of floats; the 'async'
-        fields are the JAX engine's: counts as ints, the histogram and
-        the weight mass as lists of floats."""
-        width = len(pending[0])
-        fault = [p[0] for p in pending]
-        rows = [p[1] for p in pending]
-        if rows[0] is None:
-            sec = [p[2] if width > 2 else None for p in pending]
-            recs = [r for pair in zip(fault, sec) for r in pair]
-            tensors = [v for r in recs if r is not None
-                       for v in r.values() if isinstance(v, torch.Tensor)]
-            flat = (torch.cat([v.reshape(-1).double() for v in tensors])
-                    .tolist() if tensors else [])
-            host, i = [], 0
-            for r in recs:
-                rec = None if r is None else dict(r)
-                for k, v in (r or {}).items():
-                    if isinstance(v, torch.Tensor):
+        """The per-round records of a span as host values, with one
+        device-to-host read.  ``pending`` holds one tuple a round,
+        ``(fault, async, secagg[, telemetry, round_stats])``, each a dict
+        or None: the fault and secagg records' device counts (in
+        hierarchical rounds the per-shard vector; the groupwise sums'
+        norms), the async records' counts, staleness histograms and
+        weight masses, and the observatories' telemetry and round stats,
+        all read at once.  Returns tuples as wide as the given ones.
+        Fault and secagg counts land as ints (a vector as a list), their
+        float tensors as floats; the 'async' fields are the JAX engine's
+        (counts as ints, the histogram and the weight mass as lists of
+        floats); telemetry and round stats as the JAX engine writes them
+        (:func:`_jsonable`: every number a float, a matrix as nested
+        lists)."""
+        async_fields = ("counts", "staleness_hist", "weight_mass")
+
+        def tensors_of(j, r):
+            if r is None:
+                return []
+            if j == 1:
+                return [(k, r[k]) for k in async_fields]
+            return [(k, v) for k, v in r.items()
+                    if isinstance(v, torch.Tensor)]
+
+        parts = [v.reshape(-1).double() for p in pending
+                 for j, r in enumerate(p) for _, v in tensors_of(j, r)]
+        flat = torch.cat(parts).tolist() if parts else []
+        out, i = [], 0
+        for p in pending:
+            recs = []
+            for j, r in enumerate(p):
+                if r is None:
+                    recs.append(None)
+                    continue
+                vals = {}
+                for k, v in tensors_of(j, r):
+                    vals[k] = (v, flat[i:i + v.numel()])
+                    i += v.numel()
+                if j == 1:
+                    counts = vals["counts"][1]
+                    rec = {"round": r["round"],
+                           **{k: int(c) for k, c in
+                              zip(A.COUNT_NAMES, counts)},
+                           "staleness_hist": [
+                               float(x) for x in vals["staleness_hist"][1]],
+                           "weight_mass": vals["weight_mass"][1]}
+                elif j >= 3:
+                    rec = {k: _jsonable(np.reshape(vals[k][1],
+                                                   vals[k][0].shape)
+                                        if k in vals else v)
+                           for k, v in r.items()}
+                else:
+                    rec = dict(r)
+                    for k, (v, x) in vals.items():
                         kind = float if v.is_floating_point() else int
-                        vals = [kind(x) for x in flat[i:i + v.numel()]]
-                        rec[k] = vals[0] if v.dim() == 0 else vals
-                        i += v.numel()
-                host.append(rec)
-            return [(host[2 * j], None, host[2 * j + 1])[:width]
-                    for j in range(len(pending))]
-        host = torch.stack([
-            torch.cat([a["counts"].float(), a["staleness_hist"].float(),
-                       a["weight_mass"]]) for a in rows]).tolist()
-        n, D = len(A.COUNT_NAMES), rows[0]["staleness_hist"].shape[0]
-        out = []
-        for f, a, vals in zip(fault, rows, host):
-            rec = {"round": a["round"],
-                   **{k: int(v) for k, v in zip(A.COUNT_NAMES, vals[:n])},
-                   "staleness_hist": vals[n:n + D],
-                   "weight_mass": vals[n + D:]}
-            out.append((f, rec, None)[:width])
+                        rec[k] = (kind(x[0]) if v.dim() == 0
+                                  else [kind(y) for y in x])
+                recs.append(rec)
+            out.append(tuple(recs))
         return out
+
+    def _shard_static_fields(self):
+        """The placement's ground truth every 'shard_selection' event
+        carries: the defenses of both tiers, the megabatch, each shard's
+        malicious-row count, the placement and the assumed bounds."""
+        pl = self._placement
+        return {"defense": self.cfg.defense,
+                "tier2_defense": self._tier2_name,
+                "megabatch": pl.megabatch,
+                "mal_counts": [int(c) for c in pl.mal_counts],
+                "mal_placement": self.cfg.mal_placement,
+                "tier1_corrupted": self._tier1_f,
+                "tier2_corrupted": self._tier2_f}
+
+    def _emit_round_telemetry(self, logger, t: int, tele: dict) -> None:
+        """One round's telemetry (host values, keyed as the JAX engine
+        keys them) as its events: one schema-v12 'margin' event
+        (--margins: the defense's margin fields, their colluder-survival
+        rollups, the attack's envelope utilization, the hierarchical
+        stacks with their rollups, and under traffic the round's f_eff),
+        one schema-v14 'numerics' event (--numerics: the stage counters,
+        the defense's tie and cancellation counters, their rollups), and
+        with --telemetry the 'shard_selection' (hierarchical), 'defense'
+        and 'attack' events; the Krum winner is kept for the end-of-run
+        'selection_hist'."""
+        from attacking_federate_learning_tpu_torch.utils import margins as M
+        from attacking_federate_learning_tpu_torch.utils import (
+            numerics as N
+        )
+
+        defense_fields, attack_fields, shard_fields = {}, {}, {}
+        margin_fields, margin_attack, hier_margin = {}, {}, {}
+        numerics_fields = {}
+        for k, val in tele.items():
+            # The margin and numerics prefixes first: 'defense_margin_*',
+            # 'shard_num_*' ... would otherwise fall in the branches
+            # below.
+            if k.startswith("defense_margin_"):
+                margin_fields[k[len("defense_"):]] = val
+            elif k.startswith("margin_attack_"):
+                margin_attack[k[len("margin_attack_"):]] = val
+            elif k.startswith(("shard_margin_", "tier2_margin_")):
+                hier_margin[k] = val
+            elif k.startswith("defense_num_"):
+                numerics_fields[k[len("defense_num_"):]] = val
+            elif k.startswith(("shard_num_", "tier2_num_")):
+                tier, rest = k.split("num_", 1)
+                numerics_fields[tier + rest] = val
+            elif k.startswith("num_"):
+                numerics_fields[k[len("num_"):]] = val
+            elif k.startswith("attack_"):
+                attack_fields[k[len("attack_"):]] = val
+            elif k.startswith(("shard_", "tier2_")):
+                shard_fields[k] = val
+            elif k.startswith("defense_"):
+                defense_fields[k[len("defense_"):]] = val
+            else:
+                defense_fields[k] = val         # population stats
+        cfg = self.cfg
+        if cfg.margins and (margin_fields or margin_attack or hier_margin):
+            ev = dict(margin_fields)
+            ev.update(M.margin_rollups(margin_fields, self.m_mal))
+            for mk, mv in margin_attack.items():
+                ev["attack_" + mk] = mv
+            if hier_margin:
+                ev.update(hier_margin)
+                shard_stacks = {k[len("shard_"):]: v
+                                for k, v in hier_margin.items()
+                                if k.startswith("shard_margin_")}
+                tier2_fields = {k[len("tier2_"):]: v
+                                for k, v in hier_margin.items()
+                                if k.startswith("tier2_margin_")}
+                counts = list(self._placement.mal_counts)
+                if shard_stacks:
+                    for rk, rv in M.hier_margin_rollups(
+                            shard_stacks, counts).items():
+                        ev["shard_" + rk] = rv
+                if tier2_fields:
+                    for rk, rv in M.tier2_margin_rollups(
+                            tier2_fields, [c > 0 for c in counts]).items():
+                        ev["tier2_" + rk] = rv
+            if self.traffic is not None:
+                tr = self._traffic_events.get(int(t))
+                if tr is not None and "f_eff" in tr:
+                    ev["f_eff"] = int(tr["f_eff"])
+            logger.record(kind="margin", round=int(t), defense=cfg.defense,
+                          malicious_count=self.m_mal, **ev)
+        if cfg.numerics and numerics_fields:
+            nev = dict(numerics_fields)
+            nev.update(N.numerics_rollups(numerics_fields))
+            logger.record(kind="numerics", round=int(t),
+                          defense=cfg.defense,
+                          tie_band_ulps=N.TIE_BAND_ULPS, **nev)
+        if not cfg.telemetry:
+            return
+        if shard_fields:
+            logger.record(kind="shard_selection", round=int(t),
+                          **self._shard_static_fields(), **shard_fields)
+        if defense_fields:
+            logger.record(kind="defense", round=int(t), defense=cfg.defense,
+                          malicious_count=self.m_mal, **defense_fields)
+        if attack_fields:
+            logger.record(kind="attack", round=int(t),
+                          attack=self.attacker.name, **attack_fields)
+        mask = defense_fields.get("selection_mask")
+        if mask is not None and cfg.defense == "Krum":
+            self._telemetry_winners.append(
+                int(max(range(len(mask)), key=mask.__getitem__)))
+
+    def _emit_selection_hist(self, logger) -> None:
+        """The end-of-run 'selection_hist' event of the Krum winners
+        (--telemetry): per-client counts, the distinct winners, the top
+        client's share and the malicious picks."""
+        import collections
+
+        wins = self._telemetry_winners
+        if not wins:
+            return
+        counts = collections.Counter(wins)
+        top1_client, top1 = counts.most_common(1)[0]
+        logger.record(
+            kind="selection_hist", defense=self.cfg.defense,
+            counts={str(k): v for k, v in sorted(counts.items())},
+            rounds=len(wins), distinct_winners=len(counts),
+            top1_share=round(top1 / len(wins), 4),
+            top1_client=top1_client,
+            malicious_picks=sum(1 for w in wins if w < self.m_mal))
 
     def _complete(self, logger, journal, start_epoch, loop_t0, last_asr):
         """A journaled run's end: the 'lifecycle' complete and 'registry'

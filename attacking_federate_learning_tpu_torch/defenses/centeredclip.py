@@ -22,16 +22,28 @@ from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
 )
 
 
+def clip_scale(norms, bound):
+    """Each row's clip factor min(1, bound / ||row||) (1.0: inside the
+    ball)."""
+    return torch.clamp(bound / torch.clamp(norms, min=1e-12), max=1.0)
+
+
 def centered_clip(users_grads, users_count, corrupted_count, tau=10.0,
-                  iters=5):
+                  iters=5, telemetry=False):
+    """``telemetry=True`` also returns ``clip_scale`` (n,), each client's
+    clip factor against the returned estimate, and ``clipped_count`` ()
+    int32, the rows strictly clipped."""
     G = users_grads.float().contiguous()
     v = median_of(G)
     for _ in range(iters):
         diff = G - v[None, :]
-        norms = torch.linalg.vector_norm(diff, dim=1)
-        scale = torch.clamp(tau / torch.clamp(norms, min=1e-12), max=1.0)
+        scale = clip_scale(torch.linalg.vector_norm(diff, dim=1), tau)
         v = v + (diff * scale[:, None]).mean(0)
-    return v
+    if not telemetry:
+        return v
+    scale = clip_scale(torch.linalg.vector_norm(G - v[None, :], dim=1), tau)
+    return v, {"clip_scale": scale,
+               "clipped_count": (scale < 1.0).sum().to(torch.int32)}
 
 
 DEFENSES["CenteredClip"] = centered_clip

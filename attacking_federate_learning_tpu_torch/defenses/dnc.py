@@ -131,16 +131,27 @@ def survivor_mask(G: torch.Tensor, corrupted_count: int,
 
 def dnc(users_grads, users_count, corrupted_count, n_iters: int = _N_ITERS,
         filter_frac: float = _FILTER_FRAC, sketch_dim: int = _SKETCH_DIM,
-        seed: int = 0, round=0):
+        seed: int = 0, round=0, telemetry=False):
+    """``telemetry=True`` also returns ``survivor_mask`` (n,) f32 0/1 (the
+    clients no iteration marked) and ``survivor_count`` () int32."""
     G = users_grads.float()
-    if min(int(filter_frac * corrupted_count), G.shape[0] - 1) == 0:
-        return G.mean(0)
-    w = survivor_mask(G, corrupted_count, n_iters, filter_frac, sketch_dim,
-                      seed, round).float()
-    survivors = w.sum()
-    survivor_mean = (w @ G) / torch.clamp(survivors, min=1.0)
-    # Empty intersection (possible at small n): the overall mean.
-    return torch.where(survivors > 0, survivor_mean, G.mean(0))
+    n = G.shape[0]
+    if min(int(filter_frac * corrupted_count), n - 1) == 0:
+        if not telemetry:
+            return G.mean(0)
+        w = torch.ones(n, dtype=torch.float32, device=G.device)
+        agg, survivors = G.mean(0), w.sum()
+    else:
+        w = survivor_mask(G, corrupted_count, n_iters, filter_frac,
+                          sketch_dim, seed, round).float()
+        survivors = w.sum()
+        survivor_mean = (w @ G) / torch.clamp(survivors, min=1.0)
+        # Empty intersection (possible at small n): the overall mean.
+        agg = torch.where(survivors > 0, survivor_mean, G.mean(0))
+    if not telemetry:
+        return agg
+    return agg, {"survivor_mask": w,
+                 "survivor_count": survivors.to(torch.int32)}
 
 
 # Engine seam: the round index, so that sketches refresh every round.

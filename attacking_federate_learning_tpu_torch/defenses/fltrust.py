@@ -42,24 +42,35 @@ def row_norms(x: torch.Tensor, dim=None) -> torch.Tensor:
     return torch.sqrt(s.to(x.dtype))
 
 
-def trust_scores(users_grads, server_grad):
+def trust_scores(users_grads, server_grad, telemetry=False):
     """((n,) f32 trust weights ``relu(cos(g_i, g0))``, (n,) f32 rescale
-    factors ``||g0|| / (||g_i|| + eps)``), with JAX's dtypes."""
+    factors ``||g0|| / (||g_i|| + eps)``), with JAX's dtypes; with
+    ``telemetry`` a third item, ``{'trust_scores', 'cosine',
+    'server_grad_norm'}``."""
     g0_norm = row_norms(server_grad)
     gi_norm = row_norms(users_grads, 1)
     eps = 1e-12
     cos = (users_grads.float() @ server_grad) / (
         gi_norm.float() * g0_norm + eps)
-    return (torch.clamp(cos, min=0.0),                  # relu-clipped trust
-            g0_norm / (gi_norm + eps).float())
+    ts = torch.clamp(cos, min=0.0)                      # relu-clipped trust
+    rescale = g0_norm / (gi_norm + eps).float()
+    if not telemetry:
+        return ts, rescale
+    return ts, rescale, {"trust_scores": ts, "cosine": cos,
+                         "server_grad_norm": g0_norm}
 
 
-def fltrust(users_grads, users_count, corrupted_count, server_grad=None):
+def fltrust(users_grads, users_count, corrupted_count, server_grad=None,
+            telemetry=False):
+    """``telemetry=True`` also returns ``trust_scores`` (n,) (the
+    relu-clipped trust the average used), ``cosine`` (n,) (the raw cosine
+    to the server gradient) and ``server_grad_norm`` ()."""
     if server_grad is None:
         raise ValueError("FLTrust requires the server gradient")
-    ts, rescale = trust_scores(users_grads, server_grad)
+    ts, rescale, *diag = trust_scores(users_grads, server_grad, telemetry)
     scaled = users_grads.float() * rescale[:, None]
-    return (ts @ scaled) / (ts.sum() + 1e-12)
+    agg = (ts @ scaled) / (ts.sum() + 1e-12)
+    return (agg, diag[0]) if telemetry else agg
 
 
 fltrust.needs_server_grad = True

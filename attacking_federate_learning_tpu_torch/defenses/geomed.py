@@ -22,14 +22,21 @@ _EPS = 1e-6
 
 
 def geometric_median(users_grads, users_count, corrupted_count,
-                     iters: int = _ITERS, eps: float = _EPS):
+                     iters: int = _ITERS, eps: float = _EPS,
+                     telemetry=False):
+    """``telemetry=True`` also returns ``dist_to_agg`` (n,), each client's
+    distance to the geometric median (the Weiszfeld weights are 1 /
+    dist)."""
     G = users_grads.float()
     z = G.mean(0)
     for _ in range(iters):
         dist = torch.linalg.vector_norm(G - z[None, :], dim=1)
         w = 1.0 / torch.clamp(dist, min=eps)
         z = (w @ G) / w.sum()
-    return z
+    if not telemetry:
+        return z
+    return z, {"dist_to_agg": torch.linalg.vector_norm(G - z[None, :],
+                                                       dim=1)}
 
 
 DEFENSES["GeoMedian"] = geometric_median

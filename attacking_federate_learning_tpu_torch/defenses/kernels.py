@@ -26,6 +26,28 @@ Two seams reach every defense, as in the JAX package:
 - ``weights`` (the staleness seam of async rounds; requires ``mask``):
   per-row weights for the means.  Selections stay unweighted.
 
+Three more seams ride along, the JAX package's observatories, each a
+Python flag, so that with all of them off a defense runs exactly the
+operations it runs without them:
+
+- ``telemetry=True`` returns ``(aggregate, diagnostics)``, a small dict
+  of fixed-shape device tensors (selection masks and scores for
+  Krum/Bulyan, kept and trim fractions for the trimmed mean, distances
+  to the aggregate for the median, ...).  The trimmed-mean kernel
+  returns only its aggregate, as the JAX package's Pallas kernel does,
+  so ``kept_fraction`` is NaN there and the real value comes as
+  ``margin_kept_frac``.
+- ``margins=True`` (needs ``telemetry``) adds the decision margins of
+  utils/margins.py: Krum's from the same score vector the selection
+  read (one fused-kernel launch), the trimmed mean's and the median's
+  from rank ops beside the kernel (one median-kernel launch for the
+  trimmed mean's anchor), Bulyan's carried through its selection loop.
+- ``numerics=True`` (needs ``margins``) adds the tie-proximity and
+  cancellation counters of utils/numerics.py, which band the margins.
+
+The aggregate and every selection are the same bits with the seams on
+or off.
+
 On a CUDA tensor every kernel call launches the CUDA kernel; on a CPU
 tensor the same calls take the kernels' plain PyTorch versions.  The
 selection loop and the sort fallback are plain tensor code on both, as
@@ -56,13 +78,22 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-    krum_complement, krum_scores, masked_trimmed_mean, trimmed_mean_of
+    krum_complement, krum_scores, masked_median, masked_trimmed_mean,
+    median_of, trimmed_mean_of
 )
 from attacking_federate_learning_tpu_torch.ops.distances import (
     pairwise_distances
+)
+from attacking_federate_learning_tpu_torch.utils.margins import (
+    krum_margins, rank_keep_margins, stable_argsort
+)
+from attacking_federate_learning_tpu_torch.utils.numerics import (
+    cancellation_bits, gram_cancellation_bits, max_finite_abs, row_norms,
+    tie_proximity
 )
 
 # topk cancellation guard: required ratio of a row's kept score mass to
@@ -96,23 +127,73 @@ def check_weight_seam(mask, weights):
             "to the delivered cohort only; core/async_rounds.py)")
 
 
+def check_margin_seam(margins, telemetry):
+    """The ``margins=`` seam rides the telemetry diagnostics: margins
+    without telemetry have no carrier and are a caller bug (the engine
+    passes telemetry=True whenever margins are on, and filters the other
+    diagnostics out when --telemetry is off)."""
+    if margins and not telemetry:
+        raise ValueError(
+            "defense margins=True requires telemetry=True (margin "
+            "fields ride the diagnostics pytree; utils/margins.py)")
+
+
+def check_numerics_seam(numerics, margins):
+    """The ``numerics=`` seam rides the margin tensors: the tie counters
+    band the margins, so numerics without margins have nothing to band
+    and are a caller bug (the engine passes margins=True whenever the
+    kernel numerics are on)."""
+    if numerics and not margins:
+        raise ValueError(
+            "defense numerics=True requires margins=True (tie counters "
+            "band the margin tensors; utils/numerics.py)")
+
+
+def check_seams(mask, weights, telemetry, margins, numerics):
+    check_weight_seam(mask, weights)
+    check_margin_seam(margins, telemetry)
+    check_numerics_seam(numerics, margins)
+
+
+def population_telemetry(users_grads):
+    """Per-client update norms and cosine to the mean: the population
+    view the server can always observe, whichever defense runs.  Two
+    (n,) f32 vectors."""
+    G = users_grads.float()
+    norms = row_norms(G)
+    mean = G.mean(0)
+    cos = (G @ mean) / (norms * row_norms(mean) + 1e-12)
+    return {"client_norms": norms, "cosine_to_mean": cos}
+
+
+def scatter_rows(n, idx, values, like):
+    """An (n,) f32 vector, ``values`` at rows ``idx`` and 0 elsewhere."""
+    out = torch.zeros(n, dtype=torch.float32, device=like.device)
+    out[idx] = values
+    return out
+
+
 def no_defense(users_grads, users_count, corrupted_count, mask=None,
-               weights=None):
+               weights=None, telemetry=False, margins=False,
+               numerics=False):
     """Plain FedAvg mean (reference defences.py:13-14); with ``mask`` the
     mean of the alive rows (a zeroed dropout row must not drag it toward
-    zero), with ``weights`` the weighted alive mean sum(w g) / sum(w)."""
-    check_weight_seam(mask, weights)
+    zero), with ``weights`` the weighted alive mean sum(w g) / sum(w).
+    A mean has no decision to measure: its diagnostics are empty and
+    ``margins`` / ``numerics`` are accepted and ignored."""
+    check_seams(mask, weights, telemetry, margins, numerics)
     if weights is not None:
         w = torch.where(mask, weights, 0.0)
-        return (w @ users_grads.float()) / torch.clamp(w.sum(), min=1e-12)
-    # The sums run in f32 and round to the wire's dtype once (jnp.mean
-    # and jnp.sum of a bf16 matrix).
-    dtype = users_grads.dtype
-    if mask is None:
-        return users_grads.mean(0, dtype=torch.float32).to(dtype)
-    e = torch.clamp(mask.sum(), min=1)
-    return torch.where(mask[:, None], users_grads, 0.0).sum(
-        0, dtype=torch.float32).to(dtype) / e
+        agg = (w @ users_grads.float()) / torch.clamp(w.sum(), min=1e-12)
+    elif mask is None:
+        # The sums run in f32 and round to the wire's dtype once
+        # (jnp.mean and jnp.sum of a bf16 matrix).
+        agg = users_grads.mean(0, dtype=torch.float32).to(users_grads.dtype)
+    else:
+        e = torch.clamp(mask.sum(), min=1)
+        agg = torch.where(mask[:, None], users_grads, 0.0).sum(
+            0, dtype=torch.float32).to(users_grads.dtype) / e
+    return (agg, {}) if telemetry else agg
 
 
 def sort_scores(D, users_count, corrupted_count, paper_scoring=False,
@@ -172,17 +253,18 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
                        users_count, corrupted_count, paper_scoring)
 
 
-def krum_select(users_grads, users_count, corrupted_count,
-                paper_scoring=False, method="sort", mask=None,
-                distance_dtype=None):
-    """Index (0-d tensor) of the Krum winner (reference ``krum(...,
-    return_index=True)``, defences.py:39-40).  ``method='sort'`` scores
-    the distance kernel's matrix exactly by sort; ``'fused'`` uses the
-    fused score kernel under its guard (what the engine runs, as the JAX
-    package's Pallas route does).  With ``mask`` both score exactly by
-    sort over the distance kernel, with k following the alive count e -
-    f, and a dead row never wins.  ``distance_dtype`` as for
-    :func:`distances_for` and :func:`guarded_krum_scores`."""
+def krum_scores_and_index(users_grads, users_count, corrupted_count,
+                          paper_scoring=False, method="sort", mask=None,
+                          distance_dtype=None):
+    """The (n,) f32 Krum scores and the winner's index (a 0-d tensor)
+    behind both :func:`krum_select` and Krum's diagnostics.
+    ``method='sort'`` scores the distance kernel's matrix exactly by
+    sort; ``'fused'`` uses the fused score kernel under its guard (what
+    the engine runs, as the JAX package's Pallas route does).  With
+    ``mask`` both score exactly by sort over the distance kernel, with k
+    following the alive count e - f, and a dead row never wins.
+    ``distance_dtype`` as for :func:`distances_for` and
+    :func:`guarded_krum_scores`."""
     if method not in ("sort", "fused"):
         raise ValueError(f"method must be 'sort' or 'fused', got {method!r}")
     if mask is not None:
@@ -196,38 +278,127 @@ def krum_select(users_grads, users_count, corrupted_count,
     else:
         scores = sort_scores(distances_for(users_grads, distance_dtype),
                              users_count, corrupted_count, paper_scoring)
-    return torch.argmin(scores)
+    return scores, torch.argmin(scores)
+
+
+def krum_select(users_grads, users_count, corrupted_count,
+                paper_scoring=False, method="sort", mask=None,
+                distance_dtype=None):
+    """Index (0-d tensor) of the Krum winner (reference ``krum(...,
+    return_index=True)``, defences.py:39-40); the arguments are
+    :func:`krum_scores_and_index`'s."""
+    return krum_scores_and_index(users_grads, users_count, corrupted_count,
+                                 paper_scoring, method, mask,
+                                 distance_dtype)[1]
 
 
 def krum(users_grads, users_count, corrupted_count, paper_scoring=False,
-         method="sort", mask=None, weights=None, distance_dtype=None):
+         method="sort", mask=None, weights=None, distance_dtype=None,
+         telemetry=False, margins=False, numerics=False):
     """Krum (reference defences.py:23-42): the single gradient whose summed
     distance to its k nearest peers is minimal; with ``mask`` the Krum
-    choice of the alive rows, with ``weights`` scaled by its weight."""
-    check_weight_seam(mask, weights)
-    idx = krum_select(users_grads, users_count, corrupted_count,
-                      paper_scoring=paper_scoring, method=method, mask=mask,
-                      distance_dtype=distance_dtype)
-    if weights is not None:
-        return users_grads[idx] * weights[idx]
-    return users_grads[idx]
+    choice of the alive rows, with ``weights`` scaled by its weight.
+
+    Diagnostics: ``selection_mask`` (n,) one-hot and ``scores`` (n,),
+    from the one score evaluation the selection read; with ``margins``
+    ``margin_selection`` (n,) and ``margin_gap`` ()
+    (utils/margins.py:krum_margins); with ``numerics`` ``num_tie_rows``
+    (), the rows whose margin sits within TIE_BAND_ULPS ulp of the
+    boundary at the winning score's scale, and ``num_cancel_bits`` (),
+    an estimate of the cancellation depth: 2 max ||g||^2 against the
+    winner's mean kept distance."""
+    check_seams(mask, weights, telemetry, margins, numerics)
+    scores, idx = krum_scores_and_index(
+        users_grads, users_count, corrupted_count, paper_scoring, method,
+        mask, distance_dtype)
+    agg = (users_grads[idx] * weights[idx] if weights is not None
+           else users_grads[idx])
+    if not telemetry:
+        return agg
+    n = users_grads.shape[0]
+    scores = scores.float()
+    diag = {"selection_mask": scatter_rows(n, idx, 1.0, scores),
+            "scores": scores}
+    if margins:
+        diag.update(krum_margins(scores, idx, mask=mask))
+        if numerics:
+            win = scores[idx]
+            diag["num_tie_rows"] = tie_proximity(diag["margin_selection"],
+                                                 win)
+            e = users_count if mask is None else mask.sum()
+            k_kept = torch.clamp(torch.as_tensor(e - corrupted_count),
+                                 min=1).float()
+            g32 = users_grads.float()
+            sq = (g32 * g32).sum(1)
+            if mask is not None:
+                sq = torch.where(mask, sq, 0.0)
+            diag["num_cancel_bits"] = cancellation_bits(
+                2.0 * sq.max(), win / k_kept.to(win.device))
+    return agg, diag
+
+
+def trim_margins(users_grads, med, keep, mask=None, numerics=False,
+                 order=None):
+    """The trimmed mean's margins (utils/margins.py:rank_keep_margins)
+    over the key |G - med| it ranks by (dead rows at +inf), with the tie
+    counter banded at the key's largest finite magnitude."""
+    key = (users_grads.float() - med.float()[None, :]).abs()
+    if mask is not None:
+        key = torch.where(mask[:, None], key, torch.inf)
+    mf = rank_keep_margins(key, keep, order=order)
+    if numerics:
+        mf["num_tie_rows"] = tie_proximity(mf["margin_boundary_dist"],
+                                           max_finite_abs(key))
+    return mf
 
 
 def trimmed_mean(users_grads, users_count, corrupted_count, mask=None,
-                 weights=None):
+                 weights=None, telemetry=False, margins=False,
+                 numerics=False):
     """Reference defences.py:44-52; keeps n - f - 1 coordinates.  With
     ``mask`` the estimator of the alive rows, keeping e - f - 1 (at least
-    1) of the e alive values, the mean weighted by ``weights`` if given."""
-    check_weight_seam(mask, weights)
+    1) of the e alive values, the mean weighted by ``weights`` if given.
+
+    Diagnostics: ``kept_fraction`` (n,), NaN (the kernel returns only
+    the aggregate), and ``trim_fraction`` (); with ``margins``
+    ``margin_kept_frac`` and ``margin_boundary_dist`` over the key the
+    kernel ranks by, anchored at the median kernel's (the masked median
+    kernel's) median; with ``numerics`` ``num_tie_rows``."""
+    check_seams(mask, weights, telemetry, margins, numerics)
+    n = users_grads.shape[0]
     if mask is not None:
-        return masked_trimmed_mean(users_grads, mask, corrupted_count + 1,
-                                   weights)
-    return trimmed_mean_of(users_grads,
-                           users_grads.shape[0] - corrupted_count - 1)
+        agg = masked_trimmed_mean(users_grads, mask, corrupted_count + 1,
+                                  weights)
+        if not telemetry:
+            return agg
+        e = mask.sum()
+        keep = e - corrupted_count - 1
+        diag = {"kept_fraction": torch.full((n,), torch.nan,
+                                            device=users_grads.device),
+                "trim_fraction": (1.0 - keep / torch.clamp(e, min=1)
+                                  ).float()}
+        if margins:
+            med = masked_median(users_grads, mask)
+            diag.update(trim_margins(users_grads, med,
+                                     torch.clamp(keep, min=1), mask,
+                                     numerics))
+        return agg, diag
+    keep = n - corrupted_count - 1
+    agg = trimmed_mean_of(users_grads, keep)
+    if not telemetry:
+        return agg
+    diag = {"kept_fraction": torch.full((n,), torch.nan,
+                                        device=users_grads.device),
+            "trim_fraction": torch.tensor(float(np.float32(1.0 - keep / n)),
+                                          device=users_grads.device)}
+    if margins:
+        diag.update(trim_margins(users_grads, median_of(users_grads), keep,
+                                 numerics=numerics))
+    return agg, diag
 
 
 def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
-                  mask=None, batch_select=1):
+                  mask=None, batch_select=1, margins=False):
     """Bulyan's selection (reference defences.py:55-68) over a zero-diagonal
     distance matrix: set_size = n - 2f rounds of Krum, each removing its
     winner from the pool, with the pool size (but not f) shrinking.
@@ -248,7 +419,16 @@ def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
     - f (- 2), 1).  Three levels decide a round: alive unselected rows
     compete on their scores, dead unselected rows on a finite sentinel
     (picked, lowest index first, only once the alive pool is empty), and
-    selected rows sit at +inf.  The selection keeps its static size."""
+    selected rows sit at +inf.  The selection keeps its static size.
+
+    ``margins=True`` returns ``(selected, carry)`` with the margin carries
+    of the JAX loop: each trip ranks its scores by one stable sort (its
+    first r entries the picks, ties and all, as without margins) and the
+    next score is the trip's cut; ``carry`` holds ``margin`` (n,) (each
+    pick's runner-up score minus its own), ``slack`` (trips,) (the cut
+    minus the trip's last pick), ``cut`` (the last trip's last pick),
+    ``scores`` (the last trip's scores) and ``remaining`` (the rows never
+    picked)."""
     n = D.shape[0]
     f = corrupted_count
     p = 2 if paper_scoring else 0
@@ -262,7 +442,12 @@ def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
     finite = torch.isfinite(sortedD)
     remaining = torch.ones(n, dtype=torch.bool, device=D.device)
     selected = torch.empty(set_size, dtype=torch.int64, device=D.device)
-    for t in range(-(-set_size // q)):
+    trips = -(-set_size // q)
+    if margins:
+        kk = min(q + 1, n)
+        margin = torch.zeros(n, dtype=torch.float32, device=D.device)
+        slack = torch.zeros(trips, dtype=torch.float32, device=D.device)
+    for t in range(trips):
         # Pool at trip start: everyone (alive) minus the t q already
         # selected.
         if mask is None:
@@ -277,20 +462,28 @@ def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
         if mask is not None:
             scores = torch.where(pool, scores, _DEAD_SENTINEL)
         scores = torch.where(remaining, scores, torch.inf)
-        if q == 1:
-            idx = torch.argmin(scores)                  # ties -> lowest index
-            selected[t] = idx
-            remaining[idx] = False
-            continue
         r = min(q, set_size - t * q)
-        idx = torch.sort(scores, stable=True).indices[:r]
+        if margins:
+            ranked = stable_argsort(scores)
+            vals, idx = scores[ranked], ranked[:r]
+            runner, last_pick = vals[min(r, kk - 1)], vals[max(r - 1, 0)]
+            margin[idx] = runner - vals[:r]
+            slack[t] = runner - last_pick
+        elif q == 1:
+            idx = torch.argmin(scores)                  # ties -> lowest index
+        else:
+            idx = torch.sort(scores, stable=True).indices[:r]
         selected[t * q:t * q + r] = idx
         remaining[idx] = False
-    return selected
+    if not margins:
+        return selected
+    return selected, {"margin": margin, "slack": slack, "cut": last_pick,
+                      "scores": scores, "remaining": remaining}
 
 
 def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
-           mask=None, weights=None, distance_dtype=None, batch_select=1):
+           mask=None, weights=None, distance_dtype=None, batch_select=1,
+           telemetry=False, margins=False, numerics=False):
     """Bulyan (reference defences.py:55-70): select n - 2f gradients by
     iterated Krum, then the median-anchored trimmed mean of the selection
     keeping set_size - 2f - 1 values per coordinate.  The distances are
@@ -300,20 +493,77 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
     With ``mask``: the selection runs over the alive pool, then only the
     first e - 2f alive picks enter the trimmed mean (as a run over the
     alive sub-matrix would select them), which keeps max(|picks| - 2f - 1,
-    1) values per coordinate, the mean weighted by ``weights`` if given."""
-    check_weight_seam(mask, weights)
+    1) values per coordinate, the mean weighted by ``weights`` if given.
+
+    Diagnostics: ``selection_mask`` (n,) multi-hot (the picks that enter
+    the trim) and ``scores`` (n,), the initial pool's Krum scores; with
+    ``margins`` ``margin_selection`` (n,) (each row against its trip's
+    cut: picks against the first unselected score, the rest against the
+    last trip's last pick; dead rows and picks clipped out of the
+    effective selection -inf), ``margin_gap`` () (the last trip's
+    slack), ``margin_slack`` (trips,) and ``margin_trim_kept`` (n,) (the
+    trim stage's kept fraction of each pick at its client's row, 0
+    elsewhere); with ``numerics`` ``num_tie_rows`` () at the last cut's
+    scale and ``num_cancel_bits`` () of the distance matrix
+    (utils/numerics.py:gram_cancellation_bits)."""
+    check_seams(mask, weights, telemetry, margins, numerics)
+    n = users_grads.shape[0]
     f = corrupted_count
     set_size = users_count - 2 * f
     D = distances_for(users_grads, distance_dtype)
     selected = bulyan_select(D, users_count, f, paper_scoring, mask,
-                             batch_select)
+                             batch_select, margins=margins)
+    if margins:
+        selected, carry = selected
     selection = users_grads[selected].contiguous()  # (set_size, d)
     if mask is None:
-        return trimmed_mean_of(selection, set_size - 2 * f - 1)
-    sel_alive = mask[selected]
-    sel_mask = sel_alive & (torch.cumsum(sel_alive, 0) <= mask.sum() - 2 * f)
-    w_sel = None if weights is None else weights[selected].contiguous()
-    return masked_trimmed_mean(selection, sel_mask, 2 * f + 1, w_sel)
+        keep = set_size - 2 * f - 1
+        agg = trimmed_mean_of(selection, keep)
+        if not telemetry:
+            return agg
+        diag = {"selection_mask": scatter_rows(n, selected, 1.0, D),
+                "scores": sort_scores(D, users_count, f,
+                                      paper_scoring).float()}
+        sel_mask = None
+    else:
+        sel_alive = mask[selected]
+        sel_mask = sel_alive & (torch.cumsum(sel_alive, 0)
+                                <= mask.sum() - 2 * f)
+        w_sel = None if weights is None else weights[selected].contiguous()
+        agg = masked_trimmed_mean(selection, sel_mask, 2 * f + 1, w_sel)
+        if not telemetry:
+            return agg
+        diag = {"selection_mask": scatter_rows(n, selected,
+                                               sel_mask.float(), D),
+                "scores": sort_scores(D, mask.sum(), f, paper_scoring,
+                                      alive=mask).float()}
+    if not margins:
+        return agg, diag
+    # Rows never picked measure against the last trip's last pick.
+    margin = torch.where(carry["remaining"],
+                         carry["cut"] - carry["scores"], carry["margin"])
+    if mask is None:
+        tm = trim_margins(selection, median_of(selection), keep)
+        trim_kept = tm["margin_kept_frac"]
+    else:
+        # Picks clipped out of the effective selection, and dead rows,
+        # are rejected and unmeasured: -inf.
+        clipped = torch.zeros(n, dtype=torch.bool, device=D.device)
+        clipped[selected] = ~sel_mask
+        margin = torch.where(clipped | ~mask, -torch.inf, margin)
+        tm = trim_margins(selection, masked_median(selection, sel_mask),
+                          torch.clamp(sel_mask.sum() - 2 * f - 1, min=1),
+                          sel_mask)
+        trim_kept = torch.where(sel_mask, tm["margin_kept_frac"], 0.0)
+    slack = carry["slack"]
+    diag.update(margin_selection=margin.float(), margin_gap=slack[-1],
+                margin_slack=slack,
+                margin_trim_kept=scatter_rows(n, selected, trim_kept, D))
+    if numerics:
+        diag["num_tie_rows"] = tie_proximity(margin, carry["cut"])
+        Dm = D + torch.diag(torch.full((n,), torch.inf, device=D.device))
+        diag["num_cancel_bits"] = gram_cancellation_bits(Dm, mask=mask)
+    return agg, diag
 
 
 # defenses/median.py adds "Median" when the package is imported.
@@ -332,55 +582,62 @@ DEFENSES = {"NoDefense": no_defense, "Krum": krum,
 # under faults, becomes the defenses' quarantine ``mask=`` (a shard with
 # no alive row can never win a selection or enter a trim).  No new
 # estimator and no new kernel: the flat defenses' kernels run at S rows.
+# The observatory flags (``telemetry=``, ``margins=``, ``numerics=``) pass
+# through: the diagnostics are the flat defense's, over the shard axis.
 
 def _alive_to_mask(alive_counts):
     return None if alive_counts is None else alive_counts > 0
 
 
 def shard_mean(shard_estimates, shard_count, corrupted_shards,
-               alive_counts=None):
+               alive_counts=None, telemetry=False, margins=False,
+               numerics=False):
     """Tier-2 NoDefense: the alive-count-weighted mean of the shard
     estimates (with equal megabatches and no faults the flat mean up to
     the order of summation; with faults the weights restore the flat
-    masked mean's per-client weighting)."""
+    masked mean's per-client weighting).  A mean rejects nothing: its
+    diagnostics are empty."""
     del shard_count, corrupted_shards
+    check_seams(None, None, telemetry, margins, numerics)
     if alive_counts is None:
-        return shard_estimates.mean(0)
-    w = alive_counts.float()
-    return (w @ shard_estimates) / torch.clamp(w.sum(), min=1.0)
+        agg = shard_estimates.mean(0)
+    else:
+        w = alive_counts.float()
+        agg = (w @ shard_estimates) / torch.clamp(w.sum(), min=1.0)
+    return (agg, {}) if telemetry else agg
 
 
 def shard_krum(shard_estimates, shard_count, corrupted_shards,
-               alive_counts=None):
+               alive_counts=None, **kw):
     """Tier-2 Krum over shard estimates: the fused score kernel under its
     guard without faults, exact sort scoring over the alive shards with
     alive counts."""
     return krum(shard_estimates, shard_count, corrupted_shards,
-                method="fused", mask=_alive_to_mask(alive_counts))
+                method="fused", mask=_alive_to_mask(alive_counts), **kw)
 
 
 def shard_trimmed_mean(shard_estimates, shard_count, corrupted_shards,
-                       alive_counts=None):
+                       alive_counts=None, **kw):
     """Tier-2 median-anchored trimmed mean over shard estimates."""
     return trimmed_mean(shard_estimates, shard_count, corrupted_shards,
-                        mask=_alive_to_mask(alive_counts))
+                        mask=_alive_to_mask(alive_counts), **kw)
 
 
 def shard_bulyan(shard_estimates, shard_count, corrupted_shards,
-                 alive_counts=None):
+                 alive_counts=None, **kw):
     """Tier-2 Bulyan over shard estimates; its (S, S) distance pass is
     small."""
     return bulyan(shard_estimates, shard_count, corrupted_shards,
-                  mask=_alive_to_mask(alive_counts))
+                  mask=_alive_to_mask(alive_counts), **kw)
 
 
 def shard_median(shard_estimates, shard_count, corrupted_shards,
-                 alive_counts=None):
+                 alive_counts=None, **kw):
     """Tier-2 coordinate-wise median over shard estimates."""
     # defenses/median.py imports this module.
     from attacking_federate_learning_tpu_torch.defenses.median import median
     return median(shard_estimates, shard_count, corrupted_shards,
-                  mask=_alive_to_mask(alive_counts))
+                  mask=_alive_to_mask(alive_counts), **kw)
 
 
 # The tier-2 names (config.tier2_defense); the hierarchical round's tier-1

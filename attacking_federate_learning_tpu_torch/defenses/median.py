@@ -6,24 +6,53 @@ Without a mask it is the median kernel (jnp.median's midpoint of the two
 middle values for an even count); with the quarantine ``mask`` the
 masked-median kernel over the alive rows, and with ``weights`` (which
 need ``mask``) their lower weighted median.
+
+Diagnostics (``telemetry=True``): ``dist_to_agg`` (n,), each client's L2
+distance to the returned median; with ``margins``
+``margin_kept_frac`` and ``margin_boundary_dist``
+(utils/margins.py:median_pick_margins, rank ops beside the kernel); with
+``numerics`` ``num_tie_rows``, banded at the input's largest finite
+magnitude.
 """
 
 from __future__ import annotations
 
+import torch
+
 from attacking_federate_learning_tpu_torch.defenses.kernels import (
-    DEFENSES, check_weight_seam
+    DEFENSES, check_seams
 )
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
     masked_median, median_of
 )
+from attacking_federate_learning_tpu_torch.utils.margins import (
+    median_pick_margins
+)
+from attacking_federate_learning_tpu_torch.utils.numerics import (
+    max_finite_abs, row_norms, tie_proximity
+)
 
 
 def median(users_grads, users_count, corrupted_count, mask=None,
-           weights=None):
-    check_weight_seam(mask, weights)
+           weights=None, telemetry=False, margins=False, numerics=False):
+    check_seams(mask, weights, telemetry, margins, numerics)
     if mask is None:
-        return median_of(users_grads)
-    return masked_median(users_grads, mask, weights)
+        agg = median_of(users_grads)
+    else:
+        agg = masked_median(users_grads, mask, weights)
+    if not telemetry:
+        return agg
+    diag = {"dist_to_agg": row_norms(users_grads.float()
+                                     - agg.float()[None, :])}
+    if margins:
+        mf = median_pick_margins(users_grads, mask=mask, weights=weights)
+        if numerics:
+            key = (users_grads if mask is None else
+                   torch.where(mask[:, None], users_grads, torch.inf))
+            mf["num_tie_rows"] = tie_proximity(mf["margin_boundary_dist"],
+                                               max_finite_abs(key))
+        diag.update(mf)
+    return agg, diag
 
 
 DEFENSES["Median"] = median

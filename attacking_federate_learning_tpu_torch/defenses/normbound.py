@@ -16,14 +16,23 @@ import torch
 from attacking_federate_learning_tpu_torch.defenses.kernels import DEFENSES
 
 
-def norm_bounded_mean(users_grads, users_count, corrupted_count):
+def norm_bounded_mean(users_grads, users_count, corrupted_count,
+                      telemetry=False):
+    """``telemetry=True`` also returns ``clip_scale`` (n,), ``clipped_count``
+    () int32 (the clients the clip touched) and ``norm_bound`` () (the
+    cohort-median bound)."""
     G = users_grads.float()
     norms = torch.linalg.vector_norm(G, dim=1)
     n = norms.shape[0]
     srt = torch.sort(norms).values
     bound = (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
     scale = torch.clamp(bound / torch.clamp(norms, min=1e-12), max=1.0)
-    return (G * scale[:, None]).mean(0)
+    agg = (G * scale[:, None]).mean(0)
+    if not telemetry:
+        return agg
+    return agg, {"clip_scale": scale,
+                 "clipped_count": (scale < 1.0).sum().to(torch.int32),
+                 "norm_bound": bound}
 
 
 DEFENSES["NormBound"] = norm_bounded_mean

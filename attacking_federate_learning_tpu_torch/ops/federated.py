@@ -96,11 +96,13 @@ def make_placement(n: int, f: int, megabatch: int,
                      groups=groups, megabatch=m, num_shards=S)
 
 
-def _stack(outs):
-    """Per-megabatch outputs (tensors, or tuples of them) stacked along a
-    new leading shard axis."""
+def stack_shards(outs):
+    """Per-megabatch outputs (tensors, or tuples or dicts of them, nested)
+    stacked along a new leading shard axis."""
     if isinstance(outs[0], tuple):
-        return tuple(torch.stack(x) for x in zip(*outs))
+        return tuple(stack_shards(list(x)) for x in zip(*outs))
+    if isinstance(outs[0], dict):
+        return {k: stack_shards([o[k] for o in outs]) for k in outs[0]}
     return torch.stack(outs)
 
 
@@ -127,7 +129,7 @@ def client_map(shard_fn, placement: Placement, *args, with_sid=False,
             out[sid] = shard_fn(*head, *args)
         else:
             outs.append(shard_fn(*head, *args))
-    return out if out is not None else _stack(outs)
+    return out if out is not None else stack_shards(outs)
 
 
 def shard_reduce(tier2_fn, estimates, num_shards: int,
@@ -142,14 +144,20 @@ def shard_reduce(tier2_fn, estimates, num_shards: int,
 
 def two_tier_aggregate(users_grads, placement: Placement, tier1_fn,
                        tier2_fn, tier1_corrupted: int,
-                       tier2_corrupted: int, mask=None, weights=None):
+                       tier2_corrupted: int, mask=None, weights=None,
+                       telemetry=False):
     """Both tiers over a MATERIALIZED (n, d) matrix (the engine never
     builds one; this is for the places that hold one: tests, where each
     tier-1 estimate must be bit for bit the flat defense on its shard's
     rows, and benchmarks).  ``mask`` (n,) is the quarantine seam: each
     megabatch's tier-1 runs mask-aware over its rows and tier 2 receives
     the per-shard alive counts; ``weights`` (n,) ride it (they need
-    ``mask``)."""
+    ``mask``).
+
+    ``telemetry=True`` returns ``(agg, tier1_diag, tier2_diag)``: the flat
+    defense's diagnostics on each shard's rows stacked along a leading
+    shard axis (:func:`client_map`), and the tier-2 entry's (S,)-shaped
+    record over the shard axis."""
     from attacking_federate_learning_tpu_torch.defenses.kernels import (
         check_weight_seam
     )
@@ -158,21 +166,32 @@ def two_tier_aggregate(users_grads, placement: Placement, tier1_fn,
     m = placement.megabatch
     dev = users_grads.device
 
+    tkw = {"telemetry": True} if telemetry else {}
+
     def shard_fn(ids, _c):
         idx = torch.from_numpy(ids).to(dev)
         rows = users_grads[idx].contiguous()
-        if mask is None:
-            return tier1_fn(rows, m, tier1_corrupted).float()
-        sm = mask[idx].contiguous()
-        kw = {} if weights is None else {
-            "weights": weights[idx].contiguous()}
-        est = tier1_fn(rows, m, tier1_corrupted, mask=sm, **kw)
-        return est.float(), sm.sum().to(torch.int32)
+        kw = dict(tkw)
+        if mask is not None:
+            kw["mask"] = mask[idx].contiguous()
+            if weights is not None:
+                kw["weights"] = weights[idx].contiguous()
+        est = tier1_fn(rows, m, tier1_corrupted, **kw)
+        est, diag = est if telemetry else (est, None)
+        out = {"est": est.float()}
+        if mask is not None:
+            out["alive"] = kw["mask"].sum().to(torch.int32)
+        if telemetry:
+            out["diag"] = diag
+        return out
 
     out = client_map(shard_fn, placement)
-    estimates, alive = (out, None) if mask is None else out
-    return shard_reduce(tier2_fn, estimates, placement.num_shards,
-                        tier2_corrupted, alive_counts=alive)
+    agg = shard_reduce(tier2_fn, out["est"], placement.num_shards,
+                       tier2_corrupted, alive_counts=out.get("alive"),
+                       **tkw)
+    if not telemetry:
+        return agg
+    return agg[0], out["diag"], agg[1]
 
 
 def auto_megabatch(n: int, cap: int = 512) -> Optional[int]:

@@ -30,9 +30,8 @@ read at its host boundaries.  Here the wire exists inside that one pass
 :func:`unmask_rows` and :func:`modular_sum` are its steps on their own,
 in plain PyTorch.
 
-Not here: ``group_envelope_stats`` (the groupwise telemetry envelope,
-with the observability slice) and ``wire_hlo_facts`` (a parser of XLA's
-HLO, which the port does not have).
+Not here: ``wire_hlo_facts`` (a parser of XLA's HLO, which the port
+does not have).
 """
 
 from __future__ import annotations
@@ -45,6 +44,7 @@ import torch
 from attacking_federate_learning_tpu_torch.core.faults import to_device
 from attacking_federate_learning_tpu_torch.ops import secagg_masks as K
 from attacking_federate_learning_tpu_torch.utils import threefry
+from attacking_federate_learning_tpu_torch.utils.numerics import row_norms
 
 SECAGG_MODES = ("off", "vanilla", "groupwise")
 
@@ -168,3 +168,20 @@ def secagg_group(grads: torch.Tensor, key: np.ndarray, t: int, ids,
     if alive is None:
         return recovered, stats["secagg_sum_check_ok"]
     return recovered, stats
+
+
+def group_envelope_stats(group_means: torch.Tensor, megabatch: int):
+    """The envelope the server can still see under groupwise secagg:
+    per-group sum norms and cosine to the mean over the (S, d)
+    group-estimate matrix (``group_means`` = sums / m, what tier 2
+    reduces), the group-level twin of
+    defenses/kernels.py:population_telemetry.  The norm spelling,
+    ``norm(mean) * m`` with the sum of squares of :func:`row_norms`, is
+    the engine's 'secagg' ``group_sum_norms`` bit for bit.  Two (S,) f32
+    vectors."""
+    E = group_means.float()
+    norms = row_norms(E)
+    mean = E.mean(0)
+    cos = (E @ mean) / (norms * row_norms(mean) + 1e-12)
+    return {"group_sum_norms": norms * megabatch,
+            "group_cos_to_mean": cos}

@@ -16,9 +16,15 @@ package's readers (``iter_events``, ``tools/check_events.py``, the
 registry) read a port run's log unchanged.  The port emits ``eval``,
 ``asr``, ``fault`` (in hierarchical rounds with the v13 fields
 ``shard_alive``, ``shards_dead``, ``shards_alive`` and ``tier2_action``),
-``async`` (one a round in async rounds),
-``heartbeat``, ``lifecycle`` and ``registry`` events today; the other
-kinds belong to slices not ported yet.
+``async`` (one a round in async rounds), ``traffic``, ``secagg``,
+``heartbeat``, ``lifecycle`` and ``registry`` events, and the
+observatories' (core/engine.py): ``round`` (--round-stats), ``defense``,
+``attack``, ``shard_selection`` (v6) and the end-of-run
+``selection_hist`` (--telemetry), ``margin`` (v12, --margins) and
+``numerics`` (v14, --numerics), each a round; ``compile``, ``cost``,
+``profile``, ``stream``, ``stage_cost``, ``wire_bytes``, ``wall``,
+``forensics``, ``gate`` and ``campaign`` belong to slices not ported
+yet.
 Readers accept every version; a newer-only kind stamped with an older
 version is an emitter bug, rejected (``KIND_MIN_VERSION``).
 """

@@ -313,9 +313,38 @@ success):
                bit with its events.  Printed ([secagg] lines): round ms
                beside the clear twin's, the protect stage's CUDA-event
                ms a call (draw, residue, unmask), launches.
+15. observe -- the observatories (telemetry, margins, numerics, round
+               stats) through run(), each run beside its flags-off twin
+               run in the phase: weights and velocity byte-equal, launches
+               the twin's plus the margins' anchors (one median kernel a
+               round for the trimmed mean's and Bulyan's trim stage, one
+               masked median for the masked trimmed mean), every event
+               valid (validate_event).  (a) phase 5's cells with all four
+               flags: Krum, TrimmedMean, Bulyan and Median at f = 24, Krum
+               and TrimmedMean with phase 5's faults at f = 10; rounds
+               0..2 hold the card's diagnostics against the plain
+               versions on the CPU on the same matrix and mask
+               (checked_defense: selections, counts and kept fractions
+               bit for bit, scores and margins in phase 3's band,
+               diagnostics_vs_cpu), one event of each kind a round, and
+               Krum's and Bulyan's crafted rows score bit-equal every
+               round (the tie-lock); (b) the science gate's Bulyan margin
+               pair (SYNTH_MNIST_HARD 4,000 / 1,000, n = 19, batch 64, z =
+               1.5, mal_prop 0.2, 30 rounds, --margins; IID and
+               femnist_style at 0.5): margin_tie_rounds and
+               colluder_selected_total inside BEHAVIOR_BASELINE.json's
+               bands; (c) phase 10's async Krum and TrimmedMean 'poly';
+               (d) phase 13's n = 1,000 Krum/Krum and Median/Median with
+               --telemetry --margins --numerics (one shard_selection event
+               a round, (S, m) stacks), and groupwise secagg under tier-2
+               Krum with --telemetry (group_cos_to_mean in every 'secagg'
+               event, group_sum_norms bit-equal to the twin's).  Printed
+               ([observe] lines): round ms beside the twin's (host clock),
+               device ms a round and the extra the diagnostics cost (CUDA
+               events, rounds past the checked ones), the card.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-14), the nvidia-smi line, and as the last line
+summed over phases 5-15), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1308,9 +1337,12 @@ def eval_rounds(cfg):
                   | {cfg.epochs - 1})
 
 
-def drive(exp, kernels, banned, failures, label, excluded=None):
+def drive(exp, kernels, banned, failures, label, excluded=None,
+          keep_events=False):
     """One full-width run of ``exp.run()`` on the card, launch counters
-    zeroed just before and read just after.  Fails the phase when a
+    zeroed just before and read just after.  ``keep_events`` runs it with
+    a files-off RunLogger (each event validated as it is recorded) and
+    returns the events too.  Fails the phase when a
     kernel of ``kernels`` did not launch, one of ``banned`` did, the
     weights or an accuracy is not finite, the evaluations are not the
     config's (0/10/20 in phases 5 and 6), or (with faults) the per-round
@@ -1376,8 +1408,15 @@ def drive(exp, kernels, banned, failures, label, excluded=None):
     lines = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    logger = None
+    if keep_events:
+        from attacking_federate_learning_tpu_torch.utils.metrics import (
+            RunLogger
+        )
+        logger = RunLogger(exp.cfg, log_dir=None, log=lines.append)
     _build.reset_launches()
-    result = exp.run(log=lines.append)
+    result = (exp.run(logger) if keep_events
+              else exp.run(log=lines.append))
     launches = dict(_build.LAUNCHES)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -1396,7 +1435,8 @@ def drive(exp, kernels, banned, failures, label, excluded=None):
                          if launches[k]},
            "acc_txt": "/".join(f"{accs[r]:.2f}" if r in accs else "none"
                                for r in evals),
-           "counts_ok": True}
+           "counts_ok": True,
+           "events": logger.events if keep_events else None}
     if fc is not None and getattr(exp, "_placement", None) is not None:
         # Hierarchical rounds (phase 13): the per-shard counts, the dead
         # domains and the ladder's actions against the host replay.
@@ -2148,7 +2188,7 @@ KNOB_RUNS = (
 
 
 def checked_defense(exp, rounds, excluded, errs, dist_errs,
-                    attr="defense_fn", defense=None):
+                    attr="defense_fn", defense=None, diag_errs=None):
     """Wraps ``exp.defense_fn`` (or the engine's attribute ``attr``, the
     defense named ``defense``: phase 12's traffic fallback) so that for
     the first ``rounds`` calls the
@@ -2176,7 +2216,12 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs,
     weights: where the card and the CPU pick different values, each pick
     must be a lower weighted median of the column in fp64 within the
     weight sums' rounding (:func:`weighted_median_adjudicated`); the
-    count of such columns goes to the error's place in ``errs``."""
+    count of such columns goes to the error's place in ``errs``.
+
+    A defense called with ``telemetry=True`` (phase 15) returns its
+    diagnostics too: the CPU twin's, from the same call, are held against
+    the card's (:func:`diagnostics_vs_cpu`), (worst banded error, ok) to
+    ``diag_errs``."""
     import torch
 
     from attacking_federate_learning_tpu_torch.defenses import kernels as K
@@ -2208,7 +2253,7 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs,
             K.pairwise_distances = lambda G: seen.append(
                 (G, distances(G))) or seen[-1][1]
         try:
-            got = inner(grads, n, f, **kw)
+            out = got = inner(grads, n, f, **kw)
         finally:
             K.pairwise_distances = distances
         torch.cuda.synchronize()
@@ -2218,16 +2263,21 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs,
             K.pairwise_distances = lambda G: seen[0][1].cpu()
         try:
             want = inner(grads.cpu(), n, f,
-                         **{k: v if v is None else v.cpu()
-                            for k, v in kw.items()}).float()
+                         **{k: v.cpu() if isinstance(v, torch.Tensor)
+                            else v for k, v in kw.items()})
         finally:
             K.pairwise_distances = distances
+        if isinstance(got, tuple):
+            (got, gdiag), (want, wdiag) = got, want
+            if diag_errs is not None:
+                diag_errs.append(diagnostics_vs_cpu(gdiag, wdiag, grads))
+        want = want.float()
         g = got.float().cpu()
         if defense == "Median" and kw.get("weights") is not None:
             errs.append(weighted_median_adjudicated(
                 grads.cpu(), kw["mask"].cpu(), kw["weights"].cpu(), g, want))
             excluded.append(time.perf_counter() - a)
-            return got
+            return out
         atol = 0.0 if defense in ("Krum", "Median") else (
             2.0 * n * eps * float(grads.float().abs().max()))
         if defense == "NoDefense" and grads.dtype == torch.bfloat16:
@@ -2242,7 +2292,7 @@ def checked_defense(exp, rounds, excluded, errs, dist_errs,
             err = (g - want).abs()
         errs.append((float(err.max()), bool((err <= atol).all())))
         excluded.append(time.perf_counter() - a)
-        return got
+        return out
 
     setattr(exp, attr, checked)
 
@@ -4726,6 +4776,353 @@ def run_secagg_path(ds, failures, smi):
     return entries, totals
 
 
+# --- phase 15: the observatories --------------------------------------------
+# The four flags of phase 15 (a) and (c); (d) without the round stats.
+P15_FLAGS = dict(telemetry=True, margins=True, numerics=True,
+                 log_round_stats=True)
+P15_CHECKED = 3        # rounds whose diagnostics are held against the CPU
+# (a): (defense, mal_prop, faulted, must launch, anchor launches a round
+# the margins add: the trimmed mean's median, the kernel's own over the
+# masked rows, and Bulyan's trim stage's).
+P15_FLAT = (
+    ("Krum", 0.24, False, ("krum_scores",), {}),
+    ("TrimmedMean", 0.24, False, ("trimmed_mean",), {"median": 1}),
+    ("Bulyan", 0.24, False, ("pairwise_distances", "trimmed_mean"),
+     {"median": 1}),
+    ("Median", 0.24, False, ("median",), {}),
+    ("Krum", 0.1, True, ("pairwise_distances",), {}),
+    ("TrimmedMean", 0.1, True, ("masked_trimmed_mean",),
+     {"masked_median": 1}),
+)
+# (b): the science gate's margin pair (tools/science_gate.py: CELLS and
+# measure_cell's constants), bands from BEHAVIOR_BASELINE.json.
+P15_SCIENCE = (("bulyan_margin_collapse", {}),
+               ("bulyan_margin_rescue",
+                dict(partition="femnist_style", style_strength=0.5)))
+P15_DISCRIMINATORS = ("margin_tie_rounds", "colluder_selected_total")
+# (c): phase 10 (a)'s Krum 'poly' and TrimmedMean 'poly' (f = 24, k = 64).
+P15_ASYNC = (("Krum", ("pairwise_distances",), {}),
+             ("TrimmedMean", ("masked_trimmed_mean",),
+              {"masked_median": 1}))
+# Diagnostics held bit for bit against the CPU twin's: selections, picks,
+# rank memberships, counts.
+EXACT_DIAGNOSTICS = ("selection_mask", "num_tie_rows", "kept_fraction",
+                     "trim_fraction", "margin_kept_frac", "margin_trim_kept")
+
+
+def diagnostics_vs_cpu(got, want, G):
+    """A defense's diagnostics on the card (``got``) against its CPU
+    twin's on the same matrix ``G`` (``want``): the same keys; selections,
+    picks, rank memberships and counts bit for bit
+    (EXACT_DIAGNOSTICS); Krum scores within the kernel-vs-plain band of
+    phase 3's check_krum, per row 2 e_i + 2 n eps rowsum_i with e_i =
+    sum_j sqrt(b_ij) of the d^2 band b of the Gram's chains (an upper
+    bound of its min(sqrt b, b / D)); a selection margin, gap or slack,
+    the difference of two scores, within twice the largest row band; the
+    cancellation bits within that band's relative share of the winning
+    score, over ln 2, plus 1e-6; the mean-type fields (distances to the
+    aggregate, boundary distances: sums of d terms) within 4 sqrt(d) eps
+    of their largest magnitude.  Non-finite entries must sit at the same
+    places with the same values.  Returns (worst banded error, ok, the
+    fields out of bounds with their count of differing entries)."""
+    import torch
+
+    eps = float(np.finfo(np.float32).eps)
+    n, d = G.shape
+    G64 = G.double()
+    sq = (G64 * G64).sum(1)
+    D64 = (sq[:, None] + sq[None, :] - 2.0 * (G64 @ G64.T)).clamp(
+        min=0.0).sqrt()
+    b = d2_band(sq, kernel_chain(d)) + d2_band(sq, d)
+    row = (2.0 * b.sqrt().sum(1) + 2.0 * n * eps * D64.sum(1)).cpu()
+    pair = 2.0 * float(row.max())
+    bad = {k: -1 for k in set(got) ^ set(want)}
+    worst = 0.0
+    for k in set(got) & set(want):
+        g, w = got[k].detach().cpu(), want[k]
+        if k in EXACT_DIAGNOSTICS:
+            same = ((g == w) | (torch.isnan(g.double())
+                                & torch.isnan(w.double())))
+            if g.dtype != w.dtype or g.shape != w.shape:
+                bad[k] = -1
+            elif not bool(same.all()):
+                bad[k] = int((~same).sum())
+            continue
+        g, w = g.double(), w.double()
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        if not bool(((g == w) | fin).all()):
+            bad[k] = int((~((g == w) | fin)).sum())
+            continue
+        if k == "scores":
+            band = row
+        elif k in ("margin_selection", "margin_gap", "margin_slack"):
+            band = torch.full_like(g, pair)
+        elif k == "num_cancel_bits":
+            win = float(torch.where(fin, w, math.inf).min())
+            band = torch.full_like(g, pair / max(win, 1e-30) / math.log(2)
+                                   + 1e-6)
+        else:
+            scale = float(torch.where(fin, w.abs(), 0.0).max())
+            band = torch.full_like(g, 4.0 * math.sqrt(d) * eps * scale)
+        err = torch.where(fin, (g - w).abs(), 0.0)
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        if not bool((err <= band).all()):
+            bad[k] = int((err > band).sum())
+    return worst, not bad, bad
+
+
+def observed_run(exp, kernels, failures, label, check=False):
+    """One phase-15 run through ``drive`` (events kept and validated),
+    each round's device time from CUDA events; with ``check`` the first
+    P15_CHECKED defense calls held against the CPU by
+    ``checked_defense``, diagnostics included.  Returns drive's result
+    with the engine, the rounds' device ms (rounds past the checked
+    ones) and the checks' records."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        validate_event
+    )
+
+    excluded, errs, dist_errs, diag_errs = [], [], [], []
+    if check:
+        checked_defense(exp, P15_CHECKED, excluded, errs, dist_errs,
+                        diag_errs=diag_errs)
+    events, inner = [], exp.run_round
+
+    def timed(t):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner(t)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    exp.run_round = timed
+    run = drive(exp, kernels, (), failures, f"observe {label}", excluded,
+                keep_events=True)
+    torch.cuda.synchronize()
+    dev = [a.elapsed_time(b) for a, b in events]
+    run.update(exp=exp, dev_ms=statistics.median(dev[P15_CHECKED:] or dev),
+               checks=errs + dist_errs, diag_checks=diag_errs)
+    for e in run["events"]:
+        validate_event(e)
+    return run
+
+
+def same_state(a, b):
+    return (byte_equal(a.state.weights, b.state.weights)
+            and byte_equal(a.state.velocity, b.state.velocity))
+
+
+def kinds_of(events):
+    out = {}
+    for e in events:
+        out[e["kind"]] = out.get(e["kind"], 0) + 1
+    return out
+
+
+def run_observe_path(ds, failures, smi):
+    """Phase 15: the observatories (telemetry, margins, numerics, round
+    stats) through run() on the card, each run beside its flags-off twin
+    run in the phase: weights and velocity byte-equal, launches the
+    twin's plus the margins' documented anchor launches, every event
+    valid.  (a) phase 5's cells; (b) the science gate's Bulyan margin
+    pair in BEHAVIOR_BASELINE.json's bands; (c) phase 10's async Krum and
+    TrimmedMean; (d) phase 13's n = 1,000 Krum/Krum and Median/Median and
+    groupwise secagg.  Returns launches per kernel summed over the
+    runs."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def pair(cfg_on, cfg_off, kernels, label, anchors, dataset=ds,
+             check=False):
+        """The flags-off twin, then the run with the flags; returns both
+        runs, byte-equality of their states and whether the launches are
+        the twin's plus ``anchors`` a round."""
+        runs = []
+        for cfg in (cfg_off, cfg_on):
+            exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std),
+                                      dataset, device="cuda")
+            on = cfg is cfg_on
+            must = kernels + (tuple(anchors) if on else ())
+            runs.append(observed_run(exp, must, failures,
+                                     label + (" on" if on else " off"),
+                                     check=check and on))
+            for k, v in runs[-1]["launches"].items():
+                totals[k] += v
+        off, on = runs
+        want = dict(off["launches"])
+        for k, v in anchors.items():
+            want[k] += v * cfg_on.epochs
+        same = same_state(on["exp"], off["exp"])
+        launches_ok = on["launches"] == want
+        if not (same and launches_ok):
+            failures.append(f"observe {label}: byte_equal_off_twin={same} "
+                            f"launches {on['launches']} (want {want})")
+        return off, on, same, launches_ok
+
+    def line(tag, label, off, on, same, ok, extra=""):
+        exp = on["exp"]
+        print(f"[observe] {tag} {label:26s} n={exp.n} f={exp.f} "
+              f"acc={on['acc_txt']} % round_ms={on['median_ms']:.3f} "
+              f"off_twin_round_ms={off['median_ms']:.3f} (host clock) "
+              f"device_round_ms={on['dev_ms']:.3f} off_twin="
+              f"{off['dev_ms']:.3f} extra_device_ms="
+              f"{on['dev_ms'] - off['dev_ms']:.3f} (CUDA events) "
+              f"byte_equal_off_twin={same} kinds={kinds_of(on['events'])} "
+              f"checks_ok={ok} {extra}on {smi}", flush=True)
+
+    # -- (a) the flat rounds, phase 5's cells --------------------------------
+    for defense, mal_prop, faulted, kernels, anchors in P15_FLAT:
+        fc = FaultConfig(**FAULTS_MAIN) if faulted else None
+        label = f"(a) {defense} {'faulted' if faulted else 'clean'}"
+        off, on, same, launches_ok = pair(
+            main_config(defense, mal_prop, fc, **P15_FLAGS),
+            main_config(defense, mal_prop, fc), kernels, label, anchors,
+            check=True)
+        exp, evs = on["exp"], on["events"]
+        rounds = exp.cfg.epochs
+        per_kind = kinds_of(evs)
+        kinds_ok = all(per_kind.get(k) == rounds for k in
+                       ("round", "defense", "attack", "margin", "numerics"))
+        # The tie-lock: identical crafted rows score bit-equal (the
+        # fused kernel and the masked sort route alike); clean runs,
+        # where every colluder row is the crafted one.
+        tie_ok = True
+        if defense in ("Krum", "Bulyan") and not faulted:
+            tie_ok = all(len(set(e["scores"][:exp.m_mal])) == 1
+                         for e in evs if e["kind"] == "defense")
+        cpu_ok = (len(on["diag_checks"]) == P15_CHECKED
+                  and all(c[1] for c in on["diag_checks"] + on["checks"]))
+        ok = same and launches_ok and kinds_ok and tie_ok and cpu_ok
+        if not ok:
+            failures.append(f"observe {label}: kinds {per_kind} tie_lock="
+                            f"{tie_ok} vs CPU {on['diag_checks']} "
+                            f"{on['checks']}")
+        sel = [e.get("krum_selected") for e in evs if e["kind"] == "round"]
+        line("(a)", label, off, on, same, ok,
+             f"launches_ok={launches_ok} tie_lock={tie_ok} diag_vs_cpu="
+             f"{[(float(f'{e:.3e}'), o, b) for e, o, b in on['diag_checks']]} "
+             + (f"krum_selected={sel} " if defense == "Krum" else ""))
+        del off, on, exp
+    # -- (b) the science gate's margin pair -----------------------------------
+    with open(os.path.join(ROOT, "BEHAVIOR_BASELINE.json")) as fh:
+        baseline = json.load(fh)["cells"]
+    hard = load_dataset(C.SYNTH_MNIST_HARD, seed=0, synth_train=4000,
+                        synth_test=1000)
+    for cell, extra in P15_SCIENCE:
+        cfg = ExperimentConfig(
+            dataset=C.SYNTH_MNIST_HARD, users_count=19, mal_prop=0.2,
+            batch_size=64, epochs=30, test_step=15, seed=0,
+            synth_train=4000, synth_test=1000, defense="Bulyan",
+            num_std=1.5, margins=True, **extra)
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), hard,
+                                  device="cuda")
+        run = observed_run(exp, ("pairwise_distances", "trimmed_mean",
+                                 "median"), failures, f"(b) {cell}")
+        for k, v in run["launches"].items():
+            totals[k] += v
+        cms = [e.get("colluder_margin") for e in run["events"]
+               if e["kind"] == "margin"]
+        got = {"margin_tie_rounds": sum(1 for v in cms if v == 0.0),
+               "colluder_selected_total": sum(
+                   e.get("colluder_selected", 0) for e in run["events"]
+                   if e["kind"] == "margin"),
+               "final_accuracy": run["result"]["accuracies"][-1]}
+        bands = {k: baseline[cell][k] for k in P15_DISCRIMINATORS}
+        ok = len(cms) == cfg.epochs and all(
+            abs(got[k] - b["value"]) <= b["band"] for k, b in bands.items())
+        if not ok:
+            failures.append(f"observe (b) {cell}: {got} against {bands}")
+        print(f"[observe] (b) {cell:26s} n=19 f={exp.f} {got} baseline "
+              f"{ {k: (b['value'], b['band']) for k, b in bands.items()} } "
+              f"(final accuracy baseline "
+              f"{baseline[cell]['final_accuracy']['value']}) round_ms="
+              f"{run['median_ms']:.3f} device_round_ms="
+              f"{run['dev_ms']:.3f} in_bands={ok} on {smi}", flush=True)
+        del exp, run
+    del hard
+    # -- (c) async rounds, phase 10 (a)'s cells -------------------------------
+    for defense, kernels, anchors in P15_ASYNC:
+        off, on, same, launches_ok = pair(
+            async_config(defense, 0.24, 64, "poly", False, **P15_FLAGS),
+            async_config(defense, 0.24, 64, "poly", False), kernels,
+            f"(c) async {defense} poly", anchors)
+        per_kind = kinds_of(on["events"])
+        ok = (same and launches_ok and all(
+            per_kind.get(k) == on["exp"].cfg.epochs
+            for k in ("async", "round", "defense", "margin", "numerics")))
+        if not ok:
+            failures.append(f"observe (c) {defense}: kinds {per_kind}")
+        line("(c)", f"async {defense} poly", off, on, same, ok)
+        del off, on
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (d) hierarchical rounds and groupwise secagg --------------------------
+    flags3 = {k: True for k in ("telemetry", "margins", "numerics")}
+    for tier1, tier2 in (("Krum", "Krum"), ("Median", "Median")):
+        off, on, same, launches_ok = pair(
+            hier_config(tier1, tier2, **flags3), hier_config(tier1, tier2),
+            tuple(HIER_UNMASKED[tier1]), f"(d) hier {tier1}/{tier2}", {})
+        exp = on["exp"]
+        S, m = exp._placement.num_shards, exp._placement.megabatch
+        sel = [e for e in on["events"] if e["kind"] == "shard_selection"]
+        ok = (same and launches_ok and len(sel) == exp.cfg.epochs
+              and all(np.shape(e["shard_grad_norms"]) == (S, m)
+                      and len(e["tier2_est_norms"]) == S for e in sel))
+        if not ok:
+            failures.append(f"observe (d) {tier1}/{tier2}: "
+                            f"{len(sel)} shard_selection events")
+        line("(d)", f"hier {tier1}/{tier2}", off, on, same, ok,
+             f"S={S} shard_selection_keys="
+             f"{sorted(k for k in sel[0] if k.startswith('shard_'))} ")
+        del off, on, exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, on, same, launches_ok = pair(
+        hier_config("NoDefense", "Krum", secagg="groupwise",
+                    telemetry=True),
+        hier_config("NoDefense", "Krum", secagg="groupwise"),
+        ("krum_scores", "secagg_deltas", "secagg_unmask_sum"),
+        "(d) groupwise NoDefense/Krum", {})
+    S = on["exp"]._placement.num_shards
+    rows_on, rows_off = on["result"]["secagg"], off["result"]["secagg"]
+    norms_equal = [r["group_sum_norms"] for r in rows_on] == [
+        r["group_sum_norms"] for r in rows_off]
+    ok = (same and launches_ok and norms_equal
+          and all(len(r.get("group_cos_to_mean", ())) == S
+                  for r in rows_on))
+    if not ok:
+        failures.append(f"observe (d) groupwise: group_sum_norms equal "
+                        f"{norms_equal}, cos {rows_on[0].keys()}")
+    line("(d)", "groupwise NoDefense/Krum", off, on, same, ok,
+         f"group_sum_norms_bit_equal={norms_equal} group_cos_to_mean_r0="
+         f"{[round(x, 4) for x in rows_on[0]['group_cos_to_mean'][:3]]} ")
+    del off, on
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[observe] phase 15 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4792,11 +5189,13 @@ def main() -> int:
     # -- 14. secure aggregation ----------------------------------------------
     secagg_entries, secagg_totals = run_secagg_path(ds, failures, smi)
     entries.update(secagg_entries)
+    # -- 15. the observatories ------------------------------------------------
+    observe_totals = run_observe_path(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
             async_totals, defense_totals, traffic_totals, hier_totals,
-            secagg_totals))
+            secagg_totals, observe_totals))
 
     if failures:
         for msg in failures:
