@@ -22,6 +22,10 @@ the twelve ``--traffic-*`` flags of the population & traffic engine,
 the run lifecycle's (``-o``,
 ``--log-dir``, ``--run-dir``, ``--no-checkpoint``, ``--resume``,
 ``--checkpoint-every``, ``--heartbeat``, ``--journal``, ``--run-id``),
+the observatories' (``--round-stats``, ``--telemetry``, ``--margins``,
+``--numerics``, ``--profile``, ``--trace-dir``, ``--profile-every``,
+``--cost-report``; with the last two, the run ends with
+measured-vs-modeled ``[walls]`` lines, stage by stage),
 plus ``--device``.  As in the JAX package, ``grad_dtype`` and
 ``collect_metadata`` are config fields with no flag.
 It prints the same ``Test set: [ N] ... Accuracy: x/N`` lines, and
@@ -75,12 +79,17 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           --synth-train 50000 --synth-test 10000
       python -m attacking_federate_learning_tpu_torch.cli -s CIFAR100 \\
           -d Krum -n 10 -m 0.2 --synth-train 50000 --synth-test 10000
+      python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
+          -d Krum -n 100 -m 0.24 --profile-every 2 --cost-report --profile
+      python -m attacking_federate_learning_tpu_torch.cli trace \\
+          logs/<params>.jsonl [-o OUT]   # the event log as a Chrome trace
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from attacking_federate_learning_tpu_torch import config as C
 from attacking_federate_learning_tpu_torch.config import ExperimentConfig
@@ -249,6 +258,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "--aggregation hierarchical (tier-2 robust "
                         "kernels run over group sums via "
                         "--tier2-defense)")
+    p.add_argument("--profile", action="store_true",
+                   help="accumulate per-phase (round/eval) wall-clock, "
+                        "synchronised with the card, and record it in "
+                        "the JSONL log ('profile' event; a phase_timing "
+                        "line at the end)")
+    p.add_argument("--trace-dir", type=str, default=None,
+                   help="capture the whole run with torch.profiler into "
+                        "this dir (a Chrome trace: open it in Perfetto); "
+                        "with --profile-every it pauses while an interval "
+                        "is captured and goes on in a new file")
+    p.add_argument("--profile-every", default=0, type=int, metavar="K",
+                   help="measured-walls observatory (utils/walls.py): "
+                        "time every eval interval and evaluation on the "
+                        "host clock and capture + stage-book one "
+                        "profiler trace per K eval intervals "
+                        "(<log-dir>/walltrace/r<epoch>), recorded as "
+                        "schema-v10 'wall' events; 0 disables")
+    p.add_argument("--cost-report", action="store_true",
+                   help="before training, run every entry point once on a "
+                        "second engine under the counting mode and "
+                        "record its FLOPs, bytes, per-stage split, hand "
+                        "kernels' modeled counts and peak memory (the "
+                        "card's allocator) as 'cost'/'stage_cost' "
+                        "events, the kernel libraries' builds as "
+                        "'compile' events and the wire ledger as one "
+                        "'wire_bytes' event (utils/costs.py)")
     p.add_argument("--round-stats", action="store_true",
                    help="record per-round gradient/update norm diagnostics "
                         "in the JSONL log")
@@ -518,11 +553,67 @@ def config_from_args(args) -> ExperimentConfig:
         tier2_corrupted=args.tier2_corrupted, secagg=args.secagg,
         log_round_stats=args.round_stats, telemetry=args.telemetry,
         margins=args.margins, numerics=args.numerics,
+        profile_every=args.profile_every,
         checkpoint_every=args.checkpoint_every, output=args.output,
         log_dir=args.log_dir, run_dir=args.run_dir)
 
 
+def trace_main(argv) -> int:
+    """``trace EVENTS.jsonl [-o OUT]``: a run's event log as a Chrome /
+    Perfetto trace JSON (utils/trace_export.py; the JAX package's ``runs
+    trace``, given the log's path, since the port has no run registry
+    reader)."""
+    from attacking_federate_learning_tpu_torch.utils.trace_export import (
+        export_trace
+    )
+
+    p = argparse.ArgumentParser(
+        prog="attacking_federate_learning_tpu_torch.cli trace",
+        description="export a run's JSONL event log as Chrome trace JSON")
+    p.add_argument("events", help="the run's JSONL event log")
+    p.add_argument("-o", "--out", default=None,
+                   help="where to write (default <events>.trace.json)")
+    args = p.parse_args(argv)
+    if not os.path.exists(args.events):
+        print(f"no event log at {args.events}")
+        return 1
+    out = export_trace(args.events, args.out)
+    print(f"wrote {out} (load in chrome://tracing or ui.perfetto.dev)")
+    return 0
+
+
+def print_walls_vs_modeled(exp, ledger, print_fn) -> None:
+    """Per entry point with both, its captures' device (or CPU) time by
+    stage, summed, beside the counted FLOPs' stage shares
+    (utils/walls.py:measured_vs_modeled)."""
+    from attacking_federate_learning_tpu_torch.utils.walls import (
+        measured_vs_modeled
+    )
+
+    costs = {r.name: r.stage_event() for r in ledger.records}
+    sums = {}
+    for rec in exp.wall_records:
+        agg = sums.setdefault(rec.name, {"stages": {},
+                                         "unattributed_us": 0.0})
+        for st, us in rec.stages.items():
+            agg["stages"][st] = agg["stages"].get(st, 0.0) + us
+        agg["unattributed_us"] += rec.unattributed_us
+    for name, agg in sums.items():
+        if name not in costs:
+            continue
+        for stage, row in measured_vs_modeled(agg, costs[name]).items():
+            print_fn(f"[walls] {name} {stage:16s} measured="
+                     f"{row['measured_us'] / 1e3:.3f} ms "
+                     f"share={row['measured_share']:.4f} "
+                     f"modeled={row['modeled_share']} "
+                     f"ratio={row['ratio']}")
+
+
 def main(argv=None) -> dict:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "trace":
+        raise SystemExit(trace_main(argv[1:]))
     from attacking_federate_learning_tpu_torch.attacks import make_attacker
     from attacking_federate_learning_tpu_torch.core.engine import (
         FederatedExperiment, resolve_device
@@ -539,6 +630,9 @@ def main(argv=None) -> dict:
     )
     from attacking_federate_learning_tpu_torch.utils.metrics import (
         RunLogger
+    )
+    from attacking_federate_learning_tpu_torch.utils.profiling import (
+        PhaseTimer, device_trace
     )
 
     parser = build_parser()
@@ -614,15 +708,34 @@ def main(argv=None) -> dict:
                     checkpointer.best_acc = max(
                         acc, checkpointer.load_best_acc())
             logger.print(f"Resumed from round {int(exp.state.round)}")
+        if args.cost_report:
+            # The counted cost of every entry point, before training, on a
+            # second engine: the run after it is the run without it.
+            ledger = exp.cost_report(logger)
+            for rec in ledger.records:
+                peak = (f"{rec.peak_bytes / 1e6:.1f} MB"
+                        if rec.peak_allocated is not None
+                        else "not measured")
+                logger.print(
+                    f"[cost] {rec.name:16s} flops={rec.flops:.3e}  "
+                    f"bytes={rec.bytes_accessed:.3e}  peak={peak}")
+            for rec in ledger.compiles:
+                logger.print(f"[cost] library {rec.name}: compile="
+                             f"{rec.compile_s:.2f}s ({rec.cache})")
+            for name, msg in ledger.errors:
+                logger.print(f"[cost] {name}: analysis failed: {msg}")
+        timer = PhaseTimer() if args.profile else None
         # SIGTERM/SIGINT become a checkpoint and exit 75 at the next host
         # boundary; FL_PREEMPT_AT_ROUND is the deterministic injection.
         pre_at = os.environ.get("FL_PREEMPT_AT_ROUND")
         shutdown = GracefulShutdown(
             preempt_at_round=int(pre_at) if pre_at else None)
         try:
-            with shutdown:
+            # --trace-dir: the whole run in one capture (JAX's xla_trace).
+            with device_trace(args.trace_dir, device), shutdown:
                 result = exp.run(logger, checkpointer=checkpointer,
-                                 journal=journal, shutdown=shutdown)
+                                 journal=journal, shutdown=shutdown,
+                                 timer=timer)
         except Preempted as e:
             logger.print(f"[lifecycle] {e}")
             raise SystemExit(EXIT_PREEMPTED)
@@ -636,6 +749,10 @@ def main(argv=None) -> dict:
                 journal.finish("diverged", EXIT_DIVERGED, error=str(e))
                 journal.close()
             raise SystemExit(EXIT_DIVERGED)
+        if args.cost_report and exp.wall_records:
+            print_walls_vs_modeled(exp, ledger, logger.print)
+        if timer is not None:
+            logger.print({"phase_timing": timer.summary()})
     return result
 
 

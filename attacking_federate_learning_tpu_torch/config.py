@@ -20,11 +20,10 @@ dataset's default model, the ``-b`` coercion) and validation messages:
 - secure aggregation (``secagg``: 'off', 'vanilla' on the flat round,
   'groupwise' on the hierarchical one);
 - the observatories (``log_round_stats``, ``telemetry``, ``margins``,
-  ``numerics``).
+  ``numerics``) and the measured walls (``profile_every``).
 
 The device mesh (``mesh_shape``, the SPMD client map), host streaming
-and the rest of the observability knobs (profiling, traces, the walls)
-are later slices of the port.
+and the host engines' ``*_impl`` knobs are later slices of the port.
 """
 
 from __future__ import annotations
@@ -384,6 +383,13 @@ class ExperimentConfig:
 
     # --- evaluation, logging and checkpoints ----------------------------
     test_step: int = 5               # reference main.py:58
+    # Measured walls (utils/walls.py), the JAX field: 0 (or less) = off;
+    # K > 0 times every eval interval on the host clock at its boundary
+    # (one synchronisation, a 'wall' event, source='host') and captures
+    # every K-th interval with the profiler, booked onto the stage
+    # taxonomy (source='trace', under <log_dir>/walltrace/r<epoch>).
+    # Weights are byte-equal with it on or off.
+    profile_every: int = 0
     checkpoint_acc_threshold: float = 70.0  # reference main.py:84
     output: Optional[str] = None     # tee file, reference main.py:13-18
     log_dir: str = "logs"

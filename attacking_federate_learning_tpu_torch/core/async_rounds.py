@@ -50,6 +50,7 @@ from attacking_federate_learning_tpu_torch.core.faults import (
     MASK_AWARE_DEFENSES, fault_masks
 )
 from attacking_federate_learning_tpu_torch.utils import threefry
+from attacking_federate_learning_tpu_torch.utils.costs import stage_scope
 
 # Staleness-weight functions w(s) for delivered rows (s >= 0 rounds):
 #   'none'   w = 1           (pure FedBuff first-k, no discount)
@@ -244,13 +245,16 @@ def async_step(grads, t: int, key, spec: AsyncSpec, state: dict,
     pocc |= arr_occ
 
     # --- age, evict over-stale, quarantine non-finite ----------------------
-    stal = t - pbirth                                   # (m,) int32
-    over = pocc & (stal > spec.max_staleness)
-    evicted = over.sum(dtype=torch.int32)
-    pocc &= ~over
-    finite = torch.isfinite(pbuf).all(1)
-    quarantined = (pocc & ~finite).sum(dtype=torch.int32)
-    pocc &= finite
+    # The server's screen of the pending rows is the ``quarantine`` stage
+    # (utils/costs.py); the ring around it is the caller's ``deliver``.
+    with stage_scope("quarantine"):
+        stal = t - pbirth                               # (m,) int32
+        over = pocc & (stal > spec.max_staleness)
+        evicted = over.sum(dtype=torch.int32)
+        pocc &= ~over
+        finite = torch.isfinite(pbuf).all(1)
+        quarantined = (pocc & ~finite).sum(dtype=torch.int32)
+        pocc &= finite
 
     # --- FedBuff trigger: the k oldest pending (FIFO) once k are there -----
     ar = torch.arange(m, device=dev)

@@ -120,6 +120,15 @@ the one read at each host boundary and go out as the JAX engine's
 'shard_selection' events, and a 'selection_hist' at the end.  With the
 four flags off no observatory code runs.
 
+Every round runs in the six stage scopes of utils/costs.py (deliver,
+quarantine, protect, tier1_aggregate, tier2_aggregate, apply) at the JAX
+engine's sites; a scope costs nothing unless a profiler capture or a
+count has armed it.  ``cfg.profile_every`` times each host boundary's
+interval and captures every K-th one, booked onto the stages as 'wall'
+events (utils/walls.py); :meth:`cost_report` counts each entry point on
+a second engine loaded with the run's state, and :meth:`wire_ledger`
+prices the protocol seams.
+
 The beyond-reference defenses (DnC, GeoMedian, CenteredClip, FLTrust,
 NormBound) take their constants from the config; DnC gets the round
 index (``needs_round``: fresh sketches a round) and FLTrust the server's
@@ -142,6 +151,7 @@ after the last one (reference main.py:73-95), and prints the reference's
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import os
 import time
@@ -183,11 +193,17 @@ from attacking_federate_learning_tpu_torch.models.base import get_model
 from attacking_federate_learning_tpu_torch.ops import federated as FD
 from attacking_federate_learning_tpu_torch.protocols import secagg as SA
 from attacking_federate_learning_tpu_torch.utils import threefry
+from attacking_federate_learning_tpu_torch.utils.costs import (
+    in_stage, stage_scope
+)
 from attacking_federate_learning_tpu_torch.utils.flatten import FlatParams
 from attacking_federate_learning_tpu_torch.utils.margins import mean_as_xla
 from attacking_federate_learning_tpu_torch.utils.metrics import RunLogger
 from attacking_federate_learning_tpu_torch.utils.numerics import (
     nonfinite_count, norm_dynamic_range, row_norms
+)
+from attacking_federate_learning_tpu_torch.utils.profiling import (
+    device_trace, synchronize
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -247,6 +263,62 @@ def faded_lr(cfg: ExperimentConfig, t: int) -> float:
     value."""
     return float(np.float32(cfg.learning_rate * cfg.fading_rate)
                  / (np.float32(t) + np.float32(cfg.fading_rate)))
+
+
+class _Walls:
+    """One run's measured walls (cfg.profile_every = K > 0): each eval
+    interval is timed on the host clock from its first round to its
+    boundary, where the card is synchronised once, and every K-th
+    interval runs under a profiler capture (utils/profiling.py), written
+    to ``<log_dir>/walltrace/r<epoch>`` and booked at the boundary.  A
+    captured interval's host wall includes the capture's own cost."""
+
+    def __init__(self, exp, logger, every: int):
+        self.exp, self.logger, self.every = exp, logger, every
+        self.interval = 0
+        self.t0 = None
+        self.trace_dir = None
+        self.capture = None
+
+    def open(self, epoch: int) -> None:
+        """At a round: open the interval unless one is open."""
+        if self.t0 is not None:
+            return
+        self.trace_dir = None
+        if self.interval % self.every == 0:
+            root = self.logger.log_dir or self.exp.cfg.log_dir
+            self.trace_dir = os.path.join(root, "walltrace", f"r{epoch}")
+        self.interval += 1
+        self.capture = contextlib.ExitStack()
+        self.capture.enter_context(device_trace(self.trace_dir,
+                                                self.exp.device))
+        self.t0 = time.perf_counter()
+
+    def close(self, start: int, count: int) -> None:
+        """At the boundary: synchronise, stop the capture, record the
+        host wall of the ``count`` rounds from ``start``, book the
+        capture."""
+        exp = self.exp
+        try:
+            synchronize(exp.state.weights)
+        finally:
+            self.capture.close()
+            self.capture = None
+        wall = time.perf_counter() - self.t0
+        self.t0 = None
+        self.logger.record(
+            kind="wall", source="host", name=exp._span_entry_name(),
+            round=int(start), rounds=int(count), wall_s=round(wall, 6),
+            rounds_per_s=round(count / wall, 4) if wall > 0 else 0.0)
+        if self.trace_dir is not None:
+            exp._book_span_walls(self.logger, self.trace_dir, count)
+
+    def abort(self) -> None:
+        """Stop a capture left open (the loop raised)."""
+        if self.capture is not None:
+            self.capture.close()
+            self.capture = None
+        self.t0 = None
 
 
 class FederatedExperiment:
@@ -343,8 +415,8 @@ class FederatedExperiment:
                 self._traffic_latency = P.async_latency_for_cfg(cfg, self.m)
             elif self._placement is None:
                 # Ladder step 2: the bounds-valid fallback kernel.
-                self._traffic_fallback_fn = DEFENSES[
-                    cfg.traffic.fallback_defense]
+                self._traffic_fallback_fn = in_stage("tier1_aggregate")(
+                    DEFENSES[cfg.traffic.fallback_defense])
         self.dataset = dataset or load_dataset(
             cfg.dataset, cfg.data_dir, cfg.seed,
             synth_train=cfg.synth_train, synth_test=cfg.synth_test)
@@ -389,7 +461,7 @@ class FederatedExperiment:
         elif cfg.defense == "CenteredClip":
             defense = functools.partial(defense, tau=cfg.cclip_tau,
                                         iters=cfg.cclip_iters)
-        self.defense_fn = defense
+        self.defense_fn = in_stage("tier1_aggregate")(defense)
         self._init_observatories()
 
         gen = torch.Generator().manual_seed(cfg.seed)
@@ -409,7 +481,8 @@ class FederatedExperiment:
                 self.fault_state = F.init_hier_fault_state(
                     self.faults, self._placement.num_shards,
                     self._placement.megabatch, self.flat.dim, self.device)
-                self._tier2_fallback_fn = TIER2_DEFENSES[F.TIER2_FALLBACK]
+                self._tier2_fallback_fn = in_stage("tier2_aggregate")(
+                    TIER2_DEFENSES[F.TIER2_FALLBACK])
             elif self.async_spec is None:
                 # Async rounds model stragglers as extra arrival delay in
                 # their own buffers: the straggler ring never exists.
@@ -526,6 +599,7 @@ class FederatedExperiment:
             obs.krum_selected = torch.argmax(
                 ddiag["selection_mask"]).to(torch.int32)
 
+    @in_stage("deliver")
     def _craft(self, grads: torch.Tensor, ctx, obs) -> torch.Tensor:
         """craft: the attack on the round's matrix.  With observation on,
         the attack's envelope stats before it (--telemetry), and its
@@ -547,6 +621,7 @@ class FederatedExperiment:
                              pre, self.m_mal, ctx, crafted=crafted).items()})
         return crafted
 
+    @in_stage("deliver")
     def _wire_health(self, obs, grads, mask=None) -> None:
         """--numerics at the delivery seam: the crafted wire before any
         quarantine can hide a non-finite row, and its norm range."""
@@ -554,11 +629,13 @@ class FederatedExperiment:
             obs.tele["num_nonfinite_pre"] = nonfinite_count(grads)
             obs.tele["num_range_log2"] = norm_dynamic_range(grads, mask=mask)
 
+    @in_stage("quarantine")
     def _post_health(self, obs, grads, mask=None) -> None:
         """--numerics after the quarantine: what the defense aggregates."""
         if obs is not None and self.cfg.numerics:
             obs.tele["num_nonfinite_post"] = nonfinite_count(grads, mask=mask)
 
+    @in_stage("apply")
     def _end_observation(self, obs, norms, t: int, extra=None) -> None:
         """Close the round's record: the applied update's health
         (--numerics), the telemetry in ``last_round_telemetry`` and the
@@ -674,7 +751,8 @@ class FederatedExperiment:
         self._tier2_name = cfg.tier2_defense or cfg.defense
         check_tier2_args(cfg.defense, cfg.megabatch, self._tier1_f)
         check_tier2_args(self._tier2_name, S, self._tier2_f)
-        self._tier2_fn = TIER2_DEFENSES[self._tier2_name]
+        self._tier2_fn = in_stage("tier2_aggregate")(
+            TIER2_DEFENSES[self._tier2_name])
         # The crafted-rows NaN guard (the backdoor's), one flag a
         # megabatch on the device.
         self._check_attack_nan = (
@@ -751,6 +829,7 @@ class FederatedExperiment:
         shape = (xs.shape[0],) + (1,) * (xs.ndim - 1)
         return a.reshape(shape) * xs + b.reshape(shape)
 
+    @in_stage("deliver")
     def compute_grads(self, t: int, part=None) -> torch.Tensor:
         """deliver: the cohort's (m, d) updates at the server weights of
         round t on the wire (grad_dtype): gradients, or with local steps
@@ -781,6 +860,7 @@ class FederatedExperiment:
                                     lr_report)
         return grads.to(self.grad_dtype).contiguous()
 
+    @in_stage("quarantine")
     def inject_and_quarantine(self, grads: torch.Tensor, t: int):
         """Fault seam: inject the round-t faults into the submitted
         matrix, then mask and zero what the server can detect.  Returns
@@ -793,6 +873,7 @@ class FederatedExperiment:
         self.last_round_faults = {"round": t, **stats, **qstats}
         return clean, mask
 
+    @in_stage("deliver")
     def attack_context(self, t: int, staleness=None,
                        check_finite: bool = True) -> AttackContext:
         """The round-t attack context, with the faded lr (:func:`faded_lr`)
@@ -812,6 +893,7 @@ class FederatedExperiment:
         return self._server_grad_fn(self.state.weights, self._meta_x,
                                     self._meta_y)
 
+    @in_stage("tier1_aggregate")
     def aggregate(self, grads: torch.Tensor, t: int, obs=None,
                   **kw) -> torch.Tensor:
         """tier1_aggregate: the configured defense over the round's
@@ -835,6 +917,7 @@ class FederatedExperiment:
             self._finish_telemetry(obs, grads, ddiag)
         return agg
 
+    @in_stage("apply")
     def _apply(self, agg: torch.Tensor, t: int) -> ServerState:
         """apply: the momentum step on the aggregate, at the constant base
         lr on the server (reference server.py:89) unless
@@ -844,6 +927,7 @@ class FederatedExperiment:
               else cfg.learning_rate)
         return momentum_update(self.state, agg.float(), lr, cfg.momentum)
 
+    @in_stage("apply")
     def _hold(self) -> ServerState:
         """A no-op round: weights and velocity stay bit for bit, the round
         counter advances."""
@@ -873,7 +957,8 @@ class FederatedExperiment:
         kw = {} if mask is None else {"mask": mask}
         agg = self.aggregate(grads, t, obs, **kw)              # aggregate
         self.state = self._apply(agg, t)                       # apply
-        self._end_observation(obs, self._client_norms(crafted), t)
+        with stage_scope("apply"):
+            self._end_observation(obs, self._client_norms(crafted), t)
         return self.state
 
     def _client_norms(self, grads):
@@ -881,6 +966,7 @@ class FederatedExperiment:
         return (row_norms(grads) if grads is not None
                 and self.cfg.log_round_stats else None)
 
+    @in_stage("protect")
     def protect(self, grads: torch.Tensor, mask, t: int) -> torch.Tensor:
         """protect: vanilla secure aggregation between the quarantine and
         the (NoDefense) aggregation, the JAX engine's ``secagg_step``:
@@ -929,11 +1015,13 @@ class FederatedExperiment:
         grads = self._craft(grads, self.attack_context(t), obs)  # craft
         self._wire_health(obs, grads)
         crafted = grads if obs is not None else None
-        mask = F.to_device(sched.arrived[0], self.device)
-        grads = torch.where(mask[:, None], grads, torch.zeros_like(grads))
-        if self.faults is not None:
-            grads, fmask = self.inject_and_quarantine(grads, t)
-            mask = mask & fmask
+        with stage_scope("quarantine"):
+            mask = F.to_device(sched.arrived[0], self.device)
+            grads = torch.where(mask[:, None], grads,
+                                torch.zeros_like(grads))
+            if self.faults is not None:
+                grads, fmask = self.inject_and_quarantine(grads, t)
+                mask = mask & fmask
         self._post_health(obs, grads, mask)
         if action == P.TRAFFIC_REMASK:
             agg = self.aggregate(grads, t, obs, mask=mask)
@@ -944,7 +1032,8 @@ class FederatedExperiment:
                    self._traffic_fallback_fn(grads, self.m, self.m_mal,
                                              mask=mask))
         self.state = self._hold() if agg is None else self._apply(agg, t)
-        self._end_observation(obs, self._client_norms(crafted), t)
+        with stage_scope("apply"):
+            self._end_observation(obs, self._client_norms(crafted), t)
         return self.state
 
     def slot_ids(self, t: int) -> np.ndarray:
@@ -1006,12 +1095,14 @@ class FederatedExperiment:
             self.cfg.telemetry or self.cfg.log_round_stats)
         diags, norms = [], []
         if sec:
-            keys, ids = SA.round_tables(
-                threefry.fold_in(self._secagg_key, t), place.grid,
-                self.device)
-            sec_ok = torch.ones(S, dtype=torch.int32, device=self.device)
-            sec_pairs = torch.zeros(S, dtype=torch.int32,
+            with stage_scope("protect"):
+                keys, ids = SA.round_tables(
+                    threefry.fold_in(self._secagg_key, t), place.grid,
+                    self.device)
+                sec_ok = torch.ones(S, dtype=torch.int32,
                                     device=self.device)
+                sec_pairs = torch.zeros(S, dtype=torch.int32,
+                                        device=self.device)
             drops = np.zeros(S, np.int64)
         if fc is not None:
             masks, dom, row = F.hier_round_faults(self._fault_key, t, place,
@@ -1020,19 +1111,23 @@ class FederatedExperiment:
                 [row["shards_alive"]], self._tier2_name, self._tier2_f)[0])
             if sec:
                 drops = masks[:, 0].sum(1)
-            masks = F.to_device(masks, self.device)          # (S, 3, m)
-            dom = F.to_device(dom, self.device)
-            alive = torch.empty(S, dtype=torch.int64, device=self.device)
-            quar = torch.empty(S, dtype=torch.int64, device=self.device)
-        bad = (torch.zeros(S, dtype=torch.bool, device=self.device)
-               if self._check_attack_nan else None)
+            with stage_scope("quarantine"):
+                masks = F.to_device(masks, self.device)      # (S, 3, m)
+                dom = F.to_device(dom, self.device)
+                alive = torch.empty(S, dtype=torch.int64,
+                                    device=self.device)
+                quar = torch.empty(S, dtype=torch.int64, device=self.device)
+        with stage_scope("quarantine"):
+            bad = (torch.zeros(S, dtype=torch.bool, device=self.device)
+                   if self._check_attack_nan else None)
         ctx = self.attack_context(t, check_finite=bad is None)
 
         def tier1(grads, **kw):
             # The tier-1 defense; with observation on, the rows' norms
             # and its diagnostics (filtered) go on the shard stacks.
             if want_norms:
-                norms.append(row_norms(grads))
+                with stage_scope("deliver"):
+                    norms.append(row_norms(grads))
             if dkw is None:
                 return self.defense_fn(grads, m, f1, **kw)
             est, diag = self.defense_fn(grads, m, f1, **kw, **dkw)
@@ -1045,30 +1140,41 @@ class FederatedExperiment:
             # round's resampled slots.  Its matrix is freed on return,
             # before the next megabatch's deliver.
             grads = self.compute_grads(t, grid[sid])             # deliver
-            grads = self.attacker.apply(grads, c, ctx)           # craft
+            with stage_scope("deliver"):
+                grads = self.attacker.apply(grads, c, ctx)       # craft
             if bad is not None and c > 0:
-                bad[sid] = ~torch.isfinite(grads[:c]).all()
+                with stage_scope("quarantine"):
+                    bad[sid] = ~torch.isfinite(grads[:c]).all()
             if fc is None:
                 if sec:                                          # protect
                     grads, _ = SA.protect(grads, (keys[sid], ids[sid]),
                                           ok=sec_ok[sid])
                 return tier1(grads)                              # tier 1
-            slab = (self.fault_state["stale"][t % fc.straggler_delay, sid]
-                    if fc.straggler > 0 else None)
-            grads, drop = F.apply_shard_faults(grads, masks[sid], slab, fc)
+            with stage_scope("quarantine"):
+                slab = (self.fault_state["stale"][t % fc.straggler_delay,
+                                                  sid]
+                        if fc.straggler > 0 else None)
+                grads, drop = F.apply_shard_faults(grads, masks[sid], slab,
+                                                   fc)
             if sec:
                 qmask = ~drop
                 grads, _ = SA.protect(grads, (keys[sid], ids[sid]), qmask,
                                       ok=sec_ok[sid], count=sec_pairs[sid])
-                quar[sid] = m - qmask.sum()
+                with stage_scope("quarantine"):
+                    quar[sid] = m - qmask.sum()
             else:
-                grads, qmask, q = F.quarantine(grads, drop)
-                quar[sid] = q["quarantined"]
-            alive[sid] = qmask.sum() * dom[sid]
+                with stage_scope("quarantine"):
+                    grads, qmask, q = F.quarantine(grads, drop)
+                    quar[sid] = q["quarantined"]
+            with stage_scope("quarantine"):
+                alive[sid] = qmask.sum() * dom[sid]
             return tier1(grads, mask=qmask)
 
-        est = FD.client_map(shard_fn, place, with_sid=True,
-                            out=self._estimates)
+        # The megabatch loop's own work (the estimates' writes) is tier
+        # 1's; the stages inside shard_fn are booked as their own.
+        with stage_scope("tier1_aggregate"):
+            est = FD.client_map(shard_fn, place, with_sid=True,
+                                out=self._estimates)
         f2 = self._tier2_f
         agg = diag2 = None
         if fc is None:
@@ -1080,16 +1186,17 @@ class FederatedExperiment:
             # A shard with no aggregable row has an undefined estimate;
             # tier 2's mask excludes it, and it is zeroed so nothing
             # non-finite can leak.
-            est.masked_fill_((alive == 0)[:, None], 0.0)
-            self.last_round_faults = {
-                **{k: row[k] for k in ("round", "injected_dropout",
-                                       "injected_straggler",
-                                       "injected_corrupt")},
-                "quarantined": quar.sum(),
-                "shards_dead": row["shards_dead"],
-                "shard_alive": alive,
-                "shards_alive": (alive > 0).sum(),
-                "tier2_action": action}
+            with stage_scope("quarantine"):
+                est.masked_fill_((alive == 0)[:, None], 0.0)
+                self.last_round_faults = {
+                    **{k: row[k] for k in ("round", "injected_dropout",
+                                           "injected_straggler",
+                                           "injected_corrupt")},
+                    "quarantined": quar.sum(),
+                    "shards_dead": row["shards_dead"],
+                    "shard_alive": alive,
+                    "shards_alive": (alive > 0).sum(),
+                    "tier2_action": action}
             # The diagnostics read the configured tier-2 defense whatever
             # the action (the JAX engine's); only the aggregate follows it.
             if dkw is not None:
@@ -1110,21 +1217,27 @@ class FederatedExperiment:
             # the f32 norm within an ulp or two of XLA's (the CPU's
             # vector_norm is off by about 1e-6 at d = 79,510).
             dropped = int(drops.sum())
-            self.last_round_secagg = {
-                "round": t,
-                "sum_check_ok": (sec_ok > 0).all().to(torch.int32),
-                "groups": S, "dropped": dropped,
-                "masks_reconstructed": sec_pairs.sum(),
-                "recovery": int(dropped > 0),
-                "group_sum_norms": est.square().sum(1).sqrt() * m}
-            if obs is not None and self.cfg.telemetry:
-                # The envelope the server can still compute when groups,
-                # not clients, are what it sees.
-                self.last_round_secagg["group_cos_to_mean"] = (
-                    SA.group_envelope_stats(est, m)["group_cos_to_mean"])
-        if bad is not None and bool(bad.any()):
-            # The state stays at the last finished round.
-            raise FloatingPointError("Got nan in backdoor shadow training")
+            with stage_scope("protect"):
+                self.last_round_secagg = {
+                    "round": t,
+                    "sum_check_ok": (sec_ok > 0).all().to(torch.int32),
+                    "groups": S, "dropped": dropped,
+                    "masks_reconstructed": sec_pairs.sum(),
+                    "recovery": int(dropped > 0),
+                    "group_sum_norms": est.square().sum(1).sqrt() * m}
+                if obs is not None and self.cfg.telemetry:
+                    # The envelope the server can still compute when
+                    # groups, not clients, are what it sees.
+                    self.last_round_secagg["group_cos_to_mean"] = (
+                        SA.group_envelope_stats(est, m)[
+                            "group_cos_to_mean"])
+        if bad is not None:
+            with stage_scope("quarantine"):
+                bad = bool(bad.any())
+            if bad:
+                # The state stays at the last finished round.
+                raise FloatingPointError(
+                    "Got nan in backdoor shadow training")
         if obs is not None:
             self._hier_telemetry(obs, est, diags, norms, diag2)
         if agg is None:
@@ -1132,16 +1245,19 @@ class FederatedExperiment:
         else:
             self.state = self._apply(agg, t)                     # apply
         if obs is not None:
-            extra = None
-            if sec:
-                gs = row_norms(est) * m
-                extra = {"group_sum_norm_mean": mean_as_xla(gs, 0),
-                         "group_sum_norm_max": gs.max(),
-                         "group_sum_norm_min": gs.min()}
-            self._end_observation(
-                obs, torch.stack(norms) if want_norms else None, t, extra)
+            with stage_scope("apply"):
+                extra = None
+                if sec:
+                    gs = row_norms(est) * m
+                    extra = {"group_sum_norm_mean": mean_as_xla(gs, 0),
+                             "group_sum_norm_max": gs.max(),
+                             "group_sum_norm_min": gs.min()}
+                self._end_observation(
+                    obs, torch.stack(norms) if want_norms else None, t,
+                    extra)
         return self.state
 
+    @in_stage("tier2_aggregate")
     def _hier_telemetry(self, obs, est, diags, norms, diag2) -> None:
         """A hierarchical round's telemetry: the tier-1 diagnostics
         stacked (S, ...) as ``shard_*`` (with --telemetry the rows' norms
@@ -1173,14 +1289,17 @@ class FederatedExperiment:
         spec = self.async_spec
         obs = self._begin_observation()
         grads = self.compute_grads(t)                           # deliver
-        # The round stats read the computed cohort (what the clients
-        # submitted this round); the delivered view is in 'async'.
-        norms = self._client_norms(grads if obs is not None else None)
-        dgrads, delivered, staleness, stats = A.async_step(
-            grads, t, self._async_key, spec, self.async_state, self.m_mal,
-            faults=self.faults,
-            fkey=self._fault_key if self.faults is not None else None,
-            latency=self._traffic_latency)
+        # The ring is deliver's; its screen of the pending rows is
+        # quarantine's (core/async_rounds.py).
+        with stage_scope("deliver"):
+            # The round stats read the computed cohort (what the clients
+            # submitted this round); the delivered view is in 'async'.
+            norms = self._client_norms(grads if obs is not None else None)
+            dgrads, delivered, staleness, stats = A.async_step(
+                grads, t, self._async_key, spec, self.async_state,
+                self.m_mal, faults=self.faults,
+                fkey=self._fault_key if self.faults is not None else None,
+                latency=self._traffic_latency)
         if self.faults is not None:
             self.last_round_faults = {
                 "round": t, **{k[len("fault_"):]: v for k, v in
@@ -1189,27 +1308,181 @@ class FederatedExperiment:
         # so the matrix is masked again before the defense.
         crafted = self._craft(dgrads, self.attack_context(t, staleness), obs)
         self._wire_health(obs, crafted, delivered)
-        agg_grads = torch.where(delivered[:, None], crafted, 0.0)
+        with stage_scope("quarantine"):
+            agg_grads = torch.where(delivered[:, None], crafted, 0.0)
         self._post_health(obs, agg_grads, delivered)
-        weights = A.staleness_weights(staleness, delivered, spec.weighting)
-        self.last_round_async = {
-            "round": t, "counts": stats["counts"],
-            "staleness_hist": stats["staleness_hist"],
-            "weight_mass": A.weight_mass(staleness, delivered, weights,
-                                         spec.depth),
-            "delivered_mask": delivered, "staleness": staleness}
+        with stage_scope("deliver"):
+            weights = A.staleness_weights(staleness, delivered,
+                                          spec.weighting)
+            self.last_round_async = {
+                "round": t, "counts": stats["counts"],
+                "staleness_hist": stats["staleness_hist"],
+                "weight_mass": A.weight_mass(staleness, delivered, weights,
+                                             spec.depth),
+                "delivered_mask": delivered, "staleness": staleness}
         kw = {} if weights is None else {"weights": weights}
         agg = self.aggregate(agg_grads, t, obs, mask=delivered, **kw)
-        upd = self._apply(agg, t)
-        # An empty delivery is a server no-op: weights and velocity hold,
-        # the round counter advances.
-        any_del = delivered.any()
-        self.state = ServerState(
-            torch.where(any_del, upd.weights, self.state.weights),
-            torch.where(any_del, upd.velocity, self.state.velocity),
-            upd.round)
-        self._end_observation(obs, norms, t)
+        with stage_scope("apply"):
+            upd = self._apply(agg, t)
+            # An empty delivery is a server no-op: weights and velocity
+            # hold, the round counter advances.
+            any_del = delivered.any()
+            self.state = ServerState(
+                torch.where(any_del, upd.weights, self.state.weights),
+                torch.where(any_del, upd.velocity, self.state.velocity),
+                upd.round)
+            self._end_observation(obs, norms, t)
         return self.state
+
+    # --- measured walls and the cost and wire ledgers -------------------
+    def _span_entry_name(self) -> str:
+        """The JAX engine's name for the span program its run dispatches
+        for this configuration (its core/engine.py:_span_entry_name), the
+        name a 'wall' event and its 'stage_cost' row share."""
+        cfg = self.cfg
+        hier = cfg.aggregation == "hierarchical"
+        if self.async_spec is not None:
+            return "async_span"
+        if self.traffic is not None and not hier:
+            return "traffic_span"
+        if self.faults is not None:
+            return "fault_span"
+        if (cfg.telemetry or cfg.margins or cfg.numerics
+                or self._secagg is not None):
+            return "hier_tele_span" if hier else "tele_span"
+        return "hier_span" if hier else "fused_span"
+
+    def _round_entry_name(self) -> str:
+        """The JAX engine's name for one round's entry point."""
+        if self.async_spec is not None:
+            return "async_round"
+        if self._placement is not None:
+            return "hier_round"
+        if self.traffic is not None:
+            return "traffic_round"
+        return "fused_round"
+
+    def wire_ledger(self) -> dict:
+        """The bytes each protocol seam of this engine's topology moves a
+        round (utils/costs.py:wire_ledger), from the config alone, as the
+        JAX engine prices them: the expected secagg recovery load is the
+        dropout rate over the cohort.  One device: the port refuses the
+        SPMD client map, so the tier-1 -> tier-2 seam is no collective."""
+        from attacking_federate_learning_tpu_torch.utils.costs import (
+            wire_ledger
+        )
+
+        cfg = self.cfg
+        num_shards = (self._placement.num_shards
+                      if self._placement is not None else None)
+        dropped = 0
+        if cfg.secagg != "off" and self.faults is not None:
+            dropped = int(round(self.faults.dropout * self.m))
+        return wire_ledger(
+            cohort=self.m, dim=self.flat.dim,
+            grad_bytes=self.grad_dtype.itemsize,
+            topology=cfg.aggregation, num_shards=num_shards,
+            megabatch=cfg.megabatch if num_shards is not None else None,
+            spmd_parts=1, secagg=cfg.secagg, dropped=dropped,
+            async_buffer=(cfg.async_buffer
+                          if cfg.aggregation == "async" else None))
+
+    def _load_into(self, twin: "FederatedExperiment") -> None:
+        """Copy what this engine's next round starts from into ``twin``,
+        an engine of the same config and dataset: the server state, the
+        carry state (through the checkpoint seam, from which a resumed run
+        continues bit for bit), the traffic events not yet logged and a
+        copy of the attacker.  Nothing of this engine is touched."""
+        twin.state = self._place_state(self._host_state())
+        twin.restore_carry_state(self.carry_state_host())
+        if self.traffic is not None:
+            twin._traffic_events = dict(self._traffic_events)
+        twin.attacker = copy.deepcopy(self.attacker)
+
+    def cost_report(self, logger=None, span: Optional[int] = None):
+        """The counted cost of every entry point of this engine under the
+        JAX engine's names (utils/costs.py), each run once on a second
+        engine of the same config and dataset loaded with this one's
+        state (:meth:`_load_into`), the torch and numpy generators
+        restored after, so that the run after it is byte for byte the run
+        without it:
+
+        - one round (``fused_round``, ``traffic_round``, ``async_round``
+          or ``hier_round``) and one span (:meth:`_span_entry_name`) of
+          ``span`` rounds (default: the eval interval, test_step rounds),
+          from the current round;
+        - ``compute_grads`` (one megabatch in hierarchical rounds),
+          ``defense_<name>`` on its matrix (the round index and the
+          server gradient as the round gives them), ``tier2_<name>`` on
+          an (S, d) stand-in of the estimates, and ``eval``.
+
+        Each becomes a CostRecord (FLOPs and bytes counted, their stage
+        partition, each hand kernel's calls and modeled count, and on the
+        card the allocator's peak above the start); with ``logger`` one
+        'compile' event a kernel library built or loaded in this process
+        (ops/_build.py), one 'cost' and one 'stage_cost' event an entry
+        point and one 'wire_bytes' event.  An entry that fails lands in
+        ``errors``; the rest of the table stands."""
+        from attacking_federate_learning_tpu_torch.ops import _build
+        from attacking_federate_learning_tpu_torch.utils.costs import (
+            CompileLedger
+        )
+
+        cfg = self.cfg
+        ledger = CompileLedger()
+        t0 = int(self.state.round)
+        span_len = int(span or max(1, min(cfg.test_step, cfg.epochs)))
+        hier = self._placement is not None
+        du_n, du_f = ((self._placement.megabatch, self._tier1_f) if hier
+                      else (self.m, self.m_mal))
+        np_rng = np.random.get_state()
+        cuda = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=cuda):
+            twin = FederatedExperiment(cfg, self.attacker, self.dataset,
+                                       device=self.device)
+            part = twin._grid[0] if hier else None
+
+            def rounds(count):
+                def run():
+                    for t in range(t0, t0 + count):
+                        twin.run_round(t)
+                return run
+
+            self._load_into(twin)
+            grads = twin.compute_grads(t0, part)
+            kw = {}
+            if self._needs_round:
+                kw["round"] = t0
+            if self._needs_server_grad:
+                kw["server_grad"] = twin.server_grad()
+            entries = [
+                (self._round_entry_name(), rounds(1)),
+                (self._span_entry_name(), rounds(span_len)),
+                ("compute_grads", lambda: twin.compute_grads(t0, part)),
+                (f"defense_{cfg.defense}",
+                 lambda: twin.defense_fn(grads, du_n, du_f, **kw))]
+            if hier:
+                S = self._placement.num_shards
+                est = grads.float().repeat(-(-S // du_n), 1)[:S]
+                entries.append((f"tier2_{self._tier2_name}", lambda: (
+                    FD.shard_reduce(twin._tier2_fn, est, S,
+                                    self._tier2_f))))
+            entries.append(("eval", lambda: twin.evaluate(
+                twin.state.weights)))
+            for name, thunk in entries:
+                self._load_into(twin)
+                try:
+                    ledger.analyze(name, thunk, self.device)
+                except Exception as e:      # noqa: BLE001 — one entry
+                    # failing must not lose the rest of the table
+                    ledger.errors.append((name, f"{type(e).__name__}: {e}"))
+        np.random.set_state(np_rng)
+        ledger.add_compiles(_build.COMPILES)
+        ledger.wire = self.wire_ledger()
+        if logger is not None:
+            ledger.emit(logger)
+        self.cost_ledger = ledger
+        return ledger
 
     # --- carry state and rollback ---------------------------------------
     def _host_state(self) -> ServerState:
@@ -1358,7 +1631,8 @@ class FederatedExperiment:
     # --- the experiment loop -----------------------------------------------
     def run(self, logger: Optional[RunLogger] = None, checkpointer=None,
             journal=None, shutdown=None,
-            log: Optional[Callable[[str], None]] = None) -> dict:
+            log: Optional[Callable[[str], None]] = None,
+            timer=None) -> dict:
         """Full experiment loop (reference main.py:64-95): ``cfg.epochs``
         rounds, evaluated every ``test_step`` rounds and after the last,
         with the JAX engine's ``run`` semantics (its core/engine.py).
@@ -1386,6 +1660,20 @@ class FederatedExperiment:
         ``shutdown``: a utils.lifecycle.GracefulShutdown, polled at each
         host boundary; a request checkpoints and raises Preempted.
 
+        ``timer``: a utils.profiling.PhaseTimer; each round and each
+        evaluation is timed, synchronised with the card (phases 'round'
+        and 'eval'), and its summary is the 'profile' event at the end.
+
+        With ``cfg.profile_every`` K > 0 every eval interval is timed on
+        the host clock at its boundary (one synchronisation, a 'wall'
+        event with source='host', rounds and rounds/s; each evaluation
+        too, name 'eval'), and every K-th interval runs under a profiler
+        capture written to ``<log_dir>/walltrace/r<epoch>`` and booked
+        onto the stage taxonomy as a source='trace' 'wall' event
+        (utils/walls.py; the records also in ``wall_records``).  A
+        booking that fails prints ``[walls] booking failed`` and the run
+        goes on.
+
         Returns ``accuracies`` and ``epochs`` (this attempt's
         evaluations), ``final_weights``, and with faults ``faults`` (one
         dict of counts per round run in this attempt, a rolled-back
@@ -1401,9 +1689,32 @@ class FederatedExperiment:
         with contextlib.ExitStack() as stack:
             if own:
                 stack.enter_context(logger)
-            return self._run_body(logger, checkpointer, journal, shutdown)
+            return self._run_body(logger, checkpointer, journal, shutdown,
+                                  timer)
 
-    def _run_body(self, logger, checkpointer, journal, shutdown) -> dict:
+    def _book_span_walls(self, logger, trace_dir: str, count: int):
+        """Book one interval's capture onto the stage taxonomy and record
+        its 'wall' event (source='trace').  Returns the WallRecord, or
+        None when the capture wrote no trace or the booking failed:
+        the walls must never sink the run they measure."""
+        from attacking_federate_learning_tpu_torch.utils.walls import (
+            book_trace
+        )
+
+        try:
+            rec = book_trace(trace_dir, name=self._span_entry_name(),
+                             platform=self.device.type, rounds=count)
+        except Exception as e:          # noqa: BLE001 — observability
+            logger.print(f"[walls] booking failed: "
+                         f"{type(e).__name__}: {e}")
+            return None
+        if rec is not None:
+            self.wall_records.append(rec)
+            logger.record(**rec.wall_event())
+        return rec
+
+    def _run_body(self, logger, checkpointer, journal, shutdown,
+                  timer=None) -> dict:
         cfg = self.cfg
         test_size = len(self.dataset.test_y)
         backdoor = bool(cfg.backdoor) and hasattr(self.attacker, "test_asr")
@@ -1444,110 +1755,138 @@ class FederatedExperiment:
             # high-water mark was recorded by the attempt that ran it.
             return journal is None or journal.fresh_round(t)
 
+        def timed(name, sync=None):
+            if timer is None:
+                return contextlib.nullcontext()
+            return timer.phase(name,
+                               sync_on=sync or (lambda: self.state.weights))
+
+        # The measured walls (cfg.profile_every): off, none of this runs.
+        self.wall_records = []
+        walls = (_Walls(self, logger, int(cfg.profile_every))
+                 if cfg.profile_every > 0 else None)
         loop_t0 = time.perf_counter()
         rounds_pending = []
-        while epoch < cfg.epochs:
-            self.run_round(epoch)
-            if (self.faults is not None or self.async_spec is not None
-                    or self._secagg is not None or self._observing):
-                pending.append((self.last_round_faults,
-                                self.last_round_async,
-                                self.last_round_secagg,
-                                self.last_round_telemetry,
-                                self.last_round_stats))
-                rounds_pending.append(epoch)
-            is_eval = epoch % cfg.test_step == 0 or epoch == cfg.epochs - 1
-            if not (is_eval or (ckpt_every and epoch % ckpt_every == 0)):
-                epoch += 1
-                continue
-            # A host boundary: where the JAX engine's span ends.
-            if pending:
-                recs = self._host_records(pending)
-                for t_rec, (frow, arow, srow, tele, rstats) in zip(
-                        rounds_pending, recs):
-                    if frow is not None:
-                        fault_rows.append(frow)
-                    if arow is not None:
-                        async_rows.append(arow)
-                    if srow is not None:
-                        secagg_rows.append(srow)
-                    if fresh(t_rec):
-                        if rstats is not None:
-                            logger.record(kind="round", round=t_rec,
-                                          **rstats)
+        try:
+            while epoch < cfg.epochs:
+                if walls is not None:
+                    walls.open(epoch)
+                with timed("round"):
+                    self.run_round(epoch)
+                if (self.faults is not None or self.async_spec is not None
+                        or self._secagg is not None or self._observing):
+                    pending.append((self.last_round_faults,
+                                    self.last_round_async,
+                                    self.last_round_secagg,
+                                    self.last_round_telemetry,
+                                    self.last_round_stats))
+                    rounds_pending.append(epoch)
+                is_eval = epoch % cfg.test_step == 0 or epoch == cfg.epochs - 1
+                if not (is_eval or (ckpt_every and epoch % ckpt_every == 0)):
+                    epoch += 1
+                    continue
+                # A host boundary: where the JAX engine's span ends.
+                if walls is not None:
+                    walls.close(span_start, epoch - span_start + 1)
+                if pending:
+                    recs = self._host_records(pending)
+                    for t_rec, (frow, arow, srow, tele, rstats) in zip(
+                            rounds_pending, recs):
                         if frow is not None:
-                            logger.record(kind="fault", **frow)
+                            fault_rows.append(frow)
                         if arow is not None:
-                            logger.record(kind="async", **arow)
+                            async_rows.append(arow)
                         if srow is not None:
-                            logger.record(kind="secagg", **srow)
-                        if tele is not None:
-                            self._emit_round_telemetry(logger, t_rec, tele)
-                    if cfg.log_round_stats and self.traffic is not None:
-                        # Round by round, as the JAX engine's per-round
-                        # path emits them under --round-stats.
-                        ev = self._traffic_events.pop(t_rec, None)
+                            secagg_rows.append(srow)
+                        if fresh(t_rec):
+                            if rstats is not None:
+                                logger.record(kind="round", round=t_rec,
+                                              **rstats)
+                            if frow is not None:
+                                logger.record(kind="fault", **frow)
+                            if arow is not None:
+                                logger.record(kind="async", **arow)
+                            if srow is not None:
+                                logger.record(kind="secagg", **srow)
+                            if tele is not None:
+                                self._emit_round_telemetry(logger, t_rec, tele)
+                        if cfg.log_round_stats and self.traffic is not None:
+                            # Round by round, as the JAX engine's per-round
+                            # path emits them under --round-stats.
+                            ev = self._traffic_events.pop(t_rec, None)
+                            if ev is not None:
+                                traffic_rows.append(ev)
+                                if fresh(t_rec):
+                                    logger.record(kind="traffic", **ev)
+                    pending, rounds_pending = [], []
+                if self.traffic is not None:
+                    # Traffic events are host-born (the schedule knows the
+                    # arrivals and actions before the device runs), emitted at
+                    # the same exactly-once boundary, after the span's others.
+                    for tt in range(span_start, epoch + 1):
+                        ev = self._traffic_events.pop(tt, None)
                         if ev is not None:
                             traffic_rows.append(ev)
-                            if fresh(t_rec):
+                            if fresh(tt):
                                 logger.record(kind="traffic", **ev)
-                pending, rounds_pending = [], []
-            if self.traffic is not None:
-                # Traffic events are host-born (the schedule knows the
-                # arrivals and actions before the device runs), emitted at
-                # the same exactly-once boundary, after the span's others.
-                for tt in range(span_start, epoch + 1):
-                    ev = self._traffic_events.pop(tt, None)
-                    if ev is not None:
-                        traffic_rows.append(ev)
-                        if fresh(tt):
-                            logger.record(kind="traffic", **ev)
-            if journal is not None:
-                journal.commit_rounds(span_start, epoch)
-            if watchdog and self._diverged():
-                # Restore the last good state and run again from there;
-                # the eval below never sees the diverged weights.
-                self._rollback(logger, epoch, checkpointer)
-                epoch = span_start = int(self.state.round)
-                continue
-            if is_eval and (journal is None or journal.fresh_eval(epoch)):
-                test_loss, correct = self.evaluate(self.state.weights)
-                accuracy = logger.record_eval(epoch, test_loss, correct,
-                                              test_size)
-                if (accuracy > cfg.checkpoint_acc_threshold
-                        and checkpointer is not None):
-                    # The carry state rides every checkpoint: --resume
-                    # takes the newest by round, best saves included.
-                    checkpointer.save(self.state, accuracy,
-                                      extra=self.carry_state_host())
-                if backdoor:
-                    # Post-aggregation backdoor check, printed after the
-                    # accuracy line as in the reference (main.py:91-95).
-                    last_asr = float(self.attacker.test_asr(
-                        self.state.weights, logger.print, tag="POST"))
-                    asr.append(last_asr)
-                    logger.record(kind="asr", round=epoch,
-                                  attack_success_rate=last_asr)
                 if journal is not None:
-                    journal.commit_eval(epoch)
-            if ckpt_every and epoch % ckpt_every == 0 and (
-                    watchdog or checkpointer is not None):
-                # Periodic auto-checkpoint; the watchdog above has
-                # certified this state, so it is the new rollback target.
-                carry = self.carry_state_host()
-                if watchdog:
-                    self._last_good = (self._host_state(), carry)
-                if checkpointer is not None:
-                    checkpointer.save_auto(self.state, extra=carry)
-            if (shutdown is not None
-                    and shutdown.should_preempt(start_epoch, epoch)):
-                self._preempt(logger, checkpointer, epoch, journal,
-                              shutdown)
-            epoch += 1
-            span_start = epoch
+                    journal.commit_rounds(span_start, epoch)
+                if watchdog and self._diverged():
+                    # Restore the last good state and run again from there;
+                    # the eval below never sees the diverged weights.
+                    self._rollback(logger, epoch, checkpointer)
+                    epoch = span_start = int(self.state.round)
+                    continue
+                if is_eval and (journal is None or journal.fresh_eval(epoch)):
+                    t_eval = time.perf_counter()
+                    with timed("eval", lambda: correct):
+                        test_loss, correct = self.evaluate(self.state.weights)
+                    if walls is not None:
+                        synchronize((test_loss, correct))
+                        logger.record(kind="wall", source="host", name="eval",
+                                      round=int(epoch), wall_s=round(
+                                          time.perf_counter() - t_eval, 6))
+                    accuracy = logger.record_eval(epoch, test_loss, correct,
+                                                  test_size)
+                    if (accuracy > cfg.checkpoint_acc_threshold
+                            and checkpointer is not None):
+                        # The carry state rides every checkpoint: --resume
+                        # takes the newest by round, best saves included.
+                        checkpointer.save(self.state, accuracy,
+                                          extra=self.carry_state_host())
+                    if backdoor:
+                        # Post-aggregation backdoor check, printed after the
+                        # accuracy line as in the reference (main.py:91-95).
+                        last_asr = float(self.attacker.test_asr(
+                            self.state.weights, logger.print, tag="POST"))
+                        asr.append(last_asr)
+                        logger.record(kind="asr", round=epoch,
+                                      attack_success_rate=last_asr)
+                    if journal is not None:
+                        journal.commit_eval(epoch)
+                if ckpt_every and epoch % ckpt_every == 0 and (
+                        watchdog or checkpointer is not None):
+                    # Periodic auto-checkpoint; the watchdog above has
+                    # certified this state, so it is the new rollback target.
+                    carry = self.carry_state_host()
+                    if watchdog:
+                        self._last_good = (self._host_state(), carry)
+                    if checkpointer is not None:
+                        checkpointer.save_auto(self.state, extra=carry)
+                if (shutdown is not None
+                        and shutdown.should_preempt(start_epoch, epoch)):
+                    self._preempt(logger, checkpointer, epoch, journal,
+                                  shutdown)
+                epoch += 1
+                span_start = epoch
+        finally:
+            if walls is not None:
+                walls.abort()     # a capture left open by a raise
 
         if cfg.telemetry:
             self._emit_selection_hist(logger)
+        if timer is not None:
+            logger.record(kind="profile", phases=timer.summary())
         if journal is not None:
             self._complete(logger, journal, start_epoch, loop_t0, last_asr)
         logger.finish()

@@ -25,6 +25,10 @@ starts one ``nvcc`` per missing library, all at once.
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only machine has no ``nvcc``.  Each wrapper counts its launches in
 :data:`LAUNCHES`, so a caller can show which kernels a run went through.
+:data:`COMPILES` keeps each library's build facts for the cost report's
+'compile' events (utils/costs.py): the seconds :func:`build_all` took
+for it, and whether it was already under ``_build/`` ('hit') or nvcc ran
+('miss').
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import torch
+
+from attacking_federate_learning_tpu_torch.utils import costs
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -91,8 +97,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches its kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
+# Library (its source's stem) -> {'compile_s': s, 'cache': 'hit' |
+# 'miss'}, the first build or load of each in this process.
+COMPILES: Dict[str, dict] = {}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+def _note_compile(name: str, compile_s: float, cache: str) -> None:
+    COMPILES.setdefault(Path(KERNELS[name][0]).stem,
+                        {"compile_s": compile_s, "cache": cache})
 
 
 def reset_launches() -> None:
@@ -143,7 +158,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     todo = {}
     for n in names:
         out = library_path(n)
-        if not out.exists() and out not in todo.values():
+        if out.exists():
+            _note_compile(n, 0.0, "hit")
+        elif out not in todo.values():
             todo[n] = out
     times = {KERNELS[n][0]: 0.0 for n in names}
     if not todo:
@@ -173,6 +190,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         else:
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
+            _note_compile(name, times[KERNELS[name][0]], "miss")
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
@@ -180,12 +198,16 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 def entry_point(name: str):
     """Kernel ``name``'s C entry point with its argument types declared,
-    building and loading the library first if needed."""
+    building and loading the library first if needed; under a profiler
+    capture each call is a ``record_function`` range named by the entry
+    point."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
             path = library_path(name)
-            if not path.exists():
+            if path.exists():
+                _note_compile(name, 0.0, "hit")
+            else:
                 build_all([name])
             lib = ctypes.CDLL(str(path))
             _LOADED[name] = lib
@@ -193,7 +215,16 @@ def entry_point(name: str):
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
-    return fn
+
+    def launch(*args):
+        # Under a profiler capture the C call is a range named by its
+        # entry point: utils/walls.py files the device events it
+        # launches under that name, and nothing else the wrapper runs.
+        if not costs.capturing_now():
+            return fn(*args)
+        with torch.profiler.record_function(symbol):
+            return fn(*args)
+    return launch
 
 
 def check_status(name: str, status: int) -> None:

@@ -42,7 +42,11 @@ import torch
 
 from attacking_federate_learning_tpu_torch.ops import _build
 from attacking_federate_learning_tpu_torch.ops.distances import (
-    device_gram_plan, gram_route, gram_workspace, pairwise_distances_plain
+    device_gram_plan, gram_operations, gram_route, gram_workspace,
+    pairwise_distances_plain
+)
+from attacking_federate_learning_tpu_torch.utils.costs import (
+    KernelCost, counted_kernel
 )
 
 
@@ -74,6 +78,42 @@ def krum_scores_plain(G: torch.Tensor, corrupted_count: int,
     return rowsum - torch.clamp(top, min=0.0).sum(1), rowsum
 
 
+def krum_scores_cost(n: int, d: int, bf16: bool = False) -> KernelCost:
+    """Kernel 2's work at (n, d): kernel 1's operations, G read once and
+    the (n,) scores and rowsums written once."""
+    return KernelCost(gram_operations(n, d), (2 if bf16 else 4) * n * d
+                      + 8 * n, "bf16" if bf16 else "fp32")
+
+
+def trimmed_mean_cost(n: int, d: int) -> KernelCost:
+    """Kernel 3's work: three operations an element (the median's
+    subtraction, the key, the kept sum), the (n, d) f32 matrix read and
+    the (d,) mean written."""
+    return KernelCost(3 * n * d, 4 * (n * d + d))
+
+
+def median_cost(n: int, d: int) -> KernelCost:
+    """Kernel 4's work: one operation an element, the matrix read and
+    the (d,) median written."""
+    return KernelCost(n * d, 4 * (n * d + d))
+
+
+def masked_cost(n: int, d: int, alive: int, weighted: bool,
+                per_element: int) -> KernelCost:
+    """Kernels 5 and 6 (``per_element`` 3 and 1): only the ``alive`` rows
+    are read (with their weights), the (n,) mask and the (d,) answer."""
+    return KernelCost(per_element * alive * d,
+                      4 * (alive * d + d) + n + (4 * alive if weighted
+                                                 else 0))
+
+
+def _alive(mask) -> int:
+    return int(mask.sum())
+
+
+@counted_kernel(lambda G, *a, **k: gram_route("krum_scores", G),
+                lambda G, *a, **k: krum_scores_cost(
+                    *G.shape, G.dtype == torch.bfloat16))
 def krum_scores(G: torch.Tensor, corrupted_count: int,
                 paper_scoring: bool = False):
     """(n, d) f32 or bf16 -> ((n,) scores, (n,) rowsums), f32."""
@@ -162,6 +202,8 @@ def trimmed_mean_of_plain(G: torch.Tensor,
     return kept.mean(0) + med
 
 
+@counted_kernel("trimmed_mean",
+                lambda G, *a, **k: trimmed_mean_cost(*G.shape))
 def trimmed_mean_of(G: torch.Tensor, number_to_consider: int,
                     plan: Optional[TrimPlan] = None) -> torch.Tensor:
     """(n, d) f32, k static -> (d,) f32 median-anchored trimmed mean.  A
@@ -196,6 +238,7 @@ def median_of_plain(G: torch.Tensor) -> torch.Tensor:
     return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
 
 
+@counted_kernel("median", lambda G, *a, **k: median_cost(*G.shape))
 def median_of(G: torch.Tensor,
               plan: Optional[TrimPlan] = None) -> torch.Tensor:
     """(n, d) f32 -> (d,) f32 coordinate-wise median.  A CUDA tensor takes
@@ -240,6 +283,9 @@ def masked_median_plain(G: torch.Tensor, mask: torch.Tensor,
     return (lo + hi) / 2
 
 
+@counted_kernel("masked_median",
+                lambda G, mask, weights=None, *a, **k: masked_cost(
+                    *G.shape, _alive(mask), weights is not None, 1))
 def masked_median(G: torch.Tensor, mask: torch.Tensor, weights=None,
                   plan: Optional[TrimPlan] = None) -> torch.Tensor:
     """(n, d) f32, (n,) bool mask[, (n,) f32 weights] -> (d,) f32: the
@@ -287,6 +333,9 @@ def masked_trimmed_mean_plain(G: torch.Tensor, mask: torch.Tensor,
     return torch.where(keep, sdev, 0.0).sum(0) / k + med
 
 
+@counted_kernel("masked_trimmed_mean",
+                lambda G, mask, k_delta, weights=None, *a, **k: masked_cost(
+                    *G.shape, _alive(mask), weights is not None, 3))
 def masked_trimmed_mean(G: torch.Tensor, mask: torch.Tensor, k_delta: int,
                         weights=None,
                         plan: Optional[TrimPlan] = None) -> torch.Tensor:

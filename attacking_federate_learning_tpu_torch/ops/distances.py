@@ -26,6 +26,9 @@ from typing import NamedTuple
 import torch
 
 from attacking_federate_learning_tpu_torch.ops import _build
+from attacking_federate_learning_tpu_torch.utils.costs import (
+    KernelCost, counted_kernel
+)
 
 TILE = 128            # Gram tile edge (gram_tile.cuh: kT)
 THREAD_TILE = 8       # thread tile edge (kTT)
@@ -308,6 +311,25 @@ def gram_route(name: str, G: torch.Tensor) -> str:
     return f"{name}[bf16]" if G.dtype == torch.bfloat16 else name
 
 
+def gram_operations(n: int, d: int) -> int:
+    """The distance kernels' operations: the Gram's n (n - 1) d
+    multiply-adds above and below the diagonal counted once each, and
+    the 2 n d of the norms."""
+    return n * (n - 1) * d + 2 * n * d
+
+
+def pairwise_distances_cost(n: int, d: int, bf16: bool = False) -> KernelCost:
+    """Kernel 1's work at (n, d): the Gram's operations (on the tensor
+    cores on the bf16 route), G read once and the (n, n) f32 distances
+    written once."""
+    return KernelCost(gram_operations(n, d),
+                      (2 if bf16 else 4) * n * d + 4 * n * n,
+                      "bf16" if bf16 else "fp32")
+
+
+@counted_kernel(lambda G: gram_route("pairwise_distances", G),
+                lambda G: pairwise_distances_cost(
+                    *G.shape, G.dtype == torch.bfloat16))
 def pairwise_distances(G: torch.Tensor) -> torch.Tensor:
     """(n, d) f32 or bf16 -> (n, n) f32 distances with an exact zero
     diagonal."""

@@ -36,6 +36,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from attacking_federate_learning_tpu_torch.utils.costs import stage_scope
+
 
 class Placement(NamedTuple):
     """Host-side megabatch layout, a pure function of the config.
@@ -137,9 +139,11 @@ def shard_reduce(tier2_fn, estimates, num_shards: int,
     """The tier-2 robust reduction over the (S, d) shard-estimate matrix:
     ``tier2_fn`` is a defenses/kernels.py ``shard_*`` entry;
     ``alive_counts`` (S,) carries each shard's effective cohort, a shard
-    at 0 is excluded."""
-    return tier2_fn(estimates.float().contiguous(), num_shards,
-                    corrupted_shards, alive_counts=alive_counts, **kw)
+    at 0 is excluded.  The ``tier2_aggregate`` stage (utils/costs.py),
+    whatever ``tier2_fn`` the caller passes."""
+    with stage_scope("tier2_aggregate"):
+        return tier2_fn(estimates.float().contiguous(), num_shards,
+                        corrupted_shards, alive_counts=alive_counts, **kw)
 
 
 def two_tier_aggregate(users_grads, placement: Placement, tier1_fn,

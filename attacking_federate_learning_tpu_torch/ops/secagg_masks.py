@@ -35,6 +35,9 @@ from attacking_federate_learning_tpu_torch.ops import _build
 from attacking_federate_learning_tpu_torch.ops.threefry_bits import (
     threefry_bits_plain
 )
+from attacking_federate_learning_tpu_torch.utils.costs import (
+    KernelCost, counted_kernel
+)
 
 _MASK = 0xFFFFFFFF
 # csrc/secagg_masks.cu: columns a block, shared memory a block and an SM.
@@ -44,6 +47,38 @@ SMEM_BLOCK = 232_448
 SMEM_SM = 233_472
 # Pairs a chunk of the plain versions: (chunk, d) int64 words at a time.
 PLAIN_CHUNK = 64
+# Integer operations of one drawn word in csrc/secagg_masks.cu, counted
+# from the source: 20 rounds of add, rotate (one funnel shift) and xor
+# (60), 5 key injections of 3 adds (15), the third key word (2 xors),
+# the counter add, the output xor and the signed accumulate (3).  The
+# card's int32 rate is a quarter of its fp32 rate: 64 int32 lanes an SM
+# against 128 fp32 lanes of 2 operations.
+OPS_PER_WORD = 80
+
+
+def secagg_deltas_cost(n: int, d: int) -> KernelCost:
+    """The deltas' work: each of the n (n - 1) / 2 pairs drawn once,
+    OPS_PER_WORD a word; the (n, d) int32 masks written, the pair keys
+    (8 bytes a pair) and the ids read."""
+    pairs = n * (n - 1) // 2
+    return KernelCost(pairs * d * OPS_PER_WORD,
+                      4 * n * d + 8 * pairs + 8 * n, "int32")
+
+
+def secagg_residue_cost(n: int, d: int, alive: int) -> KernelCost:
+    """The residue's work: the alive x dropped pairs drawn; the (d,)
+    residue written, the pair keys, ids and mask read."""
+    cross = alive * (n - alive)
+    return KernelCost(cross * d * OPS_PER_WORD,
+                      4 * d + 8 * (n * (n - 1) // 2) + 9 * n, "int32")
+
+
+def secagg_unmask_sum_cost(n: int, d: int, residue: bool,
+                           alive: bool) -> KernelCost:
+    """The unmask pass's bytes: the clear rows and the deltas read, the
+    recovered rows written, the residue and the mask read where given."""
+    return KernelCost(0, 12 * n * d + (4 * d if residue else 0)
+                      + (n if alive else 0), "int32")
 
 
 class DeltasPlan(NamedTuple):
@@ -159,6 +194,8 @@ def _check_keys_ids(name, keys, ids):
         raise ValueError(f"{name}: the pair keys must be 8-byte aligned")
 
 
+@counted_kernel("secagg_deltas", lambda keys, ids, d, *a, **k:
+                secagg_deltas_cost(ids.shape[0], d))
 def secagg_deltas(keys: torch.Tensor, ids: torch.Tensor, d: int,
                   plan: Optional[DeltasPlan] = None) -> torch.Tensor:
     """(P, 2) int32 pair keys and (n,) int64 ids -> (n, d) int32 net
@@ -181,6 +218,8 @@ def secagg_deltas(keys: torch.Tensor, ids: torch.Tensor, d: int,
     return out
 
 
+@counted_kernel("secagg_residue", lambda keys, ids, alive, d, *a, **k:
+                secagg_residue_cost(ids.shape[0], d, int(alive.sum())))
 def secagg_residue(keys: torch.Tensor, ids: torch.Tensor,
                    alive: torch.Tensor, d: int, count=None):
     """The (d,) int32 residue of the (alive, dropped) pairs and their
@@ -209,6 +248,10 @@ def secagg_residue(keys: torch.Tensor, ids: torch.Tensor,
     return residue, count
 
 
+@counted_kernel("secagg_unmask_sum",
+                lambda clear, deltas, residue=None, alive=None, *a, **k:
+                secagg_unmask_sum_cost(*clear.shape, residue is not None,
+                                       alive is not None))
 def secagg_unmask_sum(clear: torch.Tensor, deltas: torch.Tensor,
                       residue: Optional[torch.Tensor] = None,
                       alive: Optional[torch.Tensor] = None,

@@ -34,6 +34,9 @@ import torch
 
 from attacking_federate_learning_tpu_torch.ops import _build
 from attacking_federate_learning_tpu_torch.utils import threefry
+from attacking_federate_learning_tpu_torch.utils.costs import (
+    KernelCost, counted_kernel
+)
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -57,6 +60,16 @@ def threefry_bits_plain(keys: torch.Tensor, n: int) -> torch.Tensor:
     return x0 ^ x1
 
 
+def threefry_bits_cost(K: int, n: int) -> KernelCost:
+    """The kernel's work for K keys of n bits: about 80 integer
+    operations an element (bounded at the fp32 rate: the card retires
+    32-bit adds, shifts and xors on the same units), the int64 output
+    written and the 16-byte keys read."""
+    return KernelCost(80 * K * n, 8 * K * n + 16 * K)
+
+
+@counted_kernel("threefry_bits",
+                lambda keys, n: threefry_bits_cost(keys.shape[0], n))
 def threefry_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     """(K, 2) int64 key words (each < 2**32) -> (K, n) int64 bits, n <
     2**32."""

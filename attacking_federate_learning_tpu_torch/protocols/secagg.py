@@ -44,6 +44,7 @@ import torch
 from attacking_federate_learning_tpu_torch.core.faults import to_device
 from attacking_federate_learning_tpu_torch.ops import secagg_masks as K
 from attacking_federate_learning_tpu_torch.utils import threefry
+from attacking_federate_learning_tpu_torch.utils.costs import stage_scope
 from attacking_federate_learning_tpu_torch.utils.numerics import row_norms
 
 SECAGG_MODES = ("off", "vanilla", "groupwise")
@@ -139,9 +140,10 @@ def unmask_sum(grads: torch.Tensor, deltas: torch.Tensor,
 def protect(grads: torch.Tensor, tables, alive=None, ok=None, count=None):
     """One protocol round over the (n, d) f32 matrix ``grads`` with the
     round's device ``tables``: derive the net masks, mask, recover and
-    verify (:func:`unmask_sum`).  The ``protect`` stage."""
-    deltas = K.secagg_deltas(*tables, grads.shape[1])
-    return unmask_sum(grads, deltas, alive, tables, ok, count)
+    verify (:func:`unmask_sum`).  The ``protect`` stage (utils/costs.py)."""
+    with stage_scope("protect"):
+        deltas = K.secagg_deltas(*tables, grads.shape[1])
+        return unmask_sum(grads, deltas, alive, tables, ok, count)
 
 
 def secagg_cohort(grads: torch.Tensor, alive: Optional[torch.Tensor],
@@ -151,11 +153,13 @@ def secagg_cohort(grads: torch.Tensor, alive: Optional[torch.Tensor],
     (default the row indices, the flat round's full participation),
     ``alive`` the quarantine mask (None: everyone submitted).  Returns
     ``(recovered, stats)``; ``recovered`` is bit for bit the clear matrix
-    with the dead rows zeroed."""
+    with the dead rows zeroed.  The ``protect`` stage, the tables'
+    copy to the device included."""
     n = grads.shape[0]
     ids = np.arange(n) if ids is None else ids
-    tables = round_tables(threefry.fold_in(key, t), ids, grads.device)
-    return protect(grads, tables, alive)
+    with stage_scope("protect"):
+        tables = round_tables(threefry.fold_in(key, t), ids, grads.device)
+        return protect(grads, tables, alive)
 
 
 def secagg_group(grads: torch.Tensor, key: np.ndarray, t: int, ids,

@@ -342,9 +342,36 @@ success):
                ([observe] lines): round ms beside the twin's (host clock),
                device ms a round and the extra the diagnostics cost (CUDA
                events, rounds past the checked ones), the card.
+16. walls   -- the measured walls and the cost ledger through run(), each
+               run beside its flags-off twin run in the phase (weights and
+               velocity byte-equal, the twin's launches).  Every capture
+               (profile_every; utils/walls.py) is checked: its partition
+               exact (stage sums + unattributed = total, the booked events
+               the trace's device events, their time the trace's), and
+               each kernel of the run booked, through the range around its
+               launch (its C entry point) and the launch's correlation, to its
+               stage alone.  (a) phase 5's clean cells at f = 24,
+               profile_every 1: kernels 1-4 in tier1_aggregate, deliver
+               and apply filled, the unattributed device share at most 5
+               %; (b) faulted Krum, TrimmedMean and Median (f = 10) and
+               async Krum and TrimmedMean 'poly': quarantine filled,
+               kernels 1, 5, 6 and 5 w in tier1_aggregate; (c) phase 13's
+               n = 1,000, S = 10 Krum/Krum (kernel 2 in both aggregate
+               stages), groupwise secagg (S and S u in protect) and DnC (T
+               in tier1_aggregate); (d) the cost report on phase 5's Krum
+               before its run, captured with profile_every 1: one 'cost'
+               and one 'stage_cost' event an entry point, kernel 2's
+               counted operations and bytes its table bound's formula,
+               the peak from the allocator, the libraries' 'compile'
+               facts, the measured stage shares beside the counted ones;
+               (e) Krum with profile_every 2
+               and the phase timer: the uncaptured interval's round ms
+               beside the twin's, the captured intervals apart.  Printed
+               ([walls] lines): device ms a round and share by stage,
+               the unattributed share, the phase's seconds.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-15), the nvidia-smi line, and as the last line
+summed over phases 5-16), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -699,11 +726,13 @@ def check_kernels(peaks, failures):
 
     from attacking_federate_learning_tpu_torch.ops import _build
     from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-        TrimPlan, krum_complement, krum_scores, krum_scores_plain,
-        trim_plan, trimmed_mean_of, trimmed_mean_of_plain
+        TrimPlan, krum_complement, krum_scores, krum_scores_cost,
+        krum_scores_plain, trim_plan, trimmed_mean_cost, trimmed_mean_of,
+        trimmed_mean_of_plain
     )
     from attacking_federate_learning_tpu_torch.ops.distances import (
-        gram_route, pairwise_distances, pairwise_distances_plain
+        gram_route, pairwise_distances, pairwise_distances_cost,
+        pairwise_distances_plain
     )
 
     flops_peak, bytes_peak, bf16_peak = peaks
@@ -711,12 +740,14 @@ def check_kernels(peaks, failures):
     entries = {}
 
     def report(name, label, err, rel, tol, ok, ms, plain_ms, lib_ms,
-               nbytes, nops, entry_for=None):
+               cost, entry_for=None):
         """Print one check; with ``entry_for = (source, replaces, shape)``
-        it is also the kernel's entry in the kernels line.  The bf16
-        routes' operations are bounded at the bf16 tensor rate."""
-        rate = bf16_peak if name.endswith("[bf16]") else flops_peak
-        t_b, t_o = nbytes / bytes_peak * 1e3, nops / rate * 1e3
+        it is also the kernel's entry in the kernels line.  ``cost`` is
+        the kernel's modeled work (the formula beside its wrapper, the
+        cost ledger's too); the bf16 routes' operations are bounded at
+        the bf16 tensor rate."""
+        rate = bf16_peak if cost.unit == "bf16" else flops_peak
+        t_b, t_o = cost.bytes / bytes_peak * 1e3, cost.flops / rate * 1e3
         b_ms, b_by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"[kernel] {name:18s} {label:34s} max_abs_err={err:.3e} "
@@ -752,9 +783,9 @@ def check_kernels(peaks, failures):
         ms = time_ms(lambda: trimmed_mean_of(Gt, k, plan), reps)
         pms = time_ms(lambda: trimmed_mean_of_plain(Gt, k), reps)
         report("trimmed_mean", label, err, rel_err((got, want)), f"atol {atol:.2e} + rtol 1e-6",
-               ok, ms, pms, None, 4 * (nt * d + d), 3 * nt * d, entry_for)
+               ok, ms, pms, None, trimmed_mean_cost(nt, d), entry_for)
 
-    def check_krum(G, f, e, label, reps, gram_ops, entry_for):
+    def check_krum(G, f, e, label, reps, entry_for):
         n, d = G.shape
         name = gram_route("krum_scores", G)
         comp = krum_complement(n, f)
@@ -779,7 +810,8 @@ def check_kernels(peaks, failures):
                "rowsum e_i + 2n eps rowsum_i, score 2 e_i + 2n eps rowsum_i,"
                " e_i = sum_j min(sqrt b_ij, b_ij / D_ij) of the distance "
                "band b", ok_s and ok_r and ok_w, ms, pms, None,
-               G.element_size() * n * d + 8 * n, gram_ops, entry_for)
+               krum_scores_cost(n, d, G.dtype == torch.bfloat16),
+               entry_for)
 
     cases = [  # (n, d, f, attack, seed, reps, main-path?, Bulyan's f)
         (N_MAIN, D_MLP, F_MAIN, "alie", 1, 20, True, F_MAIN),
@@ -825,12 +857,11 @@ def check_kernels(peaks, failures):
         pms = time_ms(lambda: pairwise_distances_plain(G), reps)
         lms = time_ms(lambda: torch.cdist(
             G, G, compute_mode="use_mm_for_euclid_dist"), reps)
-        gram_ops = n * (n - 1) * d + 2 * n * d
         report("pairwise_distances", label, err, rel_err((got, want)),
                f"|D^2-plain^2| <= 4(sqrt {kernel_chain(d)} + sqrt {d}) eps "
                f"(sq_i+sq_j), |D^2-fp64| <= 4 sqrt {kernel_chain(d)} eps "
                f"(sq_i+sq_j), identical rows exactly 0", ok, ms, pms, lms,
-               4 * (n * d + n * n), gram_ops,
+               pairwise_distances_cost(n, d),
                main and ("pairwise_distances.cu",
                          "ops/pallas_distances.py:92", [n, d]))
 
@@ -841,7 +872,7 @@ def check_kernels(peaks, failures):
         e = torch.minimum(band.sqrt(), band / want.double().clamp(
             min=1e-30)).fill_diagonal_(0.0).sum(1)
         for fk, reps_k in ((f, reps), (1, 1), (n, 1)):
-            check_krum(G, fk, e, label, reps_k, gram_ops,
+            check_krum(G, fk, e, label, reps_k,
                        main and fk == f and ("krum_scores.cu",
                                              "ops/pallas_defense.py:214",
                                              [n, d]))
@@ -958,18 +989,17 @@ def check_kernels(peaks, failures):
             return D.fill_diagonal_(0.0)
 
         lms = time_ms(library, reps)
-        gram_ops = n * (n - 1) * d + 2 * n * d
         report(name, label, err, rel_err((got, want)),
                f"|D^2-plain^2| <= 4(sqrt {kernel_chain(d)} + sqrt {d}) eps "
                f"(sq_i+sq_j), |D^2-fp64| <= 4 sqrt {kernel_chain(d)} eps "
                f"(sq_i+sq_j), identical rows exactly 0", ok, ms, pms, lms,
-               2 * n * d + 4 * n * n, gram_ops,
+               pairwise_distances_cost(n, d, bf16=True),
                main and ("pairwise_distances.cu",
                          "ops/pallas_distances.py:92", [n, d]))
         e = torch.minimum(band.sqrt(), band / want.double().clamp(
             min=1e-30)).fill_diagonal_(0.0).sum(1)
         for fk, reps_k in ((max(f, 1), reps), (1, 1), (n, 1)):
-            check_krum(G, fk, e, label, reps_k, gram_ops,
+            check_krum(G, fk, e, label, reps_k,
                        main and fk == f and ("krum_scores.cu",
                                              "ops/pallas_defense.py:214",
                                              [n, d]))
@@ -1040,9 +1070,9 @@ def check_coord_kernels(report, failures):
     import torch
 
     from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-        TrimPlan, masked_median, masked_median_plain, masked_trimmed_mean,
-        masked_trimmed_mean_plain, median_of, median_of_plain, trim_plan,
-        trimmed_mean_of
+        TrimPlan, masked_cost, masked_median, masked_median_plain,
+        masked_trimmed_mean, masked_trimmed_mean_plain, median_cost,
+        median_of, median_of_plain, trim_plan, trimmed_mean_of
     )
 
     eps = float(np.finfo(np.float32).eps)
@@ -1064,7 +1094,7 @@ def check_coord_kernels(report, failures):
         else:
             label += " library: none (too large)"
         report("median", label, err, finite_rel(got, want), "exact", ok,
-               ms, pms, lms, 4 * (n * d + d), n * d, entry_for)
+               ms, pms, lms, median_cost(n, d), entry_for)
         return got
 
     def check_mmed(G, mask, w, label, reps, entry_for=None, plan=None):
@@ -1088,10 +1118,10 @@ def check_coord_kernels(report, failures):
             label += " library: none (too large)"
         # The answer reads only the alive rows (and their weights).
         e = int(mask.sum())
-        nbytes = 4 * (e * d + d) + n + (4 * e if w is not None else 0)
         report("masked_median", label, err, finite_rel(got, want),
                "exact" + (" (dyadic weights)" if w is not None else ""),
-               ok, ms, pms, lms, nbytes, e * d, entry_for)
+               ok, ms, pms, lms, masked_cost(n, d, e, w is not None, 1),
+               entry_for)
         return got
 
     def check_mtrim(G, mask, k_delta, w, label, reps, entry_for=None,
@@ -1114,11 +1144,10 @@ def check_coord_kernels(report, failures):
                      reps)
         pms = time_ms(lambda: masked_trimmed_mean_plain(G, mask, k_delta, w),
                       reps)
-        nbytes = 4 * (e * d + d) + n + (4 * e if w is not None else 0)
         report("masked_trimmed_mean", f"{label} e={e} k={k}", err,
                finite_rel(got, want), f"atol {atol:.2e} + rtol 1e-6, NaN "
-               f"where plain is NaN", ok and nan_ok, ms, pms, None, nbytes,
-               3 * e * d, entry_for)
+               f"where plain is NaN", ok and nan_ok, ms, pms, None,
+               masked_cost(n, d, e, w is not None, 3), entry_for)
 
     n, d, f = N_MAIN, D_MLP, F_FAULT
     select = TrimPlan("select", 0)      # the radix route at the same shape
@@ -1338,11 +1367,12 @@ def eval_rounds(cfg):
 
 
 def drive(exp, kernels, banned, failures, label, excluded=None,
-          keep_events=False):
+          keep_events=False, timer=None):
     """One full-width run of ``exp.run()`` on the card, launch counters
     zeroed just before and read just after.  ``keep_events`` runs it with
     a files-off RunLogger (each event validated as it is recorded) and
-    returns the events too.  Fails the phase when a
+    returns the events too; ``timer`` (a PhaseTimer) goes to run().
+    Fails the phase when a
     kernel of ``kernels`` did not launch, one of ``banned`` did, the
     weights or an accuracy is not finite, the evaluations are not the
     config's (0/10/20 in phases 5 and 6), or (with faults) the per-round
@@ -1415,8 +1445,8 @@ def drive(exp, kernels, banned, failures, label, excluded=None,
         )
         logger = RunLogger(exp.cfg, log_dir=None, log=lines.append)
     _build.reset_launches()
-    result = (exp.run(logger) if keep_events
-              else exp.run(log=lines.append))
+    result = (exp.run(logger, timer=timer) if keep_events
+              else exp.run(log=lines.append, timer=timer))
     launches = dict(_build.LAUNCHES)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -1428,6 +1458,7 @@ def drive(exp, kernels, banned, failures, label, excluded=None,
     out = {"result": result, "launches": launches, "accs": accs,
            "finite": finite, "lines": lines,
            "median_ms": 1e3 * statistics.median(round_s),
+           "round_ms": [1e3 * x for x in round_s],
            "deliver_ms": statistics.median(a.elapsed_time(b)
                                            for a, b in deliver_ev),
            "peak_gib": peak / 2 ** 30,
@@ -3044,7 +3075,7 @@ def time_weighted_kernels(failures, smi):
         replay_schedule, staleness_weights
     )
     from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-        masked_median, masked_median_plain, masked_trimmed_mean,
+        masked_cost, masked_median, masked_median_plain, masked_trimmed_mean,
         masked_trimmed_mean_plain
     )
 
@@ -3060,8 +3091,7 @@ def time_weighted_kernels(failures, smi):
     e = int(mask.sum())
     eps = float(np.finfo(np.float32).eps)
     # The answer reads only the delivered rows and their weights.
-    nbytes = 4 * (e * d + d) + n + 4 * e
-    bound = nbytes / bytes_peak * 1e3
+    bound = masked_cost(n, d, e, True, 3).bytes / bytes_peak * 1e3
     k_delta = F_MAIN + 1
     got = masked_trimmed_mean(G, mask, k_delta, w)
     want = masked_trimmed_mean_plain(G, mask, k_delta, w)
@@ -3365,10 +3395,10 @@ def check_threefry_kernel(peaks, failures):
     ms = time_ms(lambda: R.threefry_bits(words, d), 50)
     pms = time_ms(lambda: R.threefry_bits_plain(words, d), 10)
     # Bytes: the int64 output (the keys are 16 bytes a row); operations:
-    # about 80 integer operations an element, at the fp32 rate (the card
-    # retires 32-bit integer adds, shifts and xors on the same units).
-    nbytes, nops = 8 * K * d + 16 * K, 80 * K * d
-    t_b, t_o = nbytes / bytes_peak * 1e3, nops / flops_peak * 1e3
+    # about 80 integer operations an element, at the fp32 rate
+    # (ops/threefry_bits.py:threefry_bits_cost).
+    cost = R.threefry_bits_cost(K, d)
+    t_b, t_o = cost.bytes / bytes_peak * 1e3, cost.flops / flops_peak * 1e3
     b_ms, b_by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
     draw_ms = time_ms(lambda: D.draw_sketches(0, 3, iters, d, r, "cuda"), 20)
     print(f"[defense kernel] threefry_bits K={K} n={d} (one DnC round's "
@@ -4330,13 +4360,6 @@ def run_hier_path(ds, failures, smi):
 P14_SHAPES = ((3, 257), (19, 257), (32, 4099), (129, 4099), (N_MAIN, D_MLP))
 P14_SAMPLE = 16                  # columns held against the host's threefry
 P14_DROPPED = 10                 # rows dropped for the timed residue
-# Integer operations of one drawn word in csrc/secagg_masks.cu, counted
-# from the source: 20 rounds of add, rotate (one funnel shift) and xor
-# (60), 5 key injections of 3 adds (15), the third key word (2 xors),
-# the counter add, the output xor and the signed accumulate (3).  The
-# card's int32 rate is a quarter of its fp32 rate: 64 int32 lanes an SM
-# against 128 fp32 lanes of 2 operations (16.75 T/s on the SXM part).
-OPS_PER_WORD = 80
 P14_ROUNDS = ROUNDS              # (b), (c): phase 5's 21 rounds
 P14_FAULT_ROUNDS, P14_RESUME_AT = 8, 4
 P14_FAULTS = dict(dropout=0.1, shard_dropout=0.2, shard_dropout_dwell=2,
@@ -4471,18 +4494,19 @@ def check_secagg_kernels(peaks, failures, smi):
     res, _ = K.secagg_residue(keys, idt, alive, d)
     G = torch.from_numpy(cohort(n, d, F_MAIN, "alie", 14)).cuda()
     na = int(alive.sum())
-    P, cross = n * (n - 1) // 2, na * (n - na)
+    # The work of each (ops/secagg_masks.py: OPS_PER_WORD integer
+    # operations a drawn word, at a quarter of the fp32 rate).
     work = {
-        "secagg_deltas": (P * d * OPS_PER_WORD, 4 * n * d + 8 * P + 8 * n,
+        "secagg_deltas": (K.secagg_deltas_cost(n, d),
                           lambda: K.secagg_deltas(keys, idt, d),
                           lambda: K.secagg_deltas_plain(keys, idt, d), 2,
                           "protocols/secagg.py:94 (pairwise_deltas)"),
-        "secagg_residue": (cross * d * OPS_PER_WORD, 4 * d + 8 * P + 9 * n,
+        "secagg_residue": (K.secagg_residue_cost(n, d, na),
                            lambda: K.secagg_residue(keys, idt, alive, d),
                            lambda: K.secagg_residue_plain(keys, idt, alive,
                                                           d), 3,
                            "protocols/secagg.py:148 (recovery_residue)"),
-        "secagg_unmask_sum": (0, 12 * n * d + 4 * d + n,
+        "secagg_unmask_sum": (K.secagg_unmask_sum_cost(n, d, True, True),
                               lambda: K.secagg_unmask_sum(G, deltas, res,
                                                           alive),
                               lambda: K.secagg_unmask_sum_plain(
@@ -4492,7 +4516,8 @@ def check_secagg_kernels(peaks, failures, smi):
     plan = K.deltas_plan(n, d, torch.cuda.get_device_properties(
         0).multi_processor_count)
     entries = {}
-    for name, (ops, nbytes, fn, plain, reps, where) in work.items():
+    for name, (cost, fn, plain, reps, where) in work.items():
+        ops, nbytes = cost.flops, cost.bytes
         ms = time_ms(fn, 20)
         pms = time_ms(plain, reps)
         t_b, t_o = nbytes / bytes_peak * 1e3, ops / int_rate * 1e3
@@ -4871,7 +4896,7 @@ def diagnostics_vs_cpu(got, want, G):
     return worst, not bad, bad
 
 
-def observed_run(exp, kernels, failures, label, check=False):
+def observed_run(exp, kernels, failures, label, check=False, timer=None):
     """One phase-15 run through ``drive`` (events kept and validated),
     each round's device time from CUDA events; with ``check`` the first
     P15_CHECKED defense calls held against the CPU by
@@ -4901,7 +4926,7 @@ def observed_run(exp, kernels, failures, label, check=False):
 
     exp.run_round = timed
     run = drive(exp, kernels, (), failures, f"observe {label}", excluded,
-                keep_events=True)
+                keep_events=True, timer=timer)
     torch.cuda.synchronize()
     dev = [a.elapsed_time(b) for a, b in events]
     run.update(exp=exp, dev_ms=statistics.median(dev[P15_CHECKED:] or dev),
@@ -5123,6 +5148,344 @@ def run_observe_path(ds, failures, smi):
     return totals
 
 
+# -- phase 16: the walls and the cost ledger ------------------------------------
+
+# (a): phase 5's clean ALIE cells at f = 24: (defense, must launch).
+P16_FLAT = (("NoDefense", ()), ("Krum", ("krum_scores",)),
+            ("TrimmedMean", ("trimmed_mean",)),
+            ("Bulyan", ("pairwise_distances", "trimmed_mean")),
+            ("Median", ("median",)))
+# (b): masked rounds: (label, config, must launch).  Kernel 5 w is the
+# async TrimmedMean's weighted masked trimmed mean.
+P16_MASKED = (
+    ("(b) Krum faulted", ("main", "Krum"), ("pairwise_distances",)),
+    ("(b) TrimmedMean faulted", ("main", "TrimmedMean"),
+     ("masked_trimmed_mean",)),
+    ("(b) Median faulted", ("main", "Median"), ("masked_median",)),
+    ("(b) async Krum poly", ("async", "Krum"), ("pairwise_distances",)),
+    ("(b) async TrimmedMean poly", ("async", "TrimmedMean"),
+     ("masked_trimmed_mean",)))
+P16_UNATTRIBUTED = 0.05     # the flat rounds' largest unattributed share
+P16_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def walls_of(exp, kernels, failures, label):
+    """Checks every capture booked in ``exp``'s run (exp.wall_records):
+    the partition exact (stage sums + unattributed == total, the booked
+    events the trace's device events, their time within float rounding
+    of the trace's), and the device time of each kernel of ``kernels``
+    ({name: stages allowed}, each named in the trace by the range around
+    its launch, its C entry point) in those stages only.  Returns the device
+    us a stage summed over the captures, the unattributed us, the
+    captured rounds, the launches joined without their launch event and
+    each kernel's stages."""
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.costs import STAGES
+    from attacking_federate_learning_tpu_torch.utils.walls import (
+        find_trace_file, load_trace_events
+    )
+
+    stage_us = {s: 0.0 for s in STAGES}
+    out = {"stage_us": stage_us, "unattributed_us": 0.0, "rounds": 0,
+           "unknown": 0, "kernels": {}, "captures": len(exp.wall_records),
+           "exact": True}
+    for rec in exp.wall_records:
+        rec.check()
+        dev = [e for e in load_trace_events(find_trace_file(rec.trace_dir))
+               if e.get("cat") in P16_DEVICE_CATS]
+        total = math.fsum(float(e.get("dur", 0.0)) for e in dev)
+        exact = (rec.coverage["op_events"] == len(dev)
+                 and rec.total_us == sum(rec.stages.values())
+                 + rec.unattributed_us
+                 and abs(rec.total_us - total) <= 1e-9 * max(total, 1.0))
+        out["exact"] &= exact
+        for st, us in rec.stages.items():
+            stage_us[st] += us
+        out["unattributed_us"] += rec.unattributed_us
+        out["rounds"] += rec.rounds
+        out["unknown"] += rec.coverage["unknown_events"]
+        for name in kernels:
+            cells = rec.ops.get(_build.KERNELS[name][1], {})
+            got = out["kernels"].setdefault(name, {})
+            for st, (count, us) in cells.items():
+                got[st] = got.get(st, 0.0) + us
+    ok = out["exact"] and out["captures"] > 0
+    for name, allowed in kernels.items():
+        got = out["kernels"].get(name, {})
+        if not got or set(got) - set(allowed):
+            ok = False
+    if not ok:
+        failures.append(f"walls {label}: exact={out['exact']} captures="
+                        f"{out['captures']} kernels {out['kernels']} "
+                        f"(allowed {kernels})")
+    out["ok"] = ok
+    return out
+
+
+def stage_text(w):
+    """Per stage: device ms a round and its share of the captures'
+    device time; the unattributed share last."""
+    total = sum(w["stage_us"].values()) + w["unattributed_us"]
+    rounds = max(w["rounds"], 1)
+    parts = [f"{st}={us / rounds / 1e3:.4f}ms/{us / total:.3f}"
+             for st, us in w["stage_us"].items() if us > 0]
+    share = w["unattributed_us"] / total if total else 0.0
+    ua = w["unattributed_us"] / rounds / 1e3
+    return " ".join(parts) + f" unattributed={ua:.4f}ms/{share:.4f}", share
+
+
+def run_walls_path(ds, failures, smi):
+    """Phase 16: the measured walls and the cost ledger on the card, each
+    run beside its flags-off twin run in the phase (weights and velocity
+    byte-equal, the same launches).  (a) phase 5's clean cells with
+    profile_every = 1: every capture's partition exact, the kernels in
+    tier1_aggregate, deliver and apply filled, the unattributed device
+    share at most P16_UNATTRIBUTED; (b) faulted Krum, TrimmedMean and
+    Median and async Krum and TrimmedMean 'poly': quarantine filled,
+    kernels 1, 5, 6 and 5 w in tier1_aggregate; (c) phase 13's n =
+    1,000, S = 10 Krum/Krum (both aggregate stages), groupwise secagg (S
+    in protect) and DnC (T in tier1_aggregate); (d) the cost report on
+    phase 5's Krum, profile_every = 1: one 'cost' and one 'stage_cost'
+    event an entry point, each kernel's count its table bound's formula,
+    the peak from the allocator, the captures beside the counted stage
+    shares (measured_vs_modeled); (e) Krum with profile_every = 2: the
+    round ms of the uncaptured interval beside the twin's, the captured
+    ones apart.
+    Returns launches per kernel summed over the runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import FaultConfig
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        RunLogger, validate_event
+    )
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+    tmp = tempfile.mkdtemp(prefix="walls_")
+    tier1 = ("tier1_aggregate",)
+
+    def pair(cfg_on, cfg_off, kernels, label, dataset=ds, before=None,
+             timer=None):
+        """The flags-off twin, then the run with the flags (``before``
+        called on its engine first, ``timer`` given to its run()); returns
+        both runs and whether the states are byte-equal and the launches
+        the twin's."""
+        runs = []
+        for cfg in (cfg_off, cfg_on):
+            exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std),
+                                      dataset, device="cuda")
+            on = cfg is cfg_on
+            if on and before is not None:
+                before(exp)
+            runs.append(observed_run(exp, kernels, failures,
+                                     f"walls {label}"
+                                     + (" on" if on else " off"),
+                                     timer=timer if on else None))
+            for k, v in runs[-1]["launches"].items():
+                totals[k] += v
+        off, on = runs
+        same = same_state(on["exp"], off["exp"])
+        launches_ok = on["launches"] == off["launches"]
+        if not (same and launches_ok):
+            failures.append(f"walls {label}: byte_equal_off_twin={same} "
+                            f"launches {on['launches']} (twin "
+                            f"{off['launches']})")
+        return off, on, same and launches_ok
+
+    def line(tag, label, off, on, ok, w, extra=""):
+        text, share = stage_text(w)
+        print(f"[walls] {tag} {label:28s} round_ms={on['median_ms']:.3f} "
+              f"off_twin_round_ms={off['median_ms']:.3f} (host clock) "
+              f"captures={w['captures']} rounds={w['rounds']} device a "
+              f"round by stage (ms/share): {text} exact={w['exact']} "
+              f"unjoined_launches={w['unknown']} kernels="
+              f"{ {k: sorted(v) for k, v in w['kernels'].items()} } "
+              f"twin_ok={ok} {extra}on {smi}", flush=True)
+        return share
+
+    def walls_cfg(cfg, every=1):
+        import dataclasses
+        return dataclasses.replace(cfg, profile_every=every, log_dir=tmp)
+
+    # -- (a) the flat rounds --------------------------------------------------
+    for defense, kernels in P16_FLAT:
+        cfg = main_config(defense, 0.24)
+        off, on, ok = pair(walls_cfg(cfg), cfg, kernels,
+                           f"(a) {defense}")
+        w = walls_of(on["exp"], {k: tier1 for k in kernels}, failures,
+                     f"(a) {defense}")
+        share = line("(a)", defense, off, on, ok, w)
+        filled = (w["stage_us"]["deliver"] > 0 and w["stage_us"]["apply"] > 0
+                  and (not kernels or w["stage_us"]["tier1_aggregate"] > 0))
+        if share > P16_UNATTRIBUTED or not filled:
+            failures.append(f"walls (a) {defense}: unattributed share "
+                            f"{share:.4f} (at most {P16_UNATTRIBUTED}), "
+                            f"stages {w['stage_us']}")
+        del off, on
+    # -- (b) masked rounds ----------------------------------------------------
+    faults = FaultConfig(**FAULTS_MAIN)
+    for label, (kind, defense), kernels in P16_MASKED:
+        cfg = (main_config(defense, 0.1, faults) if kind == "main"
+               else async_config(defense, 0.24, 64, "poly", False))
+        off, on, ok = pair(walls_cfg(cfg), cfg, kernels, label)
+        w = walls_of(on["exp"], {k: tier1 for k in kernels}, failures,
+                     label)
+        line("(b)", label[4:], off, on, ok, w)
+        if not w["stage_us"]["quarantine"] > 0:
+            failures.append(f"walls {label}: quarantine empty "
+                            f"{w['stage_us']}")
+        del off, on
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (c) hierarchical, groupwise secagg, DnC -------------------------------
+    cfg = hier_config("Krum", "Krum")
+    off, on, ok = pair(walls_cfg(cfg), cfg, ("krum_scores",),
+                       "(c) hier Krum/Krum")
+    w = walls_of(on["exp"], {"krum_scores": ("tier1_aggregate",
+                                             "tier2_aggregate")},
+                 failures, "(c) hier Krum/Krum")
+    both = sorted(w["kernels"].get("krum_scores", {}))
+    line("(c)", "hier Krum/Krum", off, on, ok, w,
+         f"krum_scores in {both} ")
+    if both != ["tier1_aggregate", "tier2_aggregate"]:
+        failures.append(f"walls (c) hier Krum/Krum: krum_scores in {both}")
+    del off, on
+    cfg = hier_config("NoDefense", "Krum", secagg="groupwise")
+    secagg = ("krum_scores", "secagg_deltas", "secagg_unmask_sum")
+    off, on, ok = pair(walls_cfg(cfg), cfg, secagg, "(c) groupwise")
+    w = walls_of(on["exp"], {"secagg_deltas": ("protect",),
+                             "secagg_unmask_sum": ("protect",),
+                             "krum_scores": ("tier2_aggregate",)},
+                 failures, "(c) groupwise NoDefense/Krum")
+    line("(c)", "groupwise NoDefense/Krum", off, on, ok, w)
+    del off, on
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = main_config("DnC", 0.24)
+    off, on, ok = pair(walls_cfg(cfg), cfg, ("threefry_bits",), "(c) DnC")
+    w = walls_of(on["exp"], {"threefry_bits": tier1}, failures, "(c) DnC")
+    line("(c)", "DnC", off, on, ok, w)
+    del off, on
+    # -- (d) the cost report ----------------------------------------------------
+    cfg = main_config("Krum", 0.24)
+    lines, ledger = [], {}
+
+    def report(exp):
+        logger = RunLogger(exp.cfg, log_dir=None, log=lines.append)
+        ledger["ledger"] = exp.cost_report(logger)
+        ledger["events"] = logger.events
+
+    off, on, ok = pair(walls_cfg(cfg), cfg, ("krum_scores",),
+                       "(d) cost report", before=report)
+    led, evs = ledger["ledger"], ledger["events"]
+    for e in evs:
+        validate_event(e)
+    n, d, f = N_MAIN, D_MLP, F_MAIN
+    # PERF.md's table bound for kernel 2 at (n, d): its operations and
+    # bytes, written out.
+    want = {"krum_scores": (n * (n - 1) * d + 2 * n * d, 4 * n * d + 8 * n)}
+    names = [r.name for r in led.records]
+    per_kind = {k: sorted(e["name"] for e in evs if e["kind"] == k)
+                for k in ("cost", "stage_cost")}
+    counts_ok, peaks_ok = True, True
+    for rec in led.records:
+        peaks_ok &= rec.peak_allocated is not None and rec.peak_bytes > 0
+        for kname, row in rec.kernels.items():
+            fl, by = want[kname]
+            counts_ok &= (row["flops"] == row["calls"] * fl
+                          and row["bytes_accessed"] == row["calls"] * by)
+        share = rec.attribution["coverage"]
+        print(f"[walls] (d) [cost] {rec.name:14s} flops={rec.flops:.4e} "
+              f"bytes={rec.bytes_accessed:.4e} peak_bytes={rec.peak_bytes} "
+              f"(allocator) named_share flops/bytes="
+              f"{share['flops']:.4f}/{share['bytes_accessed']:.4f} stages="
+              f"{ {k: round(v['flops'] / 1e9, 4) for k, v in rec.attribution['stages'].items()} } "
+              f"GFLOP kernels="
+              f"{ {k: (v['calls'], v['flops'], v['bytes_accessed']) for k, v in rec.kernels.items()} }",
+              flush=True)
+    structure_ok = (
+        names == ["fused_round", "fused_span", "compute_grads",
+                  "defense_Krum", "eval"]
+        and per_kind["cost"] == sorted(names)
+        and per_kind["stage_cost"] == sorted(names)
+        and sum(e["kind"] == "wire_bytes" for e in evs) == 1
+        and not led.errors
+        and led.records[0].kernels["krum_scores"]["calls"] == 1
+        and led.records[1].kernels["krum_scores"]["calls"] == TEST_STEP)
+    compiles = {r.name: (round(r.compile_s, 2), r.cache)
+                for r in led.compiles}
+    d_ok = ok and structure_ok and counts_ok and peaks_ok
+    if not d_ok:
+        failures.append(f"walls (d) cost report: structure={structure_ok} "
+                        f"counts={counts_ok} peaks={peaks_ok} twin={ok} "
+                        f"errors={led.errors}")
+    # The captures beside the counted stage shares, as the CLI prints
+    # them with --cost-report and --profile-every.
+    from attacking_federate_learning_tpu_torch.cli import (
+        print_walls_vs_modeled
+    )
+    print_walls_vs_modeled(on["exp"], led, lambda s: print(
+        f"[walls] (d) vs modeled: {s[len('[walls] '):]} on {smi}",
+        flush=True))
+    print(f"[walls] (d) cost report entries={names} kernel_counts_equal_"
+          f"table_formula={counts_ok} peaks_from_allocator={peaks_ok} "
+          f"compile={compiles} wire={led.wire['total_bytes']} bytes a "
+          f"round byte_equal_off_twin_after_report={ok} round_ms "
+          f"(captured)={on['median_ms']:.3f} off_twin={off['median_ms']:.3f}"
+          f" on {smi}",
+          flush=True)
+    del off, on, led
+    # -- (e) the walls' own cost, with the phase timer ---------------------------
+    from attacking_federate_learning_tpu_torch.utils.profiling import (
+        PhaseTimer
+    )
+    off, on, ok = pair(walls_cfg(cfg, every=2), cfg, ("krum_scores",),
+                       "(e) Krum every 2", timer=PhaseTimer())
+    profile = [e["phases"] for e in on["events"] if e["kind"] == "profile"]
+    # Each interval's host wall a round: (first round, rounds, ms); the
+    # captured ones are those with a trace under walltrace/r<first>.
+    spans = [(int(e["round"]), int(e["rounds"]),
+              1e3 * e["wall_s"] / e["rounds"]) for e in on["events"]
+             if e["kind"] == "wall" and e["source"] == "host"
+             and e["name"] == "fused_span"]
+    traced = {int(os.path.basename(r.trace_dir)[1:])
+              for r in on["exp"].wall_records}
+    cap = [sp for sp in spans if sp[0] in traced]
+    unc = [sp for sp in spans if sp[0] not in traced]
+    unc_rounds = [t for r0, c, _ in unc for t in range(r0, r0 + c)]
+    e_ok = (ok and len(spans) == 3 and len(traced) == 2 and bool(unc_rounds)
+            and len(profile) == 1
+            and profile[0]["round"]["count"] == ROUNDS)
+    if not e_ok:
+        failures.append(f"walls (e): spans {spans}, captures {traced}")
+        unc_rounds = unc_rounds or [0]
+    on_ms = statistics.median(on["round_ms"][t] for t in unc_rounds)
+    off_ms = statistics.median(off["round_ms"][t] for t in unc_rounds)
+    print(f"[walls] (e) Krum profile_every=2 uncaptured rounds "
+          f"{unc_rounds[0]}..{unc_rounds[-1]}: median round ms "
+          f"{on_ms:.3f} against the off twin's {off_ms:.3f} on the same "
+          f"rounds (host clock); host walls a round by interval (start, "
+          f"rounds, ms): captured {[(a, b, round(c, 3)) for a, b, c in cap]}"
+          f" uncaptured {[(a, b, round(c, 3)) for a, b, c in unc]} "
+          f"timer={profile[0] if profile else None} "
+          f"byte_equal_and_launches_twin={ok} on {smi}", flush=True)
+    del off, on
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[walls] phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5191,11 +5554,13 @@ def main() -> int:
     entries.update(secagg_entries)
     # -- 15. the observatories ------------------------------------------------
     observe_totals = run_observe_path(ds, failures, smi)
+    # -- 16. the walls and the cost ledger -------------------------------------
+    walls_totals = run_walls_path(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
             async_totals, defense_totals, traffic_totals, hier_totals,
-            secagg_totals, observe_totals))
+            secagg_totals, observe_totals, walls_totals))
 
     if failures:
         for msg in failures:
