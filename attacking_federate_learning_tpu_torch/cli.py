@@ -9,6 +9,11 @@ knobs (``--participation``, ``--local-steps``, ``--partition`` with
 ``--dirichlet-alpha`` and ``--style-strength``, ``--krum-scoring-method``,
 ``--krum-paper-scoring``, ``--bulyan-batch-select``, ``--distance-dtype``,
 ``--server-uses-faded-lr``, ``--remat``, which the config refuses), the
+engine knobs (``--distance-impl``, ``--bulyan-selection-impl``,
+``--aggregation-impl``, ``--bulyan-trim-impl``, ``--trimmed-mean-impl``,
+``--median-impl``: 'host' names a host engine, every other value the
+card's kernels) and host streaming (``--data-placement``,
+``--stream-prefetch``, ``--stream-workers``), the
 async buffered round's (``--aggregation``, ``--async-buffer``,
 ``--async-max-staleness``, ``--staleness-weight``), the hierarchical
 round's (``--megabatch``, ``--tier2-defense``, ``--mal-placement``,
@@ -146,6 +151,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="CenteredClip L2 clip radius (ICML'21)")
     p.add_argument("--cclip-iters", default=ExperimentConfig.cclip_iters,
                    type=int, help="CenteredClip re-centering trips")
+    p.add_argument("--trimmed-mean-impl",
+                   default=ExperimentConfig.trimmed_mean_impl,
+                   choices=["xla", "host"],
+                   help="TrimmedMean kernel: traced XLA (default) or the "
+                        "opt-in native host kernel (fast at 10k clients "
+                        "on the CPU backend)")
+    p.add_argument("--median-impl",
+                   default=ExperimentConfig.median_impl,
+                   choices=["xla", "host"],
+                   help="Median kernel: traced XLA (default) or the "
+                        "opt-in native host kernel")
     p.add_argument("-n", "-dispatch_weightsn", "--users-count", default=10,
                    type=int)
     p.add_argument("-m", "--mal-prop", default=0.24, type=float,
@@ -184,6 +200,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "scores (a flagged relaxation of the reference's "
                         "sequential selection for the 10k regime); 1 = "
                         "reference-exact")
+    p.add_argument("--bulyan-selection-impl",
+                   default=ExperimentConfig.bulyan_selection_impl,
+                   choices=["xla", "host", "pallas"],
+                   help="Bulyan selection engine: traced XLA loop "
+                        "(default), the hybrid exact path — device "
+                        "distances, one (n, n) host marshal, native "
+                        "incremental selection, device trim-mean — or "
+                        "'pallas': the same exact loop over the fused "
+                        "pallas distance kernel's on-device D (no "
+                        "marshal at all; ops/pallas_defense.py)")
+    p.add_argument("--aggregation-impl",
+                   default=ExperimentConfig.aggregation_impl,
+                   choices=["xla", "pallas"],
+                   help="Defense-kernel suite (ops/pallas_defense.py): "
+                        "'pallas' runs the tier-1 pipeline on-device — "
+                        "fused distance->Krum-score kernel, tiled "
+                        "trimmed-mean/median, all-on-device Bulyan — "
+                        "with interpret-mode fallback off-TPU; 'xla' "
+                        "(default) leaves every path unchanged")
+    p.add_argument("--bulyan-trim-impl",
+                   default=ExperimentConfig.bulyan_trim_impl,
+                   choices=["xla", "host"],
+                   help="Bulyan trimmed-mean tail: traced XLA kernel "
+                        "(default) or the native host kernel (the "
+                        "CPU-backend 10k opt-in; same standard as "
+                        "--trimmed-mean-impl)")
+    p.add_argument("--distance-impl", default="auto",
+                   choices=["auto", "xla", "pallas", "host", "ring",
+                            "allgather"],
+                   help="Krum/Bulyan distance engine (defenses/kernels.py): "
+                        "XLA Gram matmul, fused pallas TPU kernel, host "
+                        "BLAS (CPU backend), or the blockwise shard_map "
+                        "schedules over the clients mesh axis "
+                        "(ring/allgather need --mesh-shape)")
     p.add_argument("--distance-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="dtype for the Krum/Bulyan distance computation "
@@ -349,6 +399,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rematerialize client activations in the backward "
                         "pass (jax.checkpoint) — trades FLOPs for HBM at "
                         "WRN/large-cohort scale")
+    p.add_argument("--data-placement", default="device",
+                   choices=["device", "host_stream"],
+                   help="'device' holds the training set in HBM; "
+                        "'host_stream' keeps it in host RAM and "
+                        "double-buffers per-round batches (beyond-HBM "
+                        "datasets)")
+    p.add_argument("--stream-prefetch",
+                   default=ExperimentConfig.stream_prefetch, type=int,
+                   help="host_stream pipeline depth: rounds of batches "
+                        "kept in flight (data/stream.py)")
+    p.add_argument("--stream-workers",
+                   default=ExperimentConfig.stream_workers, type=int,
+                   choices=[0, 1],
+                   help="1 = run the host gather + transfer on a "
+                        "background thread so it overlaps device compute")
     p.add_argument("--no-checkpoint", action="store_true",
                    help="disable the acc>70%% checkpoint (reference "
                         "main.py:84-89 behavior is on by default)")
@@ -530,8 +595,17 @@ def config_from_args(args) -> ExperimentConfig:
         style_strength=args.style_strength,
         krum_scoring_method=args.krum_scoring_method,
         krum_paper_scoring=args.krum_paper_scoring,
+        distance_impl=args.distance_impl,
         distance_dtype=args.distance_dtype,
         bulyan_batch_select=args.bulyan_batch_select,
+        bulyan_selection_impl=args.bulyan_selection_impl,
+        bulyan_trim_impl=args.bulyan_trim_impl,
+        aggregation_impl=args.aggregation_impl,
+        trimmed_mean_impl=args.trimmed_mean_impl,
+        median_impl=args.median_impl,
+        data_placement=args.data_placement,
+        stream_prefetch=args.stream_prefetch,
+        stream_workers=args.stream_workers,
         server_uses_faded_lr=args.server_uses_faded_lr,
         num_std=args.num_std, defense=args.defense, test_step=args.test_step,
         data_dir=args.data_dir, seed=args.seed,

@@ -20,10 +20,15 @@ dataset's default model, the ``-b`` coercion) and validation messages:
 - secure aggregation (``secagg``: 'off', 'vanilla' on the flat round,
   'groupwise' on the hierarchical one);
 - the observatories (``log_round_stats``, ``telemetry``, ``margins``,
-  ``numerics``) and the measured walls (``profile_every``).
+  ``numerics``) and the measured walls (``profile_every``);
+- the host engines' ``*_impl`` knobs (``distance_impl``,
+  ``bulyan_selection_impl``, ``aggregation_impl``, ``bulyan_trim_impl``,
+  ``trimmed_mean_impl``, ``median_impl``) and host streaming
+  (``data_placement``, ``stream_prefetch``, ``stream_workers``).
 
-The device mesh (``mesh_shape``, the SPMD client map), host streaming
-and the host engines' ``*_impl`` knobs are later slices of the port.
+The device mesh (``mesh_shape``, the SPMD client map) is a later slice
+of the port, and ``backend`` has no counterpart: the engine's
+``device`` argument does its job.
 """
 
 from __future__ import annotations
@@ -43,6 +48,21 @@ SYNTH_CIFAR10_HARD = "SYNTH_CIFAR10_HARD"  # low-SNR CIFAR-shaped variant
 # The defenses that report decision margins (--margins), and with
 # --numerics their tie and cancellation counters.
 MARGIN_DEFENSES = ("Krum", "TrimmedMean", "Median", "Bulyan")
+
+# The defenses of the JAX package's Pallas suite (aggregation_impl).
+PALLAS_DEFENSES = ("Krum", "TrimmedMean", "Bulyan", "Median")
+
+# The engine knobs that can name a host engine, in the JAX package's order
+# of its refusals (faults, async, traffic, --margins/--numerics).
+HOST_IMPL_KNOBS = ("distance_impl", "trimmed_mean_impl", "median_impl",
+                   "bulyan_selection_impl", "bulyan_trim_impl")
+
+
+def host_knobs(cfg):
+    """The engine knobs of ``cfg`` set to 'host', in HOST_IMPL_KNOBS'
+    order (a JAX package config has the same fields)."""
+    return [k for k in HOST_IMPL_KNOBS if getattr(cfg, k) == "host"]
+
 
 # The JAX CLI's -s choices, in its order.
 DATASETS = (MNIST, CIFAR10, CIFAR100, SYNTH_MNIST, SYNTH_CIFAR10,
@@ -334,6 +354,35 @@ class ExperimentConfig:
     # clients per trip against the same scores (ceil(set_size/q) trips),
     # a flagged relaxation of the reference's sequential selection.
     bulyan_batch_select: int = 1
+    # The defense engines, the JAX package's knobs with its values,
+    # defaults and composition refusals.  The port has one device suite,
+    # its hand-written kernels (the counterpart of the JAX package's
+    # Pallas suite), so 'auto', 'xla' and 'pallas' all name it: on a
+    # CUDA device the kernels, on the CPU their plain versions.  'host'
+    # runs the host engines (defenses/host.py and the native library,
+    # native/bulyan_select.cpp), and only where the config names it.
+    # Distance engine for Krum/Bulyan: 'auto' | 'xla' | 'pallas' (the
+    # distance kernel), 'host' (Krum's winner or the whole of Bulyan on
+    # the host, the (m, d) matrix copied there each round), 'ring' |
+    # 'allgather' (blockwise over a device mesh: refused until the port
+    # has one).
+    distance_impl: str = "auto"
+    # Bulyan's selection: 'xla' | 'pallas' (the selection loop on the
+    # device) or 'host': the hybrid exact path, distances on the device,
+    # the (n, n) matrix copied to the host once for the native O(n^2)
+    # incremental selection, the gather and trimmed mean back on the
+    # device.  Host ties resolve by the native comparator (an ulp band).
+    bulyan_selection_impl: str = "xla"
+    # The defense-kernel suite: 'xla' | 'pallas' (the same suite here);
+    # 'pallas' keeps the JAX package's composition refusals.
+    aggregation_impl: str = "xla"
+    # Bulyan's trimmed-mean tail: 'xla' (the trimmed-mean kernel) or
+    # 'host' (the native column-blocked kernel; summation-order ulps).
+    bulyan_trim_impl: str = "xla"
+    # The coordinate-wise defenses: 'xla' (the kernels) or 'host' (the
+    # native column-blocked kernels, the matrix copied to the host).
+    trimmed_mean_impl: str = "xla"
+    median_impl: str = "xla"
     # Server momentum step on the faded lr instead of the reference's
     # constant base lr (server.py:89; the faded lr reaches only the
     # clients and the attacker there).
@@ -418,6 +467,16 @@ class ExperimentConfig:
     # Dtype of the (m, d) gradient matrix on the wire: 'bfloat16' halves
     # its bytes at large n (the distance kernels take it as bf16).
     grad_dtype: str = "float32"
+    # 'device' keeps the whole training set on the card; 'host_stream'
+    # keeps it in host memory and copies each round's (m, k B) batch to
+    # the card ahead of the round (data/stream.py), for corpora that do
+    # not fit device memory.  The weights are byte-equal either way.
+    data_placement: str = "device"
+    # host_stream's pipeline: rounds of batches in flight, and whether
+    # the host gather and the copy run on a worker thread (1) so that
+    # they overlap the card's work.
+    stream_prefetch: int = 1
+    stream_workers: int = 0
 
     # --- train-time augmentation ---------------------------------------
     # Reference parity: only the CIFAR100 train pipeline augments
@@ -535,10 +594,28 @@ class ExperimentConfig:
                 f"unmasked Krum scores through the fused kernel and masked "
                 f"Krum and Bulyan by sort, so the method would have no "
                 f"effect; drop --krum-scoring-method")
+        if self.distance_impl not in ("auto", "xla", "pallas", "host",
+                                      "ring", "allgather"):
+            raise ValueError(
+                f"distance_impl must be one of auto/xla/pallas/host/ring/"
+                f"allgather, got {self.distance_impl!r}")
         if self.distance_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"distance_dtype must be 'float32' or 'bfloat16', "
                 f"got {self.distance_dtype!r}")
+        if self.data_placement not in ("device", "host_stream"):
+            raise ValueError(
+                f"data_placement must be 'device' or 'host_stream', "
+                f"got {self.data_placement!r}")
+        if self.stream_prefetch < 1 or self.stream_workers not in (0, 1):
+            raise ValueError(
+                f"stream_prefetch must be >= 1 and stream_workers 0 or 1, "
+                f"got {self.stream_prefetch}/{self.stream_workers}")
+        if self.bulyan_batch_select < 1:
+            raise ValueError(
+                f"bulyan_batch_select must be >= 1, got "
+                f"{self.bulyan_batch_select}")
+        self._check_impls()
         if self.grad_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"grad_dtype must be 'float32' or 'bfloat16', "
@@ -588,21 +665,29 @@ class ExperimentConfig:
                 raise ValueError(
                     f"hierarchical aggregation needs >= 2 shards "
                     f"(n={self.users_count}, m={self.megabatch})")
-        if self.bulyan_batch_select < 1:
-            raise ValueError(
-                f"bulyan_batch_select must be >= 1, got "
-                f"{self.bulyan_batch_select}")
         if self.local_steps < 1:
             raise ValueError(
                 f"local_steps must be >= 1, got {self.local_steps}")
         if self.margins and self.defense not in MARGIN_DEFENSES:
-            # The JAX package's message; its '*_impl=host' rows have no
-            # counterpart here (the port has no host impl knobs).
             raise ValueError(
                 f"--margins measures a robust defense's decision "
                 f"margins; defense {self.defense!r} makes no "
                 f"selection/trim decision to measure (use one of "
                 f"{'/'.join(MARGIN_DEFENSES)})")
+        if self.margins or (self.numerics
+                            and self.defense in MARGIN_DEFENSES):
+            # The tie counters of --numerics band the same margin
+            # tensors, so they share the device-route requirement.
+            flag = "--margins" if self.margins else "--numerics"
+            for knob in HOST_IMPL_KNOBS:
+                if getattr(self, knob) == "host":
+                    raise ValueError(
+                        f"{flag} reads the on-device score/rank "
+                        f"tensors inside the fused round program; "
+                        f"{knob}='host' marshals that stage to a native "
+                        f"kernel that returns only its aggregate, never "
+                        f"the per-row margins (set {knob} to an "
+                        f"on-device impl)")
         if not (0.0 < self.participation <= 1.0):
             raise ValueError(
                 f"participation must be in (0, 1], got "
@@ -734,6 +819,77 @@ class ExperimentConfig:
             # reference main.py:116 leaves '1'|'2'|'3' as strings, which
             # crashes at backdoor.py:34 (str - int); we coerce instead.
             self.backdoor = int(self.backdoor)
+
+    def _check_impls(self):
+        """The engine knobs' values and the JAX package's composition
+        matrix of its Pallas suite, with its messages: 'pallas' covers
+        the mask-aware kernel family and mixes with no host engine."""
+        if self.bulyan_selection_impl not in ("xla", "host", "pallas"):
+            raise ValueError(
+                f"bulyan_selection_impl must be 'xla', 'host' or "
+                f"'pallas', got {self.bulyan_selection_impl!r}")
+        if self.aggregation_impl not in ("xla", "pallas"):
+            raise ValueError(
+                f"aggregation_impl must be 'xla' or 'pallas', "
+                f"got {self.aggregation_impl!r}")
+        if self.aggregation_impl == "pallas":
+            if self.defense not in PALLAS_DEFENSES:
+                raise ValueError(
+                    f"aggregation_impl='pallas' covers the Pallas "
+                    f"defense-kernel suite {PALLAS_DEFENSES} "
+                    f"(ops/pallas_defense.py); defense "
+                    f"{self.defense!r} has no pallas kernel — drop "
+                    f"--aggregation-impl pallas")
+            for knob in ("trimmed_mean_impl", "median_impl",
+                         "bulyan_trim_impl"):
+                if getattr(self, knob) != "xla":
+                    raise ValueError(
+                        f"aggregation_impl='pallas' already routes the "
+                        f"coordinate-wise kernels on-device; mixing it "
+                        f"with {knob}={getattr(self, knob)!r} would "
+                        f"dispatch two engines for one estimator "
+                        f"(leave {knob}='xla')")
+            if self.bulyan_selection_impl == "host":
+                raise ValueError(
+                    "aggregation_impl='pallas' is the no-marshal "
+                    "on-device route; bulyan_selection_impl='host' "
+                    "reintroduces the (n, n) pure_callback marshal — "
+                    "pick one (the hybrid OR the pallas suite)")
+            if self.distance_impl not in ("auto", "pallas"):
+                raise ValueError(
+                    f"aggregation_impl='pallas' computes distances "
+                    f"inside its fused kernels; "
+                    f"distance_impl={self.distance_impl!r} would "
+                    f"silently not run — set distance_impl to "
+                    f"'auto' or 'pallas'")
+        if "pallas" in (self.aggregation_impl, self.bulyan_selection_impl):
+            if self.backdoor and not self.backdoor_fused:
+                raise ValueError(
+                    "--backdoor-staged aggregates eagerly on the host "
+                    "between compute and craft; the Pallas defense "
+                    "suite is a device-kernel route (and the "
+                    "staged==fused bit-identity pin needs both modes "
+                    "on one kernel) — drop --backdoor-staged")
+        if (self.bulyan_selection_impl == "pallas"
+                and self.distance_impl in ("host", "ring", "allgather")):
+            raise ValueError(
+                f"bulyan_selection_impl='pallas' selects over the "
+                f"pallas distance kernel's on-device D; "
+                f"distance_impl={self.distance_impl!r} computes D "
+                f"elsewhere — set distance_impl to 'auto', 'xla' "
+                f"or 'pallas'")
+        if self.bulyan_trim_impl not in ("xla", "host"):
+            raise ValueError(
+                f"bulyan_trim_impl must be 'xla' or 'host', "
+                f"got {self.bulyan_trim_impl!r}")
+        if self.trimmed_mean_impl not in ("xla", "host"):
+            raise ValueError(
+                f"trimmed_mean_impl must be 'xla' or 'host', "
+                f"got {self.trimmed_mean_impl!r}")
+        if self.median_impl not in ("xla", "host"):
+            raise ValueError(
+                f"median_impl must be 'xla' or 'host', "
+                f"got {self.median_impl!r}")
 
     @property
     def corrupted_count(self) -> int:

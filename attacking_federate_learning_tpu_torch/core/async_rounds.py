@@ -46,6 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from attacking_federate_learning_tpu_torch.config import host_knobs
 from attacking_federate_learning_tpu_torch.core.faults import (
     MASK_AWARE_DEFENSES, fault_masks
 )
@@ -366,9 +367,8 @@ def replay_schedule(cfg, m, m_mal, epochs, timed=False):
 
 def check_async_support(cfg):
     """Fail fast on configs the async round cannot honor (engine init),
-    with the JAX package's messages.  Its other refusals concern knobs
-    the port does not have (host streaming, host kernels) or refuses in
-    the config already (the staged backdoor)."""
+    with the JAX package's messages (the staged backdoor the config
+    refuses already)."""
     if cfg.defense not in MASK_AWARE_DEFENSES:
         raise ValueError(
             f"--aggregation async needs a mask-aware defense "
@@ -381,3 +381,13 @@ def check_async_support(cfg):
             "in-flight ring and pending pool are indexed by cohort row, "
             "and under partial participation rows are different clients "
             "each round")
+    if cfg.data_placement != "device":
+        raise ValueError(
+            "--aggregation async requires data_placement='device': the "
+            "buffered span is one scanned device program (host "
+            "streaming feeds one round per program by design)")
+    for name in host_knobs(cfg):
+        raise ValueError(
+            f"--aggregation async is incompatible with "
+            f"{name}='host': the host engines have no mask/weight "
+            f"seam (defenses/host.py)")

@@ -37,6 +37,32 @@ cancellation guard, the route the JAX engine takes with
 kernels' plain PyTorch versions.  No
 option selects the plain versions on the card.
 
+The JAX package's engine knobs keep their values and refusals, and map
+onto the port's one device suite, its hand-written kernels (the
+counterpart of JAX's 'pallas' suite): ``distance_impl`` 'auto', 'xla'
+or 'pallas', ``aggregation_impl`` 'xla' or 'pallas' and the 'xla' and
+'pallas' values of ``bulyan_selection_impl``, ``bulyan_trim_impl``,
+``trimmed_mean_impl`` and ``median_impl`` all run it, so a config is
+accepted and refused exactly as the JAX package accepts and refuses it.
+'host' runs a host engine (defenses/host.py, native/), and only where
+the config names it: ``distance_impl`` Krum's winner or the whole of
+Bulyan from the (m, d) matrix copied to the host each round,
+``bulyan_selection_impl`` the hybrid exact selection (the distance
+kernel's (m, m) matrix copied once, the native selection, the gather
+and trim back on the card), ``bulyan_trim_impl``, ``trimmed_mean_impl``
+and ``median_impl`` the native column-blocked kernels.  Nothing switches
+to a host engine when a kernel fails: the failure raises.  'ring' and
+'allgather' need the device mesh, which the port does not have yet.
+
+Under ``cfg.data_placement='host_stream'`` the training set stays in
+host memory and each flat round's batch comes from a
+:class:`~attacking_federate_learning_tpu_torch.data.stream.HostStream`
+(pinned staging, a copy stream, ``stream_prefetch`` rounds ahead,
+``stream_workers`` 1 for a worker thread); style and augmentation apply
+after it arrives, the weights are byte-equal to device placement, and a
+run ends with the JAX engine's 'stream' stall record.  Hierarchical,
+async and traffic rounds refuse it with the JAX engine's messages.
+
 With ``cfg.faults`` (core/faults.py) each round injects the scheduled
 dropouts, stragglers and corruptions into the crafted matrix, quarantines
 what the server can see, and hands the effective-cohort mask to the
@@ -139,7 +165,9 @@ With ``cfg.data_augment`` (by default on for CIFAR100 alone, the
 reference's rule) the round's gathered batch is reflect-cropped and
 flipped before deliver (data/augment.py), bit for bit the JAX package's
 augmentation.  On the card every matmul and convolution runs in IEEE
-fp32: resolving a CUDA device turns TF32 off for both.
+fp32: resolving a CUDA device turns TF32 off for both, and cuDNN's
+convolutions onto its deterministic algorithms, so a run on the card is
+reproducible bit for bit.
 
 Evaluation runs on the host's cadence, every ``test_step`` rounds and
 after the last one (reference main.py:73-95), and prints the reference's
@@ -164,7 +192,7 @@ from attacking_federate_learning_tpu_torch.attacks.base import (
     Attack, AttackContext, NoAttack
 )
 from attacking_federate_learning_tpu_torch.config import (
-    CIFAR100, MARGIN_DEFENSES, ExperimentConfig
+    CIFAR100, HOST_IMPL_KNOBS, MARGIN_DEFENSES, ExperimentConfig
 )
 from attacking_federate_learning_tpu_torch.core import async_rounds as A
 from attacking_federate_learning_tpu_torch.core import faults as F
@@ -183,6 +211,7 @@ from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
 from attacking_federate_learning_tpu_torch.data.partition import (
     client_style_params, make_shards, round_batch_indices
 )
+from attacking_federate_learning_tpu_torch.data.stream import HostStream
 from attacking_federate_learning_tpu_torch.defenses import (
     DEFENSES, check_defense_args
 )
@@ -241,7 +270,11 @@ def resolve_device(device) -> torch.device:
 
     On a CUDA device this also turns TF32 off for cuBLAS matmuls and
     cuDNN convolutions (cuDNN's default is on), process-wide: the port
-    computes in IEEE fp32, whoever calls it."""
+    computes in IEEE fp32, whoever calls it.  And it asks cuDNN for its
+    deterministic convolution algorithms: the default backward of the
+    CIFAR models accumulates with atomics, so two runs of one config
+    parted by ulps within rounds, and a resumed or streamed run could not
+    be bit for bit its twin."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -253,6 +286,7 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
     return dev
 
 
@@ -435,6 +469,15 @@ class FederatedExperiment:
         # (None: as the JAX package leaves it unset at 'float32').
         dist_dtype = (None if cfg.distance_dtype == "float32"
                       else cfg.distance_dtype)
+        if (cfg.defense in ("Krum", "Bulyan")
+                and cfg.distance_impl in ("ring", "allgather")):
+            raise ValueError(
+                f"distance_impl={cfg.distance_impl!r} needs a device mesh "
+                f"— set mesh_shape (parallel/distances.py kernels are "
+                f"shard_map programs over the clients axis)")
+        # The engine knobs: 'host' names a host engine; every other value
+        # the device suite (defenses/kernels.py).
+        host = {k: getattr(cfg, k) == "host" for k in HOST_IMPL_KNOBS}
         if cfg.defense == "Krum":
             # The fused distance -> score kernel under the cancellation
             # guard, exact sort over the distance kernel when it fails.
@@ -442,11 +485,23 @@ class FederatedExperiment:
                 defense, method="fused",
                 paper_scoring=cfg.krum_paper_scoring,
                 distance_dtype=dist_dtype)
+            if host["distance_impl"]:
+                defense = functools.partial(defense, distance_impl="host")
         elif cfg.defense == "Bulyan":
             defense = functools.partial(
                 defense, paper_scoring=cfg.krum_paper_scoring,
                 distance_dtype=dist_dtype,
                 batch_select=cfg.bulyan_batch_select)
+            for knob, kwarg in (("distance_impl", "distance_impl"),
+                                ("bulyan_selection_impl", "selection_impl"),
+                                ("bulyan_trim_impl", "trim_impl")):
+                if host[knob]:
+                    defense = functools.partial(defense, **{kwarg: "host"})
+        elif cfg.defense in ("TrimmedMean", "Median"):
+            knob = ("trimmed_mean_impl" if cfg.defense == "TrimmedMean"
+                    else "median_impl")
+            if host[knob]:
+                defense = functools.partial(defense, impl="host")
         elif cfg.defense == "DnC":
             # The sketch keys flow from the experiment seed, so runs with
             # different seeds draw different coordinate subsets.
@@ -504,10 +559,25 @@ class FederatedExperiment:
 
         shards = make_shards(cfg.partition, self.dataset.train_y, self.n,
                              cfg.seed, cfg.dirichlet_alpha)
-        self.shards = torch.from_numpy(shards).to(self.device, torch.int64)
-        self.train_x = torch.from_numpy(self.dataset.train_x).to(self.device)
-        self.train_y = torch.from_numpy(self.dataset.train_y).to(
-            self.device, torch.int64)
+        self.stream = None
+        if cfg.data_placement == "host_stream":
+            # The training set stays in host memory; each round's batch
+            # is gathered there and copied ahead of its round
+            # (data/stream.py), with the cohort of participants(t).
+            self.shards = torch.from_numpy(shards).to(torch.int64)
+            self.train_x = self.train_y = None
+            self.stream = HostStream(
+                self.dataset.train_x, self.dataset.train_y, shards,
+                cfg.batch_size * cfg.local_steps, self.device,
+                n_rounds=cfg.epochs, participants_fn=self.participants,
+                prefetch=cfg.stream_prefetch, workers=cfg.stream_workers)
+        else:
+            self.shards = torch.from_numpy(shards).to(self.device,
+                                                      torch.int64)
+            self.train_x = torch.from_numpy(self.dataset.train_x).to(
+                self.device)
+            self.train_y = torch.from_numpy(self.dataset.train_y).to(
+                self.device, torch.int64)
         # FEMNIST-style feature shift: client i sees a_i * x + b_i in its
         # training batches and its metadata samples; the test set and the
         # backdoor's shadow training read the raw data.
@@ -725,6 +795,11 @@ class FederatedExperiment:
             raise ValueError(
                 "hierarchical aggregation requires full participation "
                 "(placement assigns every client to a megabatch)")
+        if cfg.data_placement != "device":
+            raise ValueError(
+                "hierarchical aggregation requires "
+                "data_placement='device' (the scanned round gathers "
+                "each megabatch's batch on device)")
         if cfg.backdoor and not cfg.backdoor_fused:
             raise ValueError(
                 "hierarchical aggregation needs the fused backdoor "
@@ -734,6 +809,20 @@ class FederatedExperiment:
                 f"hierarchical tier-1 defense must be one of "
                 f"{sorted(TIER2_DEFENSES)} (the mask-aware kernel "
                 f"set), got {cfg.defense!r}")
+        if cfg.distance_impl in ("ring", "allgather", "host"):
+            raise ValueError(
+                f"hierarchical aggregation supports distance_impl in "
+                f"auto/xla/pallas (got {cfg.distance_impl!r}): the "
+                f"per-megabatch distance pass must stay inside the "
+                f"scanned program")
+        for knob in ("trimmed_mean_impl", "median_impl",
+                     "bulyan_selection_impl", "bulyan_trim_impl"):
+            if getattr(cfg, knob) == "host":
+                raise ValueError(
+                    f"hierarchical aggregation requires a device-"
+                    f"resident {knob} ('xla' or 'pallas'; got 'host' — "
+                    f"a host kernel would pure_callback once per "
+                    f"megabatch per scan step)")
         if not getattr(self.attacker, "fusable", True):
             raise ValueError(
                 "hierarchical aggregation needs a fusable attack: the "
@@ -843,7 +932,10 @@ class FederatedExperiment:
         if isinstance(part, np.ndarray):    # one host-to-device copy
             part = torch.from_numpy(part).to(self.device, torch.int64)
         rows = self.m if part is None else part.shape[0]
-        xs, ys = self.gather_batches(t, part)
+        if self.stream is not None:       # streamed: the cohort's batch
+            xs, ys = self.stream.get(t)
+        else:
+            xs, ys = self.gather_batches(t, part)
         xs = self.apply_style(xs, part)
         if self.augment:
             xs = reflect_crop_flip(xs, round_augment_key(cfg.seed, t))
@@ -1887,6 +1979,9 @@ class FederatedExperiment:
             self._emit_selection_hist(logger)
         if timer is not None:
             logger.record(kind="profile", phases=timer.summary())
+        if self.stream is not None:
+            # Did the host gather and copy sit on the round path?
+            logger.record(kind="stream", **self.stream.stall_stats())
         if journal is not None:
             self._complete(logger, journal, start_epoch, loop_t0, last_asr)
         logger.finish()

@@ -46,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from attacking_federate_learning_tpu_torch.config import host_knobs
 from attacking_federate_learning_tpu_torch.utils import threefry
 
 # Defenses that accept the quarantine mask (the ``mask=`` seam).  A
@@ -91,6 +92,11 @@ def check_fault_support(cfg, participation: float = 1.0):
             "--aggregation async instead — there straggler faults "
             "become extra arrival delay in the buffered round "
             "(core/async_rounds.py)")
+    for name in host_knobs(cfg):
+        raise ValueError(
+            f"faults are incompatible with {name}='host': the host "
+            f"engines return only aggregates/indices and have no "
+            f"mask seam (defenses/host.py)")
 
 
 def fault_key(cfg) -> np.ndarray:

@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from attacking_federate_learning_tpu_torch.config import host_knobs
 from attacking_federate_learning_tpu_torch.utils import threefry
 
 # Degradation-ladder actions, in declared order.  The host watchdog plans
@@ -378,10 +379,8 @@ def resample_slots(key: np.ndarray, t: int, ids: np.ndarray, c_mal: int,
 
 def check_traffic_support(cfg):
     """Fail fast on configs the traffic engine cannot honor (engine
-    init), with the JAX package's messages.  Knobs the port's config does
-    not have (secagg, host streaming, the host kernels, the SPMD mesh)
-    are read where a config carries them, so a JAX config is held to the
-    same checks."""
+    init), with the JAX package's messages.  The SPMD mesh, which the
+    port's config does not have, is read where a config carries it."""
     from attacking_federate_learning_tpu_torch.core.faults import (
         MASK_AWARE_DEFENSES
     )
@@ -392,13 +391,13 @@ def check_traffic_support(cfg):
             f"--traffic-population must cover the cohort pool: "
             f"P={t.population} < users_count={cfg.users_count} (the "
             f"registry's shard archetypes span all n clients)")
-    if getattr(cfg, "secagg", "off") != "off":
+    if cfg.secagg != "off":
         raise ValueError(
             "--traffic-population is incompatible with --secagg: "
             "pairwise masks are keyed on client identity, and sampled "
             "population cohorts re-key every row each round (the same "
             "structural fact that rejects --participation there)")
-    if getattr(cfg, "data_placement", "device") != "device":
+    if cfg.data_placement != "device":
         raise ValueError(
             "--traffic-population requires data_placement='device': "
             "the traffic schedule rides the scanned span as per-round "
@@ -432,17 +431,8 @@ def check_traffic_support(cfg):
         raise ValueError(
             f"--traffic-fallback must be mask-aware "
             f"{MASK_AWARE_DEFENSES}, got {t.fallback_defense!r}")
-    host_impls = [
-        ("distance_impl", getattr(cfg, "distance_impl", "auto")),
-        ("trimmed_mean_impl", getattr(cfg, "trimmed_mean_impl", "xla")),
-        ("median_impl", getattr(cfg, "median_impl", "xla")),
-        ("bulyan_selection_impl",
-         getattr(cfg, "bulyan_selection_impl", "xla")),
-        ("bulyan_trim_impl", getattr(cfg, "bulyan_trim_impl", "xla")),
-    ]
-    for name, val in host_impls:
-        if val == "host":
-            raise ValueError(
-                f"--traffic-population is incompatible with "
-                f"{name}='host': the host engines have no mask seam "
-                f"(defenses/host.py)")
+    for name in host_knobs(cfg):
+        raise ValueError(
+            f"--traffic-population is incompatible with "
+            f"{name}='host': the host engines have no mask seam "
+            f"(defenses/host.py)")

@@ -53,6 +53,19 @@ tensor the same calls take the kernels' plain PyTorch versions.  The
 selection loop and the sort fallback are plain tensor code on both, as
 they are plain XLA in the JAX package.
 
+The host engines (defenses/host.py and the native library, native/) are
+the JAX package's ``'host'`` routes, taken only where the caller names
+them (``distance_impl``, ``selection_impl``, ``trim_impl``, ``impl``):
+Krum's winner or the whole of Bulyan from the (n, d) matrix copied to the
+host; Bulyan's hybrid exact selection, the distance kernel's (n, n)
+matrix copied to the host once for the native incremental selection, the
+gather and the trim back on the device; the coordinate-wise trimmed mean
+and median from the native column-blocked kernels.  A copy from the card
+goes through a pinned buffer (:func:`host_array`).  The host engines have
+no mask seam and no per-row scores, so ``mask`` and ``margins`` are
+refused there with the JAX package's messages, and Krum's telemetry
+reports NaN scores; 'auto', 'xla' and 'pallas' all name the device suite.
+
 The wire may be bf16 (``grad_dtype``), and ``distance_dtype`` may ask for
 bf16 distances; the routes are those of the JAX package's Pallas suite,
 asymmetry included: unmasked Krum hands the wire to the fused score
@@ -81,12 +94,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from attacking_federate_learning_tpu_torch.defenses import host as H
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
     krum_complement, krum_scores, masked_median, masked_trimmed_mean,
     median_of, trimmed_mean_of
 )
 from attacking_federate_learning_tpu_torch.ops.distances import (
     pairwise_distances
+)
+from attacking_federate_learning_tpu_torch.utils.costs import (
+    KernelCost, counted_kernel
 )
 from attacking_federate_learning_tpu_torch.utils.margins import (
     krum_margins, rank_keep_margins, stable_argsort
@@ -107,6 +124,107 @@ _TOPK_GUARD = 1e4
 _DEAD_SENTINEL = 3e38
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The engine values of the impl knobs: 'auto', 'xla' and 'pallas' name the
+# device suite, 'host' the host engines.
+IMPLS = ("auto", "xla", "pallas", "host")
+
+
+def check_impl(name, impl, allowed=IMPLS):
+    """Refuse an impl value the defense has no route for."""
+    if impl not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {impl!r}")
+
+
+# --- the host engines' seams ----------------------------------------------
+
+def host_array(t) -> np.ndarray:
+    """``t`` as a host f32 numpy array: on the CPU a view of it; from the
+    card one copy through a pinned staging buffer, waited for."""
+    t = t.float().contiguous()
+    if t.device.type == "cpu":
+        return t.numpy()
+    buf = torch.empty(t.shape, dtype=torch.float32, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return buf.numpy()
+
+
+def _rows_cost(G, *_, **__) -> KernelCost:
+    """An (n, d) matrix copied to the host and an (n, n) Gram there."""
+    n, d = G.shape
+    return KernelCost(2.0 * n * n * d, 4.0 * n * d, "host")
+
+
+def _coord_cost(G, *_, **__) -> KernelCost:
+    """An (n, d) matrix copied to the host, a selection per coordinate,
+    the (d,) result copied back."""
+    n, d = G.shape
+    return KernelCost(float(n * d), 4.0 * (n * d + d), "host")
+
+
+def _selection_cost(Dm, *_, **__) -> KernelCost:
+    """The (n, n) matrix copied to the host and sorted row by row; the
+    native selection is O(n^2) beside it."""
+    n = Dm.shape[0]
+    return KernelCost(n * n * max(1.0, math.log2(max(n, 2))),
+                      4.0 * n * n, "host")
+
+
+@counted_kernel("host_krum_index", _rows_cost)
+def host_krum_select(users_grads, users_count, corrupted_count,
+                     paper_scoring=False) -> int:
+    """Krum's winner by the host engine (defenses/host.py:
+    host_krum_index) over the (n, d) matrix copied to the host, the JAX
+    package's ``distance_impl='host'``."""
+    return H.host_krum_index(host_array(users_grads), int(users_count),
+                             int(corrupted_count),
+                             paper_scoring=paper_scoring)
+
+
+@counted_kernel("host_bulyan", _rows_cost)
+def host_bulyan_of(users_grads, users_count, corrupted_count,
+                   paper_scoring=False, batch_select=1):
+    """Bulyan's aggregate by the full host engine (defenses/host.py:
+    host_bulyan), back on ``users_grads``' device as (d,) f32."""
+    agg = H.host_bulyan(host_array(users_grads), int(users_count),
+                        int(corrupted_count), paper_scoring=paper_scoring,
+                        batch_select=batch_select)
+    return torch.from_numpy(agg).to(users_grads.device)
+
+
+@counted_kernel("host_bulyan_selection", _selection_cost)
+def host_bulyan_selection_of(Dm, users_count, corrupted_count, set_size,
+                             batch_select=1, paper_scoring=False):
+    """The hybrid's host half: the (n, n) distance matrix ``Dm`` (+inf
+    diagonal) copied to the host once, the native exact selection there
+    (defenses/host.py:host_bulyan_selection), the (set_size,) indices
+    back on ``Dm``'s device as int64."""
+    sel = H.host_bulyan_selection(host_array(Dm), int(users_count),
+                                  int(corrupted_count), int(set_size),
+                                  batch_select=int(batch_select),
+                                  paper_scoring=paper_scoring)
+    return torch.from_numpy(sel.astype(np.int64)).to(Dm.device)
+
+
+@counted_kernel("host_trimmed_mean", _coord_cost)
+def host_trimmed_mean_of(users_grads, number_to_consider):
+    """The median-anchored trimmed mean keeping ``number_to_consider``
+    values a coordinate, by the native column-blocked kernel
+    (defenses/host.py:host_trimmed_mean_of) over the matrix copied to the
+    host; (d,) f32 back on its device."""
+    agg = H.host_trimmed_mean_of(host_array(users_grads),
+                                 int(number_to_consider))
+    return torch.from_numpy(agg).to(users_grads.device)
+
+
+@counted_kernel("host_median", _coord_cost)
+def host_median_of(users_grads):
+    """The coordinate-wise median by the native column-blocked kernel
+    (defenses/host.py:host_median) over the matrix copied to the host;
+    (d,) f32 back on its device."""
+    agg = H.host_median(host_array(users_grads))
+    return torch.from_numpy(agg).to(users_grads.device)
 
 
 def distances_for(users_grads, distance_dtype: Optional[str] = None):
@@ -255,7 +373,7 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
 
 def krum_scores_and_index(users_grads, users_count, corrupted_count,
                           paper_scoring=False, method="sort", mask=None,
-                          distance_dtype=None):
+                          distance_dtype=None, distance_impl="auto"):
     """The (n,) f32 Krum scores and the winner's index (a 0-d tensor)
     behind both :func:`krum_select` and Krum's diagnostics.
     ``method='sort'`` scores the distance kernel's matrix exactly by
@@ -264,9 +382,21 @@ def krum_scores_and_index(users_grads, users_count, corrupted_count,
     ``mask`` both score exactly by sort over the distance kernel, with k
     following the alive count e - f, and a dead row never wins.
     ``distance_dtype`` as for :func:`distances_for` and
-    :func:`guarded_krum_scores`."""
+    :func:`guarded_krum_scores`.  ``distance_impl='host'`` takes the
+    winner from the host engine (:func:`host_krum_select`), which returns
+    no scores: None in their place, and no mask seam."""
     if method not in ("sort", "fused"):
         raise ValueError(f"method must be 'sort' or 'fused', got {method!r}")
+    check_impl("distance_impl", distance_impl)
+    if distance_impl == "host":
+        if mask is not None:
+            raise ValueError(
+                "mask-aware Krum needs a score-returning engine; "
+                "the host engine returns only the winner index "
+                "(defenses/host.py)")
+        idx = host_krum_select(users_grads, users_count, corrupted_count,
+                               paper_scoring)
+        return None, torch.tensor(idx, device=users_grads.device)
     if mask is not None:
         scores = sort_scores(distances_for(users_grads, distance_dtype),
                              mask.sum(), corrupted_count, paper_scoring,
@@ -283,18 +413,19 @@ def krum_scores_and_index(users_grads, users_count, corrupted_count,
 
 def krum_select(users_grads, users_count, corrupted_count,
                 paper_scoring=False, method="sort", mask=None,
-                distance_dtype=None):
+                distance_dtype=None, distance_impl="auto"):
     """Index (0-d tensor) of the Krum winner (reference ``krum(...,
     return_index=True)``, defences.py:39-40); the arguments are
     :func:`krum_scores_and_index`'s."""
     return krum_scores_and_index(users_grads, users_count, corrupted_count,
                                  paper_scoring, method, mask,
-                                 distance_dtype)[1]
+                                 distance_dtype, distance_impl)[1]
 
 
 def krum(users_grads, users_count, corrupted_count, paper_scoring=False,
          method="sort", mask=None, weights=None, distance_dtype=None,
-         telemetry=False, margins=False, numerics=False):
+         distance_impl="auto", telemetry=False, margins=False,
+         numerics=False):
     """Krum (reference defences.py:23-42): the single gradient whose summed
     distance to its k nearest peers is minimal; with ``mask`` the Krum
     choice of the alive rows, with ``weights`` scaled by its weight.
@@ -306,19 +437,27 @@ def krum(users_grads, users_count, corrupted_count, paper_scoring=False,
     (), the rows whose margin sits within TIE_BAND_ULPS ulp of the
     boundary at the winning score's scale, and ``num_cancel_bits`` (),
     an estimate of the cancellation depth: 2 max ||g||^2 against the
-    winner's mean kept distance."""
+    winner's mean kept distance.  Under ``distance_impl='host'`` the
+    scores are NaN and margins are refused: the host engine returns only
+    the winner."""
     check_seams(mask, weights, telemetry, margins, numerics)
     scores, idx = krum_scores_and_index(
         users_grads, users_count, corrupted_count, paper_scoring, method,
-        mask, distance_dtype)
+        mask, distance_dtype, distance_impl)
     agg = (users_grads[idx] * weights[idx] if weights is not None
            else users_grads[idx])
     if not telemetry:
         return agg
     n = users_grads.shape[0]
-    scores = scores.float()
+    scores = (torch.full((n,), torch.nan, device=users_grads.device)
+              if scores is None else scores.float())
     diag = {"selection_mask": scatter_rows(n, idx, 1.0, scores),
             "scores": scores}
+    if margins and distance_impl == "host":
+        raise ValueError(
+            "Krum margins need a score-returning engine; "
+            "distance_impl='host' returns only the winner index "
+            "(defenses/host.py)")
     if margins:
         diag.update(krum_margins(scores, idx, mask=mask))
         if numerics:
@@ -353,11 +492,14 @@ def trim_margins(users_grads, med, keep, mask=None, numerics=False,
 
 
 def trimmed_mean(users_grads, users_count, corrupted_count, mask=None,
-                 weights=None, telemetry=False, margins=False,
+                 weights=None, impl="xla", telemetry=False, margins=False,
                  numerics=False):
     """Reference defences.py:44-52; keeps n - f - 1 coordinates.  With
     ``mask`` the estimator of the alive rows, keeping e - f - 1 (at least
     1) of the e alive values, the mean weighted by ``weights`` if given.
+    ``impl='host'`` is the native column-blocked kernel
+    (:func:`host_trimmed_mean_of`; summation-order ulps from the device
+    kernel), which has no mask seam and no ranks for margins.
 
     Diagnostics: ``kept_fraction`` (n,), NaN (the kernel returns only
     the aggregate), and ``trim_fraction`` (); with ``margins``
@@ -365,7 +507,17 @@ def trimmed_mean(users_grads, users_count, corrupted_count, mask=None,
     kernel ranks by, anchored at the median kernel's (the masked median
     kernel's) median; with ``numerics`` ``num_tie_rows``."""
     check_seams(mask, weights, telemetry, margins, numerics)
+    check_impl("impl", impl)
     n = users_grads.shape[0]
+    if mask is not None and impl == "host":
+        raise ValueError(
+            "mask-aware TrimmedMean has no host kernel "
+            "(defenses/host.py is maskless); use impl='xla'")
+    if impl == "host" and margins:
+        raise ValueError(
+            "trimmed-mean margins need the on-device ranks; "
+            "impl='host' returns only the aggregate "
+            "(defenses/host.py)")
     if mask is not None:
         agg = masked_trimmed_mean(users_grads, mask, corrupted_count + 1,
                                   weights)
@@ -384,7 +536,7 @@ def trimmed_mean(users_grads, users_count, corrupted_count, mask=None,
                                      numerics))
         return agg, diag
     keep = n - corrupted_count - 1
-    agg = trimmed_mean_of(users_grads, keep)
+    agg = trim_of(users_grads, keep, impl)
     if not telemetry:
         return agg
     diag = {"kept_fraction": torch.full((n,), torch.nan,
@@ -395,6 +547,14 @@ def trimmed_mean(users_grads, users_count, corrupted_count, mask=None,
         diag.update(trim_margins(users_grads, median_of(users_grads), keep,
                                  numerics=numerics))
     return agg, diag
+
+
+def trim_of(users_grads, keep, impl="xla"):
+    """The unmasked trimmed mean keeping ``keep`` values a coordinate: the
+    trimmed-mean kernel, or under ``impl='host'`` the native kernel."""
+    if impl == "host":
+        return host_trimmed_mean_of(users_grads, keep)
+    return trimmed_mean_of(users_grads, keep)
 
 
 def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
@@ -483,6 +643,7 @@ def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
 
 def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
            mask=None, weights=None, distance_dtype=None, batch_select=1,
+           distance_impl="auto", selection_impl="xla", trim_impl="xla",
            telemetry=False, margins=False, numerics=False):
     """Bulyan (reference defences.py:55-70): select n - 2f gradients by
     iterated Krum, then the median-anchored trimmed mean of the selection
@@ -505,20 +666,67 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
     trim stage's kept fraction of each pick at its client's row, 0
     elsewhere); with ``numerics`` ``num_tie_rows`` () at the last cut's
     scale and ``num_cancel_bits`` () of the distance matrix
-    (utils/numerics.py:gram_cancellation_bits)."""
+    (utils/numerics.py:gram_cancellation_bits).
+
+    The host engines, the JAX package's routes: ``distance_impl='host'``
+    is the full host engine (:func:`host_bulyan_of`; telemetry NaN, the
+    selection never comes back); ``selection_impl='host'`` the hybrid
+    exact selection (:func:`host_bulyan_selection_of` over the distance
+    kernel's matrix with its +inf diagonal; ties inside the native
+    comparator's ulp band may go another way than the device loop's);
+    ``trim_impl='host'`` the unmasked tail by the native kernel.  Neither
+    host selection has a mask seam or per-trip scores for margins."""
     check_seams(mask, weights, telemetry, margins, numerics)
+    check_impl("distance_impl", distance_impl)
+    check_impl("selection_impl", selection_impl, ("xla", "host", "pallas"))
+    check_impl("trim_impl", trim_impl, ("xla", "host", "pallas"))
     n = users_grads.shape[0]
     f = corrupted_count
     set_size = users_count - 2 * f
+    if int(batch_select) < 1:
+        raise ValueError(f"batch_select must be >= 1, got {batch_select}")
+    if mask is not None and selection_impl == "host":
+        raise ValueError(
+            "mask-aware Bulyan is incompatible with "
+            "selection_impl='host': the native selection engine has no "
+            "mask seam (native/bulyan_select.cpp)")
+    if distance_impl == "host" and selection_impl != "pallas":
+        if mask is not None:
+            raise ValueError(
+                "mask-aware Bulyan has no full-host engine "
+                "(defenses/host.py is maskless)")
+        if margins:
+            raise ValueError(
+                "Bulyan margins need the traced selection loop; "
+                "the full-host engine returns only the aggregate "
+                "(defenses/host.py)")
+        agg = host_bulyan_of(users_grads, users_count, f, paper_scoring,
+                             min(int(batch_select), set_size))
+        if not telemetry:
+            return agg
+        nan = torch.full((n,), torch.nan, device=users_grads.device)
+        return agg, {"selection_mask": nan, "scores": nan.clone()}
     D = distances_for(users_grads, distance_dtype)
-    selected = bulyan_select(D, users_count, f, paper_scoring, mask,
-                             batch_select, margins=margins)
+    if selection_impl == "host":
+        if margins:
+            raise ValueError(
+                "Bulyan margins are incompatible with "
+                "selection_impl='host': the native selection engine "
+                "returns only the selected indices, never the per-trip "
+                "scores the margins measure (native/bulyan_select.cpp)")
+        Dm = D + torch.diag(torch.full((n,), torch.inf, device=D.device))
+        selected = host_bulyan_selection_of(
+            Dm, users_count, f, set_size, min(int(batch_select), set_size),
+            paper_scoring)
+    else:
+        selected = bulyan_select(D, users_count, f, paper_scoring, mask,
+                                 batch_select, margins=margins)
     if margins:
         selected, carry = selected
     selection = users_grads[selected].contiguous()  # (set_size, d)
     if mask is None:
         keep = set_size - 2 * f - 1
-        agg = trimmed_mean_of(selection, keep)
+        agg = trim_of(selection, keep, trim_impl)
         if not telemetry:
             return agg
         diag = {"selection_mask": scatter_rows(n, selected, 1.0, D),

@@ -22,6 +22,14 @@ by a hash of the sources and flags, so an edited source is rebuilt and a
 checkout builds from its own sources at first use.  :func:`build_all`
 starts one ``nvcc`` per missing library, all at once.
 
+The host engines' C++ (``native/bulyan_select.cpp``: the exact Bulyan
+selection and the column-blocked trimmed mean and median) takes a g++
+route beside nvcc: :func:`build_host_library` compiles it with ``g++ -O3
+-std=c++17 -shared -fPIC`` into ``_build/`` at first use, named by a hash
+of the source and flags the same way, and :func:`load_host_library`
+loads it.  It builds on any machine with g++, the card's or not, and a
+failed build or load raises: nothing falls back to another route.
+
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only machine has no ``nvcc``.  Each wrapper counts its launches in
 :data:`LAUNCHES`, so a caller can show which kernels a run went through.
@@ -103,6 +111,11 @@ COMPILES: Dict[str, dict] = {}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+# Host libraries (C++ for the CPU, g++): name -> source in the package.
+HOST_LIBS = {"bulyan_select": "native/bulyan_select.cpp"}
+GXX = "g++"
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def _note_compile(name: str, compile_s: float, cache: str) -> None:
@@ -194,6 +207,54 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+def host_library_path(name: str) -> Path:
+    """Where host library ``name`` lives, keyed by a hash of its source
+    and the compiler flags."""
+    source = PACKAGE_DIR / HOST_LIBS[name]
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(source.name.encode())
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_host_library(name: str) -> Path:
+    """Compile host library ``name`` with g++ (:data:`GXX`) unless it is
+    built; returns its path.  Raises RuntimeError with the compiler's
+    output if the build fails or there is no compiler."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    gxx = shutil.which(GXX)
+    if gxx is None:
+        raise RuntimeError(
+            f"cannot build host library {name!r}: no C++ compiler at "
+            f"{GXX!r}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
+    proc = subprocess.run(
+        [gxx, *GXX_FLAGS, "-o", str(tmp), str(PACKAGE_DIR / HOST_LIBS[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ {HOST_LIBS[name]} failed "
+                           f"(rc {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)             # atomic: concurrent builders race
+    return out
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Host library ``name``, built (:func:`build_host_library`) and
+    loaded once a process."""
+    key = "host:" + name
+    with _LOCK:
+        lib = _LOADED.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_host_library(name)))
+            _LOADED[key] = lib
+    return lib
 
 
 def entry_point(name: str):

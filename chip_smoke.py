@@ -8,7 +8,8 @@ success):
 
 1. device   -- require CUDA; print the card's name and power limit
                (nvidia-smi); fp32 everywhere (TF32 off for matmul and
-               cuDNN).
+               cuDNN; the engines also pick cuDNN's deterministic
+               convolutions).
 2. build    -- compile every kernel of the flat round from csrc/ with nvcc
                (one process per source, all started together); print
                ptxas's registers, stack frame and spills of each kernel
@@ -369,9 +370,40 @@ success):
                beside the twin's, the captured intervals apart.  Printed
                ([walls] lines): device ms a round and share by stage,
                the unattributed share, the phase's seconds.
+17. hostpath -- the host engines and host streaming through run() on the
+               card.  (a) at phase 5's width (f = 24, 21 rounds): Krum
+               with distance_impl='host', Bulyan with
+               bulyan_selection_impl='host' (the hybrid: kernel 1's
+               matrix copied to the host once, the native exact
+               selection, kernel 3's trim), with bulyan_trim_impl='host'
+               and with bulyan_batch_select 4, TrimmedMean and Median
+               with their 'host' impl; each beside its twin on the
+               card's route, every call held against the twin's defense
+               on the same matrix (Krum's winning row byte-equal,
+               Bulyan's picks equal up to ALIE's identical copies or, at
+               the first trip where they part, a near-tie by
+               utils/numerics.py:adjudicate of fp64 scores, aggregates
+               byte-equal where the same kernel trims, the native trims
+               within 2 n eps max |g|, Median exact) and the native
+               library against its NumPy plain version on the run's
+               matrices; must and must-not launch lists (the hybrid
+               launches kernels 1 and 3, the full host engines none).
+               (b) flat Bulyan at batch 32, f = 24 %, n = 1,000 and
+               10,000: the hybrid's split (distance ms by CUDA events,
+               the (n, n) copy's ms and MB, the host selection's and the
+               native call's ms, the trim's ms) over 2 rounds beside the
+               card route's (its second round only within 30 s), the
+               selections checked as in (a).  (c) host streaming:
+               Krum and TrimmedMean at prefetch 1 and 2, workers 0 and
+               1, at full participation and at participation 0.6 with
+               femnist_style, and cifar10_cnn with augmentation; each
+               run byte-equal to its device-placed twin; the stall per
+               get and the round ms beside the twin's.  The native
+               library's host times beside NumPy's are
+               tools/native_times.py's.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-16), the nvidia-smi line, and as the last line
+summed over phases 5-17), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1759,8 +1791,9 @@ FAULTED_KERNELS = {"TrimmedMean": ("masked_trimmed_mean",),
 # beside, not gated.
 # Which kinks flip in the CPU's fp32 gradients depends on the CPU's
 # convolution path (oneDNN or PyTorch's own), not on its thread count, and
-# on the weights, which a ResNet run leaves different each time (cuDNN's
-# backward does not repeat; at some trained weights one kink flips in
+# on the weights, which a ResNet run left different each time while the
+# engines let cuDNN pick a backward that does not repeat (they now ask for
+# its deterministic algorithms; at some trained weights one kink flips in
 # resnet20's 2-image gradient on both devices alike: 6.339e-4 from fp64
 # on the card and on the CPU, 6.4e-7 apart, once on an H100).  So the CPU's
 # fp32 leg runs on one pinned path, oneDNN on, and both BatchNorm models
@@ -5486,6 +5519,586 @@ def run_walls_path(ds, failures, smi):
     return totals
 
 
+# -- phase 17: the host engines and host streaming ------------------------------
+# (a): (label, defense, knobs, the card twin's knobs, must launch, must not
+# launch), mnist_mlp at phase 5's width, f = 24, 21 rounds.
+P17_RUNS = (
+    ("Krum distance_impl=host", "Krum", dict(distance_impl="host"), {},
+     (), ("krum_scores", "pairwise_distances")),
+    ("Bulyan selection=host", "Bulyan", dict(bulyan_selection_impl="host"),
+     {}, ("pairwise_distances", "trimmed_mean"), ()),
+    ("Bulyan selection=host trim=host", "Bulyan",
+     dict(bulyan_selection_impl="host", bulyan_trim_impl="host"), {},
+     ("pairwise_distances",), ("trimmed_mean",)),
+    ("Bulyan selection=host q=4", "Bulyan",
+     dict(bulyan_selection_impl="host", bulyan_batch_select=4),
+     dict(bulyan_batch_select=4), ("pairwise_distances", "trimmed_mean"),
+     ()),
+    ("TrimmedMean host", "TrimmedMean", dict(trimmed_mean_impl="host"), {},
+     (), ("trimmed_mean",)),
+    ("Median host", "Median", dict(median_impl="host"), {}, (),
+     ("median",)),
+)
+# (b): flat Bulyan at batch 32, f at 24 %, the hybrid beside the card's
+# route; the card route's second round is skipped past this many seconds.
+P17_LARGE_N = (1_000, 10_000)
+P17_BATCH = 32
+P17_CARD_ROUND_LIMIT_S = 30.0
+# (c): (defense, stream_prefetch, stream_workers) for each cohort set.
+P17_STREAMS = tuple((d, p, w) for d in ("Krum", "TrimmedMean")
+                    for p in (1, 2) for w in (0, 1))
+P17_STREAM_SETS = (("full", {}),
+                   ("p0.6 femnist_style",
+                    dict(participation=0.6, partition="femnist_style")))
+
+
+def p17_scores64(G, pool, k):
+    """Each row's Krum score over ``pool`` (an (n,) bool on the card) in
+    fp64: the sum of its k smallest distances to the other pool rows,
+    from an fp64 Gram of G; +inf outside the pool."""
+    import torch
+
+    G64 = G.double()
+    sq = (G64 * G64).sum(1)
+    D = (sq[:, None] + sq[None, :] - 2.0 * (G64 @ G64.T)).clamp_min(0.0)
+    D = D.sqrt()
+    del G64
+    n = D.shape[0]
+    D.fill_diagonal_(math.inf)
+    D[:, ~pool] = math.inf
+    s = torch.sort(D, dim=1).values[:, :k].sum(1)
+    del D
+    return torch.where(pool, s, math.inf)
+
+
+def p17_canonical(sel, G, m_mal):
+    """The picks with ALIE's identical crafted rows [0, m_mal) as one
+    client (either route may take them in another order)."""
+    import torch
+
+    sel = np.asarray(sel, np.int64)
+    if m_mal > 1 and bool(torch.equal(G[:m_mal], G[:1].expand(m_mal, -1))):
+        return np.where(sel < m_mal, 0, sel)
+    return sel
+
+
+def p17_selection_verdict(G, got, want, n, f, q, m_mal):
+    """Hold the host selection ``got`` against the card route's ``want``
+    (selection order): equal up to the crafted copies, or at the first
+    trip where they part a near-tie by utils/numerics.py:adjudicate of
+    the two picks' fp64 scores against the fp64 oracle's; returns the
+    adjudicate record (verdict 'exact' when equal) and that trip."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.utils.numerics import (
+        adjudicate
+    )
+
+    a, b = p17_canonical(got, G, m_mal), p17_canonical(want, G, m_mal)
+    diff = np.nonzero(a != b)[0]
+    if diff.size == 0:
+        return adjudicate(np.zeros(1), np.zeros(1), np.zeros(1)), None
+    t = int(diff[0]) // q
+    r = min(q, len(got) - t * q)
+    pool = torch.ones(n, dtype=torch.bool, device=G.device)
+    pool[torch.as_tensor(np.asarray(got[:t * q], np.int64),
+                         device=G.device)] = False
+    s64 = p17_scores64(G, pool, n - t * q - f).cpu().numpy()
+    pick = slice(t * q, t * q + r)
+    sa = np.sort(s64[np.asarray(got)[pick]])
+    sb = np.sort(s64[np.asarray(want)[pick]])
+    oracle = np.sort(s64)[:r]
+    return adjudicate(sa.astype(np.float32), sb.astype(np.float32),
+                      oracle), t
+
+
+class p17_patch:
+    """Replace ``module.name`` by ``wrap(original)`` for the block."""
+
+    def __init__(self, module, name, wrap):
+        self.module, self.name, self.wrap = module, name, wrap
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.wrap(self.orig))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def p17_host_checked(exp, twin, excluded, recs, defense, q, trim_host):
+    """Wrap the host engine's defense so that every call is held against
+    the card route's (the twin engine's defense on the same matrix, its
+    launches not counted): Krum's winning row byte-equal, Bulyan's picks
+    equal up to the crafted copies or a near-tie adjudicated in fp64,
+    aggregates byte-equal where the picks are (the same trim kernel), the
+    host trim and TrimmedMean within phase 8's band (2 n eps max |g|),
+    Median exact.  On the first call the native library is held against
+    its NumPy plain version on the run's matrix (:func:`p17_native_vs_plain`).
+    Each call's record goes to ``recs``, the check's seconds to
+    ``excluded``."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.defenses import host as H
+    from attacking_federate_learning_tpu_torch.defenses import kernels as K
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    inner, card = exp.defense_fn, twin.defense_fn
+    eps = float(np.finfo(np.float32).eps)
+
+    def checked(grads, n, f, **kw):
+        picks = {}
+
+        def keep(name):
+            def wrap(fn):
+                def spy(*a, **k):
+                    out = fn(*a, **k)
+                    picks.setdefault(name, out)
+                    return out
+                return spy
+            return wrap
+
+        with p17_patch(K, "host_bulyan_selection_of", keep("host")), \
+                p17_patch(K, "host_krum_select", keep("host")):
+            out = inner(grads, n, f, **kw)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        # The checks' own launches are no launches of the run.
+        snap = dict(_build.LAUNCHES)
+        with p17_patch(K, "bulyan_select", keep("card")):
+            want = card(grads, n, f, **kw)
+        rec = {"verdict": "exact", "agg_ok": True, "agg_err": 0.0}
+        G = grads.float()
+        if defense == "Krum":
+            if not byte_equal(out, want):
+                won = int(torch.nonzero((G == want.float()).all(1))[0])
+                rec = {**p17_selection_verdict(
+                    G, [picks["host"]], [won], n, f, 1, exp.m_mal)[0],
+                    "agg_ok": True, "agg_err": float((out - want).abs().max())}
+        elif defense == "Bulyan":
+            got_sel = picks["host"].cpu().numpy()
+            want_sel = picks["card"].cpu().numpy()
+            v, trip = p17_selection_verdict(G, got_sel, want_sel, n, f, q,
+                                            exp.m_mal)
+            rec = {**v, "trip": trip, "agg_ok": True, "agg_err": 0.0}
+            err = float((out - want).abs().max())
+            band = 2.0 * n * eps * float(G.abs().max())
+            if v["verdict"] == "exact":
+                rec["agg_err"] = err
+                rec["agg_ok"] = (err <= band) if trim_host else byte_equal(
+                    out, want)
+            if not recs:
+                rec["native"] = p17_native_vs_plain(G, picks["host"], n, f,
+                                                    q)
+        else:
+            err = float((out - want).abs().max())
+            band = (0.0 if defense == "Median"
+                    else 2.0 * n * eps * float(G.abs().max()))
+            rec["agg_err"], rec["agg_ok"] = err, err <= band
+            if not recs:
+                Gh = G.cpu().numpy()
+                if defense == "Median":
+                    plain = np.median(Gh, 0).astype(np.float32)
+                    nat = H.host_median(Gh)
+                    rec["native"] = {"median_equal_np": bool(
+                        np.array_equal(nat, plain))}
+                else:
+                    keep_k = n - f - 1
+                    nat = H.host_trimmed_mean_of(Gh, keep_k)
+                    plain = p17_numpy_trimmed_mean(Gh, keep_k)
+                    rec["native"] = {"trim_vs_np_max_abs": float(
+                        np.abs(nat - plain).max()), "trim_band": band,
+                        "ok": bool(np.abs(nat - plain).max() <= band)}
+        torch.cuda.synchronize()
+        _build.LAUNCHES.update(snap)
+        recs.append(rec)
+        excluded.append(time.perf_counter() - a)
+        return out
+
+    exp.defense_fn = checked
+
+
+def p17_numpy_trimmed_mean(G, k):
+    """The trimmed mean's NumPy formulation (defenses/host.py's for a
+    non-finite matrix): the native kernel's plain version."""
+    med = np.median(G, axis=0)
+    dev = G - med
+    order = np.argsort(np.abs(dev), axis=0, kind="stable")
+    return (np.take_along_axis(dev, order[:k], axis=0).mean(axis=0)
+            + med).astype(np.float32)
+
+
+def p17_native_vs_plain(G, selected, n, f, q):
+    """The native selection against numpy_bulyan_selection on the run's
+    own (n, n) matrix (the distance kernel's, +inf diagonal), and the
+    native trimmed mean of the selection against its NumPy plain
+    version: equal picks (or an fp64-adjudicated near-tie), the trim
+    within 2 n eps max |g|."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.defenses import host as H
+    from attacking_federate_learning_tpu_torch.defenses import kernels as K
+
+    D = K.distances_for(G)
+    D.fill_diagonal_(math.inf)
+    Dh = D.cpu().numpy()
+    order = np.argsort(Dh, axis=1).astype(np.int32)
+    set_size = n - 2 * f
+    nat = H.host_bulyan_selection(Dh, n, f, set_size, batch_select=q)
+    plain = H.numpy_bulyan_selection(Dh, order, n, f, set_size,
+                                     batch_select=q)
+    same = bool(np.array_equal(nat, plain))
+    verdict = "exact"
+    if not same:
+        verdict = p17_selection_verdict(G, nat, plain, n, f, q, 0)[0][
+            "verdict"]
+    same_as_run = bool(np.array_equal(nat, selected.cpu().numpy()))
+    sel = G[torch.as_tensor(nat.astype(np.int64),
+                            device=G.device)].cpu().numpy()
+    keep = set_size - 2 * f - 1
+    trim = H.host_trimmed_mean_of(sel, keep)
+    err = float(np.abs(trim - p17_numpy_trimmed_mean(sel, keep)).max())
+    band = 2.0 * set_size * float(np.finfo(np.float32).eps) * float(
+        np.abs(sel).max())
+    return {"selection_vs_np": verdict, "same_as_run": same_as_run,
+            "trim_vs_np_max_abs": err,
+            "ok": verdict in ("exact", "tie_band") and same_as_run
+            and err <= band}
+
+
+def p17_config(defense, n=N_MAIN, batch=128, mal_prop=0.24, epochs=ROUNDS,
+               **kw):
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.config import ExperimentConfig
+
+    kw.setdefault("dataset", C.SYNTH_MNIST)
+    kw.setdefault("synth_train", 60_000)
+    kw.setdefault("synth_test", 10_000)
+    return ExperimentConfig(users_count=n, mal_prop=mal_prop,
+                            batch_size=batch, epochs=epochs, num_std=1.5,
+                            learning_rate=0.1, momentum=0.9,
+                            defense=defense, test_step=TEST_STEP, **kw)
+
+
+def p17_large(n, ds_n, failures, smi, totals):
+    """(b): flat Bulyan at n, batch 32, f at 24 %: the hybrid (its split
+    by CUDA events and the host clock) and the card's route, 2 rounds
+    each (the card route's second only within P17_CARD_ROUND_LIMIT_S)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import native as NT
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.defenses import host as H
+    from attacking_federate_learning_tpu_torch.defenses import kernels as K
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    split = {k: [] for k in ("distance_ms", "d2h_ms", "d2h_mb",
+                             "select_host_ms", "native_ms", "trim_ms")}
+    picks = {"host": [], "card": []}
+    keep_G = []
+
+    def events(key):
+        def wrap(fn):
+            def timed(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                split[key].append((e0, e1))
+                return out
+            return timed
+        return wrap
+
+    def host_clock(key, sync=False):
+        def wrap(fn):
+            def timed(*a, **k):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                split[key].append(1e3 * (time.perf_counter() - t0))
+                if key == "d2h_ms":
+                    split["d2h_mb"].append(a[0].numel() * 4 / 1e6)
+                return out
+            return timed
+        return wrap
+
+    def keep(name):
+        def wrap(fn):
+            def spy(*a, **k):
+                out = fn(*a, **k)
+                picks[name].append(out.cpu().numpy())
+                return out
+            return spy
+        return wrap
+
+    def first_grads(fn):
+        def spy(G, *a, **k):
+            if not keep_G:
+                keep_G.append(G)
+            return fn(G, *a, **k)
+        return spy
+
+    def rounds(exp, count, limit=None):
+        ms = []
+        for t in range(count):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            exp.run_round(t)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - a))
+            if limit is not None and ms[-1] > 1e3 * limit:
+                break
+        return ms
+
+    cfg_h = p17_config("Bulyan", n=n, batch=P17_BATCH, epochs=2,
+                       synth_train=len(ds_n.train_y),
+                       bulyan_selection_impl="host")
+    cfg_c = p17_config("Bulyan", n=n, batch=P17_BATCH, epochs=2,
+                       synth_train=len(ds_n.train_y))
+    hyb = FederatedExperiment(cfg_h, DriftAttack(cfg_h.num_std), ds_n,
+                              device="cuda")
+    f = hyb.f
+    _build.reset_launches()
+    with p17_patch(K, "distances_for", events("distance_ms")), \
+            p17_patch(K, "distances_for", first_grads), \
+            p17_patch(K, "host_array", host_clock("d2h_ms", sync=True)), \
+            p17_patch(H, "host_bulyan_selection",
+                      host_clock("select_host_ms")), \
+            p17_patch(NT, "native_bulyan_selection",
+                      host_clock("native_ms")), \
+            p17_patch(K, "trim_of", events("trim_ms")), \
+            p17_patch(K, "host_bulyan_selection_of", keep("host")):
+        hyb_ms = rounds(hyb, 2)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for k, v in launches.items():
+        totals[k] += v
+    G = keep_G[0]
+    w_h = [hyb.state.weights.clone(), hyb.state.velocity.clone()]
+    del hyb
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = FederatedExperiment(cfg_c, DriftAttack(cfg_c.num_std), ds_n,
+                               device="cuda")
+    with p17_patch(K, "bulyan_select", keep("card")):
+        card_ms = rounds(card, 2, limit=P17_CARD_ROUND_LIMIT_S)
+    same_w = (len(card_ms) == 2 and byte_equal(w_h[0], card.state.weights)
+              and byte_equal(w_h[1], card.state.velocity))
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    verdicts = []
+    for t in range(min(len(picks["host"]), len(picks["card"]))):
+        if t > 0 and not verdicts[0]["verdict"] == "exact":
+            break                  # the two runs' weights parted
+        v, trip = (p17_selection_verdict(G, picks["host"][t],
+                                         picks["card"][t], n, f, 1, f)
+                   if t == 0 else ({"verdict": "exact"
+                                    if np.array_equal(picks["host"][t],
+                                                      picks["card"][t])
+                                    else "differs"}, None))
+        verdicts.append({**v, "trip": trip})
+    sel_ok = all(v["verdict"] in ("exact", "tie_band") for v in verdicts)
+    must = ("pairwise_distances", "trimmed_mean")
+    launch_ok = all(launches[k] == 2 for k in must)
+    if not (sel_ok and launch_ok):
+        failures.append(f"hostpath (b) n={n}: selections {verdicts}, "
+                        f"launches {launches}")
+
+    def ms(key):
+        return [round(e0.elapsed_time(e1), 3) for e0, e1 in split[key]]
+
+    print(f"[hostpath] (b) Bulyan n={n} f={f} batch={P17_BATCH} hybrid "
+          f"round_ms={[round(x, 3) for x in hyb_ms]} distance_ms="
+          f"{ms('distance_ms')} d2h_ms={[round(x, 3) for x in split['d2h_ms']]}"
+          f" d2h_MB={split['d2h_mb']} select_host_ms (argsort + native)="
+          f"{[round(x, 3) for x in split['select_host_ms']]} native_ms="
+          f"{[round(x, 3) for x in split['native_ms']]} trim_ms="
+          f"{ms('trim_ms')} launches={ {k: v for k, v in launches.items() if v} }"
+          f"; card route round_ms={[round(x, 3) for x in card_ms]}"
+          + (f" (second round skipped: the first took over "
+             f"{P17_CARD_ROUND_LIMIT_S:.0f} s)" if len(card_ms) < 2 else "")
+          + f"; selections {[v['verdict'] for v in verdicts]} "
+          f"weights_byte_equal_after_2={same_w} on {smi}", flush=True)
+
+
+def run_hostpath(ds, failures, smi):
+    """Phase 17: the host engines and host streaming through the port's
+    entry points on the card.  (a) the host engines at the main path's
+    width (P17_RUNS, each beside its twin on the card's route; every
+    call held against the card route, the native library against its
+    NumPy plain version on the run's matrices); (b) the hybrid exact
+    Bulyan at n = 1,000 and 10,000 and its split; (c) host streaming
+    (P17_STREAMS x P17_STREAM_SETS and cifar10_cnn with augmentation),
+    every run byte-equal to its device-placed twin, with its stall
+    record.  Returns launches per kernel summed over the runs."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+    a = time.perf_counter()
+    lib = _build.build_host_library("bulyan_select")
+    print(f"[hostpath] native library {lib.name} built or found with g++ "
+          f"in {time.perf_counter() - a:.2f} s", flush=True)
+
+    def add(run):
+        for k, v in run["launches"].items():
+            totals[k] += v
+
+    # -- (a) the host engines at the main path's width ----------------------
+    for label, defense, knobs, twin_knobs, kernels, banned in P17_RUNS:
+        twin = FederatedExperiment(p17_config(defense, **twin_knobs),
+                                   DriftAttack(1.5), ds, device="cuda")
+        exp = FederatedExperiment(p17_config(defense, **knobs),
+                                  DriftAttack(1.5), ds, device="cuda")
+        recs, excluded = [], []
+        q = knobs.get("bulyan_batch_select", 1)
+        trim_host = knobs.get("bulyan_trim_impl") == "host"
+        p17_host_checked(exp, twin, excluded, recs, defense, q, trim_host)
+        run = drive(exp, kernels, banned, failures, f"hostpath {label}",
+                    excluded=excluded)
+        add(run)
+        twin_run = drive(twin, (), (), failures, f"hostpath {label} twin")
+        add(twin_run)
+        verdicts = [r["verdict"] for r in recs]
+        ties = sum(v == "tie_band" for v in verdicts)
+        sel_ok = all(v in ("exact", "tie_band") for v in verdicts)
+        agg_ok = all(r["agg_ok"] for r in recs)
+        native = recs[0].get("native") if recs else None
+        native_ok = native is None or native.get("ok", True) and all(
+            v for k, v in native.items() if k == "median_equal_np")
+        exact_run = (ties == 0 and not trim_host
+                     and defense != "TrimmedMean")
+        same = same_state(exp, twin)
+        dw = float((exp.state.weights - twin.state.weights).abs().max())
+        if not (sel_ok and agg_ok and native_ok and len(recs) == ROUNDS
+                and (same or not exact_run)):
+            failures.append(f"hostpath (a) {label}: verdicts {verdicts}, "
+                            f"aggregates ok={agg_ok}, native {native}, "
+                            f"checked {len(recs)}, byte_equal_twin={same}")
+        print(f"[hostpath] (a) {label} f={exp.f} acc r0/r10/r20 = "
+              f"{run['acc_txt']} % median_round_ms={run['median_ms']:.3f} "
+              f"(card twin {twin_run['median_ms']:.3f}) launches="
+              f"{ {k: v for k, v in run['launches'].items() if v} } "
+              f"(twin { {k: v for k, v in twin_run['launches'].items() if v} })"
+              f" selections exact/tie_band {verdicts.count('exact')}/{ties} "
+              f"of {len(recs)} max_agg_err="
+              f"{max((r['agg_err'] for r in recs), default=0.0):.3g} "
+              f"native_vs_plain={native} byte_equal_twin={same} "
+              f"max_abs_dw={dw:.3g} on {smi}", flush=True)
+        del exp, twin, run, twin_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (b) the hybrid at large n --------------------------------------------
+    for n in P17_LARGE_N:
+        a = time.perf_counter()
+        ds_n = (ds if n * P17_BATCH <= len(ds.train_y) else load_dataset(
+            C.SYNTH_MNIST, seed=0, synth_train=n * P17_BATCH,
+            synth_test=10_000))
+        if ds_n is not ds:
+            print(f"[hostpath] SYNTH_MNIST {n * P17_BATCH}/10000 made in "
+                  f"{time.perf_counter() - a:.1f} s", flush=True)
+        p17_large(n, ds_n, failures, smi, totals)
+        del ds_n
+        gc.collect()
+        torch.cuda.empty_cache()
+    # -- (c) host streaming ---------------------------------------------------
+    kernel_of = {"Krum": ("krum_scores",), "TrimmedMean": ("trimmed_mean",)}
+    cells = [(set_label, extra, d, p, w) for set_label, extra in
+             P17_STREAM_SETS for d, p, w in P17_STREAMS]
+    twins = {}
+    for set_label, extra, defense, prefetch, workers in cells:
+        key = (set_label, defense)
+        if key not in twins:
+            twin = FederatedExperiment(p17_config(defense, **extra),
+                                       DriftAttack(1.5), ds, device="cuda")
+            twins[key] = (twin, drive(twin, kernel_of[defense], (), failures,
+                                      f"hostpath stream twin {key}"))
+            add(twins[key][1])
+        twin, twin_run = twins[key]
+        exp = FederatedExperiment(
+            p17_config(defense, data_placement="host_stream",
+                       stream_prefetch=prefetch, stream_workers=workers,
+                       **extra), DriftAttack(1.5), ds, device="cuda")
+        run = drive(exp, kernel_of[defense], (), failures,
+                    f"hostpath stream {set_label} {defense}")
+        add(run)
+        stats = exp.stream.stall_stats()
+        exp.stream.close()
+        same = same_state(exp, twin)
+        if not same:
+            failures.append(f"hostpath (c) {set_label} {defense} prefetch="
+                            f"{prefetch} workers={workers}: weights differ "
+                            f"from the device twin's")
+        print(f"[hostpath] (c) {set_label} {defense} prefetch={prefetch} "
+              f"workers={workers} median_round_ms={run['median_ms']:.3f} "
+              f"(device twin {twin_run['median_ms']:.3f}) deliver_ms="
+              f"{run['deliver_ms']:.3f} (twin {twin_run['deliver_ms']:.3f})"
+              f" stall_per_get_ms={stats['stream_stall_per_get_ms']} "
+              f"gets={stats['stream_gets']} cold_misses="
+              f"{stats['stream_cold_misses']} byte_equal_device_twin={same} "
+              f"on {smi}", flush=True)
+        del exp, run
+    del twins
+    gc.collect()
+    torch.cuda.empty_cache()
+    # cifar10_cnn with augmentation
+    a = time.perf_counter()
+    ds_c = load_dataset(C.SYNTH_CIFAR10, seed=0, synth_train=20_000,
+                        synth_test=2_000)
+    made = time.perf_counter() - a
+    ccfg = dict(dataset=C.SYNTH_CIFAR10, synth_train=20_000,
+                synth_test=2_000, data_augment=True)
+    twin = FederatedExperiment(p17_config("TrimmedMean", batch=32, **ccfg),
+                               DriftAttack(1.5), ds_c, device="cuda")
+    twin_run = drive(twin, ("trimmed_mean",), (), failures,
+                     "hostpath stream cifar twin")
+    add(twin_run)
+    exp = FederatedExperiment(
+        p17_config("TrimmedMean", batch=32, data_placement="host_stream",
+                   stream_prefetch=2, stream_workers=1, **ccfg),
+        DriftAttack(1.5), ds_c, device="cuda")
+    run = drive(exp, ("trimmed_mean",), (), failures,
+                "hostpath stream cifar")
+    add(run)
+    stats = exp.stream.stall_stats()
+    exp.stream.close()
+    same = same_state(exp, twin)
+    if not same:
+        failures.append("hostpath (c) cifar10_cnn augmented: weights "
+                        "differ from the device twin's")
+    print(f"[hostpath] (c) cifar10_cnn augmented TrimmedMean batch 32 "
+          f"(SYNTH_CIFAR10 20000 made in {made:.1f} s) prefetch=2 workers=1"
+          f" median_round_ms={run['median_ms']:.3f} (device twin "
+          f"{twin_run['median_ms']:.3f}) stall_per_get_ms="
+          f"{stats['stream_stall_per_get_ms']} cold_misses="
+          f"{stats['stream_cold_misses']} byte_equal_device_twin={same} on "
+          f"{smi}", flush=True)
+    del exp, twin, run, twin_run, ds_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[hostpath] phase 17 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5556,11 +6169,13 @@ def main() -> int:
     observe_totals = run_observe_path(ds, failures, smi)
     # -- 16. the walls and the cost ledger -------------------------------------
     walls_totals = run_walls_path(ds, failures, smi)
+    # -- 17. the host engines and host streaming --------------------------------
+    host_totals = run_hostpath(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
             async_totals, defense_totals, traffic_totals, hier_totals,
-            secagg_totals, observe_totals, walls_totals))
+            secagg_totals, observe_totals, walls_totals, host_totals))
 
     if failures:
         for msg in failures:

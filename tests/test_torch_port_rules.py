@@ -162,6 +162,28 @@ def test_unknown_device_is_refused():
         FederatedExperiment(cfg, device="meta")
 
 
+def test_resolving_the_card_makes_its_runs_reproducible(monkeypatch):
+    """A CUDA device turns TF32 off and cuDNN onto its deterministic
+    convolution algorithms (a default conv backward accumulates with
+    atomics: two cifar10_cnn runs of one config parted by 1.5e-5 in five
+    rounds on an H100, so a streamed run could not be its device twin
+    bit for bit).  The flags are process-wide; the CPU leaves them."""
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        resolve_device
+    )
+
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), (
+        torch.backends.cudnn, "allow_tf32"), (torch.backends.cudnn,
+                                              "deterministic")
+    for mod, name in flags:
+        monkeypatch.setattr(mod, name, not (name == "deterministic"))
+    assert resolve_device("cpu").type == "cpu"
+    assert [getattr(m, n) for m, n in flags] == [True, True, False]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device("cuda").type == "cuda"
+    assert [getattr(m, n) for m, n in flags] == [False, False, True]
+
+
 class _CudaMatrix:
     """Stands in for a (4, 8) float32 CUDA tensor on a machine that
     cannot make one: the wrappers read only these attributes before they
@@ -378,3 +400,69 @@ def test_masked_wrappers_refuse_a_bad_mask_or_weights(name):
     with pytest.raises(ValueError, match="float32 weights"):
         call(_CudaMatrix(), _CudaMask(), DoubleWeights())
     assert _build.LAUNCHES == before
+
+
+# The host engines and host streaming: the port's own copies of the JAX
+# package's native/, defenses/host.py and data/stream.py.
+HOST_MODULES = ("native/__init__.py", "defenses/host.py", "data/stream.py")
+
+
+def environment_reads(source: str):
+    """Every read of the process environment in the source: os.environ,
+    os.getenv, os.environ.get and the like."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Attribute) and node.attr in (
+                "environ", "getenv", "environb", "getenvb"):
+            found.append(node.attr)
+        elif isinstance(node, ast.Name) and node.id in ("environ",
+                                                         "getenv"):
+            found.append(node.id)
+    return found
+
+
+def test_the_scan_covers_the_host_engines_and_streaming():
+    for rel in HOST_MODULES:
+        assert PORT_DIR / rel in SOURCES, rel
+        assert forbidden_imports((PORT_DIR / rel).read_text()) == []
+
+
+@pytest.mark.parametrize("rel", HOST_MODULES + ("ops/_build.py",))
+def test_no_environment_switch_selects_a_route(rel):
+    """No FL_NATIVE or any other variable picks the native library, the
+    NumPy plain versions or the device suite: the config alone does."""
+    text = (PORT_DIR / rel).read_text()
+    assert "FL_NATIVE" not in text
+    reads = environment_reads(text)
+    # The CUDA compiler's location ($NVCC) is the one variable the build
+    # reads, and it selects no route.
+    assert reads == (["environ"] if rel == "ops/_build.py" else []), reads
+    if rel == "ops/_build.py":
+        assert text.count("os.environ.get(") == 1
+        assert 'os.environ.get("NVCC")' in text
+    cpp = (PORT_DIR / "native" / "bulyan_select.cpp").read_text()
+    assert "getenv" not in cpp and "FL_NATIVE" not in cpp
+
+
+def test_the_scan_sees_an_environment_read():
+    assert sorted(environment_reads(
+        "import os\nos.environ.get('X')\nos.getenv('Y')\n"
+        "from os import environ\nenviron['Z']\n")) == [
+            "environ", "environ", "getenv"]
+
+
+def test_the_g_plus_plus_build_lands_in_build_and_raises_on_failure(
+        tmp_path, monkeypatch):
+    assert _build.host_library_path("bulyan_select").parent == (
+        _build.BUILD_DIR)
+    assert _build.BUILD_DIR == PORT_DIR / "_build"
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "GXX", str(tmp_path / "no-g++"))
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        _build.load_host_library("bulyan_select")
+    monkeypatch.setattr(_build, "GXX", "g++")
+    lib = _build.load_host_library("bulyan_select")
+    assert lib is _build.load_host_library("bulyan_select")
+    built = list((tmp_path / "_build").iterdir())
+    assert built == [_build.host_library_path("bulyan_select")]
