@@ -86,8 +86,18 @@ Run:  python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 10 -m 0.2 --synth-train 50000 --synth-test 10000
       python -m attacking_federate_learning_tpu_torch.cli -s SYNTH_MNIST \\
           -d Krum -n 100 -m 0.24 --profile-every 2 --cost-report --profile
-      python -m attacking_federate_learning_tpu_torch.cli trace \\
-          logs/<params>.jsonl [-o OUT]   # the event log as a Chrome trace
+
+The JAX package's subcommands are dispatched before argparse, so the
+experiment flag surface stays as it is: ``report`` (report.py, the run
+report over event logs), ``campaign`` (campaigns/cli.py, a declarative
+sweep as resumable cells, on the card unless ``--device cpu``) and
+``runs`` (runs_cli.py, the fifteen verbs over the run registry, ``runs
+trace`` among them: a run's event log as a Chrome trace):
+
+      python -m attacking_federate_learning_tpu_torch.cli report logs/r.jsonl
+      python -m attacking_federate_learning_tpu_torch.cli campaign spec.json
+      python -m attacking_federate_learning_tpu_torch.cli runs list
+      python -m attacking_federate_learning_tpu_torch.cli runs trace RUN_ID
 """
 
 from __future__ import annotations
@@ -632,30 +642,6 @@ def config_from_args(args) -> ExperimentConfig:
         log_dir=args.log_dir, run_dir=args.run_dir)
 
 
-def trace_main(argv) -> int:
-    """``trace EVENTS.jsonl [-o OUT]``: a run's event log as a Chrome /
-    Perfetto trace JSON (utils/trace_export.py; the JAX package's ``runs
-    trace``, given the log's path, since the port has no run registry
-    reader)."""
-    from attacking_federate_learning_tpu_torch.utils.trace_export import (
-        export_trace
-    )
-
-    p = argparse.ArgumentParser(
-        prog="attacking_federate_learning_tpu_torch.cli trace",
-        description="export a run's JSONL event log as Chrome trace JSON")
-    p.add_argument("events", help="the run's JSONL event log")
-    p.add_argument("-o", "--out", default=None,
-                   help="where to write (default <events>.trace.json)")
-    args = p.parse_args(argv)
-    if not os.path.exists(args.events):
-        print(f"no event log at {args.events}")
-        return 1
-    out = export_trace(args.events, args.out)
-    print(f"wrote {out} (load in chrome://tracing or ui.perfetto.dev)")
-    return 0
-
-
 def print_walls_vs_modeled(exp, ledger, print_fn) -> None:
     """Per entry point with both, its captures' device (or CPU) time by
     stage, summed, beside the counted FLOPs' stage shares
@@ -686,8 +672,29 @@ def print_walls_vs_modeled(exp, ledger, print_fn) -> None:
 def main(argv=None) -> dict:
     if argv is None:
         argv = sys.argv[1:]
-    if argv and argv[0] == "trace":
-        raise SystemExit(trace_main(argv[1:]))
+    if argv and argv[0] == "report":
+        # Run-report subcommand (report.py): pure log reading.
+        from attacking_federate_learning_tpu_torch.report import (
+            main as report_main
+        )
+
+        raise SystemExit(report_main(argv[1:]))
+    if argv and argv[0] == "campaign":
+        # Campaign scheduler subcommand (campaigns/cli.py); heavy imports
+        # stay lazy so --dry-run plans touch no tensor.
+        from attacking_federate_learning_tpu_torch.campaigns.cli import (
+            main as campaign_main
+        )
+
+        raise SystemExit(campaign_main(argv[1:]))
+    if argv and argv[0] == "runs":
+        # Cross-run registry subcommand (runs_cli.py): the fifteen verbs
+        # over runs/index.jsonl (utils/registry.py).
+        from attacking_federate_learning_tpu_torch.runs_cli import (
+            main as runs_main
+        )
+
+        raise SystemExit(runs_main(argv[1:]))
     from attacking_federate_learning_tpu_torch.attacks import make_attacker
     from attacking_federate_learning_tpu_torch.core.engine import (
         FederatedExperiment, resolve_device
@@ -695,6 +702,7 @@ def main(argv=None) -> dict:
     from attacking_federate_learning_tpu_torch.data.datasets import (
         load_dataset
     )
+    from attacking_federate_learning_tpu_torch.ops import _build
     from attacking_federate_learning_tpu_torch.utils.checkpoint import (
         Checkpointer, import_reference_checkpoint
     )
@@ -711,6 +719,10 @@ def main(argv=None) -> dict:
 
     parser = build_parser()
     args = parser.parse_args(argv)
+    if os.environ.get(_build.BUILD_DIR_ENV):
+        # A campaign's supervised child: its kernel libraries' build
+        # directory (campaigns/scheduler.py child_env).
+        _build.set_build_dir(os.environ[_build.BUILD_DIR_ENV])
     if (args.attack in ("backdoor", "backdoor_timed")
             and args.backdoor == "No"):
         # BackdoorAttack's poison set is derived from the -b trigger; an

@@ -21,6 +21,10 @@ go into ``_build/`` beside this package (listed in ``.gitignore``), named
 by a hash of the sources and flags, so an edited source is rebuilt and a
 checkout builds from its own sources at first use.  :func:`build_all`
 starts one ``nvcc`` per missing library, all at once.
+:func:`set_build_dir` names another build directory: a campaign points its
+cells' builds at its own (campaigns/scheduler.py), in process or, through
+``$FL_TORCH_BUILD_DIR`` (:data:`BUILD_DIR_ENV`, read by cli.py), in its
+supervised children.
 
 The host engines' C++ (``native/bulyan_select.cpp``: the exact Bulyan
 selection and the column-blocked trimmed mean and median) takes a g++
@@ -36,7 +40,12 @@ CPU-only machine has no ``nvcc``.  Each wrapper counts its launches in
 :data:`COMPILES` keeps each library's build facts for the cost report's
 'compile' events (utils/costs.py): the seconds :func:`build_all` took
 for it, and whether it was already under ``_build/`` ('hit') or nvcc ran
-('miss').
+('miss').  :data:`CACHE_COUNTS` counts every resolution of a library,
+the host libraries' included, since the process started: a hit where it
+was found in the build directory, a miss where a compiler ran; both
+records are kept by one helper, :func:`_note_compile`.
+:func:`forget_loaded` makes the next launch of each kernel resolve its
+library again.
 """
 
 from __future__ import annotations
@@ -58,6 +67,10 @@ from attacking_federate_learning_tpu_torch.utils import costs
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+# The variable that gives a CLI run another build directory (cli.py).
+BUILD_DIR_ENV = "FL_TORCH_BUILD_DIR"
+# Another build directory than BUILD_DIR, when set (set_build_dir).
+_BUILD_DIR_OVERRIDE: Optional[Path] = None
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -109,6 +122,10 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # 'miss'}, the first build or load of each in this process.
 COMPILES: Dict[str, dict] = {}
 
+# Library resolutions since the process started: a 'hit' found the library
+# in the build directory, a 'miss' ran a compiler for it.
+CACHE_COUNTS: Dict[str, int] = {"hit": 0, "miss": 0}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -119,8 +136,36 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def _note_compile(name: str, compile_s: float, cache: str) -> None:
-    COMPILES.setdefault(Path(KERNELS[name][0]).stem,
-                        {"compile_s": compile_s, "cache": cache})
+    """One resolution of kernel ``name``'s library, or of host library
+    ``name``: 'hit' or 'miss', counted in CACHE_COUNTS.  A kernel's
+    library keeps its first resolution in COMPILES."""
+    CACHE_COUNTS[cache] += 1
+    if name in KERNELS:
+        COMPILES.setdefault(Path(KERNELS[name][0]).stem,
+                            {"compile_s": compile_s, "cache": cache})
+
+
+def build_dir() -> Path:
+    """Where the libraries are built: the directory set_build_dir named,
+    else BUILD_DIR."""
+    return _BUILD_DIR_OVERRIDE or BUILD_DIR
+
+
+def set_build_dir(path) -> Optional[Path]:
+    """Build and load the libraries in ``path`` from now on (None: in
+    BUILD_DIR); returns the directory set before."""
+    global _BUILD_DIR_OVERRIDE
+    old = _BUILD_DIR_OVERRIDE
+    _BUILD_DIR_OVERRIDE = None if path is None else Path(path)
+    return old
+
+
+def forget_loaded() -> None:
+    """Drop the loaded libraries, so each kernel's next launch resolves
+    its library from the build directory again (a hit, or a miss that
+    builds it)."""
+    with _LOCK:
+        _LOADED.clear()
 
 
 def reset_launches() -> None:
@@ -149,7 +194,7 @@ def library_path(name: str) -> Path:
     for path in [source] + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def ptxas_log(name: str) -> str:
@@ -183,7 +228,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         raise RuntimeError(
             f"cannot build CUDA kernels {sorted(todo)}: no nvcc found "
             f"(set $NVCC or put the CUDA toolkit's bin on PATH)")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name, out in todo.items():
@@ -216,7 +261,7 @@ def host_library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     h.update(source.name.encode())
     h.update(source.read_bytes())
-    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_host_library(name: str) -> Path:
@@ -225,13 +270,14 @@ def build_host_library(name: str) -> Path:
     output if the build fails or there is no compiler."""
     out = host_library_path(name)
     if out.exists():
+        _note_compile(name, 0.0, "hit")
         return out
     gxx = shutil.which(GXX)
     if gxx is None:
         raise RuntimeError(
             f"cannot build host library {name!r}: no C++ compiler at "
             f"{GXX!r}")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
     proc = subprocess.run(
         [gxx, *GXX_FLAGS, "-o", str(tmp), str(PACKAGE_DIR / HOST_LIBS[name])],
@@ -242,6 +288,7 @@ def build_host_library(name: str) -> Path:
         raise RuntimeError(f"g++ {HOST_LIBS[name]} failed "
                            f"(rc {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)             # atomic: concurrent builders race
+    _note_compile(name, 0.0, "miss")
     return out
 
 

@@ -23,11 +23,11 @@ not every round); the manifest goes through a same-directory temporary
 file and ``os.replace``.  A kill mid-append leaves at most one torn line,
 which the next attempt seals and the reader skips.
 
-The files are the JAX package's: its ``RunJournal.verify`` and registry
-read a port run's journal.  Run ids are not: :func:`run_id_for` hashes
-the port's own config, whose fields differ from the JAX package's, so
-one experiment gets another id in each package (pin ``--run-id`` to
-share one).
+The files are the JAX package's: either package's ``RunJournal.verify``
+and registry (utils/registry.py) read either package's journals.  Run
+ids are not shared: :func:`run_id_for` hashes the port's own config,
+which lacks two of the JAX config's fields, so one experiment gets
+another id in each package (pin ``--run-id`` to share one).
 """
 
 from __future__ import annotations
@@ -137,9 +137,9 @@ _IDENTITY_EXCLUDED = ("output", "log_dir", "run_dir")
 def run_id_for(cfg) -> str:
     """Deterministic run id: a restarted process (same config) finds the
     same journal.  The digest is of the port's ``ExperimentConfig``
-    (57 of the JAX config's 79 fields), so it differs
-    from the JAX package's id for the same experiment; an explicit
-    ``--run-id`` overrides it."""
+    (77 of the JAX config's 79 fields: it lacks ``mesh_shape`` and
+    ``backend``), so it differs from the JAX package's id for the same
+    experiment; an explicit ``--run-id`` overrides it."""
     d = dataclasses.asdict(cfg)
     for k in _IDENTITY_EXCLUDED:
         d.pop(k, None)

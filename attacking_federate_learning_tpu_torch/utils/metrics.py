@@ -22,9 +22,11 @@ observatories' (core/engine.py): ``round`` (--round-stats), ``defense``,
 ``attack``, ``shard_selection`` (v6) and the end-of-run
 ``selection_hist`` (--telemetry), ``margin`` (v12, --margins) and
 ``numerics`` (v14, --numerics), each a round; ``compile``, ``cost``,
-``profile``, ``stream``, ``stage_cost``, ``wire_bytes``, ``wall``,
-``forensics``, ``gate`` and ``campaign`` belong to slices not ported
-yet.
+``stage_cost`` and ``wire_bytes`` (--cost-report), ``profile``
+(--profile), ``wall`` (--profile-every) and ``stream`` (host
+streaming); ``forensics`` (report.py ``report forensics --events``) and
+``campaign`` (campaigns/scheduler.py).  ``gate`` is written by the JAX
+package's gates alone.
 Readers accept every version; a newer-only kind stamped with an older
 version is an emitter bug, rejected (``KIND_MIN_VERSION``).
 """
@@ -83,7 +85,7 @@ EVENT_KINDS = {
     # --- v7: asynchronous buffered rounds (core/async_rounds.py): one a
     # round, the counts, the staleness histogram and the weight mass
     "async": {"round", "delivered"},
-    # --- v5 .. v14: kinds of slices the port has not reached yet ------------
+    # --- v5 .. v14 -----------------------------------------------------------
     "secagg": {"round"},
     "shard_selection": {"round", "defense"},
     "forensics": {"verdict"},

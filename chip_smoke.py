@@ -401,9 +401,40 @@ success):
                get and the round ms beside the twin's.  The native
                library's host times beside NumPy's are
                tools/native_times.py's.
+18. campaign-- campaigns and the run readers on the card.  (a) a campaign
+               (campaigns/) through the inline executor into a store of
+               its own: the five defenses under ALIE and under 'none' at
+               phase 5's width (rounds 0..20), phase 5's faulted
+               TrimmedMean and Median (f = 10), phase 10's async
+               TrimmedMean 'poly', phase 13's hierarchical Bulyan /
+               TrimmedMean at n = 1,000 (S = 10, with the forensics
+               stream) and Bulyan at f = 25, which must be skipped; the
+               build directory a warm copy of _build/.  Each cell's final
+               weights byte-equal to its direct twin (phase 5's run, else
+               one run here), its must and must-not launches, every
+               library it loads a hit and none a miss, the allocator back
+               at its rest after each cell; each cell's wall, rounds/s,
+               the campaign's overhead between cells.  (b) three of the
+               cells as children under the supervisor (one preempted at
+               round 10), the build directory passed in their
+               environment: each final auto-checkpoint byte-equal to its
+               inline twin, each journal clean; a fresh process's
+               start-up timed step by step, alone, before.  (c) beside
+               (b), in a thread (their processes mostly start): a
+               campaign process
+               SIGKILLed once two cells are committed, invoked again:
+               each cell committed once, no registry stamp twice.  (d)
+               the registry's refresh (timed) and report, runs
+               list/show/diff/compare/campaign/forensics/async/traffic/
+               walls/attribution/margins/numerics/trace/selfcheck over
+               (a)'s store, held to the manifests and to an observatory
+               run's wall records, cost ledger and margin and numerics
+               series kept in memory.  (e) grid.py over the five
+               defenses under ALIE, each final accuracy the campaign
+               cell's.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-17), the nvidia-smi line, and as the last line
+summed over phases 5-18), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1544,6 +1575,10 @@ def drive(exp, kernels, banned, failures, label, excluded=None,
     return out
 
 
+# Phase 5's final weights by (defense, faulted, mal_prop), on the host.
+P5_FINAL = {}
+
+
 def run_main_path(ds, failures):
     """Phase 5.  Returns launches per kernel summed over the runs, and
     the clean runs' median round ms by defense."""
@@ -1572,6 +1607,7 @@ def run_main_path(ds, failures):
     ]
     totals = {name: 0 for name in _build.LAUNCHES}
     clean_ms = {}
+    P5_FINAL.clear()
     for defense, fc, mal_prop, kernels, banned in runs:
         cfg = main_config(defense, mal_prop, fc)
         exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
@@ -1583,6 +1619,9 @@ def run_main_path(ds, failures):
                     f"main {defense} {kind}")
         for name, count in run["launches"].items():
             totals[name] += count
+        # Phase 18's campaign cells are held to these final weights.
+        P5_FINAL[(defense, fc is not None, mal_prop)] = (
+            exp.state.weights.detach().cpu().clone())
         beside = ""
         if fc is None:
             clean_ms.setdefault(defense, run["median_ms"])
@@ -6099,6 +6138,741 @@ def run_hostpath(ds, failures, smi):
     return totals
 
 
+# -- phase 18: campaigns and the run readers ---------------------------------
+# (a): the campaign's axes over phase 5's configuration (the five defenses
+# under ALIE and under 'none', rounds 0..20), and its explicit cells: phase
+# 5's faulted TrimmedMean and Median (f = 10), phase 10 (a)'s async
+# TrimmedMean 'poly' (k = 64), phase 13 (a)'s hierarchical Bulyan /
+# TrimmedMean at n = 1,000, S = 10 with the tier-2 forensics stream, and
+# Bulyan at f = 25 (n < 4f + 3: skipped, never run).
+P18_DEFENSES = ("NoDefense", "Krum", "TrimmedMean", "Bulyan", "Median")
+P18_EXTRA = (
+    dict(defense="TrimmedMean", mal_prop=0.1, faults=FAULTS_MAIN,
+         attack="alie"),
+    dict(defense="Median", mal_prop=0.1, faults=FAULTS_MAIN, attack="alie"),
+    dict(defense="TrimmedMean", aggregation="async", async_buffer=64,
+         async_max_staleness=P10_STALENESS, staleness_weight="poly",
+         attack="alie"),
+    dict(defense="Bulyan", users_count=N_HIER, batch_size=B_HIER,
+         epochs=P13_ROUNDS, test_step=5, aggregation="hierarchical",
+         megabatch=M_HIER, tier2_defense="TrimmedMean", telemetry=True,
+         attack="alie"),
+    dict(defense="Bulyan", mal_prop=0.25, attack="alie"),
+)
+# Must launch and must not launch, by (defense, attack, kind).  Every
+# other kernel of the six must not launch either.
+P18_MUST = {
+    "NoDefense": (), "Krum": ("krum_scores",),
+    "Krum f0": ("pairwise_distances",), "TrimmedMean": ("trimmed_mean",),
+    "Bulyan": ("pairwise_distances", "trimmed_mean"),
+    "Median": ("median",), "TrimmedMean faulted": ("masked_trimmed_mean",),
+    "Median faulted": ("masked_median",),
+    "TrimmedMean async": ("masked_trimmed_mean",),
+    "Bulyan hier": ("pairwise_distances", "trimmed_mean"),
+}
+# (b): the cells run again under the supervisor, one preempted at round 10.
+P18_SUPERVISED = (("Krum", "alie", None), ("TrimmedMean faulted", "alie",
+                                           None), ("Median", "alie", 10))
+P18_KILL_CELLS = ("NoDefense", "Krum", "Median")   # (c), rounds 0..1
+P18_MEM_SLACK = 2 * 2 ** 20       # bytes a cell may leave above the rest
+
+
+def p18_base(root, **kw):
+    """Phase 5's configuration as campaign-spec kwargs."""
+    from attacking_federate_learning_tpu_torch import config as C
+
+    return dict(dict(dataset=C.SYNTH_MNIST, users_count=N_MAIN,
+                     mal_prop=0.24, batch_size=128, epochs=ROUNDS,
+                     num_std=1.5, learning_rate=0.1, momentum=0.9,
+                     test_step=TEST_STEP, synth_train=60_000,
+                     synth_test=10_000,
+                     log_dir=os.path.join(root, "logs"),
+                     run_dir=os.path.join(root, "runs")), **kw)
+
+
+def p18_kind(cell):
+    """The cell's key into P18_MUST."""
+    cfg = cell.cfg
+    if cfg.aggregation == "hierarchical":
+        return cfg.defense + " hier"
+    if cfg.aggregation == "async":
+        return cfg.defense + " async"
+    if cfg.faults is not None:
+        return cfg.defense + " faulted"
+    if cfg.defense == "Krum" and cfg.corrupted_count == 0:
+        return "Krum f0"
+    return cfg.defense
+
+
+def p18_libraries(kernels):
+    """The kernel libraries (csrc/ sources) a set of kernels loads."""
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    return {_build.KERNELS[k][0] for k in kernels}
+
+
+def p18_inline(spec, failures):
+    """(a): the campaign through the inline executor into a store of its
+    own, the build directory a warm copy of _build/.  Returns (launches,
+    per-cell engine records, per-cell manifest rows, the campaign, the
+    allocator's rest before it, its wall seconds)."""
+    import shutil
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.campaigns import Campaign
+    from attacking_federate_learning_tpu_torch.campaigns.scheduler import (
+        InlineExecutor
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    cache = os.path.join(os.path.dirname(spec.base["run_dir"]), "build")
+    os.makedirs(cache)
+    for p in _build.BUILD_DIR.glob("*.so"):
+        shutil.copy2(p, cache)
+    recs = {}
+
+    def start(cell, exp):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        recs[cell.cell_id] = {"before": dict(_build.LAUNCHES),
+                              "t0": time.perf_counter()}
+
+    def done(cell, exp):
+        torch.cuda.synchronize()
+        rec = recs[cell.cell_id]
+        rec["launches"] = {k: v - rec["before"][k]
+                           for k, v in _build.LAUNCHES.items()}
+        rec["weights"] = exp.state.weights.detach().cpu().clone()
+        rec["run_s"] = time.perf_counter() - rec["t0"]
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        # Where the cell's libraries came from: the build directory set
+        # while it ran, and the directory of each library it launched.
+        rec["build_dir"] = str(_build.build_dir())
+        rec["loaded_from"] = {os.path.dirname(_build._LOADED[k]._name)
+                              for k, v in rec["launches"].items() if v}
+
+    rows = {}
+
+    def on_cell(cell, row):
+        torch.cuda.synchronize()
+        rows[cell.cell_id] = dict(row, allocated=torch.cuda.memory_allocated(),
+                                  committed=time.perf_counter())
+
+    ex = InlineExecutor("cuda", on_start=start, on_engine=done)
+    camp = Campaign(spec, executor=ex, cache_dir=cache, on_cell=on_cell)
+    # The campaign's own work: its plan, and each commit (the journal
+    # record, the event, the manifest rewrite).
+    a = time.perf_counter()
+    camp.plan()
+    bookkeeping = {"plan_s": time.perf_counter() - a, "commit_s": []}
+    commit = camp._commit
+
+    def timed_commit(*args, **kw):
+        a = time.perf_counter()
+        commit(*args, **kw)
+        bookkeeping["commit_s"].append(time.perf_counter() - a)
+
+    camp._commit = timed_commit
+    gc.collect()
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = camp.run()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if rc != 0:
+        failures.append(f"campaign (a): rc {rc}")
+    return launches, recs, rows, camp, rest, wall, bookkeeping
+
+
+def p18_direct(ds, cell):
+    """The cell's config run directly, launch counters zeroed before and
+    read after; returns (final weights on the host, launches, the run's
+    seconds)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import make_attacker
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    name = None if cell.attack == "auto" else cell.attack
+    exp = FederatedExperiment(cell.cfg, make_attacker(cell.cfg, ds, name,
+                                                      "cuda"),
+                              ds, device="cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    exp.run(log=lambda *_: None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    w = exp.state.weights.detach().cpu().clone()
+    del exp
+    gc.collect()
+    return w, launches, run_s
+
+
+def p18_supervised(spec, inline_recs, failures, smi):
+    """(b): P18_SUPERVISED's cells as children under the supervisor, the
+    build directory pointed at (a)'s through child_env; each child's
+    final auto-checkpoint byte-equal to its inline twin's weights, its
+    journal verified.  A child spends most of its life starting, so each
+    cell is a one-cell campaign of its own, all three started together."""
+    import threading
+
+    import numpy as np
+
+    from attacking_federate_learning_tpu_torch.campaigns import (
+        Campaign, CampaignSpec
+    )
+    from attacking_federate_learning_tpu_torch.campaigns.scheduler import (
+        SupervisorExecutor
+    )
+    from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+        RunJournal
+    )
+
+    root = os.path.dirname(spec.base["run_dir"])
+    picks = [c for c in spec.expand()
+             if not c.skip and (p18_kind(c), c.attack)
+             in {(k, a) for k, a, _ in P18_SUPERVISED}]
+    preempt = {c.cell_id: r for c in picks for k, a, r in P18_SUPERVISED
+               if (p18_kind(c), c.attack) == (k, a) and r is not None}
+    # A spec without axes runs its base as its one cell.
+    dirs = dict(run_dir=os.path.join(root, "runs_b"),
+                log_dir=os.path.join(root, "logs_b"))
+    subs = [CampaignSpec(name=f"p18b{i}",
+                         base=dict(c.overrides, attack=c.attack, **dirs))
+            for i, c in enumerate(picks)]
+    out, rcs = {}, {}
+
+    def one(sub):
+        camp = Campaign(sub, executor=SupervisorExecutor(
+            "cuda", inject_preempt=preempt), cache_dir=os.path.join(
+                root, "build"), on_cell=lambda cell, row: out.__setitem__(
+                    cell.cell_id, row))
+        rcs[sub.name] = (camp.run(), camp.journal.verify(
+            [c.cell_id for c in sub.expand()]))
+
+    threads = [threading.Thread(target=one, args=(sub,)) for sub in subs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if len(out) != len(P18_SUPERVISED) or any(
+            rc != 0 or problems for rc, problems in rcs.values()):
+        failures.append(f"campaign (b): {len(out)} cells, (rc, journal) "
+                        f"{rcs}")
+    for cell in picks:
+        row = out.get(cell.cell_id, {})
+        run_dir = os.path.join(dirs["run_dir"], cell.cell_id)
+        autos = sorted(n for n in os.listdir(run_dir)
+                       if n.startswith("checkpoint-auto-"))
+        with np.load(os.path.join(run_dir, autos[-1])) as z:
+            got = z["weights"]
+        want = inline_recs[cell.cell_id]["weights"].numpy()
+        same = got.dtype == want.dtype and np.array_equal(got, want)
+        j = RunJournal(dirs["run_dir"], cell.cell_id)
+        audit = j.verify(epochs=cell.cfg.epochs, test_step=cell.cfg.test_step)
+        attempts = j.attempt
+        j.close()
+        if not same or audit or row.get("state") != "done":
+            failures.append(f"campaign (b) {cell.cell_id}: byte_equal="
+                            f"{same} audit={audit} state={row.get('state')}")
+        print(f"[campaign] (b) supervised {p18_kind(cell):20s} "
+              f"preempt_at={preempt.get(cell.cell_id)} attempts={attempts} "
+              f"wall_s={row.get('wall_s')} (inline "
+              f"{inline_recs[cell.cell_id]['run_s']:.2f}) cache_hits="
+              f"{row.get('cache_hits')} cache_misses={row.get('cache_misses')}"
+              f" final={autos[-1]} byte_equal_inline_twin={same} "
+              f"journal_audit={'clean' if not audit else audit} on {smi}",
+              flush=True)
+    print(f"[campaign] (b) three supervised cells, started together, in "
+          f"{wall:.1f} s (beside (c)'s two processes)", flush=True)
+
+
+# A child process's start-up, step by step (run by p18_startup): the
+# parent's clock at launch comes in as P18_T0.
+P18_STARTUP = """
+import json, os, sys, time
+t = {"interpreter": time.time() - float(os.environ["P18_T0"])}
+a = time.perf_counter()
+import torch
+t["import_torch"] = time.perf_counter() - a
+a = time.perf_counter()
+torch.zeros(1, device="cuda").sum().item()
+t["device_init"] = time.perf_counter() - a
+a = time.perf_counter()
+from attacking_federate_learning_tpu_torch import cli
+from attacking_federate_learning_tpu_torch.core import engine
+from attacking_federate_learning_tpu_torch.campaigns import scheduler
+t["import_port"] = time.perf_counter() - a
+a = time.perf_counter()
+from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
+load_dataset("SYNTH_MNIST", seed=0, synth_train=60000, synth_test=10000)
+t["dataset"] = time.perf_counter() - a
+from attacking_federate_learning_tpu_torch.ops import _build
+a = time.perf_counter()
+_build.entry_point("krum_scores")
+t["load_library"] = time.perf_counter() - a
+print(json.dumps(t))
+"""
+
+
+def p18_startup():
+    """The seconds a fresh process of the port takes to start: the
+    interpreter, torch's import, the device's first tensor, the port's
+    modules, phase 5's dataset, one kernel library's load."""
+    env = dict(os.environ, PYTHONPATH=ROOT, P18_T0=repr(time.time()))
+    out = subprocess.run([sys.executable, "-c", P18_STARTUP],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        return {"error": out.stderr[-500:]}
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def p18_kill(root, failures):
+    """(c): a campaign process SIGKILLed once two cells are committed, and
+    invoked again: each cell committed once, no duplicate registry
+    stamp."""
+    import json as _json
+    import signal
+
+    from attacking_federate_learning_tpu_torch.campaigns import (
+        CampaignJournal, CampaignSpec
+    )
+
+    base = p18_base(os.path.join(root, "c"), epochs=2, test_step=1,
+                    synth_train=N_MAIN * 128)
+    blob = dict(name="p18c", base=base,
+                axes={"defense": list(P18_KILL_CELLS), "attack": ["alie"]},
+                order="spec")
+    spec = CampaignSpec.from_json(_json.dumps(blob))
+    path = os.path.join(root, "c_spec.json")
+    with open(path, "w") as f:
+        f.write(spec.to_json())
+    cmd = [sys.executable, "-m", f"{PKG}.cli", "campaign", path,
+           "--executor", "inline", "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    journal = os.path.join(base["run_dir"], "campaigns", spec.campaign_id,
+                           "journal.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    committed = 0
+    while proc.poll() is None and time.perf_counter() - t0 < 120:
+        try:
+            with open(journal) as f:
+                committed = sum('"kind": "cell"' in line for line in f)
+        except OSError:
+            committed = 0
+        if committed >= 2:
+            proc.send_signal(signal.SIGKILL)
+            break
+        time.sleep(0.05)
+    _, err = proc.communicate(timeout=60)
+    killed = proc.returncode == -signal.SIGKILL
+    first = time.perf_counter() - t0
+    again = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=300)
+    j = CampaignJournal(base["run_dir"], spec.campaign_id)
+    problems = j.verify([c.cell_id for c in spec.expand()])
+    counts = (j.read_manifest() or {}).get("counts")
+    by_attempt = {}
+    for rec in j.records():
+        if rec.get("kind") == "cell":
+            by_attempt.setdefault(rec["attempt"], []).append(rec["cell"])
+    with open(os.path.join(base["run_dir"], "index.jsonl")) as f:
+        ids = [_json.loads(line)["run_id"] for line in f]
+    ok = (killed and again.returncode == 0 and not problems
+          and counts == {"done": len(P18_KILL_CELLS)}
+          and len(ids) == len(set(ids)) == len(P18_KILL_CELLS))
+    if not ok:
+        failures.append(f"campaign (c): killed={killed} (rc "
+                        f"{proc.returncode}) rerun rc {again.returncode} "
+                        f"problems={problems} counts={counts} stamps={ids} "
+                        f"{err[-500:]} {again.stderr[-1500:]}")
+    print(f"[campaign] (c) SIGKILL after {committed} commits "
+          f"({first:.1f} s), re-invoked ({again.returncode}) in "
+          f"{time.perf_counter() - t0 - first:.1f} s: commits by attempt "
+          f"{ {a: len(c) for a, c in by_attempt.items()} }, registry stamps "
+          f"{len(ids)} ({len(set(ids))} distinct), journal "
+          f"{'clean' if not problems else problems}", flush=True)
+
+
+def p18_reader(fn, argv):
+    """A reader's (rc, stdout lines), in this process."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = fn(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, buf.getvalue().splitlines()
+
+
+def p18_observed(ds, root, failures):
+    """The store's observatory run for (d): phase 5's Krum with the
+    telemetry, margins and numerics flags and profile_every 10, journaled,
+    after its cost report; its events kept in memory beside the log.
+    Returns (exp, ledger, events, launches)."""
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.utils.lifecycle import (
+        RunJournal
+    )
+    from attacking_federate_learning_tpu_torch.utils.metrics import (
+        RunLogger
+    )
+
+    cfg = ExperimentConfig(**p18_base(root, defense="Krum", telemetry=True,
+                                      margins=True, numerics=True,
+                                      profile_every=10))
+    exp = FederatedExperiment(cfg, DriftAttack(1.5), ds, device="cuda")
+    events = []
+    with RunLogger(cfg, log_dir=cfg.log_dir, jsonl_name="p18_obs",
+                   log=lambda *_: None) as logger:
+        record = logger.record
+
+        def tee(**fields):
+            record(**fields)
+            events.append(dict(fields))
+
+        logger.record = tee
+        ledger = exp.cost_report(logger)
+        _build.reset_launches()
+        exp.run(logger, journal=RunJournal(cfg.run_dir, "p18_obs"))
+        launches = dict(_build.LAUNCHES)
+    if launches["krum_scores"] != cfg.epochs:
+        failures.append(f"campaign (d) observed run: launches {launches}")
+    return exp, ledger, events, launches
+
+
+def p18_readers(camp, obs, failures):
+    """(d): the readers over (a)'s store, each held to what this process
+    holds: the run manifests, the observatory run's wall records, cost
+    ledger and margin and numerics series."""
+    import json as _json
+
+    from attacking_federate_learning_tpu_torch import report, runs_cli
+    from attacking_federate_learning_tpu_torch.utils.margins import (
+        margin_series
+    )
+    from attacking_federate_learning_tpu_torch.utils.numerics import (
+        numerics_series
+    )
+    from attacking_federate_learning_tpu_torch.utils.registry import (
+        RunRegistry
+    )
+    from attacking_federate_learning_tpu_torch.utils.trace_export import (
+        validate_trace
+    )
+
+    exp, ledger, events, _ = obs
+    run_dir = camp.run_dir
+    head = ["--run-dir", run_dir, "--bench", "", "--progress", ""]
+    # The index as the runs' stamps left it, then rebuilt from nothing.
+    t0 = time.perf_counter()
+    RunRegistry(run_dir).refresh(bench=[], progress=[])
+    warm_s = time.perf_counter() - t0
+    os.unlink(os.path.join(run_dir, "index.jsonl"))
+    t0 = time.perf_counter()
+    summary = RunRegistry(run_dir).refresh(bench=[], progress=[])
+    refresh_s = time.perf_counter() - t0
+    cells = [c for c in camp.plan() if not c.skip]
+    manifests = {}
+    for cid in [c.cell_id for c in cells] + ["p18_obs"]:
+        with open(os.path.join(run_dir, cid, "manifest.json")) as f:
+            manifests[cid] = _json.load(f)
+    bad = []
+
+    def run(argv, want_rc=0):
+        rc, lines = p18_reader(runs_cli.main, head + argv)
+        if rc != want_rc:
+            bad.append(f"runs {' '.join(argv)}: rc {rc}")
+        return lines
+
+    def js(argv):
+        lines = run(["--json"] + argv)
+        return _json.loads(lines[-1]) if lines else None
+
+    ents = {e["run_id"]: e for e in js(["list"])}
+    for cid, man in manifests.items():
+        e = ents.get(cid, {})
+        if (e.get("final_accuracy") != man.get("final_accuracy")
+                or e.get("rounds_per_s") != man.get("rounds_per_s")
+                or e.get("status") != "done"):
+            bad.append(f"list {cid}")
+    some = [c.cell_id for c in cells[:3]]
+    shown = js(["show", some[0]])
+    if shown != RunRegistry(run_dir).resolve(some[0]):
+        bad.append("show")
+    diff = js(["diff", some[0], some[1]])
+    if (diff is None or diff["a"] != some[0]
+            or diff["trajectory"]["divergence_round"] is None):
+        bad.append("diff")
+    comp = js(["compare"] + some)
+    if [e["final_accuracy"] for e in comp] != [
+            manifests[c]["final_accuracy"] for c in some]:
+        bad.append("compare")
+    blob = js(["campaign", camp.spec.campaign_id])
+    for key, recs in blob["table"]["cells"].items():
+        for rec in recs:
+            man = manifests.get(rec["cell"])
+            if rec["state"] == "done" and (
+                    man is None or rec["source"] != "registry"
+                    or rec["final_accuracy"] != man["final_accuracy"]):
+                bad.append(f"campaign {rec['cell']}")
+            if rec["state"] == "skipped" and "4*corrupted_count" not in (
+                    rec.get("reason") or ""):
+                bad.append(f"campaign skip {rec['cell']}")
+    kinds = {p18_kind(c): c.cell_id for c in cells}
+    fx = js(["forensics", kinds["Bulyan hier"]])
+    fx = next(iter(fx.values())) if fx else None
+    if not fx or fx["rounds"] != P18_EXTRA[3]["epochs"]:
+        bad.append("forensics")
+    asy = js(["async", kinds["TrimmedMean async"]])
+    if not asy or next(iter(asy.values()))["rounds"] != camp.spec.base[
+            "epochs"]:
+        bad.append("async")
+    run(["traffic", kinds["TrimmedMean async"]], want_rc=1)
+    walls = js(["walls", "p18_obs"])["p18_obs"]
+    names = {r.name for r in exp.wall_records}
+    if set(walls["entries"]) != names or not names:
+        bad.append(f"walls names {sorted(walls['entries'])} vs "
+                   f"{sorted(names)}")
+    for name, agg in walls["entries"].items():
+        recs = [r for r in exp.wall_records if r.name == name]
+        if agg["captures"] != len(recs):
+            bad.append(f"walls captures {name}")
+    att = js(["attribution", "p18_obs"])["p18_obs"]
+    want = {r.name for r in ledger.records if r.stage_event() is not None}
+    if set(att["stages"]) != want or (
+            att["wire"]["total_bytes"] != ledger.wire["total_bytes"]):
+        bad.append("attribution")
+    mar = js(["margins", "p18_obs"])["p18_obs"]
+    if _json.loads(_json.dumps(margin_series(events), default=float)) != mar:
+        bad.append("margins")
+    num = js(["numerics", "p18_obs"])["p18_obs"]
+    want_num = _json.loads(_json.dumps(
+        {k: [list(x) for x in v] for k, v in
+         numerics_series(events).items()}, default=float))
+    if want_num != num:
+        bad.append("numerics")
+    out = os.path.join(run_dir, "p18_obs.trace.json")
+    run(["trace", "p18_obs", "-o", out])
+    with open(out) as f:
+        if validate_trace(_json.load(f)):
+            bad.append("trace")
+    if run(["selfcheck"])[-1] != ("ok   selfcheck: index refresh "
+                                  "idempotent, all entries resolvable"):
+        bad.append("selfcheck")
+    rc, lines = p18_reader(report.main, [manifests["p18_obs"]["events"],
+                                         "--json"])
+    rep = _json.loads(lines[-1])[manifests["p18_obs"]["events"]]
+    if rc != 0 or rep["accuracy"]["final"] != round(
+            manifests["p18_obs"]["final_accuracy"], 2):
+        bad.append("report")
+    if bad:
+        failures.append(f"campaign (d) readers: {bad}")
+    print(f"[campaign] (d) readers over {summary['entries']} runs: refresh "
+          f"{1e3 * warm_s:.1f} ms over the stamped index, "
+          f"{1e3 * refresh_s:.1f} ms from nothing (built "
+          f"{summary['built']}), list, show,"
+          f" diff, compare, campaign, forensics, async, traffic, walls "
+          f"({len(names)} entry points), attribution, margins, numerics, "
+          f"trace, selfcheck, report: "
+          f"{'held' if not bad else bad}", flush=True)
+
+
+def run_campaign_path(ds, failures, smi):
+    """Phase 18: campaigns and the run readers on the card.  (a) the
+    campaign of P18_DEFENSES x (ALIE, none) and P18_EXTRA through the
+    inline executor into a store of its own, each cell byte-equal to its
+    direct twin (phase 5's runs, else one run here), its must and
+    must-not launches, the allocator back at rest after each cell, the
+    library loads all hits on a warm build directory; (b) three cells
+    under the supervisor, one preempted, byte-equal to their inline twins;
+    (c) a campaign process SIGKILLed after two commits and invoked again;
+    (d) the readers over (a)'s store; (e) grid.py over the five defenses
+    under ALIE.  Returns launches per kernel summed over the inline runs
+    (campaign, twins, grid)."""
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.campaigns import CampaignSpec
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig
+    )
+    from attacking_federate_learning_tpu_torch.grid import run_grid
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p18_") as root:
+        spec = CampaignSpec(
+            name="p18", base=p18_base(os.path.join(root, "a")),
+            axes={"defense": list(P18_DEFENSES), "attack": ["alie", "none"]},
+            cells=[dict(c) for c in P18_EXTRA], order="spec")
+        # -- (a) ---------------------------------------------------------
+        launches, recs, rows, camp, rest, wall, books = p18_inline(
+            spec, failures)
+        cache = os.path.join(root, "a", "build")     # p18_inline's copy
+        add(launches)
+        man = camp.journal.read_manifest()
+        cells = spec.expand()
+        skipped = [c for c in cells if c.skip]
+        if (len(skipped) != 1 or "4*corrupted_count" not in skipped[0].skip
+                or man["counts"] != {"done": len(cells) - 1,
+                                     "skipped": 1}):
+            failures.append(f"campaign (a): counts {man['counts']}, skips "
+                            f"{[c.skip for c in skipped]}")
+        prev = t_phase
+        for cell in cells:
+            row = rows.get(cell.cell_id, {})
+            if cell.skip:
+                print(f"[campaign] (a) {cell.overrides['defense']} f=25 "
+                      f"skipped: {row.get('reason')}", flush=True)
+                continue
+            kind = p18_kind(cell)
+            rec = recs[cell.cell_id]
+            twin = P5_FINAL.get((cell.cfg.defense, cell.cfg.faults
+                                 is not None, cell.cfg.mal_prop))
+            source, direct = "phase5", ""
+            if (twin is None or cell.attack != "alie"
+                    or cell.cfg.aggregation != "flat"):
+                twin, tw_launch, tw_s = p18_direct(ds, cell)
+                add(tw_launch)
+                source = "direct"
+                direct = (f"direct_run_s={tw_s:.3f} (rounds/s "
+                          f"{cell.cfg.epochs / tw_s:.2f}) ")
+            same = torch.equal(rec["weights"], twin)
+            must = P18_MUST[kind]
+            ran = {k for k, v in rec["launches"].items() if v}
+            libs = p18_libraries(ran)
+            cache_ok = (row.get("cache_hits") == len(libs)
+                        and row.get("cache_misses") == 0)
+            mem_ok = row.get("allocated", 0) <= rest + P18_MEM_SLACK
+            # The libraries came from (a)'s build directory, set while
+            # the cell ran.
+            dir_ok = (rec["build_dir"] == cache
+                      and rec["loaded_from"] <= {cache})
+            ok = (same and row.get("state") == "done" and ran == set(must)
+                  and cache_ok and mem_ok and dir_ok)
+            if not ok:
+                failures.append(
+                    f"campaign (a) {kind} {cell.attack}: byte_equal={same} "
+                    f"({source}) launched {sorted(ran)} (must be "
+                    f"{sorted(must)}), cache {row.get('cache_hits')}/"
+                    f"{row.get('cache_misses')} for {sorted(libs)} from "
+                    f"{sorted(rec['loaded_from'])} with {rec['build_dir']} "
+                    f"set (want {cache}), allocated {row.get('allocated')} "
+                    f"(rest {rest})")
+            overhead = row.get("committed", prev) - prev - rec["run_s"]
+            prev = row.get("committed", prev)
+            man_cell = os.path.join(camp.run_dir, cell.cell_id,
+                                    "manifest.json")
+            with open(man_cell) as f:
+                rps = json.load(f).get("rounds_per_s")
+            ran_counts = {k: v for k, v in rec["launches"].items() if v}
+            print(f"[campaign] (a) {kind:20s} {cell.attack:4s} f="
+                  f"{cell.cfg.corrupted_count:<3d} "
+                  f"acc={row.get('final_accuracy')} "
+                  f"wall_s={row.get('wall_s')} rounds_per_s={rps} "
+                  f"run_s={rec['run_s']:.3f} (rounds/s "
+                  f"{cell.cfg.epochs / rec['run_s']:.2f}) {direct}"
+                  f"campaign_overhead_s={overhead:.3f} "
+                  f"launches={ran_counts} "
+                  f"cache_hits={row.get('cache_hits')} cache_misses="
+                  f"{row.get('cache_misses')} allocated_after_MB="
+                  f"{row.get('allocated', 0) / 1e6:.3f} (rest "
+                  f"{rest / 1e6:.3f}) peak_GB={rec['peak'] / 1e9:.3f} "
+                  f"libraries_from_build_copy={dir_ok} "
+                  f"byte_equal_{source}_twin={same} on {smi}", flush=True)
+        commit_ms = sorted(1e3 * x for x in books["commit_s"])
+        print(f"[campaign] (a) {len(cells)} cells in {wall:.1f} s "
+              f"(manifest cache {man['cache']['hits']} hit / "
+              f"{man['cache']['misses']} miss over "
+              f"{man['cache']['bytes'] / 1e6:.1f} MB); the campaign's own "
+              f"work: plan {1e3 * books['plan_s']:.1f} ms, a commit "
+              f"(journal, event, manifest) median "
+              f"{statistics.median(commit_ms):.2f} ms, max "
+              f"{commit_ms[-1]:.2f} ms", flush=True)
+        # -- (b), and (c) beside it: each of their processes spends most
+        # of its life starting (torch's import), so the two overlap.  A
+        # fresh process's start-up is timed alone first.
+        import threading
+
+        steps = p18_startup()
+        steps_txt = {k: round(v, 3) for k, v in steps.items()
+                     if k != "error"}
+        print(f"[campaign] (b) a fresh process's start-up alone, s: "
+              f"{steps_txt} {steps.get('error', '')}", flush=True)
+        kill = threading.Thread(target=p18_kill, args=(root, failures))
+        kill.start()
+        old_path = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = ROOT
+        try:
+            p18_supervised(spec, recs, failures, smi)
+        finally:
+            if old_path is None:
+                del os.environ["PYTHONPATH"]
+            else:
+                os.environ["PYTHONPATH"] = old_path
+        kill.join()
+        # -- (d) ---------------------------------------------------------
+        obs = p18_observed(ds, os.path.join(root, "a"), failures)
+        add(obs[3])
+        p18_readers(camp, obs, failures)
+        del obs, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- (e) ---------------------------------------------------------
+        base = ExperimentConfig(**p18_base(os.path.join(root, "e")))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        grid_rows = run_grid(base, list(P18_DEFENSES), ["alie"],
+                             out_path=os.path.join(root, "grid.jsonl"),
+                             device="cuda")
+        grid_s = time.perf_counter() - t0
+        add(dict(_build.LAUNCHES))
+        want = {(c.cfg.defense, "alie"): rows[c.cell_id]["final_accuracy"]
+                for c in cells if not c.skip and c.attack == "alie"
+                and p18_kind(c) in P18_DEFENSES}
+        got = {(r["defense"], r["attack"]): r.get("final_accuracy")
+               for r in grid_rows}
+        if got != want or len(grid_rows) != len(P18_DEFENSES):
+            failures.append(f"campaign (e) grid: {got} vs the campaign's "
+                            f"{want}")
+        print(f"[campaign] (e) grid.py, the five defenses x alie in "
+              f"{grid_s:.1f} s: final accuracies {got}, the campaign's "
+              f"cells' {'equal' if got == want else want}", flush=True)
+    print(f"[campaign] phase 18 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -6171,11 +6945,14 @@ def main() -> int:
     walls_totals = run_walls_path(ds, failures, smi)
     # -- 17. the host engines and host streaming --------------------------------
     host_totals = run_hostpath(ds, failures, smi)
+    # -- 18. campaigns and the run readers ------------------------------------
+    campaign_totals = run_campaign_path(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
             async_totals, defense_totals, traffic_totals, hier_totals,
-            secagg_totals, observe_totals, walls_totals, host_totals))
+            secagg_totals, observe_totals, walls_totals, host_totals,
+            campaign_totals))
 
     if failures:
         for msg in failures:

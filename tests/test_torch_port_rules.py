@@ -120,7 +120,11 @@ def test_the_scan_covers_the_whole_port():
                    "core/async_rounds.py", "protocols/secagg.py",
                    "ops/secagg_masks.py", "utils/costs.py",
                    "utils/profiling.py", "utils/walls.py",
-                   "utils/trace_export.py"):
+                   "utils/trace_export.py", "utils/registry.py",
+                   "report.py", "runs_cli.py", "grid.py", "supervisor.py",
+                   "campaigns/__init__.py", "campaigns/__main__.py",
+                   "campaigns/cli.py", "campaigns/journal.py",
+                   "campaigns/scheduler.py", "campaigns/spec.py"):
         assert module in names
 
 
@@ -133,6 +137,44 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(
         FederatedExperiment.__init__).parameters["device"].default == "cuda"
     assert cli.build_parser().parse_args([]).device == "cuda"
+
+
+def test_campaigns_grid_and_supervised_children_default_to_the_card(
+        tmp_path, monkeypatch):
+    from attacking_federate_learning_tpu_torch import grid, supervisor
+    from attacking_federate_learning_tpu_torch.campaigns import Campaign
+    from attacking_federate_learning_tpu_torch.campaigns import (
+        cli as campaign_cli
+    )
+    from attacking_federate_learning_tpu_torch.campaigns.scheduler import (
+        InlineExecutor, SupervisorExecutor
+    )
+
+    for fn in (Campaign.__init__, grid.run_grid, InlineExecutor.__init__,
+               SupervisorExecutor.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    sup = supervisor.Supervisor(
+        supervisor.build_opts(run_id="r", events=str(tmp_path / "e")),
+        ["-s", "SYNTH_MNIST", "--log-dir", str(tmp_path)])
+    cmd = sup.build_cmd(1)
+    assert cmd[2] == "attacking_federate_learning_tpu_torch.cli"
+    assert cli.build_parser().parse_args(cmd[3:]).device == "cuda"
+    # The campaign CLI's --device defaults to the card as well.
+    spec = tmp_path / "spec.json"
+    spec.write_text('{"name": "d", "base": {"epochs": 1}}')
+    camp_args = []
+
+    class Probe(Campaign):
+        def __init__(self, *a, **kw):
+            camp_args.append(kw["device"])
+            raise SystemExit(0)
+
+    monkeypatch.setattr(
+        "attacking_federate_learning_tpu_torch.campaigns.scheduler."
+        "Campaign", Probe)
+    with pytest.raises(SystemExit):
+        campaign_cli.main([str(spec)])
+    assert camp_args == ["cuda"]
 
 
 def test_experiment_without_device_raises_without_cuda():

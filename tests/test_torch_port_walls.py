@@ -450,16 +450,20 @@ def test_cli_with_the_four_flags_on_the_cpu(tmp_path, capsys):
 
 
 def test_cli_trace_exports_the_event_log(tmp_path, capsys):
-    logs = tmp_path / "l"
+    """``runs trace``: the run resolves through the registry and its event
+    log is exported as a Chrome trace; an unknown run exits 2, a run
+    whose log is gone exits 1."""
+    logs, runs = tmp_path / "l", tmp_path / "r"
     cli.main(["-s", "SYNTH_MNIST", "-d", "Median", "-n", "8", "-m", "0.25",
               "-e", "2", "-c", "16", "--test-step", "1", "--synth-train",
               "200", "--synth-test", "40", "--profile-every", "1",
-              "--log-dir", str(logs), "--run-dir", str(tmp_path / "r"),
-              "--device", "cpu"])
-    jsonl, = [p for p in logs.iterdir() if p.suffix == ".jsonl"]
+              "--log-dir", str(logs), "--run-dir", str(runs),
+              "--run-id", "tr", "--device", "cpu"])
     out = tmp_path / "run.trace.json"
+    reader = ["runs", "--run-dir", str(runs), "--bench", "", "--progress",
+              ""]
     with pytest.raises(SystemExit) as done:
-        cli.main(["trace", str(jsonl), "-o", str(out)])
+        cli.main(reader + ["trace", "tr", "-o", str(out)])
     assert done.value.code == 0
     assert f"wrote {out}" in capsys.readouterr().out
     with open(out) as fh:
@@ -468,5 +472,9 @@ def test_cli_trace_exports_the_event_log(tmp_path, capsys):
     assert any(e.get("name", "").startswith("fused_span:")
                for e in trace["traceEvents"])
     with pytest.raises(SystemExit) as done:
-        cli.main(["trace", str(tmp_path / "missing.jsonl")])
+        cli.main(reader + ["trace", "missing"])
+    assert done.value.code == 2
+    (logs / "tr.jsonl").unlink()
+    with pytest.raises(SystemExit) as done:
+        cli.main(reader + ["trace", "tr"])
     assert done.value.code == 1
