@@ -9,8 +9,8 @@ composition-rejection matrix (:func:`composition_reject_reason`): an
 invalid combination becomes a ``skipped`` cell carrying the rejection
 message, never a crashed run.  One spec JSON expands in both packages
 to the same cells in the same order, with the same skip verdicts and the
-same grouping partition, except for what the port alone refuses:
-``remat=True`` (config.py), the JAX fields the port's config lacks
+same grouping partition, except for what the port alone refuses: the
+JAX fields the port's config lacks
 (``mesh_shape``, ``backend``: a ``TypeError`` at construction, so the
 cell is skipped with that message) and ``distance_impl`` 'ring' or
 'allgather' under Krum or Bulyan (the engine's refusal without a mesh).

@@ -8,7 +8,9 @@ short flags and defaults (-m 0.24, -z 1.5, -d NoDefense, -s MNIST, -b No,
 knobs (``--participation``, ``--local-steps``, ``--partition`` with
 ``--dirichlet-alpha`` and ``--style-strength``, ``--krum-scoring-method``,
 ``--krum-paper-scoring``, ``--bulyan-batch-select``, ``--distance-dtype``,
-``--server-uses-faded-lr``, ``--remat``, which the config refuses), the
+``--server-uses-faded-lr``, ``--remat``: the client step recomputes its
+activations in the backward, per residual block on the ResNets and the
+whole forward on the other models), the
 engine knobs (``--distance-impl``, ``--bulyan-selection-impl``,
 ``--aggregation-impl``, ``--bulyan-trim-impl``, ``--trimmed-mean-impl``,
 ``--median-impl``: 'host' names a host engine, every other value the
@@ -405,6 +407,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="CSV/JSONL output dir (reference logs/, main.py:100)")
     p.add_argument("--run-dir", default="runs", type=str,
                    help="checkpoint dir (reference runs/, server.py:44)")
+    # JAX's help text, kept word for word (the port's recompute is
+    # models/remat.py).
     p.add_argument("--remat", action="store_true",
                    help="rematerialize client activations in the backward "
                         "pass (jax.checkpoint) — trades FLOPs for HBM at "

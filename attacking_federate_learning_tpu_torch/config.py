@@ -24,7 +24,8 @@ dataset's default model, the ``-b`` coercion) and validation messages:
 - the host engines' ``*_impl`` knobs (``distance_impl``,
   ``bulyan_selection_impl``, ``aggregation_impl``, ``bulyan_trim_impl``,
   ``trimmed_mean_impl``, ``median_impl``) and host streaming
-  (``data_placement``, ``stream_prefetch``, ``stream_workers``).
+  (``data_placement``, ``stream_prefetch``, ``stream_workers``);
+- ``remat``, the recomputing checkpoint of the client step.
 
 The device mesh (``mesh_shape``, the SPMD client map) is a later slice
 of the port, and ``backend`` has no counterpart: the engine's
@@ -484,9 +485,10 @@ class ExperimentConfig:
     # data_sets.py:157-166); None follows that rule, True/False overrides
     # (data/augment.py).
     data_augment: Optional[bool] = None
-    # The JAX package's jax.checkpoint of the client loss.  Its torch
-    # counterpart, torch.utils.checkpoint, cannot run under the port's
-    # vmap(grad(...)) client step, so only False is accepted.
+    # Recompute the client step's activations in the backward instead of
+    # saving them (the JAX package's jax.checkpoint of the client loss):
+    # per residual block on the ResNets, the whole forward on the other
+    # models (core/client.py:make_loss_fn, models/remat.py).
     remat: bool = False
 
     # --- metadata subsystem (reference C12, vestigial there) ------------
@@ -570,13 +572,6 @@ class ExperimentConfig:
                     f"{want}-shaped")
         if self.dataset not in DATASETS:
             raise ValueError(f"Unknown dataset {self.dataset!r}")
-        if self.remat:
-            raise ValueError(
-                "remat=True is not available in the port: "
-                "torch.utils.checkpoint registers saved-tensor hooks, and "
-                "torch.func.{grad, vjp, jacrev, hessian} don't yet support "
-                "saved tensor hooks, so it cannot run under the client "
-                "step's vmap(grad(...)); drop remat")
         if self.defense not in DEFENSE_NAMES:
             raise ValueError(
                 f"defense must be one of {DEFENSE_NAMES}, "

@@ -588,7 +588,8 @@ class FederatedExperiment:
                 for v in client_style_params(self.n, cfg.style_strength,
                                              cfg.seed))
         self._client_update = make_client_update_fn(self.model, self.flat,
-                                                    cfg.local_steps)
+                                                    cfg.local_steps,
+                                                    remat=cfg.remat)
         # Validation-data defense (FLTrust): the server's own gradient on
         # the trusted metadata pool is the trust anchor; the pool is made
         # whenever the defense needs it, and lives on the device.

@@ -18,6 +18,7 @@ from torch.nn import functional as F
 
 from attacking_federate_learning_tpu_torch.models.base import register
 from attacking_federate_learning_tpu_torch.models.layers import init_linear_
+from attacking_federate_learning_tpu_torch.models.remat import remat_call
 from attacking_federate_learning_tpu_torch.models.wideresnet import (
     BatchNorm, he_conv
 )
@@ -59,11 +60,13 @@ class ResNet20(nn.Module):
                 for b in range(3)))
         self.fc = init_linear_(nn.Linear(ch[3], num_classes), generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat`` recomputes each block's activations in the backward
+        (models/remat.py); the stem, pool and head keep theirs."""
         out = F.relu(self.bn1(self.conv1(x.reshape(x.shape[0], 3, 32, 32))))
         for g in range(3):
             for block in getattr(self, f"stage{g + 1}").values():
-                out = block(out)
+                out = remat_call(block, out) if remat else block(out)
         out = F.avg_pool2d(out, 8)
         return F.log_softmax(self.fc(out.reshape(out.shape[0], -1)), dim=-1)
 

@@ -34,6 +34,7 @@ from torch.nn import functional as F
 
 from attacking_federate_learning_tpu_torch.models.base import register
 from attacking_federate_learning_tpu_torch.models.layers import init_linear_
+from attacking_federate_learning_tpu_torch.models.remat import remat_call
 
 BN_EPS = 1e-5  # torch BatchNorm2d default
 
@@ -128,11 +129,14 @@ class WideResNet(nn.Module):
         with torch.no_grad():
             self.fc.bias.zero_()   # reference data_sets.py:137-138
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat`` recomputes each BasicBlock's activations in the
+        backward (models/remat.py); the stem, final BN, pool and head keep
+        theirs."""
         out = self.conv1(x.reshape(x.shape[0], 3, 32, 32))
         for g in range(3):
             for block in getattr(self, f"block{g + 1}").values():
-                out = block(out)
+                out = remat_call(block, out) if remat else block(out)
         out = F.avg_pool2d(F.relu(self.bn1(out)), 8)
         return F.log_softmax(self.fc(out.reshape(out.shape[0], -1)), dim=-1)
 

@@ -432,9 +432,29 @@ success):
                series kept in memory.  (e) grid.py over the five
                defenses under ALIE, each final accuracy the campaign
                cell's.
+19. remat  -- remat on the client step (models/remat.py) and
+               benchmarks.py.  (a) with remat=True, phase 7's resnet20
+               Krum and Median, WRN-40-4 Krum and Bulyan and faulted
+               cifar10_cnn TrimmedMean, phase 5's ALIE Krum and phase 8's
+               Krum at local_steps 3: each run's final weights byte-equal
+               to its remat-off twin's and its launches the twin's; the
+               ResNets' remat deliver held against the CPU (check_deliver,
+               the unchanged bands); the peak, median round ms and deliver
+               ms beside the twin's.  (b) resnet20 Krum at n = 160 (f =
+               38), 3 rounds, remat on, which the plain step could not fit
+               (about 1.6 times phase 7's peak): finite, one Krum launch a
+               round, its peak printed.  (c) benchmarks.main in this
+               process, --rounds 5 at the card's defaults (cells 1-4 at
+               scale 1.0), then --cells 5 --rounds 2 (the six grid cells at
+               n = 10,000, host_stream, the hybrid Bulyan): no cell failed,
+               accuracies finite, an asr on cell 3, cells 2, 3 and 4
+               launching kernels 2, 3 and 1 + 3 once a round; each cell's
+               rounds/s, setup s and peak printed; then `python -m
+               attacking_federate_learning_tpu_torch.benchmarks --cells 1
+               --rounds 2` as a subprocess exits 0 with one JSON line.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-18), the nvidia-smi line, and as the last line
+summed over phases 5-19), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1577,6 +1597,18 @@ def drive(exp, kernels, banned, failures, label, excluded=None,
 
 # Phase 5's final weights by (defense, faulted, mal_prop), on the host.
 P5_FINAL = {}
+# The runs of phases 5, 7 and 8 that phase 19 repeats with remat on, by
+# key: twin_record of each, on the host.
+TWINS = {}
+
+
+def twin_record(exp, run):
+    """What phase 19 holds a remat run to: the twin's final weights (on
+    the host), its launches, median round and deliver ms and peak."""
+    return {"weights": exp.state.weights.detach().cpu().clone(),
+            "launches": {k: v for k, v in run["launches"].items() if v},
+            "median_ms": run["median_ms"], "deliver_ms": run["deliver_ms"],
+            "peak_gib": run["peak_gib"]}
 
 
 def run_main_path(ds, failures):
@@ -1622,6 +1654,8 @@ def run_main_path(ds, failures):
         # Phase 18's campaign cells are held to these final weights.
         P5_FINAL[(defense, fc is not None, mal_prop)] = (
             exp.state.weights.detach().cpu().clone())
+        TWINS[("main", defense, fc is not None, mal_prop)] = twin_record(
+            exp, run)
         beside = ""
         if fc is None:
             clean_ms.setdefault(defense, run["median_ms"])
@@ -2006,6 +2040,47 @@ def profile_round(exp, model, top=5, tag="model"):
               f"calls={e.count:5d} {e.key[:90]}", flush=True)
 
 
+def model_config(model, dataset, n, mal_prop, defense, attack, faulted,
+                 rounds, **kw):
+    """The configuration of one of phase 7's runs (a row of MODEL_RUNS),
+    and of phase 19's twins of them with ``remat``."""
+    from attacking_federate_learning_tpu_torch.config import (
+        ExperimentConfig, FaultConfig
+    )
+
+    return ExperimentConfig(
+        dataset=dataset, model=model, users_count=n, mal_prop=mal_prop,
+        batch_size=128, epochs=rounds, num_std=1.5, learning_rate=0.1,
+        momentum=0.9, defense=defense,
+        test_step=TEST_STEP if rounds == ROUNDS else rounds - 1,
+        synth_train=50_000, synth_test=10_000,
+        backdoor="pattern" if attack == "backdoor" else False,
+        faults=FaultConfig(**FAULTS_MAIN) if faulted else None, **kw)
+
+
+# The model family's datasets at 50,000 / 10,000, made once (phase 7) and
+# kept for phase 19.
+MODEL_SETS = {}
+
+
+def model_set(dataset, ds_mnist):
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+
+    if dataset == "SYNTH_MNIST":
+        return ds_mnist
+    if dataset not in MODEL_SETS:
+        t0 = time.perf_counter()
+        MODEL_SETS[dataset] = ds = load_dataset(
+            dataset, seed=0, synth_train=50_000, synth_test=10_000)
+        print(f"[model] {dataset} -> {ds.name} {len(ds.train_y)}/"
+              f"{len(ds.test_y)} {ds.train_x.shape[1:]} "
+              f"{ds.num_classes} classes made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return MODEL_SETS[dataset]
+
+
 def run_model_path(ds_mnist, failures):
     """Phase 7: the model family through run() at full width.  Returns
     launches per kernel summed over the runs."""
@@ -2013,40 +2088,18 @@ def run_model_path(ds_mnist, failures):
 
     from attacking_federate_learning_tpu_torch import config as C
     from attacking_federate_learning_tpu_torch.attacks import make_attacker
-    from attacking_federate_learning_tpu_torch.config import (
-        ExperimentConfig, FaultConfig
-    )
     from attacking_federate_learning_tpu_torch.core.engine import (
         FederatedExperiment
-    )
-    from attacking_federate_learning_tpu_torch.data.datasets import (
-        load_dataset
     )
     from attacking_federate_learning_tpu_torch.ops import _build
 
     totals = {name: 0 for name in _build.LAUNCHES}
-    sets = {"SYNTH_MNIST": ds_mnist}
     checked = set()
     for (model, dataset, n, mal_prop, defense, attack, faulted,
          rounds) in MODEL_RUNS:
-        if dataset not in sets:
-            t0 = time.perf_counter()
-            sets[dataset] = load_dataset(dataset, seed=0, synth_train=50_000,
-                                         synth_test=10_000)
-            ds = sets[dataset]
-            print(f"[model] {dataset} -> {ds.name} {len(ds.train_y)}/"
-                  f"{len(ds.test_y)} {ds.train_x.shape[1:]} "
-                  f"{ds.num_classes} classes made in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-        ds = sets[dataset]
-        cfg = ExperimentConfig(
-            dataset=dataset, model=model, users_count=n, mal_prop=mal_prop,
-            batch_size=128, epochs=rounds, num_std=1.5, learning_rate=0.1,
-            momentum=0.9, defense=defense,
-            test_step=TEST_STEP if rounds == ROUNDS else rounds - 1,
-            synth_train=50_000, synth_test=10_000,
-            backdoor="pattern" if attack == "backdoor" else False,
-            faults=FaultConfig(**FAULTS_MAIN) if faulted else None)
+        ds = model_set(dataset, ds_mnist)
+        cfg = model_config(model, dataset, n, mal_prop, defense, attack,
+                           faulted, rounds)
         # The engine, not its caller, keeps the card in IEEE fp32.
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
@@ -2072,6 +2125,8 @@ def run_model_path(ds_mnist, failures):
         run = drive(exp, kernels, banned, failures, label)
         for name, count in run["launches"].items():
             totals[name] += count
+        TWINS[("model", model, attack, defense, faulted)] = twin_record(
+            exp, run)
         beside = ""
         if attack == "backdoor":
             torch.cuda.synchronize()
@@ -2486,6 +2541,7 @@ def run_knobs_path(ds, failures):
                     f"knobs {label} {defense}", excluded)
         for name, count in run["launches"].items():
             totals[name] += count
+        TWINS[("knobs", label, defense, faulted, n)] = twin_record(exp, run)
         # The cohort each round used, against a replay from the seed.
         key = threefry.key(cfg.seed ^ 0x9A47)
         cohorts_ok = all(
@@ -6873,6 +6929,246 @@ def run_campaign_path(ds, failures, smi):
     return totals
 
 
+# -- phase 19: remat on the client step and benchmarks.py -----------------
+# (a) the runs repeated with remat on: (label, twin key).  The twins are
+# phase 7's ResNets and faulted cifar10_cnn TrimmedMean, phase 5's ALIE
+# Krum and phase 8's Krum at local_steps 3, each read from TWINS.
+P19_RUNS = (
+    ("resnet20 Krum", ("model", "resnet20", "alie", "Krum", False)),
+    ("resnet20 Median", ("model", "resnet20", "alie", "Median", False)),
+    ("WRN-40-4 Krum", ("model", "wideresnet40_4", "alie", "Krum", False)),
+    ("WRN-40-4 Bulyan", ("model", "wideresnet40_4", "alie", "Bulyan",
+                         False)),
+    ("cifar10_cnn TrimmedMean faulted",
+     ("model", "cifar10_cnn", "alie", "TrimmedMean", True)),
+    ("mnist_mlp Krum", ("main", "Krum", False, 0.24)),
+    ("mnist_mlp Krum local_steps 3",
+     ("knobs", "b local_steps 3", "Krum", False, N_MAIN)),
+)
+# (b) the cohort that only remat fits: resnet20 at n = 160 (f = 38).
+P19_COHORT = 160
+# (c) the kernels each BASELINE cell must launch, once a round.
+P19_BENCH_KERNELS = {
+    "mnist_cnn_krum_alie": ("krum_scores",),
+    "cifar10_resnet20_trimmed_backdoor": ("trimmed_mean",),
+    "cifar10_bulyan_alie_1000c": ("pairwise_distances", "trimmed_mean"),
+}
+P19_BENCH_ROUNDS = 5
+
+
+def p19_experiment(key, ds_mnist):
+    """The remat twin of TWINS[key]: its configuration with remat=True,
+    its attacker and dataset, on the card."""
+    from attacking_federate_learning_tpu_torch.attacks import (
+        DriftAttack, make_attacker
+    )
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+
+    if key[0] == "model":
+        _, model, attack, defense, faulted = key
+        row = next(r for r in MODEL_RUNS if (r[0], r[5], r[4], r[6]) == (
+            model, attack, defense, faulted))
+        cfg = model_config(*row, remat=True)
+        ds = model_set(row[1], ds_mnist)
+        att = make_attacker(cfg, ds, name=attack, device="cuda")
+    else:
+        extra = dict(local_steps=3) if key[0] == "knobs" else {}
+        cfg = main_config(key[-3 if key[0] == "knobs" else 1],
+                          0.24, None, remat=True, **extra)
+        ds, att = ds_mnist, DriftAttack(cfg.num_std)
+    return FederatedExperiment(cfg, att, ds, device="cuda")
+
+
+def p19_bench(failures, smi, root):
+    """(c): benchmarks.main in this process, cells 1-4 at the card's
+    defaults and then cell 5, each cell's launches counted around its
+    run_cell; then the module as a subprocess on cell 1.  Returns the
+    launches per kernel summed over the cells."""
+    import subprocess as sp
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch import benchmarks
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    totals = {name: 0 for name in _build.LAUNCHES}
+    inner, recs = benchmarks.run_cell, {}
+
+    def counted(name, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            return inner(name, *args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            recs[name] = {"launches": dict(_build.LAUNCHES),
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30, "s": time.perf_counter() - t0}
+            for k, v in _build.LAUNCHES.items():
+                totals[k] += v
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    log_dir = os.path.join(root, "bench")
+    results = []
+    benchmarks.run_cell = counted
+    try:
+        for argv in (["--rounds", str(P19_BENCH_ROUNDS)],
+                     ["--cells", "5", "--rounds", "2"]):
+            try:
+                results += benchmarks.main(argv + ["--log-dir", log_dir])
+            except SystemExit as e:
+                failures.append(f"benchmarks {argv}: {e}")
+                results += getattr(e, "results", [])
+    finally:
+        benchmarks.run_cell = inner
+    names = [c[0] for c in benchmarks._cells()]
+    if [r.get("cell") for r in results] != names:
+        failures.append(f"benchmarks: cells {[r.get('cell') for r in results]}"
+                        f" (want {names})")
+    for res in results:
+        name = res.get("cell")
+        rec = recs.get(name, {"launches": {}, "peak_gib": math.nan,
+                              "s": math.nan})
+        ran = {k: v for k, v in rec["launches"].items() if v}
+        accs = (list(res.get("final_accuracies", {}).values())
+                if "grid_cells" in res else [res.get("final_accuracy")])
+        ok = ("failed" not in res and len(accs) > 0
+              and all(a is not None and math.isfinite(a) for a in accs))
+        if name == "cifar10_resnet20_trimmed_backdoor":
+            ok = ok and math.isfinite(res.get("asr", math.nan))
+        if name == "noniid_10k_grid":
+            ok = ok and res.get("grid_cells") == 6
+        for k in P19_BENCH_KERNELS.get(name, ()):
+            ok = ok and ran.get(k) == res.get("rounds", 0) + 1
+        if not ok:
+            failures.append(f"benchmarks {name}: {res} launches {ran}")
+        speed = (f"rounds_per_sec={res.get('rounds_per_sec')} "
+                 f"setup_s={res.get('setup_s')} wall_s={res.get('wall_s')} "
+                 if "rounds" in res else f"wall_s={res.get('wall_s')} ")
+        print(f"[remat] (c) benchmarks {name:34s} clients={res.get('clients')}"
+              f" {speed}accuracy={res.get('final_accuracy', accs)} "
+              f"asr={res.get('asr', '-')} peak_GiB={rec['peak_gib']:.2f} "
+              f"cell_s={rec['s']:.1f} launches={ran} ok={ok} on {smi}",
+              flush=True)
+    # The module as a user runs it.
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    proc = sp.run([sys.executable, "-m", f"{PKG}.benchmarks", "--cells", "1",
+                   "--rounds", "2", "--log-dir", log_dir], cwd=ROOT, env=env,
+                  capture_output=True, text=True, timeout=300)
+    lines = [s for s in proc.stdout.splitlines() if s.startswith("{")]
+    sub_ok = (proc.returncode == 0 and len(lines) == 1
+              and "failed" not in json.loads(lines[0]))
+    print(f"[remat] (c) python -m {PKG}.benchmarks --cells 1 --rounds 2: "
+          f"rc={proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+          f"{lines} ok={sub_ok}", flush=True)
+    if not sub_ok:
+        failures.append(f"benchmarks subprocess: rc={proc.returncode} "
+                        f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    return totals
+
+
+def run_remat_bench_path(ds, failures, smi):
+    """Phase 19: (a) remat on against the remat-off runs of phases 5, 7
+    and 8, byte-equal with the same launches, the ResNets' remat deliver
+    held against the CPU; (b) resnet20 at n = 160, which only remat fits;
+    (c) benchmarks.py's five cells in process and its module once as a
+    subprocess.  Returns launches per kernel summed over the runs."""
+    import tempfile
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.attacks import make_attacker
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # -- (a) -------------------------------------------------------------
+    checked = set()
+    for label, key in P19_RUNS:
+        twin = TWINS[key]
+        exp = p19_experiment(key, ds)
+        model = exp.cfg.model
+        w_init = (exp.state.weights.clone() if model not in checked
+                  and getattr(exp.model, "batch_stats", False) else None)
+        run = drive(exp, tuple(twin["launches"]), (), failures,
+                    f"remat {label}")
+        add(run["launches"])
+        same = torch.equal(exp.state.weights.cpu(), twin["weights"])
+        ran = {k: v for k, v in run["launches"].items() if v}
+        if not (same and ran == twin["launches"] and exp.cfg.remat):
+            failures.append(f"remat {label}: byte_equal_off_twin={same}, "
+                            f"launches {ran} (off twin {twin['launches']})")
+        print(f"[remat] (a) {label:32s} n={exp.n} f={exp.f} acc "
+              f"{run['acc_txt']} % remat on/off: median_round_ms="
+              f"{run['median_ms']:.3f}/{twin['median_ms']:.3f} "
+              f"({run['median_ms'] / twin['median_ms'] - 1:+.1%}) "
+              f"deliver_ms={run['deliver_ms']:.3f}/{twin['deliver_ms']:.3f} "
+              f"peak_GiB={run['peak_gib']:.2f}/{twin['peak_gib']:.2f} "
+              f"byte_equal_off_twin={same} launches={ran} "
+              f"launches_equal={ran == twin['launches']} on {smi}",
+              flush=True)
+        if model in ("resnet20", "wideresnet40_4") and model not in checked:
+            checked.add(model)
+            check_deliver(exp, model, failures, w_init)
+        del exp, run, w_init
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    # -- (b) -------------------------------------------------------------
+    row = next(r for r in MODEL_RUNS if r[:1] + r[4:5] == ("resnet20",
+                                                           "Krum"))
+    cfg = model_config(row[0], row[1], P19_COHORT, row[3], row[4], row[5],
+                       row[6], 3, remat=True)
+    ds_c = model_set(row[1], ds)
+    exp = FederatedExperiment(cfg, make_attacker(cfg, ds_c, name="alie",
+                                                 device="cuda"),
+                              ds_c, device="cuda")
+    run = drive(exp, ("krum_scores",), (), failures, "remat (b) n=160")
+    add(run["launches"])
+    off_100 = max(TWINS[("model", "resnet20", "alie", d, False)]["peak_gib"]
+                  for d in ("Krum", "Median"))
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    ok = (exp.f == 38 and run["finite"]
+          and run["launches"]["krum_scores"] == cfg.epochs)
+    if not ok:
+        failures.append(f"remat (b): f={exp.f} finite={run['finite']} "
+                        f"launches {run['per_round']}")
+    print(f"[remat] (b) resnet20 Krum n={exp.n} f={exp.f} remat on, "
+          f"{cfg.epochs} rounds: acc {run['acc_txt']} % median_round_ms="
+          f"{run['median_ms']:.3f} deliver_ms={run['deliver_ms']:.3f} "
+          f"peak_GiB={run['peak_gib']:.2f}; remat off would need about "
+          f"{off_100 * P19_COHORT / N_MAIN:.1f} GiB ({off_100:.2f} at "
+          f"n={N_MAIN} x {P19_COHORT / N_MAIN:.2f}) of the card's "
+          f"{total_gib:.2f}; launches={run['per_round']} ok={ok} on {smi}",
+          flush=True)
+    del exp, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    # -- (c) -------------------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p19_") as root:
+        add(p19_bench(failures, smi, root))
+    t_end = time.perf_counter()
+    print(f"[remat] phase 19 took {t_end - t_phase:.1f} s: (a) "
+          f"{t_b - t_phase:.1f}, (b) {t_c - t_b:.1f}, (c) {t_end - t_c:.1f}",
+          flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -6947,12 +7243,14 @@ def main() -> int:
     host_totals = run_hostpath(ds, failures, smi)
     # -- 18. campaigns and the run readers ------------------------------------
     campaign_totals = run_campaign_path(ds, failures, smi)
+    # -- 19. remat on the client step and benchmarks.py ----------------------
+    remat_totals = run_remat_bench_path(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
             async_totals, defense_totals, traffic_totals, hier_totals,
             secagg_totals, observe_totals, walls_totals, host_totals,
-            campaign_totals))
+            campaign_totals, remat_totals))
 
     if failures:
         for msg in failures:

@@ -3,10 +3,11 @@
 - One spec JSON expands in both packages to the same cells in the same
   order, with the same skip verdicts and the same grouping partition;
   the ids differ (they hash each package's config).  The port alone
-  refuses ``remat=True``, the JAX fields its config lacks (``mesh_shape``,
-  ``backend``: a TypeError at construction) and 'ring'/'allgather'
-  distances under Krum and Bulyan (its engine's refusal without a mesh):
-  :data:`PORT_ONLY`.
+  refuses the JAX fields its config lacks (``mesh_shape``, ``backend``:
+  a TypeError at construction) and 'ring'/'allgather' distances under
+  Krum and Bulyan (its engine's refusal without a mesh):
+  :data:`PORT_ONLY`.  A ``remat=True`` cell validates in both and runs
+  inline to the weights of its remat-off twin.
 - The pre-check agrees with real construction in the port over the JAX
   package's known-invalid matrix (tests/test_campaign.py ``_INVALID``).
 - Exactly once: a campaign killed mid-run in a subprocess and invoked
@@ -89,7 +90,6 @@ def _base(tmp_path, **kw):
 
 # The cells the port alone refuses: (overrides, message fragment).
 PORT_ONLY = [
-    (dict(remat=True), "remat=True is not available in the port"),
     (dict(mesh_shape=[2, 1]), "unexpected keyword argument 'mesh_shape'"),
     (dict(backend="cpu"), "unexpected keyword argument 'backend'"),
     (dict(defense="Krum", distance_impl="ring"), "needs a device mesh"),
@@ -120,30 +120,33 @@ def test_one_spec_expands_alike_in_both_packages(tmp_path):
                     defense="Median", tier2_defense="Krum",
                     _priority=5),
                dict(faults=dict(dropout=0.2), defense="Median"),
-               dict(faults=dict(dropout=0.2), defense="DnC")]
+               dict(faults=dict(dropout=0.2), defense="DnC"),
+               dict(remat=True, defense="Krum")]
         + [dict(o) for o, _ in PORT_ONLY],
         priorities={"defense=Krum": 2})
     text = json.dumps(blob)
     port, jax_spec = CampaignSpec.from_json(text), JSpec.from_json(text)
     assert port.campaign_id == jax_spec.campaign_id
     got, want = port.expand(), jax_spec.expand()
-    assert len(got) == len(want) == 24 + 4 + len(PORT_ONLY)
+    common = 24 + 5
+    assert len(got) == len(want) == common + len(PORT_ONLY)
     assert [(c.overrides, c.attack, c.priority, c.index) for c in got] == [
         (c.overrides, c.attack, c.priority, c.index) for c in want]
-    port_only = range(28, 28 + len(PORT_ONLY))
+    port_only = range(common, common + len(PORT_ONLY))
     for i, (g, w) in enumerate(zip(got, want)):
         if i in port_only:
             assert g.skip is not None and w.skip is None
-            assert PORT_ONLY[i - 28][1] in g.skip
+            assert PORT_ONLY[i - common][1] in g.skip
         else:
             assert g.skip == w.skip
         assert g.cell_id != w.cell_id or g.cfg is None
-    assert _partition(got[:28]) == _partition(want[:28])
+    assert got[common - 1].skip is None and got[common - 1].cfg.remat
+    assert _partition(got[:common]) == _partition(want[:common])
     for mode in ("grouped", "spec", "shuffled"):
-        a = order_cells(got[:28], mode, port.campaign_id)
-        b = j_order_cells(want[:28], mode, jax_spec.campaign_id)
+        a = order_cells(got[:common], mode, port.campaign_id)
+        b = j_order_cells(want[:common], mode, jax_spec.campaign_id)
         assert [c.index for c in a] == [c.index for c in b]
-    skipped = [c for c in got[:28] if c.skip]
+    skipped = [c for c in got[:common] if c.skip]
     assert {(c.overrides["defense"], c.attack) for c in skipped} >= {
         ("Bulyan", "alie")}
 
@@ -391,6 +394,26 @@ def test_inline_cells_are_direct_runs_byte_for_byte(tmp_path):
         assert torch.equal(weights[cell.cell_id], exp.state.weights), (
             cell.cell_id)
     assert len(weights) == 5
+
+
+def test_remat_cell_validates_and_runs_inline(tmp_path):
+    """A ``remat=True`` cell passes the pre-check in both packages, runs
+    inline, and ends on the weights of its remat-off twin (the recompute
+    repeats the forward's calls)."""
+    spec = CampaignSpec(name="remat", base=_base(tmp_path, defense="Krum"),
+                        axes={"remat": [False, True], "attack": ["alie"]})
+    cells = spec.expand()
+    assert [c.cfg.remat for c in cells] == [False, True]
+    for cell in cells:
+        merged = _base(tmp_path, **cell.overrides)
+        assert cell.skip is None
+        assert composition_reject_reason(merged, "alie") is None
+        assert JS.composition_reject_reason(merged, "alie") is None
+    weights = {}
+    ex = InlineExecutor("cpu", on_engine=lambda cell, exp: weights.update(
+        {cell.cfg.remat: exp.state.weights.clone()}))
+    assert Campaign(spec, executor=ex).run() == 0
+    assert torch.equal(weights[True], weights[False])
 
 
 def _jax_init(cell):

@@ -539,10 +539,17 @@ def test_cli_builds_jax_s_lifecycle_config(argv):
         assert getattr(got, name) == getattr(want, name), name
 
 
-def test_cli_remat_reaches_the_config_s_refusal(tmp_path):
-    with pytest.raises(ValueError, match="remat=True is not available"):
-        cli.main(["-s", C.SYNTH_MNIST_HARD, "-n", "7", "-e", "1", "--remat",
-                  "--log-dir", str(tmp_path), "--device", "cpu"])
+def test_cli_remat_runs_to_the_weights_of_the_run_without(tmp_path):
+    """``--remat`` reaches the client step, whose recompute repeats the
+    forward's calls: the run's final weights are the plain run's."""
+    argv = ["-s", C.SYNTH_MNIST_HARD, "-n", "7", "-e", "2", "-d", "Krum",
+            "-c", "16", "--synth-train", "256", "--synth-test", "64",
+            "--device", "cpu"]
+    plain = cli.main(argv + ["--log-dir", str(tmp_path / "a"),
+                             "--run-dir", str(tmp_path / "a")])
+    remat = cli.main(argv + ["--remat", "--log-dir", str(tmp_path / "b"),
+                             "--run-dir", str(tmp_path / "b")])
+    assert torch.equal(remat["final_weights"], plain["final_weights"])
 
 
 def _cli_argv(tmp_path, *extra):

@@ -54,7 +54,7 @@ from attacking_federate_learning_tpu.utils.flatten import make_flattener
 from attacking_federate_learning_tpu_torch import config as C
 from attacking_federate_learning_tpu_torch.config import ExperimentConfig
 from attacking_federate_learning_tpu_torch.core.client import (
-    make_client_grad_fn
+    make_client_grad_fn, make_client_update_fn
 )
 from attacking_federate_learning_tpu_torch.core.evaluate import make_eval_fn
 from attacking_federate_learning_tpu_torch.data import datasets as tds
@@ -322,16 +322,33 @@ def test_config_model_knobs_match_jax():
     assert ExperimentConfig(model=SHALLOW_WRN).model == SHALLOW_WRN
 
 
-def test_config_refuses_remat_with_the_torch_func_reason():
-    with pytest.raises(ValueError, match="saved tensor hooks"):
-        ExperimentConfig(dataset=C.CIFAR100, remat=True)
-    assert ExperimentConfig(remat=False).remat is False
+def test_config_accepts_remat_and_it_reaches_the_client_step(monkeypatch):
+    """``remat=True`` is accepted, as the JAX config accepts it, and the
+    engine hands it to the client step."""
+    from attacking_federate_learning_tpu_torch.core import engine
+
+    seen = []
+
+    def spy(model, flat, local_steps=1, remat=False):
+        seen.append(remat)
+        return make_client_update_fn(model, flat, local_steps, remat)
+
+    monkeypatch.setattr(engine, "make_client_update_fn", spy)
+    for remat in (True, False):
+        cfg = ExperimentConfig(dataset=C.SYNTH_MNIST, users_count=4,
+                               mal_prop=0.0, remat=remat, synth_train=64,
+                               synth_test=16)
+        assert cfg.remat is JConfig(dataset=C.SYNTH_MNIST,
+                                    remat=remat).remat is remat
+        engine.FederatedExperiment(cfg, device="cpu")
+    assert seen == [True, False]
 
 
 def test_checkpoint_cannot_run_under_the_client_step():
-    """The reason the port refuses remat: torch.utils.checkpoint inside
-    vmap(grad(...)) raises.  When PyTorch lifts the limit this test fails
-    and remat can be ported."""
+    """Why the port has models/remat.py: torch.utils.checkpoint keeps its
+    recompute in saved-tensor hooks, and inside vmap(grad(...)) those
+    raise, so the client step checkpoints through an autograd.Function
+    instead.  When PyTorch lifts the limit this test fails."""
     from torch.utils.checkpoint import checkpoint
 
     w = torch.ones(3)

@@ -124,7 +124,8 @@ def test_the_scan_covers_the_whole_port():
                    "report.py", "runs_cli.py", "grid.py", "supervisor.py",
                    "campaigns/__init__.py", "campaigns/__main__.py",
                    "campaigns/cli.py", "campaigns/journal.py",
-                   "campaigns/scheduler.py", "campaigns/spec.py"):
+                   "campaigns/scheduler.py", "campaigns/spec.py",
+                   "models/remat.py", "benchmarks.py"):
         assert module in names
 
 
@@ -195,6 +196,28 @@ def test_cli_without_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["-s", C.SYNTH_MNIST_HARD, "-n", "7", "-e", "1",
                   "--synth-train", "100", "--synth-test", "20"])
+
+
+def test_benchmarks_without_device_resolve_the_card(monkeypatch):
+    """``benchmarks.main`` with no ``--device`` asks for the card before
+    any cell runs; without CUDA that raises, so no cell runs on the
+    CPU."""
+    from attacking_federate_learning_tpu_torch import benchmarks
+    from attacking_federate_learning_tpu_torch.core import engine
+
+    _no_cuda()
+    asked, resolve = [], engine.resolve_device
+
+    def probe(device):
+        asked.append(device)
+        return resolve(device)
+
+    monkeypatch.setattr(engine, "resolve_device", probe)
+    monkeypatch.setattr(benchmarks, "run_cell", lambda *a: pytest.fail(
+        "a cell ran"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        benchmarks.main(["--cells", "1", "--rounds", "1"])
+    assert asked == ["cuda"]
 
 
 def test_unknown_device_is_refused():
