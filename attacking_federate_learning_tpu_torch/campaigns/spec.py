@@ -10,10 +10,9 @@ invalid combination becomes a ``skipped`` cell carrying the rejection
 message, never a crashed run.  One spec JSON expands in both packages
 to the same cells in the same order, with the same skip verdicts and the
 same grouping partition, except for what the port alone refuses: the
-JAX fields the port's config lacks
-(``mesh_shape``, ``backend``: a ``TypeError`` at construction, so the
-cell is skipped with that message) and ``distance_impl`` 'ring' or
-'allgather' under Krum or Bulyan (the engine's refusal without a mesh).
+JAX field the port's config lacks (``backend``: a ``TypeError`` at
+construction, so the cell is skipped with that message) and the mesh's
+model axis (``mesh_shape`` (c, m > 1), refused by the port's config).
 
 Cell identity is the config-hash ``run_id_for`` (utils/lifecycle.py)
 extended with the attack name (:func:`cell_id_for`).  It hashes the
@@ -221,6 +220,20 @@ def validate_composition(cfg: ExperimentConfig,
               else tier2_assumed(f, cfg.megabatch))
         check_tier2_args(cfg.defense, cfg.megabatch, t1)
         check_tier2_args(cfg.tier2_defense or cfg.defense, S, t2)
+        if cfg.mesh_shape is not None and cfg.mesh_shape[0] > 1:
+            # The SPMD client map's schedule check, through the function
+            # the engine's init calls (ops/federated.py spmd_schedule),
+            # so the pre-check and the real refusal cannot drift: an S
+            # the clients axis does not divide is a skipped cell, never
+            # a crash.  Host-side numpy only.
+            from attacking_federate_learning_tpu_torch.ops.federated import (
+                make_placement, spmd_schedule
+            )
+
+            spmd_schedule(
+                make_placement(cfg.users_count, f, cfg.megabatch,
+                               cfg.mal_placement),
+                cfg.mesh_shape[0])
     elif cfg.aggregation == "async":
         from attacking_federate_learning_tpu_torch.core.async_rounds import (
             check_async_support
@@ -247,14 +260,6 @@ def validate_composition(cfg: ExperimentConfig,
                 f"f={m_mal} — raise --async-buffer")
     else:
         check_defense_args(cfg.defense, m, m_mal)
-    if (cfg.defense in ("Krum", "Bulyan")
-            and cfg.distance_impl in ("ring", "allgather")):
-        # The port's engine refuses these without a device mesh, which
-        # the port's config does not have (core/engine.py).
-        raise ValueError(
-            f"distance_impl={cfg.distance_impl!r} needs a device mesh "
-            f"— set mesh_shape (parallel/distances.py kernels are "
-            f"shard_map programs over the clients axis)")
     if cfg.faults is not None and cfg.faults.enabled:
         from attacking_federate_learning_tpu_torch.core.faults import (
             check_fault_support
@@ -294,9 +299,7 @@ class Cell:
                "index": self.index}
         # The impl knobs ride along so `runs campaign` can render
         # impl-comparison tables straight from the journal rows, and
-        # the topology knobs split the hierarchical cells (the port's
-        # config has no mesh_shape: its row carries None, as a JAX
-        # row without a mesh does).
+        # the topology knobs split the hierarchical cells.
         for k in ("dataset", "defense", "seed", "epochs", "aggregation",
                   "secagg", "aggregation_impl", "distance_impl",
                   "bulyan_selection_impl", "mesh_shape", "megabatch",
@@ -430,8 +433,8 @@ class CampaignSpec:
 
 # ExperimentConfig field -> CLI flag for every value-typed field the
 # port's flag surface exposes (cli.py:build_parser); the JAX package's
-# --backend and --mesh-shape have no counterpart (--device does the
-# first's job and is the executor's, not the cell's).
+# --backend has no counterpart (--device does its job and is the
+# executor's, not the cell's).
 _VALUE_FLAGS = (
     ("dataset", "-s"), ("users_count", "-n"), ("mal_prop", "-m"),
     ("num_std", "-z"), ("defense", "-d"), ("model", "--model"),
@@ -525,6 +528,8 @@ def cfg_to_cli_args(cfg: ExperimentConfig, attack: str = "auto") -> list:
     # The port's CLI has no --backdoor-staged (its config refuses the
     # staged path with a backdoor): backdoor_fused=False is not
     # expressible, and the round trip says so.
+    if cfg.mesh_shape is not None:
+        args += ["--mesh-shape", ",".join(str(x) for x in cfg.mesh_shape)]
     args += ["--augment", {None: "auto", True: "on",
                            False: "off"}[cfg.data_augment]]
     if cfg.faults is not None:

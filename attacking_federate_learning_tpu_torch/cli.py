@@ -15,7 +15,10 @@ engine knobs (``--distance-impl``, ``--bulyan-selection-impl``,
 ``--aggregation-impl``, ``--bulyan-trim-impl``, ``--trimmed-mean-impl``,
 ``--median-impl``: 'host' names a host engine, every other value the
 card's kernels) and host streaming (``--data-placement``,
-``--stream-prefetch``, ``--stream-workers``), the
+``--stream-prefetch``, ``--stream-workers``), the device mesh's
+``--mesh-shape c,1`` (the clients axis over every visible card: a flat
+round's cohort and a hierarchical round's megabatches dealt out to the
+cards; the model axis is refused), the
 async buffered round's (``--aggregation``, ``--async-buffer``,
 ``--async-max-staleness``, ``--staleness-weight``), the hierarchical
 round's (``--megabatch``, ``--tier2-defense``, ``--mal-placement``,
@@ -428,6 +431,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[0, 1],
                    help="1 = run the host gather + transfer on a "
                         "background thread so it overlaps device compute")
+    p.add_argument("--mesh-shape", default=None, type=str,
+                   help="'clients,model' device split, e.g. 8,1; "
+                        "'none' clears an earlier --mesh-shape (argparse "
+                        "last-wins — the supervisor's OOM degradation "
+                        "appends it to relax the MeshPlan).  Under "
+                        "--aggregation hierarchical a clients axis > 1 "
+                        "runs tier-1 as one SPMD shard_map program "
+                        "(each device scans its own megabatches; "
+                        "n/megabatch must divide the clients axis)")
     p.add_argument("--no-checkpoint", action="store_true",
                    help="disable the acc>70%% checkpoint (reference "
                         "main.py:84-89 behavior is on by default)")
@@ -573,6 +585,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args) -> ExperimentConfig:
+    mesh_shape = None
+    if args.mesh_shape and args.mesh_shape.lower() != "none":
+        mesh_shape = tuple(int(x) for x in args.mesh_shape.split(","))
     faults = None
     if (args.fault_dropout or args.fault_straggler or args.fault_corrupt
             or args.fault_shard_dropout):
@@ -619,7 +634,7 @@ def config_from_args(args) -> ExperimentConfig:
         median_impl=args.median_impl,
         data_placement=args.data_placement,
         stream_prefetch=args.stream_prefetch,
-        stream_workers=args.stream_workers,
+        stream_workers=args.stream_workers, mesh_shape=mesh_shape,
         server_uses_faded_lr=args.server_uses_faded_lr,
         num_std=args.num_std, defense=args.defense, test_step=args.test_step,
         data_dir=args.data_dir, seed=args.seed,

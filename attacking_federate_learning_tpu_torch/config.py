@@ -25,11 +25,12 @@ dataset's default model, the ``-b`` coercion) and validation messages:
   ``bulyan_selection_impl``, ``aggregation_impl``, ``bulyan_trim_impl``,
   ``trimmed_mean_impl``, ``median_impl``) and host streaming
   (``data_placement``, ``stream_prefetch``, ``stream_workers``);
-- ``remat``, the recomputing checkpoint of the client step.
+- ``remat``, the recomputing checkpoint of the client step;
+- the device mesh's clients axis (``mesh_shape`` (c, 1); the model
+  axis, (c, m > 1), is refused: not ported yet).
 
-The device mesh (``mesh_shape``, the SPMD client map) is a later slice
-of the port, and ``backend`` has no counterpart: the engine's
-``device`` argument does its job.
+``backend`` has no counterpart: the engine's ``device`` argument does
+its job.
 """
 
 from __future__ import annotations
@@ -365,8 +366,8 @@ class ExperimentConfig:
     # Distance engine for Krum/Bulyan: 'auto' | 'xla' | 'pallas' (the
     # distance kernel), 'host' (Krum's winner or the whole of Bulyan on
     # the host, the (m, d) matrix copied there each round), 'ring' |
-    # 'allgather' (blockwise over a device mesh: refused until the port
-    # has one).
+    # 'allgather' (blockwise over the mesh's clients axis,
+    # parallel/distances.py; they need mesh_shape).
     distance_impl: str = "auto"
     # Bulyan's selection: 'xla' | 'pallas' (the selection loop on the
     # device) or 'host': the hybrid exact path, distances on the device,
@@ -478,6 +479,12 @@ class ExperimentConfig:
     # they overlap the card's work.
     stream_prefetch: int = 1
     stream_workers: int = 0
+    # The device mesh (parallel/mesh.py): (clients positions, model
+    # positions); None runs on the engine's one device.  The clients axis
+    # deals a flat round's cohort and a hierarchical round's megabatches
+    # (the SPMD client map) out to the positions; the model axis is not
+    # ported yet (only (c, 1)).
+    mesh_shape: Optional[tuple] = None
 
     # --- train-time augmentation ---------------------------------------
     # Reference parity: only the CIFAR100 train pipeline augments
@@ -606,6 +613,23 @@ class ExperimentConfig:
             raise ValueError(
                 f"stream_prefetch must be >= 1 and stream_workers 0 or 1, "
                 f"got {self.stream_prefetch}/{self.stream_workers}")
+        if self.mesh_shape is not None:
+            # Normalized to a tuple so a JSON campaign spec's list and
+            # the CLI's tuple hash to the same run/cell identity.
+            ms = tuple(self.mesh_shape)
+            if len(ms) != 2 or any(
+                    not isinstance(x, int) or x < 1 for x in ms):
+                raise ValueError(
+                    f"mesh_shape must be two positive ints "
+                    f"(clients_devices, model_devices), "
+                    f"got {self.mesh_shape!r}")
+            self.mesh_shape = ms
+            if ms[1] > 1:
+                raise ValueError(
+                    f"mesh_shape {ms}: the model axis (d-sharding of the "
+                    f"gradients and the server state) is not ported yet; "
+                    f"the port runs the clients axis only — use "
+                    f"--mesh-shape {ms[0] * ms[1]},1")
         if self.bulyan_batch_select < 1:
             raise ValueError(
                 f"bulyan_batch_select must be >= 1, got "

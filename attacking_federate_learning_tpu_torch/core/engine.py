@@ -52,7 +52,19 @@ kernel's (m, m) matrix copied once, the native selection, the gather
 and trim back on the card), ``bulyan_trim_impl``, ``trimmed_mean_impl``
 and ``median_impl`` the native column-blocked kernels.  Nothing switches
 to a host engine when a kernel fails: the failure raises.  'ring' and
-'allgather' need the device mesh, which the port does not have yet.
+'allgather' need the device mesh (below): Krum and Bulyan then take the
+distance matrix of the blockwise schedule (parallel/distances.py).
+
+Over a device mesh (``shardings``, a parallel/mesh.py ``MeshPlan``, or
+one laid from ``cfg.mesh_shape``; the clients axis only) the dataset is
+replicated to every position and the server state lives on the primary
+(position 0).  A flat, async or traffic round's deliver deals the cohort
+out to the positions, each computing its rows on its own replicas at its
+copy of the weights, and gathers the (m, d) matrix to the primary, where
+craft, aggregate and apply run as on one device.  A hierarchical round
+over more than one position is the SPMD client map (ops/federated.py):
+each position runs its own megabatches, and the estimates gather to the
+primary for tier 2.
 
 Under ``cfg.data_placement='host_stream'`` the training set stays in
 host memory and each flat round's batch comes from a
@@ -220,6 +232,10 @@ from attacking_federate_learning_tpu_torch.defenses.kernels import (
 )
 from attacking_federate_learning_tpu_torch.models.base import get_model
 from attacking_federate_learning_tpu_torch.ops import federated as FD
+from attacking_federate_learning_tpu_torch.parallel import distances as PD
+from attacking_federate_learning_tpu_torch.parallel.mesh import (
+    PerPosition, make_plan
+)
 from attacking_federate_learning_tpu_torch.protocols import secagg as SA
 from attacking_federate_learning_tpu_torch.utils import threefry
 from attacking_federate_learning_tpu_torch.utils.costs import (
@@ -288,6 +304,56 @@ def resolve_device(device) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
     return dev
+
+
+def _device_key(device) -> tuple:
+    """A device as (type, index), a CUDA device without an index at the
+    current one."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (d.type, d.index)
+
+
+class _Position:
+    """One mesh position's own replicas (MeshPlan.place): the
+    client-to-sample matrix, the training set, the style parameters, the
+    megabatch grid, and the client step bound to a model on its
+    device."""
+
+    __slots__ = ("device", "shards", "train_x", "train_y", "style", "grid",
+                 "client_update")
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw.get(k))
+
+
+class _RoundEnv:
+    """What one position's megabatches read in a hierarchical round: its
+    replicas (``rep``; None on the sequential round, which reads the
+    engine's own), its copy of the weights, its attack context, the id
+    grid, and the round's fault masks and secagg tables on its device."""
+
+    __slots__ = ("rep", "weights", "ctx", "grid", "masks", "dom", "keys",
+                 "ids")
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw.get(k))
+
+
+def _styled(xs: torch.Tensor, style, sel) -> torch.Tensor:
+    """'femnist_style': row i of a batch becomes a_i xs_i + b_i, the style
+    parameters ``(a, b)`` taken at the rows ``sel`` (None: all; a slice;
+    or an index tensor); without style (None) the batch as it is."""
+    if style is None:
+        return xs
+    a, b = style
+    if sel is not None:
+        a, b = a[sel], b[sel]
+    shape = (xs.shape[0],) + (1,) * (xs.ndim - 1)
+    return a.reshape(shape) * xs + b.reshape(shape)
 
 
 def faded_lr(cfg: ExperimentConfig, t: int) -> float:
@@ -363,9 +429,19 @@ class FederatedExperiment:
 
     def __init__(self, cfg: ExperimentConfig,
                  attacker: Optional[Attack] = None, dataset=None,
-                 device="cuda"):
+                 device="cuda", shardings=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        # The device mesh (parallel/mesh.py): the plan given, or one laid
+        # from cfg.mesh_shape once the config has passed its checks
+        # (:meth:`_init_mesh`); its clients-axis size decides the
+        # topology's checks before that.
+        self.shardings = shardings
+        self._mesh_parts = (shardings.clients_parts if shardings is not None
+                            else cfg.mesh_shape[0] if cfg.mesh_shape
+                            else 1)
+        self._hier_spmd = False
+        self._reps = None
         self.attacker = attacker or NoAttack()
         self.n = cfg.users_count
         self.f = cfg.corrupted_count
@@ -425,13 +501,13 @@ class FederatedExperiment:
         self.faults = (cfg.faults if cfg.faults is not None
                        and cfg.faults.enabled else None)
         if self.faults is not None:
-            F.check_fault_support(cfg, cfg.participation)
+            F.check_fault_support(cfg, cfg.participation, self._mesh_parts)
         # Population & traffic (core/population.py): a lazy registry of
         # scalars, so memory scales with the cohort m, not the population.
         self.traffic = self.registry = None
         self._traffic_latency = None
         if cfg.traffic is not None and cfg.traffic.enabled:
-            P.check_traffic_support(cfg)
+            P.check_traffic_support(cfg, self._mesh_parts)
             if not getattr(self.attacker, "fusable", True):
                 raise ValueError(
                     "the traffic engine requires a fusable attack (the "
@@ -469,12 +545,10 @@ class FederatedExperiment:
         # (None: as the JAX package leaves it unset at 'float32').
         dist_dtype = (None if cfg.distance_dtype == "float32"
                       else cfg.distance_dtype)
-        if (cfg.defense in ("Krum", "Bulyan")
-                and cfg.distance_impl in ("ring", "allgather")):
-            raise ValueError(
-                f"distance_impl={cfg.distance_impl!r} needs a device mesh "
-                f"— set mesh_shape (parallel/distances.py kernels are "
-                f"shard_map programs over the clients axis)")
+        blockwise = (cfg.defense in ("Krum", "Bulyan")
+                     and cfg.distance_impl in ("ring", "allgather"))
+        if blockwise:
+            self._check_blockwise()
         # The engine knobs: 'host' names a host engine; every other value
         # the device suite (defenses/kernels.py).
         host = {k: getattr(cfg, k) == "host" for k in HOST_IMPL_KNOBS}
@@ -516,8 +590,11 @@ class FederatedExperiment:
         elif cfg.defense == "CenteredClip":
             defense = functools.partial(defense, tau=cfg.cclip_tau,
                                         iters=cfg.cclip_iters)
+        if blockwise:
+            defense = self._with_blockwise_distances(defense)
         self.defense_fn = in_stage("tier1_aggregate")(defense)
         self._init_observatories()
+        self._init_mesh()
 
         gen = torch.Generator().manual_seed(cfg.seed)
         self.model = get_model(cfg.model, gen).to(self.device)
@@ -570,7 +647,8 @@ class FederatedExperiment:
                 self.dataset.train_x, self.dataset.train_y, shards,
                 cfg.batch_size * cfg.local_steps, self.device,
                 n_rounds=cfg.epochs, participants_fn=self.participants,
-                prefetch=cfg.stream_prefetch, workers=cfg.stream_workers)
+                prefetch=cfg.stream_prefetch, workers=cfg.stream_workers,
+                plan=self.shardings)
         else:
             self.shards = torch.from_numpy(shards).to(self.device,
                                                       torch.int64)
@@ -590,6 +668,8 @@ class FederatedExperiment:
         self._client_update = make_client_update_fn(self.model, self.flat,
                                                     cfg.local_steps,
                                                     remat=cfg.remat)
+        if self.shardings is not None:
+            self._reps = self._place_replicas()
         # Validation-data defense (FLTrust): the server's own gradient on
         # the trusted metadata pool is the trust anchor; the pool is made
         # whenever the defense needs it, and lives on the device.
@@ -783,15 +863,11 @@ class FederatedExperiment:
         participation, the fused backdoor, a tier-1 defense of the
         mask-aware set, a fusable attack; the placement, the assumed
         corrupted bounds per tier (ceil(f/S) and ceil(f/m) unless the
-        config sets them) and each tier's validity bound.  The device
-        mesh is refused: it is a later slice of the port."""
+        config sets them) and each tier's validity bound.  A mesh whose
+        clients axis holds more than one position switches the round onto
+        the SPMD client map, its schedule checked now (S must divide by
+        the clients axis)."""
         cfg = self.cfg
-        if getattr(cfg, "mesh_shape", None) is not None:
-            raise ValueError(
-                "--mesh-shape is not ported yet: the SPMD client_map over "
-                "a device mesh is the multi-GPU slice of the port; the "
-                "port runs the hierarchical round's megabatches in order "
-                "on one device (drop --mesh-shape)")
         if cfg.participation < 1.0:
             raise ValueError(
                 "hierarchical aggregation requires full participation "
@@ -830,6 +906,9 @@ class FederatedExperiment:
                 "client axis lives inside a scanned device program")
         place = FD.make_placement(self.n, self.f, cfg.megabatch,
                                   cfg.mal_placement)
+        if self._mesh_parts > 1:
+            FD.spmd_schedule(place, self._mesh_parts)
+            self._hier_spmd = True
         S = place.num_shards
         self._placement = place
         self._tier1_f = (cfg.tier1_corrupted
@@ -849,6 +928,112 @@ class FederatedExperiment:
             getattr(self.attacker, "checks_finite", False)
             and self.m_mal > 0
             and getattr(self.attacker, "num_std", 1) != 0)
+
+    # --- the device mesh ----------------------------------------------------
+    def _check_blockwise(self) -> None:
+        """The JAX engine's checks of distance_impl 'ring' or 'allgather'
+        under Krum or Bulyan: a device mesh, and a round cohort that the
+        clients axis divides (the schedules deal even row blocks)."""
+        impl = self.cfg.distance_impl
+        if self.shardings is None and self.cfg.mesh_shape is None:
+            raise ValueError(
+                f"distance_impl={impl!r} needs a device mesh "
+                f"— set mesh_shape (parallel/distances.py kernels are "
+                f"shard_map programs over the clients axis)")
+        p = self._mesh_parts
+        if self.m % p != 0:
+            raise ValueError(
+                f"distance_impl={impl!r} needs the round cohort "
+                f"divisible by the clients mesh axis (m={self.m}, "
+                f"axis={p})")
+
+    def _with_blockwise_distances(self, defense):
+        """Krum or Bulyan over the blockwise distance matrix, the JAX
+        engine's ``with_blockwise_D``: the round's matrix (in
+        distance_dtype) is dealt back out to the positions, the ring or
+        allgather schedule runs (parallel/distances.py), the (m, m)
+        matrix comes back to the primary and the defense takes it
+        through its ``D=`` seam."""
+        dist_fn = {"ring": PD.pairwise_distances_ring,
+                   "allgather": PD.pairwise_distances_allgather}[
+                       self.cfg.distance_impl]
+        dtype = _DTYPES[self.cfg.distance_dtype]
+
+        def with_blockwise_D(grads, n, f, **kw):
+            D = dist_fn(grads.to(dtype), self.shardings.mesh)
+            return defense(grads, n, f, D=D, **kw)
+
+        return with_blockwise_D
+
+    def _init_mesh(self) -> None:
+        """Lay the mesh of cfg.mesh_shape when no plan was given, over
+        every visible card (over the engine's device when that is the
+        CPU), once the config has passed its checks.  The primary
+        position must be the engine's device, where the server state
+        lives, and every position of its type; an attack bound to one
+        device (the backdoor's poison set) needs every position there."""
+        cfg = self.cfg
+        if self.shardings is None and cfg.mesh_shape is not None:
+            devices = None if self.device.type == "cuda" else [self.device]
+            self.shardings = make_plan(tuple(cfg.mesh_shape), devices)
+        if self.shardings is None:
+            return
+        plan = self.shardings
+        if _device_key(plan.primary) != _device_key(self.device):
+            raise ValueError(
+                f"the mesh's primary position is {plan.primary}, the "
+                f"engine's device is {self.device}: the server state lives "
+                f"on the primary position")
+        keys = {_device_key(d) for d in plan.positions}
+        if any(k[0] != self.device.type for k in keys):
+            raise ValueError(
+                f"every mesh position must be a {self.device.type} device "
+                f"like the engine's, got {list(map(str, plan.positions))}")
+        if (len(keys) > 1
+                and isinstance(getattr(self.attacker, "device", None),
+                               torch.device)):
+            raise ValueError(
+                f"{type(self.attacker).__name__} keeps its state on "
+                f"{self.attacker.device}; over a mesh of several devices "
+                f"it needs every position on that device")
+
+    def _place_replicas(self) -> list:
+        """Each position's own replicas (MeshPlan.place): the dataset
+        and the client-to-sample matrix (host-resident under
+        host_stream), the style parameters, the megabatch grid, and a
+        client step on a model of the position's device.  The engine's
+        own buffers become position 0's, and the server state is placed
+        on the primary."""
+        plan, cfg = self.shardings, self.cfg
+        parts = plan.clients_parts
+        if self.stream is None:
+            shards, xs, ys, self.state = plan.place(
+                self.shards, self.train_x, self.train_y, self.state)
+            self.shards, self.train_x, self.train_y = shards[0], xs[0], ys[0]
+        else:
+            shards = xs = ys = (None,) * parts
+            self.state = plan.place_state(self.state)
+        style = ((None,) * parts if self._style is None else
+                 tuple(zip(*(plan.broadcast(v) for v in self._style))))
+        grid = ((None,) * parts if self._placement is None
+                else plan.broadcast(self._grid))
+        if self._style is not None:
+            self._style = style[0]
+        if self._placement is not None:
+            self._grid = grid[0]
+        steps = {_device_key(self.device): self._client_update}
+        reps = []
+        for q, dev in enumerate(plan.positions):
+            key = _device_key(dev)
+            if key not in steps:
+                steps[key] = make_client_update_fn(
+                    copy.deepcopy(self.model).to(dev), self.flat,
+                    cfg.local_steps, remat=cfg.remat)
+            reps.append(_Position(device=dev, shards=shards[q],
+                                  train_x=xs[q], train_y=ys[q],
+                                  style=style[q], grid=grid[q],
+                                  client_update=steps[key]))
+        return reps
 
     def participants(self, t: int) -> Optional[np.ndarray]:
         """Round-t cohort ids, (m,) int32 on the host, or None under full
@@ -897,61 +1082,124 @@ class FederatedExperiment:
         """Round-t minibatches of the cohort ``part`` (host ids or their
         int64 device copy; None: every client): one (m, k B) gather from
         the device-resident training set (k = local_steps)."""
-        shards = self.shards
-        if part is not None:
-            shards = shards[torch.as_tensor(part, dtype=torch.int64,
-                                            device=self.device)]
-        idx = round_batch_indices(
-            shards, t, self.cfg.batch_size * self.cfg.local_steps)
-        return self.train_x[idx], self.train_y[idx]
+        return self._gather(t, self.shards, self.train_x, self.train_y,
+                            self._rows(part))
+
+    def _rows(self, part):
+        """``part`` (host ids or a device tensor) as an int64 index on the
+        engine's device; None stays None."""
+        return (None if part is None else
+                torch.as_tensor(part, dtype=torch.int64, device=self.device))
 
     def apply_style(self, xs: torch.Tensor, part):
         """'femnist_style': row i of the cohort batch becomes a_i xs_i +
         b_i; any other partition leaves it as it is.  ``part`` as for
         :meth:`gather_batches`."""
-        if self._style is None:
-            return xs
-        a, b = self._style
-        if part is not None:
-            idx = torch.as_tensor(part, dtype=torch.int64,
-                                  device=self.device)
-            a, b = a[idx], b[idx]
-        shape = (xs.shape[0],) + (1,) * (xs.ndim - 1)
-        return a.reshape(shape) * xs + b.reshape(shape)
+        return _styled(xs, self._style, self._rows(part))
 
     @in_stage("deliver")
-    def compute_grads(self, t: int, part=None) -> torch.Tensor:
+    def compute_grads(self, t: int, part=None, position=None) -> torch.Tensor:
         """deliver: the cohort's (m, d) updates at the server weights of
         round t on the wire (grad_dtype): gradients, or with local steps
         the pseudo-gradients, on the round-t styled and augmented batch.
         ``part`` is the round's cohort (:meth:`participants`), drawn here
         when it is not given, or a megabatch's ids (an int64 device
-        tensor, hierarchical rounds)."""
-        cfg = self.cfg
+        tensor, hierarchical rounds).
+
+        Over a mesh each position computes its rows of the cohort on its
+        own replicas and its copy of the weights, and the blocks gather
+        to the primary in position order (:meth:`_deliver_split`); in the
+        SPMD hierarchical round ``position`` (a :class:`_RoundEnv`) names
+        the position whose replicas and weights a megabatch reads."""
+        if position is not None:
+            rep = position.rep
+            xs, ys = self._gather(t, rep.shards, rep.train_x, rep.train_y,
+                                  part)
+            return self._client_step(t, xs, ys, part, rep.style,
+                                     position.weights, rep.client_update)
         if part is None:
             part = self.participants(t)
+        if self._reps is not None and self._placement is None:
+            return self._deliver_split(t, part)
         if isinstance(part, np.ndarray):    # one host-to-device copy
             part = torch.from_numpy(part).to(self.device, torch.int64)
-        rows = self.m if part is None else part.shape[0]
         if self.stream is not None:       # streamed: the cohort's batch
             xs, ys = self.stream.get(t)
         else:
             xs, ys = self.gather_batches(t, part)
-        xs = self.apply_style(xs, part)
+        return self._client_step(t, xs, ys, part, self._style,
+                                 self.state.weights, self._client_update)
+
+    def _gather(self, t, shards, train_x, train_y, sel):
+        """Round-t minibatches of the rows ``sel`` (None: all; a slice;
+        or an index tensor on the buffers' device) of one set of
+        buffers."""
+        if sel is not None:
+            shards = shards[sel]
+        idx = round_batch_indices(
+            shards, t, self.cfg.batch_size * self.cfg.local_steps)
+        return train_x[idx], train_y[idx]
+
+    def _client_step(self, t, xs, ys, sel, style, weights, client_update,
+                     first: int = 0, total=None) -> torch.Tensor:
+        """The client step on gathered (rows, k B, ...) batches on one
+        device: the style of the rows ``sel`` (as for :meth:`_gather`),
+        the round's augmentation (the draws of images ``[first, first +
+        rows k B)`` of ``total``), the step at ``weights``, the wire
+        dtype."""
+        cfg = self.cfg
+        rows = ys.shape[0]
+        xs = _styled(xs, style, sel)
         if self.augment:
-            xs = reflect_crop_flip(xs, round_augment_key(cfg.seed, t))
+            xs = reflect_crop_flip(xs, round_augment_key(cfg.seed, t),
+                                   first=first, total=total)
         k, B = cfg.local_steps, cfg.batch_size
         xs = xs.reshape((rows, k, B) + xs.shape[2:])
         ys = ys.reshape((rows, k, B))
         # Clients train at the faded lr the server dispatches; the
         # pseudo-gradient divides by the lr the server multiplies back.
         lr_train = torch.full((), faded_lr(cfg, t), dtype=torch.float32,
-                              device=self.device)
+                              device=xs.device)
         lr_report = lr_train if cfg.server_uses_faded_lr else (
             cfg.learning_rate)
-        grads = self._client_update(self.state.weights, xs, ys, lr_train,
-                                    lr_report)
+        grads = client_update(weights, xs, ys, lr_train, lr_report)
         return grads.to(self.grad_dtype).contiguous()
+
+    def _deliver_split(self, t: int, part) -> torch.Tensor:
+        """deliver over the mesh (the JAX engine's grads constrained
+        over the clients axis): each position computes its rows of the
+        cohort (``MeshPlan.row_bounds``, :meth:`_deliver_rows`) at its
+        copy of the weights; the (m, d) matrix gathers to the primary."""
+        plan = self.shardings
+        weights = plan.broadcast(self.state.weights)
+        streamed = self.stream.get(t) if self.stream is not None else None
+        return plan.all_gather([
+            self._deliver_rows(t, q, part, lo, hi, weights[q], streamed)
+            for q, (lo, hi) in enumerate(plan.row_bounds(self.m))])
+
+    def _deliver_rows(self, t: int, q: int, part, lo: int, hi: int,
+                      weights, streamed) -> torch.Tensor:
+        """Position q's rows ``[lo, hi)`` of the round-t cohort ``part``
+        (host ids; None: every client) from its own replicas, or its
+        block of the streamed batch, at ``weights``, its copy."""
+        rep = self._reps[q]
+        kb = self.cfg.batch_size * self.cfg.local_steps
+        if part is None:
+            sel = slice(lo, hi)
+        elif isinstance(part, torch.Tensor):
+            sel = part[lo:hi].to(rep.device, torch.int64, copy=True)
+        else:
+            sel = F.to_device(np.ascontiguousarray(part[lo:hi],
+                                                   dtype=np.int64),
+                              rep.device)
+        if streamed is not None:
+            xs, ys = streamed[0][q], streamed[1][q]
+        else:
+            xs, ys = self._gather(t, rep.shards, rep.train_x, rep.train_y,
+                                  sel)
+        return self._client_step(t, xs, ys, sel, rep.style, weights,
+                                 rep.client_update, first=lo * kb,
+                                 total=self.m * kb)
 
     @in_stage("quarantine")
     def inject_and_quarantine(self, grads: torch.Tensor, t: int):
@@ -1172,9 +1420,19 @@ class FederatedExperiment:
         (and in the clear modes its rows' norms) are kept and stacked
         (S, ...) after the loop; the tier-2 diagnostics always read the
         configured tier-2 defense, which also runs for them in
-        'fallback' and 'hold' rounds (:meth:`_hier_telemetry`)."""
+        'fallback' and 'hold' rounds (:meth:`_hier_telemetry`).
+
+        Each megabatch returns what it produces (its estimate, into the
+        (S, d) buffer, and its flags, counts, norms and diagnostics,
+        stacked), and reads only its :class:`_RoundEnv`.  Over a mesh
+        whose clients axis holds more than one position that is the
+        SPMD client map (ops/federated.py): each position runs its own
+        megabatches on its own replicas, its copy of the weights and its
+        copies of the round's masks and tables, and the outputs gather to
+        the primary, where tier 2 and the step run."""
         place, fc = self._placement, self.faults
         S, m, f1 = place.num_shards, place.megabatch, self._tier1_f
+        plan = self.shardings if self._hier_spmd else None
         grid = self._grid
         if self.traffic is not None:
             self.last_round_slots = self.slot_ids(t)
@@ -1186,16 +1444,12 @@ class FederatedExperiment:
         # Per-client norms are server-visible in the clear modes only.
         want_norms = obs is not None and not sec and (
             self.cfg.telemetry or self.cfg.log_round_stats)
-        diags, norms = [], []
+        tables = masks = dom = None
         if sec:
             with stage_scope("protect"):
-                keys, ids = SA.round_tables(
+                tables = SA.round_tables(
                     threefry.fold_in(self._secagg_key, t), place.grid,
                     self.device)
-                sec_ok = torch.ones(S, dtype=torch.int32,
-                                    device=self.device)
-                sec_pairs = torch.zeros(S, dtype=torch.int32,
-                                        device=self.device)
             drops = np.zeros(S, np.int64)
         if fc is not None:
             masks, dom, row = F.hier_round_faults(self._fault_key, t, place,
@@ -1207,67 +1461,77 @@ class FederatedExperiment:
             with stage_scope("quarantine"):
                 masks = F.to_device(masks, self.device)      # (S, 3, m)
                 dom = F.to_device(dom, self.device)
-                alive = torch.empty(S, dtype=torch.int64,
-                                    device=self.device)
-                quar = torch.empty(S, dtype=torch.int64, device=self.device)
-        with stage_scope("quarantine"):
-            bad = (torch.zeros(S, dtype=torch.bool, device=self.device)
-                   if self._check_attack_nan else None)
-        ctx = self.attack_context(t, check_finite=bad is None)
+        check_nan = self._check_attack_nan
+        env = self._hier_env(t, plan, grid, masks, dom, tables,
+                             check_finite=not check_nan)
 
-        def tier1(grads, **kw):
-            # The tier-1 defense; with observation on, the rows' norms
-            # and its diagnostics (filtered) go on the shard stacks.
-            if want_norms:
-                with stage_scope("deliver"):
-                    norms.append(row_norms(grads))
-            if dkw is None:
-                return self.defense_fn(grads, m, f1, **kw)
-            est, diag = self.defense_fn(grads, m, f1, **kw, **dkw)
-            diags.append({k: v for k, v in diag.items()
-                          if self._keep_diag(k)})
-            return est
-
-        def shard_fn(sid, _ids, c):
-            # The megabatch's ids on the device: the placement's, or the
+        def shard_fn(sid, _ids, c, env):
+            # The megabatch's ids on the position: the placement's, or the
             # round's resampled slots.  Its matrix is freed on return,
             # before the next megabatch's deliver.
-            grads = self.compute_grads(t, grid[sid])             # deliver
+            ids = env.grid[sid]
+            grads = (self.compute_grads(t, ids) if env.rep is None
+                     else self.compute_grads(t, ids, position=env))
             with stage_scope("deliver"):
-                grads = self.attacker.apply(grads, c, ctx)       # craft
-            if bad is not None and c > 0:
+                grads = self.attacker.apply(grads, c, env.ctx)   # craft
+            dev = grads.device
+            res, kw = {}, {}
+            if check_nan:
                 with stage_scope("quarantine"):
-                    bad[sid] = ~torch.isfinite(grads[:c]).all()
+                    res["bad"] = (~torch.isfinite(grads[:c]).all() if c > 0
+                                  else torch.zeros((), dtype=torch.bool,
+                                                   device=dev))
+            if sec:
+                ok = torch.ones((), dtype=torch.int32, device=dev)
+                pairs = torch.zeros((), dtype=torch.int32, device=dev)
+                res["ok"], res["pairs"] = ok, pairs
+                tab = (env.keys[sid], env.ids[sid])
             if fc is None:
                 if sec:                                          # protect
-                    grads, _ = SA.protect(grads, (keys[sid], ids[sid]),
-                                          ok=sec_ok[sid])
-                return tier1(grads)                              # tier 1
-            with stage_scope("quarantine"):
-                slab = (self.fault_state["stale"][t % fc.straggler_delay,
-                                                  sid]
-                        if fc.straggler > 0 else None)
-                grads, drop = F.apply_shard_faults(grads, masks[sid], slab,
-                                                   fc)
-            if sec:
-                qmask = ~drop
-                grads, _ = SA.protect(grads, (keys[sid], ids[sid]), qmask,
-                                      ok=sec_ok[sid], count=sec_pairs[sid])
-                with stage_scope("quarantine"):
-                    quar[sid] = m - qmask.sum()
+                    grads, _ = SA.protect(grads, tab, ok=ok)
             else:
                 with stage_scope("quarantine"):
-                    grads, qmask, q = F.quarantine(grads, drop)
-                    quar[sid] = q["quarantined"]
-            with stage_scope("quarantine"):
-                alive[sid] = qmask.sum() * dom[sid]
-            return tier1(grads, mask=qmask)
+                    slab = (self.fault_state["stale"][
+                                t % fc.straggler_delay, sid]
+                            if fc.straggler > 0 else None)
+                    grads, drop = F.apply_shard_faults(
+                        grads, env.masks[sid], slab, fc)
+                if sec:
+                    qmask = ~drop
+                    grads, _ = SA.protect(grads, tab, qmask, ok=ok,
+                                          count=pairs)
+                    with stage_scope("quarantine"):
+                        res["quar"] = (m - qmask.sum()).to(torch.int64)
+                else:
+                    with stage_scope("quarantine"):
+                        grads, qmask, q = F.quarantine(grads, drop)
+                        res["quar"] = q["quarantined"].to(torch.int64)
+                with stage_scope("quarantine"):
+                    res["alive"] = (qmask.sum() * env.dom[sid]).to(
+                        torch.int64)
+                kw["mask"] = qmask
+            # Tier 1; with observation on, the rows' norms and its
+            # diagnostics (filtered) go on the shard stacks.
+            if want_norms:
+                with stage_scope("deliver"):
+                    res["norms"] = row_norms(grads)
+            if dkw is None:
+                res["est"] = self.defense_fn(grads, m, f1, **kw)
+            else:
+                res["est"], diag = self.defense_fn(grads, m, f1, **kw,
+                                                   **dkw)
+                res["diag"] = {k: v for k, v in diag.items()
+                               if self._keep_diag(k)}
+            return res
 
-        # The megabatch loop's own work (the estimates' writes) is tier
-        # 1's; the stages inside shard_fn are booked as their own.
+        # The megabatch loop's own work (the estimates' writes and the
+        # gather) is tier 1's; the stages inside shard_fn are booked as
+        # their own.
         with stage_scope("tier1_aggregate"):
-            est = FD.client_map(shard_fn, place, with_sid=True,
-                                out=self._estimates)
+            out = FD.client_map(shard_fn, place, env, with_sid=True,
+                                out={"est": self._estimates}, plan=plan)
+        est = out["est"]
+        alive = out.get("alive")
         f2 = self._tier2_f
         agg = diag2 = None
         if fc is None:
@@ -1285,7 +1549,7 @@ class FederatedExperiment:
                     **{k: row[k] for k in ("round", "injected_dropout",
                                            "injected_straggler",
                                            "injected_corrupt")},
-                    "quarantined": quar.sum(),
+                    "quarantined": out["quar"].sum(),
                     "shards_dead": row["shards_dead"],
                     "shard_alive": alive,
                     "shards_alive": (alive > 0).sum(),
@@ -1313,9 +1577,9 @@ class FederatedExperiment:
             with stage_scope("protect"):
                 self.last_round_secagg = {
                     "round": t,
-                    "sum_check_ok": (sec_ok > 0).all().to(torch.int32),
+                    "sum_check_ok": (out["ok"] > 0).all().to(torch.int32),
                     "groups": S, "dropped": dropped,
-                    "masks_reconstructed": sec_pairs.sum(),
+                    "masks_reconstructed": out["pairs"].sum(),
                     "recovery": int(dropped > 0),
                     "group_sum_norms": est.square().sum(1).sqrt() * m}
                 if obs is not None and self.cfg.telemetry:
@@ -1324,15 +1588,16 @@ class FederatedExperiment:
                     self.last_round_secagg["group_cos_to_mean"] = (
                         SA.group_envelope_stats(est, m)[
                             "group_cos_to_mean"])
-        if bad is not None:
+        if check_nan:
             with stage_scope("quarantine"):
-                bad = bool(bad.any())
+                bad = bool(out["bad"].any())
             if bad:
                 # The state stays at the last finished round.
                 raise FloatingPointError(
                     "Got nan in backdoor shadow training")
         if obs is not None:
-            self._hier_telemetry(obs, est, diags, norms, diag2)
+            self._hier_telemetry(obs, est, out.get("diag"),
+                                 out.get("norms"), diag2)
         if agg is None:
             self._hold()
         else:
@@ -1346,23 +1611,53 @@ class FederatedExperiment:
                              "group_sum_norm_max": gs.max(),
                              "group_sum_norm_min": gs.min()}
                 self._end_observation(
-                    obs, torch.stack(norms) if want_norms else None, t,
-                    extra)
+                    obs, out["norms"] if want_norms else None, t, extra)
         return self.state
 
+    def _hier_env(self, t: int, plan, grid, masks, dom, tables,
+                  check_finite: bool):
+        """The hierarchical round's :class:`_RoundEnv`: on the sequential
+        round the engine's own buffers and the round's attack context;
+        under the SPMD map one env a position (a PerPosition), each with
+        its replicas, its copy of the weights, an attack context on it
+        and its copies of the round's masks and tables."""
+        keys, ids = tables if tables is not None else (None, None)
+        if plan is None:
+            return _RoundEnv(
+                weights=self.state.weights, grid=grid, masks=masks, dom=dom,
+                keys=keys, ids=ids,
+                ctx=self.attack_context(t, check_finite=check_finite))
+        weights = plan.broadcast(self.state.weights)
+        per = [plan.broadcast(v) for v in (masks, dom, keys, ids)]
+        per = [(None,) * plan.clients_parts if v is None else v for v in per]
+        lr = faded_lr(self.cfg, t)
+        envs = []
+        with stage_scope("deliver"):
+            for q, rep in enumerate(self._reps):
+                ctx = AttackContext(
+                    original_params=weights[q],
+                    learning_rate=torch.full((), lr, dtype=torch.float32,
+                                             device=rep.device),
+                    round=t, staleness=None, check_finite=check_finite)
+                envs.append(_RoundEnv(
+                    rep=rep, weights=weights[q], ctx=ctx, grid=rep.grid,
+                    masks=per[0][q], dom=per[1][q], keys=per[2][q],
+                    ids=per[3][q]))
+        return PerPosition(envs)
+
     @in_stage("tier2_aggregate")
-    def _hier_telemetry(self, obs, est, diags, norms, diag2) -> None:
-        """A hierarchical round's telemetry: the tier-1 diagnostics
-        stacked (S, ...) as ``shard_*`` (with --telemetry the rows' norms
-        as ``shard_grad_norms``), the tier-2 ones as ``tier2_*`` (and the
-        estimates' norms as ``tier2_est_norms``), and with --numerics the
-        health of the (S, d) estimate matrix tier 2 reduces."""
+    def _hier_telemetry(self, obs, est, diag1, norms, diag2) -> None:
+        """A hierarchical round's telemetry: the tier-1 diagnostics,
+        stacked (S, ...), as ``shard_*`` (with --telemetry the rows'
+        (S, m) norms as ``shard_grad_norms``), the tier-2 ones as
+        ``tier2_*`` (and the estimates' norms as ``tier2_est_norms``),
+        and with --numerics the health of the (S, d) estimate matrix tier
+        2 reduces."""
         cfg, tele = self.cfg, obs.tele
-        if diags:
-            for k, v in FD.stack_shards(diags).items():
-                tele["shard_" + k] = v
-        if norms and cfg.telemetry:
-            tele["shard_grad_norms"] = torch.stack(norms)
+        for k, v in (diag1 or {}).items():
+            tele["shard_" + k] = v
+        if norms is not None and cfg.telemetry:
+            tele["shard_grad_norms"] = norms
         for k, v in (diag2 or {}).items():
             if self._keep_diag(k):
                 tele["tier2_" + k] = v
@@ -1459,8 +1754,9 @@ class FederatedExperiment:
         """The bytes each protocol seam of this engine's topology moves a
         round (utils/costs.py:wire_ledger), from the config alone, as the
         JAX engine prices them: the expected secagg recovery load is the
-        dropout rate over the cohort.  One device: the port refuses the
-        SPMD client map, so the tier-1 -> tier-2 seam is no collective."""
+        dropout rate over the cohort.  Under the SPMD client map the
+        tier-1 -> tier-2 seam is the estimates' gather over the clients
+        axis (``spmd_parts`` positions)."""
         from attacking_federate_learning_tpu_torch.utils.costs import (
             wire_ledger
         )
@@ -1476,7 +1772,8 @@ class FederatedExperiment:
             grad_bytes=self.grad_dtype.itemsize,
             topology=cfg.aggregation, num_shards=num_shards,
             megabatch=cfg.megabatch if num_shards is not None else None,
-            spmd_parts=1, secagg=cfg.secagg, dropped=dropped,
+            spmd_parts=self._mesh_parts if self._hier_spmd else 1,
+            secagg=cfg.secagg, dropped=dropped,
             async_buffer=(cfg.async_buffer
                           if cfg.aggregation == "async" else None))
 
@@ -1532,7 +1829,8 @@ class FederatedExperiment:
         cuda = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda):
             twin = FederatedExperiment(cfg, self.attacker, self.dataset,
-                                       device=self.device)
+                                       device=self.device,
+                                       shardings=self.shardings)
             part = twin._grid[0] if hier else None
 
             def rounds(count):
@@ -1587,7 +1885,11 @@ class FederatedExperiment:
 
     def _place_state(self, st: ServerState) -> ServerState:
         """A host (or any-device) server state as fresh f32 tensors on the
-        engine's device."""
+        engine's device (over a mesh: MeshPlan.place_state, the primary
+        position)."""
+        if self.shardings is not None:
+            return self.shardings.place_state(st)
+
         def place(a):
             return torch.as_tensor(a).to(self.device, torch.float32,
                                          copy=True)

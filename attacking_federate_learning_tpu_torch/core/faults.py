@@ -56,10 +56,12 @@ MASK_AWARE_DEFENSES = ("NoDefense", "Krum", "TrimmedMean", "Bulyan",
                        "Median")
 
 
-def check_fault_support(cfg, participation: float = 1.0):
+def check_fault_support(cfg, participation: float = 1.0,
+                        clients_parts=None):
     """Fail fast on configs the fault model cannot honor, with the JAX
     package's messages; ``participation`` is the cohort share of a round
-    (cfg.participation)."""
+    (cfg.participation), ``clients_parts`` the mesh's clients axis (None:
+    read from ``cfg.mesh_shape`` where the config carries one)."""
     if cfg.defense not in MASK_AWARE_DEFENSES:
         raise ValueError(
             f"faults need a mask-aware defense {MASK_AWARE_DEFENSES}, "
@@ -73,9 +75,11 @@ def check_fault_support(cfg, participation: float = 1.0):
             "--megabatch): flat and async rounds have no megabatch/"
             "device domains to kill — use --fault-dropout for "
             "per-client loss there")
-    mesh = getattr(cfg, "mesh_shape", None)
+    if clients_parts is None:
+        mesh = getattr(cfg, "mesh_shape", None)
+        clients_parts = 1 if mesh is None else tuple(mesh)[0]
     if (cfg.faults.straggler > 0 and cfg.aggregation == "hierarchical"
-            and mesh is not None and tuple(mesh)[0] > 1):
+            and clients_parts > 1):
         raise ValueError(
             "straggler faults do not compose with the hierarchical "
             "SPMD client_map (--mesh-shape clients axis > 1): the "

@@ -377,10 +377,11 @@ def resample_slots(key: np.ndarray, t: int, ids: np.ndarray, c_mal: int,
     return np.where(slot_mal, mal, hon).astype(ids.dtype)
 
 
-def check_traffic_support(cfg):
+def check_traffic_support(cfg, clients_parts=None):
     """Fail fast on configs the traffic engine cannot honor (engine
-    init), with the JAX package's messages.  The SPMD mesh, which the
-    port's config does not have, is read where a config carries it."""
+    init), with the JAX package's messages.  ``clients_parts`` is the
+    mesh's clients axis (None: read from ``cfg.mesh_shape`` where the
+    config carries one)."""
     from attacking_federate_learning_tpu_torch.core.faults import (
         MASK_AWARE_DEFENSES
     )
@@ -410,8 +411,10 @@ def check_traffic_support(cfg):
             "the degradation ladder all live inside the fused round "
             "program")
     if cfg.aggregation == "hierarchical":
-        mesh = getattr(cfg, "mesh_shape", None)
-        if mesh is not None and tuple(mesh)[0] > 1:
+        if clients_parts is None:
+            mesh = getattr(cfg, "mesh_shape", None)
+            clients_parts = 1 if mesh is None else tuple(mesh)[0]
+        if clients_parts > 1:
             raise ValueError(
                 "--traffic-population with hierarchical aggregation "
                 "does not compose with the SPMD client_map "

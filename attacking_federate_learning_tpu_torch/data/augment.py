@@ -38,18 +38,22 @@ def _reflect(idx: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def reflect_crop_flip(images: torch.Tensor, key: np.ndarray,
-                      pad: int = 4) -> torch.Tensor:
+                      pad: int = 4, first: int = 0,
+                      total=None) -> torch.Tensor:
     """Random crop of the reflect-padded image plus a horizontal flip,
     per image.
 
     images: (..., C, H, W), any number of leading batch axes, flattened
     in row-major order to the m images that draw in turn; each takes its
-    own crop offset (row, column) and flip bit.  One gather on
-    ``images``' device."""
+    own crop offset (row, column) and flip bit.  ``first`` and ``total``
+    make them images ``[first, first + m)`` of a batch of ``total`` (one
+    mesh position's rows of the round's batch): the draws of the whole
+    batch, sliced.  One gather on ``images``' device."""
     *lead, c, h, w = images.shape
     flat = images.reshape(-1, c, h, w)
     m = flat.shape[0]
-    offsets, flips = augment_draws(key, m, pad)
+    offsets, flips = augment_draws(key, m if total is None else total, pad)
+    offsets, flips = offsets[first:first + m], flips[first:first + m]
     dev = images.device
     off = torch.from_numpy(offsets.astype(np.int64)).to(dev)
     flip = torch.from_numpy(flips).to(dev)

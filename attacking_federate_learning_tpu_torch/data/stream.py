@@ -32,8 +32,12 @@ the round (core/population.py:legacy_cohort), so a prefetched round draws
 exactly the cohort the round uses and no host generator moves.
 
 On the CPU (the tests) the same gathers become CPU tensors, with no
-staging and no copy: the plain version.  There is no sharding plan: that
-waits for the device mesh.
+staging and no copy: the plain version.
+
+With a mesh ``plan`` (parallel/mesh.py) each position's rows of the
+staged batch (``MeshPlan.row_bounds``) land on that position, each in a
+buffer of its own, and :meth:`HostStream.get` returns ``(xs, ys)`` as
+tuples of the positions' blocks, in position order.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from attacking_federate_learning_tpu_torch.utils import costs
 class HostStream:
     def __init__(self, train_x, train_y, shards, batch_size: int, device,
                  n_rounds=None, participants_fn=None, prefetch: int = 1,
-                 workers: int = 0):
+                 workers: int = 0, plan=None):
         self.x = np.ascontiguousarray(train_x)
         self.y = np.ascontiguousarray(train_y, dtype=np.int64)
         self.shards = np.asarray(shards)
@@ -60,6 +64,7 @@ class HostStream:
         # unbounded).
         self.n_rounds = n_rounds
         self.participants_fn = participants_fn
+        self.plan = plan
         self.prefetch = max(int(prefetch), 1)
         self._x_dtype = torch.from_numpy(self.x[:0]).dtype
         self._cuda = self.device.type == "cuda"
@@ -106,11 +111,26 @@ class HostStream:
         return (torch.empty(shape_x, dtype=self._x_dtype, pin_memory=True),
                 torch.empty(shape_y, dtype=torch.int64, pin_memory=True))
 
+    def _blocks(self, n: int):
+        """The row blocks the batch goes out in: one (all of it, to the
+        stream's device), or each mesh position's rows to its device."""
+        if self.plan is None:
+            return [(0, n, self.device)]
+        return [(lo, hi, dev) for (lo, hi), dev in
+                zip(self.plan.row_bounds(n), self.plan.positions)]
+
     def _produce(self, t: int):
         idx = self.indices(t)
+        blocks = self._blocks(idx.shape[0])
         if not self._cuda:
-            return (torch.from_numpy(np.take(self.x, idx, axis=0)),
-                    torch.from_numpy(np.take(self.y, idx, axis=0)))
+            x = np.take(self.x, idx, axis=0)
+            y = np.take(self.y, idx, axis=0)
+            if self.plan is None:
+                return torch.from_numpy(x), torch.from_numpy(y)
+            return (tuple(torch.from_numpy(x[lo:hi].copy())
+                          for lo, hi, _ in blocks),
+                    tuple(torch.from_numpy(y[lo:hi].copy())
+                          for lo, hi, _ in blocks))
         with torch.cuda.device(self.device), self._deliver_range():
             bx, by = self._buffers(idx.shape + self.x.shape[1:], idx.shape)
             np.take(self.x, idx, axis=0, out=bx.numpy(), mode="clip")
@@ -118,11 +138,15 @@ class HostStream:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
             with torch.cuda.stream(self._stream):
-                xs = bx.to(self.device, non_blocking=True)
-                ys = by.to(self.device, non_blocking=True)
+                xs = tuple(bx[lo:hi].to(dev, non_blocking=True)
+                           for lo, hi, dev in blocks)
+                ys = tuple(by[lo:hi].to(dev, non_blocking=True)
+                           for lo, hi, dev in blocks)
                 done = torch.cuda.Event()
                 done.record(self._stream)
             self._staging.append((bx, by, done))
+        if self.plan is None:
+            xs, ys = xs[0], ys[0]
         return xs, ys, done
 
     def _deliver_range(self):
@@ -165,10 +189,10 @@ class HostStream:
             out = out.result()            # a worker's error raises here
         if self._cuda:
             xs, ys, done = out
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(done)
-            xs.record_stream(compute)
-            ys.record_stream(compute)
+            for a in ((xs, ys) if self.plan is None else xs + ys):
+                compute = torch.cuda.current_stream(a.device)
+                compute.wait_event(done)
+                a.record_stream(compute)
             out = (xs, ys)
         self.stall_s += time.perf_counter() - t0
         return out

@@ -373,7 +373,7 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
 
 def krum_scores_and_index(users_grads, users_count, corrupted_count,
                           paper_scoring=False, method="sort", mask=None,
-                          distance_dtype=None, distance_impl="auto"):
+                          distance_dtype=None, distance_impl="auto", D=None):
     """The (n,) f32 Krum scores and the winner's index (a 0-d tensor)
     behind both :func:`krum_select` and Krum's diagnostics.
     ``method='sort'`` scores the distance kernel's matrix exactly by
@@ -384,10 +384,18 @@ def krum_scores_and_index(users_grads, users_count, corrupted_count,
     ``distance_dtype`` as for :func:`distances_for` and
     :func:`guarded_krum_scores`.  ``distance_impl='host'`` takes the
     winner from the host engine (:func:`host_krum_select`), which returns
-    no scores: None in their place, and no mask seam."""
+    no scores: None in their place, and no mask seam.  ``D``, a distance
+    matrix computed elsewhere (the blockwise schedules over a mesh,
+    parallel/distances.py), outranks both: the scores are its exact
+    sort, as in the JAX package."""
     if method not in ("sort", "fused"):
         raise ValueError(f"method must be 'sort' or 'fused', got {method!r}")
     check_impl("distance_impl", distance_impl)
+    if D is not None:
+        e = users_count if mask is None else mask.sum()
+        scores = sort_scores(D, e, corrupted_count, paper_scoring,
+                             alive=mask)
+        return scores, torch.argmin(scores)
     if distance_impl == "host":
         if mask is not None:
             raise ValueError(
@@ -413,19 +421,19 @@ def krum_scores_and_index(users_grads, users_count, corrupted_count,
 
 def krum_select(users_grads, users_count, corrupted_count,
                 paper_scoring=False, method="sort", mask=None,
-                distance_dtype=None, distance_impl="auto"):
+                distance_dtype=None, distance_impl="auto", D=None):
     """Index (0-d tensor) of the Krum winner (reference ``krum(...,
     return_index=True)``, defences.py:39-40); the arguments are
     :func:`krum_scores_and_index`'s."""
     return krum_scores_and_index(users_grads, users_count, corrupted_count,
                                  paper_scoring, method, mask,
-                                 distance_dtype, distance_impl)[1]
+                                 distance_dtype, distance_impl, D)[1]
 
 
 def krum(users_grads, users_count, corrupted_count, paper_scoring=False,
          method="sort", mask=None, weights=None, distance_dtype=None,
          distance_impl="auto", telemetry=False, margins=False,
-         numerics=False):
+         numerics=False, D=None):
     """Krum (reference defences.py:23-42): the single gradient whose summed
     distance to its k nearest peers is minimal; with ``mask`` the Krum
     choice of the alive rows, with ``weights`` scaled by its weight.
@@ -439,11 +447,11 @@ def krum(users_grads, users_count, corrupted_count, paper_scoring=False,
     an estimate of the cancellation depth: 2 max ||g||^2 against the
     winner's mean kept distance.  Under ``distance_impl='host'`` the
     scores are NaN and margins are refused: the host engine returns only
-    the winner."""
+    the winner.  ``D`` as for :func:`krum_scores_and_index`."""
     check_seams(mask, weights, telemetry, margins, numerics)
     scores, idx = krum_scores_and_index(
         users_grads, users_count, corrupted_count, paper_scoring, method,
-        mask, distance_dtype, distance_impl)
+        mask, distance_dtype, distance_impl, D)
     agg = (users_grads[idx] * weights[idx] if weights is not None
            else users_grads[idx])
     if not telemetry:
@@ -644,7 +652,7 @@ def bulyan_select(D, users_count, corrupted_count, paper_scoring=False,
 def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
            mask=None, weights=None, distance_dtype=None, batch_select=1,
            distance_impl="auto", selection_impl="xla", trim_impl="xla",
-           telemetry=False, margins=False, numerics=False):
+           telemetry=False, margins=False, numerics=False, D=None):
     """Bulyan (reference defences.py:55-70): select n - 2f gradients by
     iterated Krum, then the median-anchored trimmed mean of the selection
     keeping set_size - 2f - 1 values per coordinate.  The distances are
@@ -675,7 +683,9 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
     kernel's matrix with its +inf diagonal; ties inside the native
     comparator's ulp band may go another way than the device loop's);
     ``trim_impl='host'`` the unmasked tail by the native kernel.  Neither
-    host selection has a mask seam or per-trip scores for margins."""
+    host selection has a mask seam or per-trip scores for margins.  ``D``,
+    a distance matrix computed elsewhere (the blockwise schedules over a
+    mesh, parallel/distances.py), takes the distance kernel's place."""
     check_seams(mask, weights, telemetry, margins, numerics)
     check_impl("distance_impl", distance_impl)
     check_impl("selection_impl", selection_impl, ("xla", "host", "pallas"))
@@ -690,7 +700,7 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
             "mask-aware Bulyan is incompatible with "
             "selection_impl='host': the native selection engine has no "
             "mask seam (native/bulyan_select.cpp)")
-    if distance_impl == "host" and selection_impl != "pallas":
+    if distance_impl == "host" and selection_impl != "pallas" and D is None:
         if mask is not None:
             raise ValueError(
                 "mask-aware Bulyan has no full-host engine "
@@ -706,7 +716,8 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
             return agg
         nan = torch.full((n,), torch.nan, device=users_grads.device)
         return agg, {"selection_mask": nan, "scores": nan.clone()}
-    D = distances_for(users_grads, distance_dtype)
+    if D is None:
+        D = distances_for(users_grads, distance_dtype)
     if selection_impl == "host":
         if margins:
             raise ValueError(

@@ -306,6 +306,20 @@ def pairwise_distances_plain(G: torch.Tensor) -> torch.Tensor:
     return D
 
 
+def cross_sq_distances(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(m, d), (n, d) -> (m, n) squared Euclidean distances in f32, the
+    JAX package's ``cross_sq_distances``: f32 norms and an f32 Gram (IEEE
+    f32 as long as TF32 matmul is off, the port's rule), bf16 operands
+    widened to f32 first, which is exact (a bf16 Gram accumulated in
+    f32).  The blockwise tiles of parallel/distances.py share it, so
+    every tile computes what the whole matrix would."""
+    A, B = A.float(), B.float()
+    sq_a = (A * A).sum(-1)
+    sq_b = (B * B).sum(-1)
+    d2 = sq_a[:, None] + sq_b[None, :] - 2.0 * (A @ B.T)
+    return torch.clamp(d2, min=0.0)
+
+
 def gram_route(name: str, G: torch.Tensor) -> str:
     """The kernel of ``name`` that takes G: its bf16 route for bf16."""
     return f"{name}[bf16]" if G.dtype == torch.bfloat16 else name

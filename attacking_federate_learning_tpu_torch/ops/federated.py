@@ -23,9 +23,15 @@ The attack seam changes with the topology, as in the JAX package: an
 attack crafts once per megabatch from that megabatch's malicious rows
 only, so ALIE's envelope is per megabatch.
 
-The SPMD client map over a device mesh (the JAX package's
-``spmd_schedule`` and shard_map program) is the multi-GPU slice of the
-port; here every megabatch runs on one device, in order.
+Over a device mesh whose clients axis holds more than one position
+(parallel/mesh.py), :func:`client_map` is the JAX package's SPMD client
+map: :func:`spmd_schedule` deals the megabatches out to the positions
+(S must divide by the clients axis; a placement group whose megabatch
+count does not divide is padded with duplicates of its first megabatch),
+each position runs its own megabatch rows in order on its own replicas
+(the arguments :func:`broadcast` gave it), the stacked outputs come to
+the primary position in one tiled gather, and the schedule's ``select``
+restores megabatch order and drops the padding.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from attacking_federate_learning_tpu_torch.parallel.mesh import PerPosition
 from attacking_federate_learning_tpu_torch.utils.costs import stage_scope
 
 
@@ -45,8 +52,8 @@ class Placement(NamedTuple):
     ``grid[s]`` lists megabatch s's client ids, malicious ids first;
     ``mal_counts[s]`` is that count.  ``groups`` pairs each distinct
     malicious count with the megabatch ids that share it, the JAX
-    package's scan groups (one static shape per group there; the port's
-    loop needs none and keeps them for comparison)."""
+    package's scan groups: the sequential loop needs none; the SPMD map
+    deals each group out to the positions (:func:`spmd_schedule`)."""
 
     grid: np.ndarray                       # (S, m) int32 client ids
     mal_counts: Tuple[int, ...]            # per-megabatch malicious rows
@@ -108,8 +115,152 @@ def stack_shards(outs):
     return torch.stack(outs)
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of like-shaped nests of tuples and dicts."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _run_rows(shard_fn, heads, args, out):
+    """``shard_fn(*head, *args)`` for each head in order.  ``out`` None:
+    the results stacked; a tensor: each result stored in its row; a dict
+    of buffers: those keys of each (dict) result stored in their rows,
+    the other keys stacked, all in one dict.  A result is stored at
+    once: one that views the megabatch's matrix (a Krum pick) must not
+    keep it alive into the next megabatch."""
+    rest = []
+    for i, head in enumerate(heads):
+        res = shard_fn(*head, *args)
+        if out is None:
+            rest.append(res)
+        elif isinstance(out, dict):
+            for k, buf in out.items():
+                buf[i] = res[k]
+            rest.append({k: v for k, v in res.items() if k not in out})
+        else:
+            out[i] = res
+    if out is None:
+        return stack_shards(rest)
+    if isinstance(out, dict):
+        return {**stack_shards(rest), **out}
+    return out
+
+
+class SpmdSchedule(NamedTuple):
+    """Host-side SPMD plan of :func:`client_map` over the mesh clients
+    axis, the JAX package's: one padded id grid per placement group
+    (shape ``(k_g * parts, m)``; position q owns rows ``[q k_g, (q + 1)
+    k_g)``), the groups' malicious counts, and ``select``: for each
+    megabatch id, its row in the position-major gathered order (padded
+    duplicate rows are never selected)."""
+
+    grids: Tuple[np.ndarray, ...]      # per group: (k_g*parts, m) ids
+    counts: Tuple[int, ...]            # per group malicious rows
+    select: np.ndarray                 # (S,) gathered-row index per shard
+    parts: int                         # mesh clients-axis size
+    padded_shards: int                 # total scheduled rows (>= S)
+    sids: Tuple[np.ndarray, ...] = ()  # per group: (k_g*parts,) shard ids
+
+
+def spmd_schedule(placement: Placement, parts: int) -> SpmdSchedule:
+    """Deal the placement's megabatches across the mesh clients axis
+    (``parts`` positions), with the JAX package's rules and messages: S
+    must divide by ``parts`` (anything else would silently replicate
+    work); within a group a count that does not divide is padded with
+    duplicates of the group's first megabatch (< parts extra rows per
+    group), whose outputs ``select`` drops."""
+    S = placement.num_shards
+    if parts < 1:
+        raise ValueError(f"mesh clients axis must be >= 1, got {parts}")
+    if S % parts:
+        raise ValueError(
+            f"hierarchical SPMD tier-1 needs the megabatch count "
+            f"S = users_count/megabatch divisible by the mesh clients "
+            f"axis (S={S}, clients axis={parts}): pick --megabatch / "
+            f"--mesh-shape so S % clients == 0 — silently replicating "
+            f"megabatches across devices would defeat the sharding")
+    grids, counts, per_dev, sid_rows = [], [], [], []
+    for count, sids in placement.groups:
+        k = -(-len(sids) // parts)
+        padded = list(sids) + [sids[0]] * (k * parts - len(sids))
+        grids.append(placement.grid[padded])
+        counts.append(count)
+        per_dev.append(k)
+        sid_rows.append(np.asarray(padded, np.int32))
+    k_sum = sum(per_dev)
+    select = np.empty(S, np.int64)
+    for gi, (_, sids) in enumerate(placement.groups):
+        k, off = per_dev[gi], sum(per_dev[:gi])
+        for r, sid in enumerate(sids):
+            q, j = divmod(r, k)
+            select[sid] = q * k_sum + off + j
+    return SpmdSchedule(grids=tuple(grids), counts=tuple(counts),
+                        select=select, parts=parts,
+                        padded_shards=k_sum * parts,
+                        sids=tuple(sid_rows))
+
+
+def _local_buffers(out, rows: int, device):
+    """A position's own (rows, ...) buffers shaped like ``out``'s."""
+    if out is None:
+        return None
+    if isinstance(out, dict):
+        return {k: _local_buffers(v, rows, device) for k, v in out.items()}
+    return torch.empty((rows,) + tuple(out.shape[1:]), dtype=out.dtype,
+                       device=device)
+
+
+def _client_map_spmd(shard_fn, placement: Placement, plan, *args,
+                     with_sid=False, out=None):
+    """The SPMD client map: each position runs the group rows it owns
+    (its slice of every group's padded grid, groups in order) with its
+    own element of every :class:`PerPosition` argument, into its own
+    buffers; then one tiled gather per output leaf brings the
+    position-major stacks to the primary, and ``select`` restores
+    megabatch order (and drops the padding), into ``out`` where given.
+    The values are the sequential map's: the same function on the same
+    rows."""
+    sched = spmd_schedule(placement, plan.clients_parts)
+    k_per = [g.shape[0] // sched.parts for g in sched.grids]
+    local = []
+    for q, dev in enumerate(plan.positions):
+        heads = []
+        for gi, count in enumerate(sched.counts):
+            for j in range(q * k_per[gi], (q + 1) * k_per[gi]):
+                ids = sched.grids[gi][j].astype(np.int64)
+                heads.append((int(sched.sids[gi][j]), ids, count)
+                             if with_sid else (ids, count))
+        pargs = tuple(a[q] if isinstance(a, PerPosition) else a
+                      for a in args)
+        local.append(_run_rows(shard_fn, heads, pargs,
+                               _local_buffers(out, len(heads), dev)))
+    gathered = _tree_map(lambda *blocks: plan.all_gather(blocks), *local)
+    sel = torch.from_numpy(sched.select)
+    if plan.primary.type == "cuda":      # no host synchronisation
+        sel = sel.pin_memory().to(plan.primary, non_blocking=True)
+    if out is None:
+        return _tree_map(lambda a: a[sel], gathered)
+    if not isinstance(out, dict):
+        return torch.index_select(gathered, 0, sel, out=out)
+    res = {}
+    for k, v in gathered.items():
+        res[k] = (_tree_map(lambda a: a[sel], v) if k not in out
+                  else torch.index_select(v, 0, sel, out=out[k]))
+    return res
+
+
+def broadcast(value, plan=None):
+    """Server -> clients broadcast: the identity without a plan (every
+    megabatch reads the one copy); over a mesh, a copy on every position
+    (:meth:`MeshPlan.broadcast`)."""
+    return value if plan is None else plan.broadcast(value)
+
+
 def client_map(shard_fn, placement: Placement, *args, with_sid=False,
-               out=None):
+               out=None, plan=None):
     """Apply ``shard_fn(ids, mal_count, *args)`` to every megabatch, in
     megabatch order, and stack the results along a leading shard axis.
 
@@ -119,19 +270,22 @@ def client_map(shard_fn, placement: Placement, *args, with_sid=False,
     mal_count, *args)``, for the per-shard fault streams (keyed
     ``fold_in(fold_in(key, t), sid)``).  ``out``, an (S, ...) tensor,
     takes each result in place of stacking (a preallocated estimate
-    matrix); ``shard_fn`` must then return one tensor."""
-    outs = []
+    matrix; ``shard_fn`` then returns one tensor), or a dict of such
+    buffers takes those keys of ``shard_fn``'s dict results.
+
+    ``plan``: a MeshPlan whose clients axis holds more than one position
+    switches to the SPMD map (:func:`_client_map_spmd`), where each
+    position reads its own element of the :class:`PerPosition` ``args``
+    (:func:`broadcast`); None, or one position, is the sequential map."""
+    if plan is not None and plan.clients_parts > 1:
+        return _client_map_spmd(shard_fn, placement, plan, *args,
+                                with_sid=with_sid, out=out)
+    heads = []
     for sid in range(placement.num_shards):
         ids = placement.grid[sid].astype(np.int64)
         c = placement.mal_counts[sid]
-        head = (sid, ids, c) if with_sid else (ids, c)
-        # Stored at once: a result that views the megabatch's matrix (a
-        # Krum pick) must not keep it alive into the next megabatch.
-        if out is not None:
-            out[sid] = shard_fn(*head, *args)
-        else:
-            outs.append(shard_fn(*head, *args))
-    return out if out is not None else stack_shards(outs)
+        heads.append((sid, ids, c) if with_sid else (ids, c))
+    return _run_rows(shard_fn, heads, args, out)
 
 
 def shard_reduce(tier2_fn, estimates, num_shards: int,
@@ -168,9 +322,9 @@ def two_tier_aggregate(users_grads, placement: Placement, tier1_fn,
 
     check_weight_seam(mask, weights)
     m = placement.megabatch
-    dev = users_grads.device
-
     tkw = {"telemetry": True} if telemetry else {}
+
+    dev = users_grads.device
 
     def shard_fn(ids, _c):
         idx = torch.from_numpy(ids).to(dev)

@@ -452,9 +452,38 @@ success):
                rounds/s, setup s and peak printed; then `python -m
                attacking_federate_learning_tpu_torch.benchmarks --cells 1
                --rounds 2` as a subprocess exits 0 with one JSON line.
+20. mesh   -- the device mesh's clients axis (parallel/) with every
+               position on cuda:0 (make_plan((p, 1), [cuda:0] * p)),
+               [mesh] lines.  (a) pairwise_distances_ring and _allgather
+               at (100, 79,510), p = 4, f32 and bf16, against kernel 1
+               (its bf16 route for bf16) and its plain version in phase
+               3's squared-distance band, an exact zero diagonal, Krum's
+               and Bulyan's picks over each matrix equal to the kernel's
+               (ALIE's identical crafted rows as one client), CUDA-event
+               ms beside kernel 1's.  (b) phase 5's flat mnist_mlp runs
+               (n = 100, f = 24, 21 rounds) under (4, 1): the five
+               defenses, and ring / allgather under Krum and Bulyan, each
+               with its launches (no distance kernel under ring /
+               allgather), round and deliver ms beside phase 5's twin and
+               its final weights against it (bit-equal or not, the largest
+               difference); then two rounds of each beside an unsharded
+               twin within the JAX package's band (atol 2e-5, rtol 1e-5),
+               ring / allgather's picks every call equal to the kernel
+               route's on the same matrix.  (c) phase 13's round at n =
+               1,000 (S = 10) under p = 2 and 5, spread and concentrated,
+               Krum/Krum and Bulyan/TrimmedMean, 3 rounds, and Bulyan/
+               Bulyan at n = 10,000 (S = 100) under p = 4, 2 rounds, each
+               bit-equal to its sequential twin run beside it, launches a
+               round = the padded schedule's tier-1 calls + one tier-2
+               call; the peak above rest, the bytes the gather moved a
+               round against utils/costs.py's S d 4, and the host
+               synchronisations of one round (torch.cuda's sync debug
+               mode) beside the sequential twin's.  (d)
+               make_plan((4, 1)) with no device list raises the JAX
+               package's message on a one-card machine.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-19), the nvidia-smi line, and as the last line
+summed over phases 5-20), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1476,11 +1505,12 @@ def drive(exp, kernels, banned, failures, label, excluded=None,
     round_s, deliver_ev = [], []
     grads_fn = exp.compute_grads
 
-    def timed_grads(t, *part, grads_fn=grads_fn, deliver_ev=deliver_ev):
+    def timed_grads(t, *part, grads_fn=grads_fn, deliver_ev=deliver_ev,
+                    **kw):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = grads_fn(t, *part)
+        out = grads_fn(t, *part, **kw)
         b.record()
         deliver_ev.append((a, b))
         return out
@@ -4070,6 +4100,8 @@ P13_FAULTS = dict(dropout=0.1, corrupt=0.05, corrupt_mode="nan",
                   shard_dropout=0.2, shard_dropout_dwell=2, straggler=0.1,
                   straggler_delay=2, seed=4)
 P13_FAULT_ROUNDS, P13_RESUME_AT = 8, 4
+# Phase 13 (e)'s 320,000-image dataset, kept for phase 20 (c).
+P13_LARGE = {}
 
 
 def hier_config(defense, tier2, placement="spread", n=N_HIER,
@@ -4095,6 +4127,13 @@ def hier_expected(exp, action):
     masked shard median under 'fallback', none under 'hold')."""
     table = HIER_MASKED if exp.faults is not None else HIER_UNMASKED
     S = exp._placement.num_shards
+    if exp._hier_spmd:
+        # The SPMD map runs the padded schedule (phase 20).
+        from attacking_federate_learning_tpu_torch.ops.federated import (
+            spmd_schedule
+        )
+        S = spmd_schedule(exp._placement,
+                          exp.shardings.clients_parts).padded_shards
     want = {k: S * v for k, v in table[exp.cfg.defense].items()}
     tier2 = (exp._tier2_name, "Median", None)[action]
     for k, v in (table[tier2].items() if tier2 else ()):
@@ -4473,6 +4512,7 @@ def run_hier_path(ds, failures, smi):
               f"images_per_client={shard_len} batch={B_HIER} rest_GB="
               f"{rest / 1e9:.3f} peak_above_rest_GB={above / 1e9:.3f} "
               f"(the (n, d) matrix alone: {full / 1e9:.2f} GB) ")
+    P13_LARGE["ds"] = ds_e            # phase 20 (c) runs on it again
     del exp, run, ds_e
     release()
     print(f"[hier] phase 13 took {time.perf_counter() - t_phase:.1f} s",
@@ -7169,6 +7209,439 @@ def run_remat_bench_path(ds, failures, smi):
     return totals
 
 
+# -- phase 20: the device mesh ------------------------------------------------
+P20_P = 4                 # (a) and (b): the clients axis, all on cuda:0
+# (b): (label, defense, distance_impl, must launch, must not launch)
+P20_FLAT = (
+    ("NoDefense", "NoDefense", "auto", (), ()),
+    ("Krum", "Krum", "auto", ("krum_scores",), ()),
+    ("TrimmedMean", "TrimmedMean", "auto", ("trimmed_mean",), ()),
+    ("Bulyan", "Bulyan", "auto", ("pairwise_distances", "trimmed_mean"), ()),
+    ("Median", "Median", "auto", ("median",), ()),
+    ("Krum ring", "Krum", "ring", (),
+     ("krum_scores", "pairwise_distances")),
+    ("Krum allgather", "Krum", "allgather", (),
+     ("krum_scores", "pairwise_distances")),
+    ("Bulyan ring", "Bulyan", "ring", ("trimmed_mean",),
+     ("krum_scores", "pairwise_distances")),
+    ("Bulyan allgather", "Bulyan", "allgather", ("trimmed_mean",),
+     ("krum_scores", "pairwise_distances")),
+)
+P20_TWIN_ROUNDS = 2                  # (b)'s band check, JAX's test's rounds
+P20_BAND = (2e-5, 1e-5)              # atol, rtol (tests/test_parallel.py)
+# (c): (tier 1, tier 2, placement, clients axis) at n = 1,000, S = 10.
+P20_HIER = (
+    ("Krum", "Krum", "spread", 2),
+    ("Krum", "Krum", "concentrated", 5),
+    ("Bulyan", "TrimmedMean", "spread", 5),
+    ("Bulyan", "TrimmedMean", "concentrated", 2),
+)
+P20_HIER_ROUNDS = 3
+
+
+def mesh_plan(p):
+    """A plan of ``p`` clients-axis positions, every one on cuda:0."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.parallel.mesh import make_plan
+
+    return make_plan((p, 1), [torch.device("cuda", 0)] * p)
+
+
+def p20_band(G):
+    """Phase 3's band on G's squared distances for two routes of f32
+    sums: kernel 1's chains and two cuBLAS chains of all of d (the
+    blockwise tiles and the plain version)."""
+    G64 = G.double()
+    sq64 = (G64 * G64).sum(1)
+    d = G.shape[1]
+    return d2_band(sq64, kernel_chain(d)) + 2.0 * d2_band(sq64, d)
+
+
+def p20_pick_verdict(G, got, want, n, f, m_mal):
+    """Picks ``got`` against ``want`` (selection order) on one matrix:
+    'exact' when equal up to ALIE's identical crafted rows
+    (p17_canonical); else at the first trip where they part, 'tie' when
+    the two picks' fp64 Krum scores over that trip's pool differ by no
+    more than the f32 routes can err on them (each row's sum over the
+    pool of min(sqrt b, b / D) of the squared-distance band b,
+    p20_band), else 'differ'.  Returns (verdict, gap, bound)."""
+    import torch
+
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    a, b = p17_canonical(got, G, m_mal), p17_canonical(want, G, m_mal)
+    diff = np.nonzero(a != b)[0]
+    if diff.size == 0:
+        return "exact", 0.0, 0.0
+    t = int(diff[0])
+    pool = torch.ones(n, dtype=torch.bool, device=G.device)
+    pool[torch.as_tensor(got[:t], device=G.device)] = False
+    s64 = p17_scores64(G, pool, n - t - f)
+    G64 = G.double()
+    sq = (G64 * G64).sum(1)
+    D64 = (sq[:, None] + sq[None, :] - 2.0 * (G64 @ G64.T)).clamp_min(
+        0.0).sqrt()
+    del G64
+    band = p20_band(G)
+    err = torch.minimum(band.sqrt(), band / D64.clamp_min(1e-300))
+    err = torch.where(pool[None, :], err, 0.0)
+    err.fill_diagonal_(0.0)
+    e = err.sum(1)
+    i, j = int(got[t]), int(want[t])
+    gap = float((s64[i] - s64[j]).abs())
+    bound = float(e[i] + e[j])
+    return ("tie" if gap <= bound else "differ"), gap, bound
+
+
+def p20_picks(G, n, f, D, D_ref, m_mal):
+    """Krum's and Bulyan's picks over ``D`` against those over ``D_ref``
+    on the same matrix (p20_pick_verdict): (ok, {name: verdict})."""
+    from attacking_federate_learning_tpu_torch.defenses.kernels import (
+        bulyan_select, krum_select
+    )
+
+    verdicts = {}
+    for name, got, want in (
+            ("krum", [int(krum_select(G, n, f, D=D))],
+             [int(krum_select(G, n, f, D=D_ref))]),
+            ("bulyan", bulyan_select(D, n, f).cpu().numpy(),
+             bulyan_select(D_ref, n, f).cpu().numpy())):
+        v, gap, bound = p20_pick_verdict(G, got, want, n, f, m_mal)
+        verdicts[name] = v if v == "exact" else (
+            f"{v} (gap {gap:.3e}, bound {bound:.3e})")
+    return all(not v.startswith("differ") for v in verdicts.values()), (
+        verdicts)
+
+
+def p20_distances(failures, smi):
+    """Phase 20 (a): the blockwise schedules at the main path's shape."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.ops.distances import (
+        gram_route, pairwise_distances, pairwise_distances_plain
+    )
+    from attacking_federate_learning_tpu_torch.parallel import (
+        distances as PD
+    )
+
+    mesh = mesh_plan(P20_P).mesh
+    for dtype in (torch.float32, torch.bfloat16):
+        G = torch.from_numpy(cohort(N_MAIN, D_MLP, F_MAIN, "alie", 1)).cuda()
+        G = G.to(dtype).contiguous()
+        band = p20_band(G)
+        ker, plain = pairwise_distances(G), pairwise_distances_plain(G)
+        kname = gram_route("pairwise_distances", G)
+        k_ms = time_ms(lambda: pairwise_distances(G), 20)
+        for impl in ("ring", "allgather"):
+            fn = getattr(PD, f"pairwise_distances_{impl}")
+            D = fn(G, mesh)
+            torch.cuda.synchronize()
+            errs, oks = [], []
+            for ref in (ker, plain):
+                err = (D.double() ** 2 - ref.double() ** 2).abs()
+                errs.append(float(err.max()))
+                oks.append(bool((err <= band).all()))
+            diag0 = bool(torch.equal(torch.diagonal(D),
+                                     torch.zeros(N_MAIN, device=D.device)))
+            picks_ok, verdicts = p20_picks(G, N_MAIN, F_MAIN, D, ker, F_MAIN)
+            ms = time_ms(lambda: fn(G, mesh), 5)
+            ok = all(oks) and diag0 and picks_ok
+            if not ok:
+                failures.append(
+                    f"mesh (a) {impl} {dtype}: d2 vs {kname} / plain "
+                    f"{errs} within band {oks}, zero diagonal {diag0}, "
+                    f"picks {verdicts}")
+            print(f"[mesh] (a) {impl:9s} p={P20_P} (100, 79,510) "
+                  f"{str(dtype)[6:]} d2_err_vs_kernel={errs[0]:.3e} "
+                  f"d2_err_vs_plain={errs[1]:.3e} (phase 3's band) "
+                  f"zero_diagonal={diag0} picks={verdicts} ms={ms:.4f} "
+                  f"{kname}_ms={k_ms:.4f} (CUDA events) ok={ok} on {smi}",
+                  flush=True)
+
+
+def p20_checked_picks(exp, notes):
+    """Wrap ``exp``'s blockwise Krum/Bulyan so that every call's picks
+    over the blockwise matrix are held against the kernel route's on the
+    same matrix (kernel 1's matrix, Krum's guarded fused scores)."""
+    from attacking_federate_learning_tpu_torch.defenses.kernels import (
+        bulyan_select, distances_for, krum_select
+    )
+    from attacking_federate_learning_tpu_torch.parallel import (
+        distances as PD
+    )
+
+    inner = exp.defense_fn
+    fn = getattr(PD, f"pairwise_distances_{exp.cfg.distance_impl}")
+
+    def checked(grads, n, f, **kw):
+        out = inner(grads, n, f, **kw)
+        D = fn(grads.float(), exp.shardings.mesh)
+        if exp.cfg.defense == "Krum":
+            got = [int(krum_select(grads, n, f, D=D))]
+            want = [int(krum_select(grads, n, f, method="fused"))]
+        else:
+            got = bulyan_select(D, n, f).cpu().numpy()
+            want = bulyan_select(distances_for(grads), n, f).cpu().numpy()
+        notes.append(p20_pick_verdict(grads.float(), got, want, n, f,
+                                      exp.m_mal)[0])
+        return out
+
+    exp.defense_fn = checked
+
+
+def p20_flat(ds, failures, smi, add):
+    """Phase 20 (b): phase 5's runs under (P20_P, 1)."""
+    import dataclasses
+
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+
+    atol, rtol = P20_BAND
+    for label, defense, impl, must, banned in P20_FLAT:
+        cfg = main_config(defense, 0.24, distance_impl=impl)
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda", shardings=mesh_plan(P20_P))
+        run = drive(exp, must, banned, failures, f"mesh (b) {label}")
+        add(run)
+        twin = TWINS[("main", defense, False, 0.24)]
+        final = P5_FINAL[(defense, False, 0.24)]
+        w = exp.state.weights.detach().cpu()
+        bit21 = bool(torch.equal(w, final))
+        d21 = float((w - final).abs().max())
+        del exp
+        # Two rounds beside an unsharded twin (the kernel route), from
+        # the same state each round: the deliver within the JAX package's
+        # band of the twin's, and the rest of the round, on the twin's
+        # matrix, the twin's bit for bit (up to a pick the blockwise
+        # matrix parts from the kernel's at a near-tie).
+        ref = FederatedExperiment(dataclasses.replace(cfg,
+                                                      distance_impl="auto"),
+                                  DriftAttack(cfg.num_std), ds,
+                                  device="cuda")
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda", shardings=mesh_plan(P20_P))
+        notes, errs, bits, same = [], [], [], []
+        if impl != "auto":
+            p20_checked_picks(exp, notes)
+        for t in range(P20_TWIN_ROUNDS):
+            exp.state = ref.state
+            g_ref = ref.compute_grads(t)
+            g_mesh = exp.compute_grads(t)
+            errs.append(close(g_mesh, g_ref, atol, rtol))
+            bits.append(bool(torch.equal(g_mesh, g_ref)))
+            exp.compute_grads = lambda *a, g=g_ref, **k: g.clone()
+            ref.run_round(t)
+            exp.run_round(t)
+            del exp.compute_grads
+            same.append(bool(torch.equal(exp.state.weights,
+                                         ref.state.weights)))
+        in_band = all(ok for _, ok in errs)
+        err = max(e for e, _ in errs)
+        bit2 = all(bits)
+        ties = [v for v in notes if v != "exact"]
+        picks_ok = (all(v != "differ" for v in notes)
+                    and (impl == "auto" or len(notes) == P20_TWIN_ROUNDS))
+        rest_ok = all(same) or (impl != "auto" and bool(ties))
+        if not (in_band and picks_ok and rest_ok):
+            failures.append(f"mesh (b) {label}: deliver vs the unsharded "
+                            f"twin's max |dg| {err:.3e} in band {in_band}, "
+                            f"rest of the round bit-equal {same}, picks "
+                            f"{notes}")
+        print(f"[mesh] (b) {label:16s} (4, 1) acc={run['acc_txt']} % "
+              f"median_round_ms={run['median_ms']:.3f} (phase 5 twin "
+              f"{twin['median_ms']:.3f}) deliver_ms={run['deliver_ms']:.3f} "
+              f"(twin {twin['deliver_ms']:.3f}) per_round="
+              f"{run['per_round']} 21 rounds vs phase 5: bit_equal={bit21} "
+              f"max_abs={d21:.3e}; {P20_TWIN_ROUNDS} rounds beside an "
+              f"unsharded twin: deliver bit_equal={bit2} max_abs={err:.3e} "
+              f"in_band={in_band} (atol {atol}, rtol {rtol}), the rest on "
+              f"the twin's matrix bit_equal={same} picks={notes or 'n/a'} "
+              f"finite={run['finite']} on {smi}", flush=True)
+        del exp, ref, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def p20_syncs(exp, t):
+    """Round t of ``exp`` under torch.cuda's sync debug mode: the count
+    of synchronising calls made from the port's package, the three most
+    frequent callers (each the innermost frame of the package on the
+    stack), and the count of those with no frame of the package (torch's
+    own; the first round measured in a process has one)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    where = collections.Counter()
+    show = warnings.showwarning
+
+    def record(message, category, filename, lineno, *a, **k):
+        if "synchroniz" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()
+                if f"{os.sep}{PKG}{os.sep}" in f.filename]
+        where[f"{os.path.basename(port[-1].filename)}:{port[-1].lineno}"
+              if port else None] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            exp.run_round(t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = show
+    torch.cuda.synchronize()
+    outside = where.pop(None, 0)
+    return sum(where.values()), where.most_common(3), outside
+
+
+def p20_hier_run(ds, t1, t2, placement, p, n, rounds, failures, smi, add,
+                 syncs=False):
+    """One phase 20 (c) run: the sequential twin by run_round, then the
+    SPMD run through hier_drive, bit-equal to it."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops.federated import (
+        spmd_schedule
+    )
+
+    cfg = hier_config(t1, t2, placement, n=n, epochs=rounds,
+                      test_step=rounds - 1, synth_train=len(ds.train_y))
+    twin = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                               device="cuda")
+    a = time.perf_counter()
+    for t in range(rounds):
+        twin.run_round(t)
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.perf_counter() - a) / rounds
+    want = (twin.state.weights.clone(), twin.state.velocity.clone())
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = mesh_plan(p)
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda", shardings=plan)
+    moved = []
+    gather = plan.all_gather
+
+    def counted(blocks, device=None):
+        moved.append(sum(b.numel() * b.element_size() for b in blocks))
+        return gather(blocks, device)
+
+    plan.all_gather = counted
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()
+    label = f"{t1}/{t2} {placement} p={p} n={n:,}"
+    run, per_round, errs, dev_ms = hier_drive(exp, failures,
+                                              f"mesh (c) {label}")
+    add(run)
+    above = run["peak_gib"] * 2 ** 30 - rest
+    bit = (bool(torch.equal(exp.state.weights, want[0]))
+           and bool(torch.equal(exp.state.velocity, want[1])))
+    sched = spmd_schedule(exp._placement, p)
+    seam = exp.wire_ledger()["seams"]["tier1_to_tier2"]
+    per = sum(moved) / rounds
+    if not (bit and seam["collective"]):
+        failures.append(f"mesh (c) {label}: bit-equal to the sequential "
+                        f"twin {bit}, ledger {seam}")
+    extra = ""
+    if syncs:
+        n_spmd, where_spmd, out_spmd = p20_syncs(exp, rounds)
+        twin = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                   device="cuda")
+        twin.state = exp.state
+        n_seq, where_seq, out_seq = p20_syncs(twin, rounds)
+        extra = (f"host_syncs_round_{rounds}={n_spmd} {where_spmd} "
+                 f"+{out_spmd} outside the port (sequential twin {n_seq} "
+                 f"{where_seq} +{out_seq}) ")
+        if n_spmd > n_seq:
+            failures.append(f"mesh (c) {label}: the SPMD round makes "
+                            f"{n_spmd} host synchronisations, the "
+                            f"sequential one {n_seq}")
+        del twin
+    hier_line("(c)", label, exp, run, per_round, errs, dev_ms, smi,
+              f"bit_equal_to_sequential={bit} sequential_round_ms="
+              f"{twin_ms:.3f} (host clock, by run_round) padded_shards="
+              f"{sched.padded_shards} gathered_MB_a_round={per / 1e6:.3f} "
+              f"ledger_S_d_4_MB={seam['bytes'] / 1e6:.3f} "
+              f"peak_above_rest_GB={above / 1e9:.3f} {extra}")
+    del exp, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_mesh_path(ds, failures, smi):
+    """Phase 20: the device mesh's clients axis, every position on cuda:0.
+    Returns launches per kernel summed over the runs."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.parallel.mesh import make_plan
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            totals[k] += v
+
+    count = torch.cuda.device_count()
+    print(f"[mesh] torch.cuda.device_count()={count}; positions of the "
+          f"phase's meshes all on cuda:0", flush=True)
+    # -- (a) the blockwise distances ----------------------------------------
+    a = time.perf_counter()
+    p20_distances(failures, smi)
+    t_a = time.perf_counter() - a
+    # -- (b) the flat round under (4, 1) ------------------------------------
+    a = time.perf_counter()
+    p20_flat(ds, failures, smi, add)
+    t_b = time.perf_counter() - a
+    # -- (c) the SPMD hierarchical round -------------------------------------
+    a = time.perf_counter()
+    for i, (t1, t2, placement, p) in enumerate(P20_HIER):
+        p20_hier_run(ds, t1, t2, placement, p, N_HIER, P20_HIER_ROUNDS,
+                     failures, smi, add, syncs=i == 0)
+    ds_e = P13_LARGE.pop("ds", None)
+    if ds_e is None:
+        ds_e = load_dataset(C.SYNTH_MNIST, seed=0,
+                            synth_train=N_HIER_E * B_HIER, synth_test=10_000)
+    p20_hier_run(ds_e, "Bulyan", "Bulyan", "spread", 4, N_HIER_E, 2,
+                 failures, smi, add)
+    del ds_e
+    t_c = time.perf_counter() - a
+    # -- (d) a mesh over every visible card ---------------------------------
+    want = f"mesh_shape (4, 1) != {count} devices"
+    try:
+        plan = make_plan((4, 1))
+        got, ok = f"a plan over {plan.positions}", count == 4
+    except ValueError as e:
+        got, ok = str(e), str(e) == want
+    if not ok:
+        failures.append(f"mesh (d): make_plan((4, 1)) gave {got!r}, want "
+                        f"{want!r}")
+    print(f"[mesh] (d) make_plan((4, 1)) on {count} card(s): {got!r} "
+          f"ok={ok}", flush=True)
+    print(f"[mesh] phase 20 took {time.perf_counter() - t_phase:.1f} s: "
+          f"(a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}", flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -7245,12 +7718,14 @@ def main() -> int:
     campaign_totals = run_campaign_path(ds, failures, smi)
     # -- 19. remat on the client step and benchmarks.py ----------------------
     remat_totals = run_remat_bench_path(ds, failures, smi)
+    # -- 20. the device mesh -------------------------------------------------
+    mesh_totals = run_mesh_path(ds, failures, smi)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
             async_totals, defense_totals, traffic_totals, hier_totals,
             secagg_totals, observe_totals, walls_totals, host_totals,
-            campaign_totals, remat_totals))
+            campaign_totals, remat_totals, mesh_totals))
 
     if failures:
         for msg in failures:

@@ -3,11 +3,11 @@
 - One spec JSON expands in both packages to the same cells in the same
   order, with the same skip verdicts and the same grouping partition;
   the ids differ (they hash each package's config).  The port alone
-  refuses the JAX fields its config lacks (``mesh_shape``, ``backend``:
-  a TypeError at construction) and 'ring'/'allgather' distances under
-  Krum and Bulyan (its engine's refusal without a mesh):
-  :data:`PORT_ONLY`.  A ``remat=True`` cell validates in both and runs
-  inline to the weights of its remat-off twin.
+  refuses the JAX field its config lacks (``backend``: a TypeError at
+  construction) and a mesh with a model axis wider than 1 (not ported
+  yet; its config's refusal): :data:`PORT_ONLY`.  A ``remat=True`` cell
+  validates in both and runs inline to the weights of its remat-off
+  twin.
 - The pre-check agrees with real construction in the port over the JAX
   package's known-invalid matrix (tests/test_campaign.py ``_INVALID``).
 - Exactly once: a campaign killed mid-run in a subprocess and invoked
@@ -90,16 +90,16 @@ def _base(tmp_path, **kw):
 
 # The cells the port alone refuses: (overrides, message fragment).
 PORT_ONLY = [
-    (dict(mesh_shape=[2, 1]), "unexpected keyword argument 'mesh_shape'"),
     (dict(backend="cpu"), "unexpected keyword argument 'backend'"),
-    (dict(defense="Krum", distance_impl="ring"), "needs a device mesh"),
-    (dict(defense="Bulyan", users_count=16, mal_prop=0.125,
-          distance_impl="allgather"), "needs a device mesh"),
+    (dict(mesh_shape=[2, 2]), "model axis"),
+    (dict(mesh_shape=[1, 4], defense="Krum"), "model axis"),
+    (dict(mesh_shape=[2, 4], aggregation="hierarchical", users_count=16,
+          megabatch=4, defense="Median"), "model axis"),
 ]
 
-# The known-invalid matrix's cells that are port-only refusals too (the
-# port's config has no mesh_shape).
-_MATRIX_PORT_ONLY = {7}
+# The known-invalid matrix's cells that are port-only refusals too (none
+# since the port has mesh_shape: its SPMD straggler refusal is JAX's).
+_MATRIX_PORT_ONLY = set()
 
 
 def _partition(cells):
@@ -180,7 +180,7 @@ def test_precheck_agrees_with_construction(tmp_path, case):
     reason = composition_reject_reason(merged, attack)
     assert reason is not None
     if case in _MATRIX_PORT_ONLY:
-        assert "unexpected keyword argument 'mesh_shape'" in reason
+        raise AssertionError(f"no port-only case left, got {case}")
     else:
         assert fragment in reason, (reason, fragment)
         assert reason == JS.composition_reject_reason(merged, attack)

@@ -43,10 +43,9 @@ def test_grid_spec_expands_as_jax_s(tmp_path):
     got = G.grid_spec(_base(ExperimentConfig, tmp_path)).expand()
     want = JG.grid_spec(_base(JConfig, tmp_path)).expand()
     assert len(got) == len(want) == 10 * 8
-    # The JAX base carries mesh_shape and backend; the rest is shared.
+    # The JAX base carries backend; the rest is shared.
     for g, w in zip(got, want):
-        w_over = {k: v for k, v in w.overrides.items()
-                  if k not in ("mesh_shape", "backend")}
+        w_over = {k: v for k, v in w.overrides.items() if k != "backend"}
         assert (g.overrides, g.attack, g.index) == (w_over, w.attack,
                                                     w.index)
         assert (g.skip is None) == (w.skip is None)

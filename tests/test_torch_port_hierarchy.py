@@ -20,8 +20,8 @@ versions):
   rows of one megabatch in the colluders' hands), and with the backdoor:
   the weights within a relative L2 error of 1e-6 (measured below 1e-7);
 - the config's, the engine's and the CLI's messages and help texts equal
-  to JAX's; the refusal of what the port has not ported (the device
-  mesh); a CLI run.
+  to JAX's; the refusal of what the port has not ported (the mesh's
+  model axis); a CLI run.
 """
 
 import dataclasses
@@ -281,10 +281,37 @@ def test_check_tier2_args_is_jax_s(name, S, f2):
 # ---------------------------------------------------------------------------
 # rounds through the engines
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The port on two intra-op threads: beside the other test workers,
+    a machine's every core per worker spins more than it computes.  The
+    weights are bit for bit those of eight threads (measured on every
+    round test here); four or six split some reductions otherwise and
+    move the Bulyan/TrimmedMean 'concentrated' round to a tier-1 near-tie
+    on the other side (rel L2 3.7e-4), so the count is fixed, not the
+    machine's."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def datasets():
     return (jax_load_dataset(JC.SYNTH_MNIST, seed=0, **SIZES),
             load_dataset(C.SYNTH_MNIST, seed=0, **SIZES))
+
+
+@pytest.fixture(scope="module")
+def jax_initial_weights(datasets):
+    """The JAX engine's initial weights as the port's flat vector, built
+    once: every config of this file has one seed and one model, so the
+    tests that run the port alone share them."""
+    jexp = JExperiment(JConfig(**_base(defense="Krum"),
+                               aggregation_impl="xla"),
+                       attacker=JDrift(1.0), dataset=datasets[0])
+    params = jax.tree.map(np.asarray, jexp.flat.unravel(jexp.state.weights))
+    return from_jax_params(params)
 
 
 def _base(**kw):
@@ -293,6 +320,17 @@ def _base(**kw):
                 aggregation="hierarchical", megabatch=M, **SIZES)
     base.update(kw)
     return base
+
+
+def _port(datasets, weights, attack="alie", **kw):
+    """A port engine on the CPU of one hierarchical config, started from
+    ``weights`` (the JAX engine's initial weights)."""
+    tcfg = ExperimentConfig(**_base(**kw))
+    tatt = (make_attacker(tcfg, datasets[1], device="cpu")
+            if attack == "backdoor" else DriftAttack(1.0))
+    texp = FederatedExperiment(tcfg, tatt, datasets[1], device="cpu")
+    texp.state = init_server_state(weights.clone())
+    return texp
 
 
 def _pair(datasets, attack="alie", **kw):
@@ -382,10 +420,11 @@ def test_three_backdoor_rounds_match_the_jax_engine(datasets):
     assert crafts == [(M, False)] * ROUNDS
 
 
-def test_the_nan_guard_raises_once_a_round_and_keeps_the_state(datasets):
-    _, texp = _pair(datasets, attack="backdoor", backdoor="pattern",
-                    mal_batch_size=64, defense="Median",
-                    tier2_defense="Median")
+def test_the_nan_guard_raises_once_a_round_and_keeps_the_state(
+        datasets, jax_initial_weights):
+    texp = _port(datasets, jax_initial_weights, attack="backdoor",
+                 backdoor="pattern", mal_batch_size=64, defense="Median",
+                 tier2_defense="Median")
     texp.attacker.craft = lambda mal, ctx: torch.full(mal.shape[1:],
                                                       math.nan)
     w0 = texp.state.weights.clone()
@@ -395,9 +434,11 @@ def test_the_nan_guard_raises_once_a_round_and_keeps_the_state(datasets):
     assert torch.equal(texp.state.weights, w0) and texp.state.round == 0
 
 
-def test_the_round_never_builds_the_client_matrix(datasets):
+def test_the_round_never_builds_the_client_matrix(datasets,
+                                                 jax_initial_weights):
     """Every matrix a round hands its defenses is one megabatch's."""
-    _, texp = _pair(datasets, defense="Median", tier2_defense="Krum")
+    texp = _port(datasets, jax_initial_weights, defense="Median",
+                 tier2_defense="Krum")
     shapes = []
     inner = texp.compute_grads
 
@@ -492,7 +533,7 @@ def test_engine_messages_are_jax_s(kw, datasets):
 
 
 @pytest.mark.parametrize("knob,value,word", [
-    ("mesh_shape", (2, 1), "multi-GPU slice")])
+    ("mesh_shape", (1, 2), "model axis")])
 def test_what_is_not_ported_is_refused(knob, value, word, datasets):
     cfg = ExperimentConfig(**_base(defense="Krum"))
     setattr(cfg, knob, value)

@@ -266,7 +266,7 @@ def test_the_nine_fields_have_jax_s_defaults():
     import dataclasses
     missing = ({f.name for f in dataclasses.fields(JConfig)}
                - {f.name for f in dataclasses.fields(ExperimentConfig)})
-    assert missing == {"mesh_shape", "backend"}
+    assert missing == {"backend"}
 
 
 _ACCEPT = [
