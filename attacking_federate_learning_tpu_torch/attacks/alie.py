@@ -41,6 +41,9 @@ def paper_z(users_count: int, corrupted_count: int) -> float:
 
 class DriftAttack(Attack):
     name = "alie"
+    # Coordinate-wise: over the mesh's model axis each position crafts its
+    # own columns (core/engine.py:_craft).
+    columnwise = True
 
     def craft(self, mal_grads, ctx=None):
         # Async rounds: the statistics of the delivered malicious rows,

@@ -11,8 +11,7 @@ message, never a crashed run.  One spec JSON expands in both packages
 to the same cells in the same order, with the same skip verdicts and the
 same grouping partition, except for what the port alone refuses: the
 JAX field the port's config lacks (``backend``: a ``TypeError`` at
-construction, so the cell is skipped with that message) and the mesh's
-model axis (``mesh_shape`` (c, m > 1), refused by the port's config).
+construction, so the cell is skipped with that message).
 
 Cell identity is the config-hash ``run_id_for`` (utils/lifecycle.py)
 extended with the attack name (:func:`cell_id_for`).  It hashes the

@@ -16,9 +16,10 @@ engine knobs (``--distance-impl``, ``--bulyan-selection-impl``,
 ``--median-impl``: 'host' names a host engine, every other value the
 card's kernels) and host streaming (``--data-placement``,
 ``--stream-prefetch``, ``--stream-workers``), the device mesh's
-``--mesh-shape c,1`` (the clients axis over every visible card: a flat
-round's cohort and a hierarchical round's megabatches dealt out to the
-cards; the model axis is refused), the
+``--mesh-shape c,m`` (c x m positions over every visible card: a flat
+round's cohort and a hierarchical round's megabatches dealt out over
+the clients axis, the gradients' columns and the server state over the
+model axis where m divides d), the
 async buffered round's (``--aggregation``, ``--async-buffer``,
 ``--async-max-staleness``, ``--staleness-weight``), the hierarchical
 round's (``--megabatch``, ``--tier2-defense``, ``--mal-placement``,

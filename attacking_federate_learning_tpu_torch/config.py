@@ -26,8 +26,8 @@ dataset's default model, the ``-b`` coercion) and validation messages:
   ``trimmed_mean_impl``, ``median_impl``) and host streaming
   (``data_placement``, ``stream_prefetch``, ``stream_workers``);
 - ``remat``, the recomputing checkpoint of the client step;
-- the device mesh's clients axis (``mesh_shape`` (c, 1); the model
-  axis, (c, m > 1), is refused: not ported yet).
+- the device mesh (``mesh_shape`` (c, m): the clients axis and the
+  model axis).
 
 ``backend`` has no counterpart: the engine's ``device`` argument does
 its job.
@@ -482,8 +482,8 @@ class ExperimentConfig:
     # The device mesh (parallel/mesh.py): (clients positions, model
     # positions); None runs on the engine's one device.  The clients axis
     # deals a flat round's cohort and a hierarchical round's megabatches
-    # (the SPMD client map) out to the positions; the model axis is not
-    # ported yet (only (c, 1)).
+    # (the SPMD client map) out to the positions; the model axis splits
+    # the gradients' columns and the server state where m divides d.
     mesh_shape: Optional[tuple] = None
 
     # --- train-time augmentation ---------------------------------------
@@ -624,12 +624,6 @@ class ExperimentConfig:
                     f"(clients_devices, model_devices), "
                     f"got {self.mesh_shape!r}")
             self.mesh_shape = ms
-            if ms[1] > 1:
-                raise ValueError(
-                    f"mesh_shape {ms}: the model axis (d-sharding of the "
-                    f"gradients and the server state) is not ported yet; "
-                    f"the port runs the clients axis only — use "
-                    f"--mesh-shape {ms[0] * ms[1]},1")
         if self.bulyan_batch_select < 1:
             raise ValueError(
                 f"bulyan_batch_select must be >= 1, got "

@@ -56,15 +56,28 @@ to a host engine when a kernel fails: the failure raises.  'ring' and
 distance matrix of the blockwise schedule (parallel/distances.py).
 
 Over a device mesh (``shardings``, a parallel/mesh.py ``MeshPlan``, or
-one laid from ``cfg.mesh_shape``; the clients axis only) the dataset is
-replicated to every position and the server state lives on the primary
-(position 0).  A flat, async or traffic round's deliver deals the cohort
-out to the positions, each computing its rows on its own replicas at its
-copy of the weights, and gathers the (m, d) matrix to the primary, where
-craft, aggregate and apply run as on one device.  A hierarchical round
-over more than one position is the SPMD client map (ops/federated.py):
-each position runs its own megabatches, and the estimates gather to the
-primary for tier 2.
+one laid from ``cfg.mesh_shape``) the dataset is replicated to every
+clients-axis position and the server state lives on the primary
+(position (0, 0)).  A flat, async or traffic round's deliver deals the
+cohort out to the clients positions, each computing its rows on its own
+replicas at its copy of the weights, and gathers the (m, d) matrix to
+the primary, where craft, aggregate and apply run as on one device.  A
+hierarchical round over more than one clients position is the SPMD
+client map (ops/federated.py): each position runs its own megabatches,
+and the estimates gather to the primary for tier 2.
+
+Where the mesh's model axis splits d (``MeshPlan.splits``), the server
+state is held as column blocks on the model positions (the ``state``
+property gathers it whole for whoever reads it: deliver once a round,
+evaluation, checkpoints), the server step runs on each block, ALIE
+crafts each block, and the flat, async and traffic rounds aggregate on
+the blocks where the defense allows it (parallel/model_axis.py: the
+coordinate-wise defenses per block, Krum and Bulyan from the Gram split
+over d).  Under a mesh over the processes of a torch.distributed group
+(parallel/mesh.py) the flat round runs with each process delivering its
+positions' rows and the primary process aggregating, applying and
+broadcasting the state; only the primary process writes logs and
+checkpoints.
 
 Under ``cfg.data_placement='host_stream'`` the training set stays in
 host memory and each flat round's batch comes from a
@@ -233,6 +246,7 @@ from attacking_federate_learning_tpu_torch.defenses.kernels import (
 from attacking_federate_learning_tpu_torch.models.base import get_model
 from attacking_federate_learning_tpu_torch.ops import federated as FD
 from attacking_federate_learning_tpu_torch.parallel import distances as PD
+from attacking_federate_learning_tpu_torch.parallel import model_axis as MA
 from attacking_federate_learning_tpu_torch.parallel.mesh import (
     PerPosition, make_plan
 )
@@ -304,6 +318,14 @@ def resolve_device(device) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
     return dev
+
+
+def _blockwise(fn, cond, a, b):
+    """``fn(cond, a, b)``, on each column block where ``a`` and ``b`` are
+    the model axis' blocks (``cond`` moved to each block's device)."""
+    if not isinstance(a, PerPosition):
+        return fn(cond, a, b)
+    return PerPosition(fn(cond.to(x.device), x, y) for x, y in zip(a, b))
 
 
 def _device_key(device) -> tuple:
@@ -432,6 +454,12 @@ class FederatedExperiment:
                  device="cuda", shardings=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        # Over a model axis that splits d the server state is held as
+        # column blocks (the ``state`` property), and the flat round's
+        # aggregation runs on the blocks where its defense allows it.
+        self._model_split = False
+        self._model_agg = None
+        self._state = self._state_whole = None
         # The device mesh (parallel/mesh.py): the plan given, or one laid
         # from cfg.mesh_shape once the config has passed its checks
         # (:meth:`_init_mesh`); its clients-axis size decides the
@@ -690,6 +718,25 @@ class FederatedExperiment:
                                      self.dataset.test_y, cfg.batch_size,
                                      self.device)
 
+    @property
+    def state(self) -> ServerState:
+        """The server state, whole.  Over a model axis that splits d it is
+        held as column blocks on the model positions (``_state``), and a
+        read gathers them onto the primary, once a change."""
+        st = self._state
+        if st is not None and isinstance(st.weights, PerPosition):
+            if self._state_whole is None:
+                self._state_whole = self.shardings.whole_state(st)
+            return self._state_whole
+        return st
+
+    @state.setter
+    def state(self, st: ServerState) -> None:
+        if self._model_split and not isinstance(st.weights, PerPosition):
+            st = self.shardings.place_state(st)
+        self._state = st
+        self._state_whole = None
+
     def _init_observatories(self):
         """The observatories' plan (cfg.telemetry, margins, numerics,
         log_round_stats), the JAX engine's: the defense returns its
@@ -757,6 +804,14 @@ class FederatedExperiment:
         envelope utilization on the pre-attack copy and the crafted rows
         after it (--margins)."""
         if obs is None:
+            if self._model_split and getattr(self.attacker, "columnwise",
+                                             False):
+                # Coordinate-wise (ALIE): each model position crafts its
+                # own columns.
+                plan = self.shardings
+                return plan.all_gather_cols([
+                    self.attacker.apply(b, self.m_mal, ctx)
+                    for b in plan.split_cols(grads)])
             return self.attacker.apply(grads, self.m_mal, ctx)
         cfg, tele = self.cfg, obs.tele
         if cfg.telemetry:
@@ -960,7 +1015,7 @@ class FederatedExperiment:
         dtype = _DTYPES[self.cfg.distance_dtype]
 
         def with_blockwise_D(grads, n, f, **kw):
-            D = dist_fn(grads.to(dtype), self.shardings.mesh)
+            D = dist_fn(grads.to(dtype), self.shardings)
             return defense(grads, n, f, D=D, **kw)
 
         return with_blockwise_D
@@ -979,16 +1034,19 @@ class FederatedExperiment:
         if self.shardings is None:
             return
         plan = self.shardings
-        if _device_key(plan.primary) != _device_key(self.device):
+        if plan.group is not None:
+            self._check_process_mesh(plan)
+        if _device_key(plan.home) != _device_key(self.device):
             raise ValueError(
-                f"the mesh's primary position is {plan.primary}, the "
+                f"the mesh's primary position is {plan.home}, the "
                 f"engine's device is {self.device}: the server state lives "
                 f"on the primary position")
-        keys = {_device_key(d) for d in plan.positions}
+        every = list(plan.mesh.devices.ravel())
+        keys = {_device_key(d) for d in every}
         if any(k[0] != self.device.type for k in keys):
             raise ValueError(
                 f"every mesh position must be a {self.device.type} device "
-                f"like the engine's, got {list(map(str, plan.positions))}")
+                f"like the engine's, got {list(map(str, every))}")
         if (len(keys) > 1
                 and isinstance(getattr(self.attacker, "device", None),
                                torch.device)):
@@ -996,6 +1054,32 @@ class FederatedExperiment:
                 f"{type(self.attacker).__name__} keeps its state on "
                 f"{self.attacker.device}; over a mesh of several devices "
                 f"it needs every position on that device")
+
+    def _check_process_mesh(self, plan) -> None:
+        """A mesh over the processes of a torch.distributed group runs the
+        flat round with the clients axis over the processes: each process
+        delivers its positions' rows, the primary process aggregates,
+        applies and broadcasts the state.  What else would need the group
+        inside a round is refused, by name."""
+        cfg = self.cfg
+        what = []
+        if cfg.aggregation == "hierarchical":
+            what.append("the hierarchical round (its SPMD client map)")
+        if cfg.aggregation == "async":
+            what.append("the async buffered round")
+        if self.traffic is not None:
+            what.append("population traffic")
+        if cfg.data_placement == "host_stream":
+            what.append("data_placement='host_stream'")
+        if cfg.distance_impl in ("ring", "allgather"):
+            what.append(f"distance_impl={cfg.distance_impl!r} in a round")
+        if not getattr(self.attacker, "fusable", True):
+            what.append("a staged attack")
+        if what:
+            raise ValueError(
+                f"a mesh over {plan.processes} processes runs the flat "
+                f"round only; not supported over processes: "
+                f"{', '.join(what)}")
 
     def _place_replicas(self) -> list:
         """Each position's own replicas (MeshPlan.place): the dataset
@@ -1006,10 +1090,19 @@ class FederatedExperiment:
         on the primary."""
         plan, cfg = self.shardings, self.cfg
         parts = plan.clients_parts
+        # Over a model axis that splits d the server state goes out in
+        # column blocks, and the flat round aggregates on them where its
+        # defense allows (parallel/model_axis.py).
+        self._model_split = plan.splits(self.flat.dim)
+        self._model_agg = MA.split_defense(cfg, plan, self.flat.dim)
+        # This process's first position (position 0 but in another
+        # process of a group) takes the engine's own buffers.
+        first = next(q for q in range(parts) if plan.local(q))
         if self.stream is None:
             shards, xs, ys, self.state = plan.place(
                 self.shards, self.train_x, self.train_y, self.state)
-            self.shards, self.train_x, self.train_y = shards[0], xs[0], ys[0]
+            self.shards, self.train_x, self.train_y = (
+                shards[first], xs[first], ys[first])
         else:
             shards = xs = ys = (None,) * parts
             self.state = plan.place_state(self.state)
@@ -1018,12 +1111,15 @@ class FederatedExperiment:
         grid = ((None,) * parts if self._placement is None
                 else plan.broadcast(self._grid))
         if self._style is not None:
-            self._style = style[0]
+            self._style = style[first]
         if self._placement is not None:
-            self._grid = grid[0]
+            self._grid = grid[first]
         steps = {_device_key(self.device): self._client_update}
         reps = []
         for q, dev in enumerate(plan.positions):
+            if not plan.local(q):
+                reps.append(None)
+                continue
             key = _device_key(dev)
             if key not in steps:
                 steps[key] = make_client_update_fn(
@@ -1175,6 +1271,7 @@ class FederatedExperiment:
         streamed = self.stream.get(t) if self.stream is not None else None
         return plan.all_gather([
             self._deliver_rows(t, q, part, lo, hi, weights[q], streamed)
+            if plan.local(q) else None
             for q, (lo, hi) in enumerate(plan.row_bounds(self.m))])
 
     def _deliver_rows(self, t: int, q: int, part, lo: int, hi: int,
@@ -1248,6 +1345,9 @@ class FederatedExperiment:
         if self._needs_server_grad:
             kw["server_grad"] = self.server_grad()
         dkw = None if obs is None else (self._diag_kw or self._select_kw)
+        if dkw is None and self._model_agg is not None:
+            return self._model_agg(self.shardings, grads, self.m, self.m_mal,
+                                   **kw)
         if dkw is None:
             return self.defense_fn(grads, self.m, self.m_mal, **kw)
         agg, ddiag = self.defense_fn(grads, self.m, self.m_mal, **kw, **dkw)
@@ -1266,13 +1366,25 @@ class FederatedExperiment:
         cfg = self.cfg
         lr = (faded_lr(cfg, t) if cfg.server_uses_faded_lr
               else cfg.learning_rate)
-        return momentum_update(self.state, agg.float(), lr, cfg.momentum)
+        st = self._state
+        if not isinstance(st.weights, PerPosition):
+            return momentum_update(st, agg.float(), lr, cfg.momentum)
+        # Over the model axis: the step on each column block, on its
+        # position (per coordinate, so the bits of the whole step).
+        if not isinstance(agg, PerPosition):
+            agg = self.shardings.split_cols(agg.float())
+        parts = [momentum_update(ServerState(w, v, st.round), a.float(), lr,
+                                 cfg.momentum)
+                 for w, v, a in zip(st.weights, st.velocity, agg)]
+        return ServerState(PerPosition(p.weights for p in parts),
+                           PerPosition(p.velocity for p in parts),
+                           st.round + 1)
 
     @in_stage("apply")
     def _hold(self) -> ServerState:
         """A no-op round: weights and velocity stay bit for bit, the round
         counter advances."""
-        st = self.state
+        st = self._state
         self.state = ServerState(st.weights, st.velocity, st.round + 1)
         return self.state
 
@@ -1285,6 +1397,11 @@ class FederatedExperiment:
             return self.run_traffic_round(t)
         obs = self._begin_observation()
         grads = self.compute_grads(t, self.participants(t))
+        if grads is None:
+            # Another process of a group than the primary's: its rows
+            # are delivered; it receives the round's state.
+            self.state = self.shardings.broadcast_state(self.state)
+            return self.state
         grads = self._craft(grads, self.attack_context(t), obs)  # craft
         self._wire_health(obs, grads)
         # The round stats read the crafted matrix before the faults.
@@ -1298,6 +1415,8 @@ class FederatedExperiment:
         kw = {} if mask is None else {"mask": mask}
         agg = self.aggregate(grads, t, obs, **kw)              # aggregate
         self.state = self._apply(agg, t)                       # apply
+        if self.shardings is not None and self.shardings.group is not None:
+            self.state = self.shardings.broadcast_state(self.state)
         with stage_scope("apply"):
             self._end_observation(obs, self._client_norms(crafted), t)
         return self.state
@@ -1715,9 +1834,10 @@ class FederatedExperiment:
             # An empty delivery is a server no-op: weights and velocity
             # hold, the round counter advances.
             any_del = delivered.any()
+            st = self._state
             self.state = ServerState(
-                torch.where(any_del, upd.weights, self.state.weights),
-                torch.where(any_del, upd.velocity, self.state.velocity),
+                _blockwise(torch.where, any_del, upd.weights, st.weights),
+                _blockwise(torch.where, any_del, upd.velocity, st.velocity),
                 upd.round)
             self._end_observation(obs, norms, t)
         return self.state
@@ -1756,7 +1876,8 @@ class FederatedExperiment:
         JAX engine prices them: the expected secagg recovery load is the
         dropout rate over the cohort.  Under the SPMD client map the
         tier-1 -> tier-2 seam is the estimates' gather over the clients
-        axis (``spmd_parts`` positions)."""
+        axis (``spmd_parts`` positions).  Over a model axis that splits d
+        the Gram partials' and the state's gathers are priced too."""
         from attacking_federate_learning_tpu_torch.utils.costs import (
             wire_ledger
         )
@@ -1767,6 +1888,12 @@ class FederatedExperiment:
         dropped = 0
         if cfg.secagg != "off" and self.faults is not None:
             dropped = int(round(self.faults.dropout * self.m))
+        model = {}
+        if self._model_split:
+            model["model_parts"] = self.shardings.model_parts
+            model["partial_tiles"] = (
+                MA.partial_tiles(cfg, self.shardings, self.m, self.flat.dim)
+                if self._model_agg is not None else 0)
         return wire_ledger(
             cohort=self.m, dim=self.flat.dim,
             grad_bytes=self.grad_dtype.itemsize,
@@ -1775,7 +1902,8 @@ class FederatedExperiment:
             spmd_parts=self._mesh_parts if self._hier_spmd else 1,
             secagg=cfg.secagg, dropped=dropped,
             async_buffer=(cfg.async_buffer
-                          if cfg.aggregation == "async" else None))
+                          if cfg.aggregation == "async" else None),
+            **model)
 
     def _load_into(self, twin: "FederatedExperiment") -> None:
         """Copy what this engine's next round starts from into ``twin``,
@@ -1783,7 +1911,7 @@ class FederatedExperiment:
         carry state (through the checkpoint seam, from which a resumed run
         continues bit for bit), the traffic events not yet logged and a
         copy of the attacker.  Nothing of this engine is touched."""
-        twin.state = self._place_state(self._host_state())
+        twin.state = twin._place_state(self._host_state())
         twin.restore_carry_state(self.carry_state_host())
         if self.traffic is not None:
             twin._traffic_events = dict(self._traffic_events)
@@ -2077,6 +2205,12 @@ class FederatedExperiment:
         rounds ``traffic`` (the 'traffic' event of each round run in this
         attempt), under a backdoor ``asr`` (the attack success rate at
         each evaluation)."""
+        if self.shardings is not None and not self.shardings.is_primary:
+            # Only the primary process of a group writes logs and
+            # checkpoints.
+            checkpointer = journal = None
+            if logger is None and log is None:
+                log = []
         own = logger is None and log is None
         if logger is None:
             logger = (RunLogger(self.cfg, self.cfg.output, self.cfg.log_dir)

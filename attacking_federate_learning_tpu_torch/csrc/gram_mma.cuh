@@ -601,6 +601,24 @@ cudaError_t launch_mma(const uint16_t* G, int n, long long d, int nt, int S,
 
 }  // namespace mma
 
+// Stage 1 of the bf16 route on `stream`: the Gram partials on the tensor
+// cores into ws, in gram_tile.cuh's layout.  Returns the launch error.
+inline cudaError_t gram_partials_bf16(const uint16_t* G, int n, long long d,
+                                      int S, int cps, int stage_k,
+                                      float* ws, cudaStream_t stream) {
+    const int nt = (n + kT - 1) / kT;
+    const int groups = mma::mma_groups(n);
+    return groups == 4   ? mma::launch_mma<1, 64, 4>(G, n, d, nt, S, cps,
+                                                     stage_k, ws, stream)
+           : groups == 2 ? mma::launch_mma<1, 64, 2>(G, n, d, nt, S, cps,
+                                                     stage_k, ws, stream)
+           : mma::mma_cols(n) == 64
+               ? mma::launch_mma<1, 64, 1>(G, n, d, nt, S, cps, stage_k,
+                                           ws, stream)
+               : mma::launch_mma<2, 128, 1>(G, n, d, nt, S, cps, stage_k,
+                                            ws, stream);
+}
+
 // Both stages of the bf16 route on `stream`: the Gram partials on the
 // tensor cores into ws, then gram_tile.cuh's epilogue into D.  Returns
 // the first launch error.
@@ -608,23 +626,10 @@ inline cudaError_t gram_distances_bf16(const uint16_t* G, int n, long long d,
                                        int S, int cps, int stage_k,
                                        float* ws, float* D,
                                        cudaStream_t stream) {
-    const int nt = (n + kT - 1) / kT;
-    const int tiles = nt * (nt + 1) / 2;
-    const int groups = mma::mma_groups(n);
-    cudaError_t err =
-        groups == 4   ? mma::launch_mma<1, 64, 4>(G, n, d, nt, S, cps,
-                                                  stage_k, ws, stream)
-        : groups == 2 ? mma::launch_mma<1, 64, 2>(G, n, d, nt, S, cps,
-                                                  stage_k, ws, stream)
-        : mma::mma_cols(n) == 64
-            ? mma::launch_mma<1, 64, 1>(G, n, d, nt, S, cps, stage_k, ws,
-                                        stream)
-            : mma::launch_mma<2, 128, 1>(G, n, d, nt, S, cps, stage_k, ws,
-                                         stream);
+    const cudaError_t err =
+        gram_partials_bf16(G, n, d, S, cps, stage_k, ws, stream);
     if (err != cudaSuccess) return err;
-    gram_epilogue_kernel<<<tiles * kT * 4, kThreads, 0, stream>>>(ws, n, nt,
-                                                                  S, D);
-    return cudaGetLastError();
+    return gram_epilogue(ws, n, S, D, stream);
 }
 
 }  // namespace fl

@@ -463,21 +463,36 @@ cudaError_t launch_partials(const float* G, int n, long long d, int nt,
     return launch_partials<KG, 1>(G, n, d, nt, S, cps, ws, stream);
 }
 
+// Stage 1 on `stream`: the S slices' Gram partials and their diagonals
+// into ws.  Returns the launch error.
+inline cudaError_t gram_partials(const float* G, int n, long long d, int S,
+                                 int cps, int kg, float* ws,
+                                 cudaStream_t stream) {
+    const int nt = (n + kT - 1) / kT;
+    return kg == 4   ? launch_partials<4>(G, n, d, nt, S, cps, ws, stream)
+           : kg == 2 ? launch_partials<2>(G, n, d, nt, S, cps, ws, stream)
+                     : launch_partials<1>(G, n, d, nt, S, cps, ws, stream);
+}
+
+// Stage 2 on `stream`: the distances into D from the S partials in ws
+// (S * tiles partial tiles, then S diagonals), summed in slice order.
+inline cudaError_t gram_epilogue(const float* ws, int n, int S, float* D,
+                                 cudaStream_t stream) {
+    const int nt = (n + kT - 1) / kT;
+    const int tiles = nt * (nt + 1) / 2;
+    gram_epilogue_kernel<<<tiles * kT * 4, kThreads, 0, stream>>>(ws, n, nt,
+                                                                  S, D);
+    return cudaGetLastError();
+}
+
 // Both stages on `stream`: the Gram partials into ws, the distances into
 // D.  Returns the first launch error.
 inline cudaError_t gram_distances(const float* G, int n, long long d, int S,
                                   int cps, int kg, float* ws, float* D,
                                   cudaStream_t stream) {
-    const int nt = (n + kT - 1) / kT;
-    const int tiles = nt * (nt + 1) / 2;
-    cudaError_t err =
-        kg == 4   ? launch_partials<4>(G, n, d, nt, S, cps, ws, stream)
-        : kg == 2 ? launch_partials<2>(G, n, d, nt, S, cps, ws, stream)
-                  : launch_partials<1>(G, n, d, nt, S, cps, ws, stream);
+    const cudaError_t err = gram_partials(G, n, d, S, cps, kg, ws, stream);
     if (err != cudaSuccess) return err;
-    gram_epilogue_kernel<<<tiles * kT * 4, kThreads, 0, stream>>>(ws, n, nt,
-                                                                  S, D);
-    return cudaGetLastError();
+    return gram_epilogue(ws, n, S, D, stream);
 }
 
 }  // namespace fl

@@ -191,3 +191,14 @@ extern "C" int fl_krum_scores_bf16(const uint16_t* G, int n, long long d,
         fl::gram_distances_bf16(G, n, d, S, cps, stage_k, ws, D, st), D, n,
         comp, scores, rowsums, st);
 }
+
+// The per-row selection alone, on a distance matrix D (n, n) f32 computed
+// elsewhere (fl_gram_epilogue over the model axis' positions): scores and
+// rowsums (n,) out, comp as for fl_krum_scores.
+extern "C" int fl_krum_rows(const float* D, int n, int comp, float* scores,
+                            float* rowsums, void* stream) {
+    if (n <= 0 || comp < 0 || comp > n - 1)
+        return (int)cudaErrorInvalidValue;
+    return fl::krum_rows(cudaSuccess, D, n, comp, scores, rowsums,
+                         static_cast<cudaStream_t>(stream));
+}

@@ -26,6 +26,16 @@
 // same epilogue.  What bounds it: bytes up to about n = 150 (2 n d bytes,
 // 4.7 us at n = 100), operations above (79.7 GFLOP at n = 1,000, 81 us
 // at 989 TFLOP/s dense bf16).
+//
+// The model axis of the mesh (parallel/mesh.py) splits d over its
+// positions, so the two stages are entry points of their own too:
+// fl_gram_partials (and _bf16) runs stage 1 on one position's (n, d_j)
+// column block into that position's workspace; fl_gram_epilogue runs
+// stage 2 on the positions' workspaces laid end to end in position order
+// (every position's partial tiles, then every position's diagonals), so
+// the sum runs over the partials in position order and, within a
+// position, in slice order, and the norms come from the summed diagonal:
+// identical rows stay exactly 0 apart across positions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,4 +68,34 @@ extern "C" int fl_pairwise_distances_bf16(const uint16_t* G, int n,
         return (int)cudaErrorInvalidValue;
     return (int)fl::gram_distances_bf16(G, n, d, S, cps, stage_k, ws, D,
                                         static_cast<cudaStream_t>(stream));
+}
+
+// Stage 1 alone: G (n, d) f32 (one model position's column block) into
+// ws, S * (tiles * 128 * 128 + nt * 128) floats.  Plan as for
+// fl_pairwise_distances.
+extern "C" int fl_gram_partials(const float* G, int n, long long d, int S,
+                                int cps, int kg, float* ws, void* stream) {
+    if (!fl::plan_ok(n, d, S, cps, kg)) return (int)cudaErrorInvalidValue;
+    return (int)fl::gram_partials(G, n, d, S, cps, kg, ws,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Stage 1 alone on the bf16 route: G (n, d) bf16 into ws (the same
+// layout); plan as for fl_pairwise_distances_bf16.
+extern "C" int fl_gram_partials_bf16(const uint16_t* G, int n, long long d,
+                                     int S, int cps, int stage_k, float* ws,
+                                     void* stream) {
+    if (!fl::mma::mma_plan_ok(n, d, S, cps, stage_k))
+        return (int)cudaErrorInvalidValue;
+    return (int)fl::gram_partials_bf16(G, n, d, S, cps, stage_k, ws,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// Stage 2 alone: ws holds S partials of an n-row Gram (S * tiles partial
+// tiles, then S diagonals of nt * 128 floats), D (n, n) out.
+extern "C" int fl_gram_epilogue(const float* ws, int n, int S, float* D,
+                                void* stream) {
+    if (n <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+    return (int)fl::gram_epilogue(ws, n, S, D,
+                                  static_cast<cudaStream_t>(stream));
 }

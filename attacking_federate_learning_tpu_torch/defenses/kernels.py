@@ -96,8 +96,8 @@ import torch
 
 from attacking_federate_learning_tpu_torch.defenses import host as H
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-    krum_complement, krum_scores, masked_median, masked_trimmed_mean,
-    median_of, trimmed_mean_of
+    krum_complement, krum_rows, krum_scores, masked_median,
+    masked_trimmed_mean, median_of, trimmed_mean_of
 )
 from attacking_federate_learning_tpu_torch.ops.distances import (
     pairwise_distances
@@ -359,7 +359,18 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
     if distance_dtype is not None:
         op = op.to(_DTYPES[distance_dtype]).contiguous()
     scores, rowsum = krum_scores(op, corrupted_count, paper_scoring)
-    n = users_grads.shape[0]
+    return _guarded(scores, rowsum, users_count, corrupted_count,
+                    paper_scoring,
+                    lambda: distances_for(users_grads, distance_dtype))
+
+
+def _guarded(scores, rowsum, users_count, corrupted_count, paper_scoring,
+             distances):
+    """The cancellation guard on the complement identity's (scores,
+    rowsum): the scores where every row's kept mass clears the
+    subtraction's noise floor (or c == 0), else the exact sort of
+    ``distances()``."""
+    n = scores.shape[0]
     if krum_complement(n, corrupted_count, paper_scoring) == 0:
         return scores
     eps = torch.finfo(torch.float32).eps
@@ -367,8 +378,21 @@ def guarded_krum_scores(users_grads, users_count, corrupted_count,
     reliable = bool(((scores >= floor) & torch.isfinite(rowsum)).all())
     if reliable:
         return scores
-    return sort_scores(distances_for(users_grads, distance_dtype),
-                       users_count, corrupted_count, paper_scoring)
+    return sort_scores(distances(), users_count, corrupted_count,
+                       paper_scoring)
+
+
+def guarded_scores_of(D, users_count, corrupted_count, paper_scoring=False):
+    """:func:`guarded_krum_scores` on a distance matrix computed
+    elsewhere (the model axis' split Gram): kernel 2's per-row selection
+    (ops/defense_kernels.py:krum_rows) under the same guard, the exact
+    sort of ``D`` where it fails or where c < 0."""
+    if corrupted_count - 1 + (2 if paper_scoring else 0) < 0:
+        return sort_scores(D, users_count, corrupted_count, paper_scoring)
+    comp = krum_complement(D.shape[0], corrupted_count, paper_scoring)
+    scores, rowsum = krum_rows(D, comp)
+    return _guarded(scores, rowsum, users_count, corrupted_count,
+                    paper_scoring, lambda: D)
 
 
 def krum_scores_and_index(users_grads, users_count, corrupted_count,
@@ -735,21 +759,16 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
     if margins:
         selected, carry = selected
     selection = users_grads[selected].contiguous()  # (set_size, d)
+    agg, sel_mask = bulyan_trim(selection, selected, set_size, f, mask,
+                                weights, trim_impl)
     if mask is None:
         keep = set_size - 2 * f - 1
-        agg = trim_of(selection, keep, trim_impl)
         if not telemetry:
             return agg
         diag = {"selection_mask": scatter_rows(n, selected, 1.0, D),
                 "scores": sort_scores(D, users_count, f,
                                       paper_scoring).float()}
-        sel_mask = None
     else:
-        sel_alive = mask[selected]
-        sel_mask = sel_alive & (torch.cumsum(sel_alive, 0)
-                                <= mask.sum() - 2 * f)
-        w_sel = None if weights is None else weights[selected].contiguous()
-        agg = masked_trimmed_mean(selection, sel_mask, 2 * f + 1, w_sel)
         if not telemetry:
             return agg
         diag = {"selection_mask": scatter_rows(n, selected,
@@ -783,6 +802,23 @@ def bulyan(users_grads, users_count, corrupted_count, paper_scoring=False,
         Dm = D + torch.diag(torch.full((n,), torch.inf, device=D.device))
         diag["num_cancel_bits"] = gram_cancellation_bits(Dm, mask=mask)
     return agg, diag
+
+
+def bulyan_trim(selection, selected, set_size, f, mask=None, weights=None,
+                trim_impl="xla"):
+    """Bulyan's tail on the selected rows ``selection`` (``selected``
+    their indices): the trimmed mean keeping set_size - 2f - 1 values a
+    coordinate, or with ``mask`` the masked one over the first e - 2f
+    alive picks.  Per coordinate, so a model position runs it on its
+    column block.  Returns (aggregate, the picks' mask or None)."""
+    if mask is None:
+        return trim_of(selection, set_size - 2 * f - 1, trim_impl), None
+    sel_alive = mask[selected]
+    sel_mask = sel_alive & (torch.cumsum(sel_alive, 0)
+                            <= mask.sum() - 2 * f)
+    w_sel = None if weights is None else weights[selected].contiguous()
+    return (masked_trimmed_mean(selection, sel_mask, 2 * f + 1, w_sel),
+            sel_mask)
 
 
 # defenses/median.py adds "Median" when the package is imported.

@@ -89,6 +89,18 @@ KERNELS = {
     "krum_scores": ("krum_scores.cu", "fl_krum_scores", _KRUM_ARGS),
     "krum_scores[bf16]": ("krum_scores.cu", "fl_krum_scores_bf16",
                           _KRUM_ARGS),
+    # The distance kernel's two stages apart, for the model axis' split
+    # Gram (ops/distances.py: gram_partials, gram_epilogue), and the Krum
+    # kernel's per-row selection on a given D (krum_rows).
+    "gram_partials": ("pairwise_distances.cu", "fl_gram_partials",
+                      (_P, _I, _LL, _I, _I, _I, _P, _P)),
+    "gram_partials[bf16]": ("pairwise_distances.cu",
+                            "fl_gram_partials_bf16",
+                            (_P, _I, _LL, _I, _I, _I, _P, _P)),
+    "gram_epilogue": ("pairwise_distances.cu", "fl_gram_epilogue",
+                      (_P, _I, _I, _P, _P)),
+    "krum_rows": ("krum_scores.cu", "fl_krum_rows",
+                  (_P, _I, _I, _P, _P, _P)),
     "trimmed_mean": ("trimmed_mean.cu", "fl_trimmed_mean",
                      (_P, _I, _LL, _I, _I, _P, _P)),
     "median": ("median.cu", "fl_median", (_P, _I, _LL, _I, _P, _P)),

@@ -67,15 +67,48 @@ def krum_scores_plain(G: torch.Tensor, corrupted_count: int,
     """(n, d) -> ((n,) scores, (n,) rowsums) in plain PyTorch: the JAX
     package's ``_krum_scores(method='topk')`` arithmetic without its
     guard (rowsum minus the c largest off-diagonal distances)."""
-    n = G.shape[0]
-    comp = krum_complement(n, corrupted_count, paper_scoring)
-    D = pairwise_distances_plain(G)
-    off = ~torch.eye(n, dtype=torch.bool, device=G.device)
+    comp = krum_complement(G.shape[0], corrupted_count, paper_scoring)
+    return krum_rows_plain(pairwise_distances_plain(G), comp)
+
+
+def krum_rows_plain(D: torch.Tensor, comp: int):
+    """(n, n) distances -> ((n,) scores, (n,) rowsums): each row's sum of
+    its off-diagonal entries minus its ``comp`` largest (``topk``)."""
+    n = D.shape[0]
+    off = ~torch.eye(n, dtype=torch.bool, device=D.device)
     rowsum = torch.where(off, D, 0.0).sum(1)
     if comp == 0:
         return rowsum.clone(), rowsum
     top = torch.topk(torch.where(off, D, -torch.inf), comp, dim=1).values
     return rowsum - torch.clamp(top, min=0.0).sum(1), rowsum
+
+
+def krum_rows_cost(n: int) -> KernelCost:
+    """The per-row selection's work: four radix passes and two sums over
+    each of the n^2 entries, D read once, scores and rowsums written."""
+    return KernelCost(6 * n * n, 4 * n * n + 8 * n)
+
+
+@counted_kernel("krum_rows", lambda D, *a, **k: krum_rows_cost(D.shape[0]))
+def krum_rows(D: torch.Tensor, comp: int):
+    """(n, n) f32 distances -> ((n,) scores, (n,) rowsums): kernel 2's
+    per-row selection on a matrix computed elsewhere (the model axis'
+    split Gram, ops/distances.py:gram_epilogue)."""
+    n = D.shape[0]
+    if not 0 <= comp <= max(n - 1, 0):
+        raise ValueError(f"krum_rows needs 0 <= comp <= n - 1, got {comp} "
+                         f"at n = {n}")
+    if D.device.type == "cpu":
+        return krum_rows_plain(D, comp)
+    _build.check_cuda_matrix(D, "krum_rows")
+    fn = _build.entry_point("krum_rows")
+    scores = torch.empty(n, dtype=torch.float32, device=D.device)
+    rowsums = torch.empty(n, dtype=torch.float32, device=D.device)
+    status = fn(D.data_ptr(), n, comp, scores.data_ptr(), rowsums.data_ptr(),
+                _build.stream_handle(D))
+    _build.check_status("krum_rows", status)
+    _build.LAUNCHES["krum_rows"] += 1
+    return scores, rowsums
 
 
 def krum_scores_cost(n: int, d: int, bf16: bool = False) -> KernelCost:

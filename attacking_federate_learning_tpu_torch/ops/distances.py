@@ -16,6 +16,13 @@ Gram accumulated in f32, f32 norms, f32 distances.
 FMA units) into tiles and d into slices for a card with a given SM count,
 and :func:`mma_plan` the bf16 route's (csrc/gram_mma.cuh, on the tensor
 cores); the fused Krum-score kernel shares both.
+
+Over the model axis of a mesh (parallel/mesh.py) the two stages run
+apart: :func:`gram_partials` on each model position's (n, d_j) column
+block, :func:`gram_epilogue` on the positions' partials in position
+order (parallel/model_axis.py:split_distances).  Their
+plain versions are a block Gram accumulated in f32 and the epilogue of
+the summed Gram.
 """
 
 from __future__ import annotations
@@ -360,4 +367,129 @@ def pairwise_distances(G: torch.Tensor) -> torch.Tensor:
                 D.data_ptr(), _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1
+    return D
+
+
+# --- the two stages apart: the Gram split over d across the model axis ----
+
+class GramPartials(NamedTuple):
+    """Stage 1's output for one model position's (n, d_j) column block:
+    on the card its workspace, ``slices`` partial tiles and their
+    diagonals in gram_tile.cuh's layout; on the CPU the block's (n, n)
+    f32 Gram as one slice."""
+
+    ws: torch.Tensor
+    n: int
+    slices: int
+
+
+def gram_partials_plain(G: torch.Tensor) -> torch.Tensor:
+    """(n, d) -> (n, n) f32: the block's Gram accumulated in f32 (a bf16
+    block widened first, which is exact)."""
+    G = G.float()
+    return G @ G.T
+
+
+def gram_epilogue_plain(grams) -> torch.Tensor:
+    """(n, n) distances from the positions' block Grams: their sum in
+    position order, the norms from the summed diagonal (identical rows
+    stay exactly 0 apart), an exact zero diagonal."""
+    S = grams[0].clone()
+    for g in grams[1:]:
+        S += g
+    sq = torch.diagonal(S)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * S
+    D = torch.sqrt(torch.clamp(d2, min=0.0))
+    D.fill_diagonal_(0.0)
+    return D
+
+
+def gram_partials_cost(n: int, d: int, bf16: bool = False) -> KernelCost:
+    """Stage 1's work on an (n, d) block: the Gram's and the norms'
+    operations, the block read once and its (n, n) f32 Gram written once
+    (what the partials must hold at the least)."""
+    return KernelCost(gram_operations(n, d),
+                      (2 if bf16 else 4) * n * d + 4 * n * n,
+                      "bf16" if bf16 else "fp32")
+
+
+def gram_epilogue_cost(n: int, m: int) -> KernelCost:
+    """What stage 2 must do from the m model positions' (n, n) Grams: an
+    add an entry a position and the epilogue's five operations an entry,
+    each position's Gram read once and the distances written once.  The
+    slices that stage 1's plan leaves in each block are the plan's cost,
+    not the function's, so they are not priced here."""
+    return KernelCost((m + 5) * n * n, 4 * n * n * (m + 1))
+
+
+@counted_kernel(lambda G: gram_route("gram_partials", G),
+                lambda G: gram_partials_cost(*G.shape,
+                                             G.dtype == torch.bfloat16))
+def gram_partials(G: torch.Tensor) -> GramPartials:
+    """Stage 1 of the distance kernel on one model position's (n, d_j)
+    f32 or bf16 column block, on its device."""
+    n, d = G.shape
+    if G.device.type == "cpu":
+        return GramPartials(gram_partials_plain(G), n, 1)
+    name = gram_route("gram_partials", G)
+    _build.check_cuda_matrix(G, name)
+    fn = _build.entry_point(name)
+    plan = device_gram_plan(G)
+    ws = gram_workspace(G, plan)
+    status = fn(G.data_ptr(), n, d, *plan.launch_args, ws.data_ptr(),
+                _build.stream_handle(G))
+    _build.check_status(name, status)
+    _build.LAUNCHES[name] += 1
+    return GramPartials(ws, n, plan.slices)
+
+
+def gathered_workspace(parts, device) -> torch.Tensor:
+    """The positions' workspaces laid end to end on ``device`` as stage 2
+    reads them: every position's partial tiles in position order, then
+    every position's diagonals."""
+    n = parts[0].n
+    nt = -(-n // TILE)
+    tile_el = nt * (nt + 1) // 2 * TILE * TILE
+    diag_el = nt * TILE
+    total = sum(p.slices for p in parts)
+    ws = torch.empty(total * (tile_el + diag_el), dtype=torch.float32,
+                     device=device)
+    at, dg = 0, total * tile_el
+    for p in parts:
+        k = p.slices
+        ws[at:at + k * tile_el].copy_(p.ws[:k * tile_el])
+        ws[dg:dg + k * diag_el].copy_(
+            p.ws[k * tile_el:k * (tile_el + diag_el)])
+        at += k * tile_el
+        dg += k * diag_el
+    return ws
+
+
+@counted_kernel("gram_epilogue",
+                lambda parts, device=None: gram_epilogue_cost(
+                    parts[0].n, len(parts)))
+def gram_epilogue(parts, device=None) -> torch.Tensor:
+    """Stage 2 on ``device`` (default: the first part's): the (n, n) f32
+    distances, exact zero diagonal, from the :class:`GramPartials` of
+    every model position, in position order."""
+    dev = parts[0].ws.device if device is None else torch.device(device)
+    kinds = {p.ws.device.type for p in parts} | {dev.type}
+    if kinds == {"cpu"}:
+        return gram_epilogue_plain([p.ws for p in parts])
+    if kinds != {"cuda"}:
+        raise ValueError(f"gram_epilogue: the partials and the device must "
+                         f"all be CUDA or all CPU, got {sorted(kinds)}")
+    for p in parts:
+        if p.ws.dtype != torch.float32 or not p.ws.is_contiguous():
+            raise ValueError(f"gram_epilogue: expected contiguous float32 "
+                             f"partials, got {p.ws.dtype} "
+                             f"contiguous={p.ws.is_contiguous()}")
+    fn = _build.entry_point("gram_epilogue")
+    n = parts[0].n
+    ws = gathered_workspace(parts, dev)
+    D = torch.empty((n, n), dtype=torch.float32, device=dev)
+    status = fn(ws.data_ptr(), n, sum(p.slices for p in parts),
+                D.data_ptr(), _build.stream_handle(ws))
+    _build.check_status("gram_epilogue", status)
+    _build.LAUNCHES["gram_epilogue"] += 1
     return D

@@ -22,6 +22,12 @@ whole (n, n) matrix on the primary, within f32 rounding of the distance
 kernel's (ops/distances.py).  These are plain PyTorch: the JAX package
 computes them in XLA, not Pallas.  n must divide by the clients axis
 (``shard_map``'s even blocks).
+
+``mesh`` is a parallel/mesh.py ``Mesh`` or ``MeshPlan``; a plan laid over
+the processes of a group (:func:`~.mesh.make_plan` inside one) runs the
+same schedules across the process boundary: each process computes its
+own positions' tiles, the ring's visiting blocks cross it by isend /
+irecv, and the matrix gathers to the primary process (None elsewhere).
 """
 
 from __future__ import annotations
@@ -31,13 +37,11 @@ import torch
 from attacking_federate_learning_tpu_torch.ops.distances import (
     cross_sq_distances
 )
-from attacking_federate_learning_tpu_torch.parallel.mesh import (
-    Mesh, MeshPlan
-)
+from attacking_federate_learning_tpu_torch.parallel.mesh import MeshPlan
 
 
-def _blocks(G: torch.Tensor, mesh: Mesh):
-    plan = MeshPlan(mesh)
+def _blocks(G: torch.Tensor, mesh):
+    plan = mesh if isinstance(mesh, MeshPlan) else MeshPlan(mesh)
     p = plan.clients_parts
     if G.shape[0] % p:
         raise ValueError(
@@ -46,22 +50,24 @@ def _blocks(G: torch.Tensor, mesh: Mesh):
     return plan, plan.split_rows(G)
 
 
-def _zero_diagonal(D: torch.Tensor) -> torch.Tensor:
+def _zero_diagonal(D):
+    if D is None:                      # another process of a group
+        return None
     n = D.shape[0]
     return D * (1.0 - torch.eye(n, dtype=D.dtype, device=D.device))
 
 
-def pairwise_distances_allgather(G: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """(n, d) -> (n, n) f32 distances: each position gathers every block
-    and computes its (n/p, n) rows."""
+def pairwise_distances_allgather(G: torch.Tensor, mesh) -> torch.Tensor:
+    """(n, d) -> (n, n) f32 distances: every position gathers every block
+    (one all-gather) and computes its (n/p, n) rows."""
     plan, blocks = _blocks(G, mesh)
-    tiles = [torch.sqrt(cross_sq_distances(
-                 gb, plan.all_gather(blocks, device=dev)))
-             for gb, dev in zip(blocks, plan.positions)]
+    whole = plan.replicate_gather(blocks)
+    tiles = [None if gb is None else torch.sqrt(cross_sq_distances(gb, gw))
+             for gb, gw in zip(blocks, whole)]
     return _zero_diagonal(plan.all_gather(tiles))
 
 
-def pairwise_distances_ring(G: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def pairwise_distances_ring(G: torch.Tensor, mesh) -> torch.Tensor:
     """(n, d) -> (n, n) f32 distances by the ring schedule: p steps, each
     position computing one (n/p, n/p) tile a step against the block
     visiting it, the blocks passed on to the next position between
@@ -73,10 +79,13 @@ def pairwise_distances_ring(G: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     blk = n // p
     perm = [(i, (i + 1) % p) for i in range(p)]
     out = [torch.zeros((blk, n), dtype=torch.float32, device=dev)
-           for dev in plan.positions]
+           if plan.local(q) else None
+           for q, dev in enumerate(plan.positions)]
     remote, src = blocks, list(range(p))
     for step in range(p):
         for q in range(p):
+            if out[q] is None:
+                continue
             s = src[q]
             out[q][:, s * blk:(s + 1) * blk] = torch.sqrt(
                 cross_sq_distances(blocks[q], remote[q]))

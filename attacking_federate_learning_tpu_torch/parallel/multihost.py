@@ -4,17 +4,21 @@ The JAX package's ``parallel/multihost.py`` joins ``jax.distributed``
 from its environment, after which one mesh spans every host's devices.
 The port's counterpart joins a ``torch.distributed`` process group from
 the variables ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``,
-``WORLD_SIZE``, ``RANK``), with ``nccl`` on CUDA and ``gloo`` on the
-CPU.  On a single process it does nothing, so one script runs anywhere:
+``WORLD_SIZE``, ``RANK``), with ``nccl`` where every rank has a card of
+its own and ``gloo`` otherwise (two ranks on one card: NCCL refuses a
+card shared by two ranks, so they take gloo, and parallel/mesh.py stages
+their CUDA tensors through pinned host memory).  On a single process it
+does nothing, so one script runs anywhere:
 
     from attacking_federate_learning_tpu_torch.parallel import multihost
     multihost.initialize()            # env-driven; no-op locally
-    plan = make_plan((torch.cuda.device_count(), 1))
+    plan = make_plan((world_size * positions, 1), devices=[...])
 
-A mesh over the processes of a group is not ported yet: ``make_plan``
-refuses to lay one inside a group of more than one process
-(parallel/mesh.py), so a joined group serves what a caller does with
-``torch.distributed`` itself.
+Inside a group :func:`~.mesh.make_plan` lays one mesh over every
+process's positions (``devices`` are this process's; by default its
+card, ``cuda:rank`` where there are enough, else ``cuda:0``), and the
+flat round runs over it (core/engine.py); :func:`is_primary` names the
+process that writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ def initialize(init_method: Optional[str] = None,
     a world size of 1 with no address, is a single process and a no-op;
     some of them set but not all raises.  ``init_method`` (e.g.
     ``tcp://localhost:29500`` or ``file:///path``) takes the place of the
-    address and port.  ``backend`` defaults to 'nccl' when CUDA is
-    available, else 'gloo'."""
+    address and port.  ``backend`` defaults to 'nccl' when every rank can
+    have a card of its own (at least ``world_size`` visible), else
+    'gloo'."""
     if torch.distributed.is_initialized():
         return True
     env = {k: os.environ.get(k) for k in _ENV}
@@ -61,7 +66,8 @@ def initialize(init_method: Optional[str] = None,
         raise ValueError(
             "multihost.initialize: init_method needs world_size and rank")
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        backend = ("nccl" if torch.cuda.is_available()
+                   and torch.cuda.device_count() >= world_size else "gloo")
     torch.distributed.init_process_group(
         backend=backend, init_method=init_method, world_size=world_size,
         rank=rank)

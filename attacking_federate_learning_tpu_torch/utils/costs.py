@@ -349,7 +349,9 @@ def wire_ledger(*, cohort: int, dim: int, grad_bytes: int = 4,
                 megabatch: Optional[int] = None, spmd_parts: int = 1,
                 secagg: str = "off", key_bytes: int = 32,
                 dropped: int = 0,
-                async_buffer: Optional[int] = None) -> dict:
+                async_buffer: Optional[int] = None,
+                model_parts: int = 1,
+                partial_tiles: int = 0) -> dict:
     """Bytes-per-round on every protocol seam, priced from the topology
     parameters alone (f32 model wire; ``grad_bytes`` prices a quantized
     client→server leg).
@@ -363,7 +365,15 @@ def wire_ledger(*, cohort: int, dim: int, grad_bytes: int = 4,
     C(n,2), groupwise S·C(m,2)) + ``recovery`` (each dropout makes
     every survivor reveal one pairwise secret), and the ``async
     delivery`` ring (buffer-capacity updates of d·grad_bytes per round,
-    the capacity bound on what one round can deliver)."""
+    the capacity bound on what one round can deliver).
+
+    The port's model axis (``model_parts`` m > 1 positions splitting d)
+    adds two seams the JAX package's ledger leaves to XLA:
+    ``model_partials``, the Gram partials every position sends to the
+    primary for Krum's and Bulyan's distances, m * ``partial_tiles`` 64
+    KB tiles (a position's slices times its 128 x 128 tiles; 0 for the
+    other defenses), and ``model_state``, the d * 4 bytes of the weights'
+    column blocks gathered for deliver once a round."""
     seams: dict = {}
     seams["broadcast"] = {"bytes": cohort * dim * 4}
     seams["client_update"] = {"bytes": cohort * dim * grad_bytes}
@@ -383,6 +393,11 @@ def wire_ledger(*, cohort: int, dim: int, grad_bytes: int = 4,
     if topology == "async" and async_buffer:
         seams["async_delivery"] = {
             "bytes": async_buffer * dim * grad_bytes}
+    if model_parts > 1:
+        seams["model_partials"] = {
+            "bytes": model_parts * partial_tiles * 128 * 128 * 4,
+            "collective": True}
+        seams["model_state"] = {"bytes": dim * 4, "collective": True}
     return {
         "topology": topology, "cohort": cohort, "dim": dim,
         "grad_bytes": grad_bytes,

@@ -127,9 +127,13 @@ success):
                relative-L2 band per client: log-probs and gradients of
                both devices against fp64, the card's gradients against
                the CPU's at twice the band; the BatchNorm models read at
-               their seeded initial weights, WRN-40-4's CPU reading with
-               oneDNN on and off
-               at 1 and N threads printed), whether two
+               their seeded initial weights and again, gated the same,
+               at round 3's weights and at the weights their run
+               trained; a gradient reading out of its band passes only
+               where kink_adjudication finds ReLU kinks alone behind
+               it, and is printed beside the 8-image reading; WRN-40-4's
+               CPU reading with oneDNN on and off at 1 and N threads
+               printed), whether two
                identical full delivers gave the same bits (printed only),
                one gradient of all n B images without the per-client
                split (timed, as a reference), and one round under
@@ -481,9 +485,37 @@ success):
                mode) beside the sequential twin's.  (d)
                make_plan((4, 1)) with no device list raises the JAX
                package's message on a one-card machine.
+21. model axis -- the rest of the mesh, every position on cuda:0
+               ([model axis] lines).  (a) the split Gram's entry points
+               (gram_partials, gram_partials[bf16], gram_epilogue,
+               krum_rows) at (100, 79,510) f32 and bf16 over m = 2 and
+               (100, 21,840) over m = 4, against their plain versions
+               (rel 1e-5), the fused pairwise_distances in phase 3's
+               squared-distance band, ALIE's identical rows exactly 0
+               apart, krum_rows' pick the fused krum_scores'; CUDA-event
+               ms, plain and library ms, bounds.  (b) phase 5's mnist_mlp
+               runs (n = 100, f = 24) under the five defenses at (1, 2)
+               and (2, 2), and Krum on bf16 distances at (1, 2), each
+               round from its unsharded twin's state: the mesh's deliver
+               within the JAX package's band of the twin's, then the
+               rest of the round on the twin's matrix, the weights within
+               the band, Krum's and Bulyan's picks over the split matrix
+               the fused route's (p20_pick_verdict), each split kernel
+               launched once at each model position a round and the
+               fused distance kernels never; the state's bytes at each
+               model position and the peak.  (c) mnist_cnn at (1, 4)
+               under Krum and Bulyan, the same checks.  (d) phase 13's
+               n = 1,000 round (Krum/Krum, S = 10) at (2, 2), bit-equal
+               to its (2, 1) twin.  (e) two processes (this script with
+               --p21-worker), two positions each on cuda:0, one gloo
+               group through a file store: the ring distances at (100,
+               79,510) and Krum on them, and 5 flat Krum rounds, each
+               bit-equal to the one-process run, every rank's round
+               counter 5; each child has a timeout, and a failed or hung
+               child fails the phase.
 
 Output: one line per check, a {"kernels": [...]} JSON line (launches
-summed over phases 5-20), the nvidia-smi line, and as the last line
+summed over phases 5-21), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1902,8 +1934,20 @@ FAULTED_KERNELS = {"TrimmedMean": ("masked_trimmed_mean",),
 # fp32 leg runs on one pinned path, oneDNN on, and both BatchNorm models
 # (resnet20, WRN-40-4) are read at their seeded initial weights, which no
 # run changes; WRN-40-4's line also prints the CPU's reading on both
-# paths at 1 and N threads.  Both devices' gradients are gated against
-# fp64 at the band, and the card's against the CPU's at twice it.
+# paths at 1 and N threads.  Since the backward repeats, each is read
+# again at the weights of round 3 of its phase 7 run and at the weights
+# the run trained (round 6), the same bits every run.  Both devices'
+# gradients are gated against fp64 at the band, and the card's against
+# the CPU's at twice it.  A gradient reading out of its band is
+# adjudicated (kink_adjudication): the same deliver again with every
+# ReLU's pre-activation recorded on each leg, the pre-activations within
+# their layer's own fp32 error of 0 counted, and their derivative taken
+# out on every leg.  The reading passes only where such pre-activations
+# exist, the legs' signs differ at some of them, and without them every
+# reading is back in band: the miss was kinks and nothing else.
+# The round whose weights the BatchNorm models' deliver is also read at,
+# between the seeded and the trained weights.
+KINK_ROUND = 3
 DELIVER_IMAGES = {"cifar10_cnn": 8, "mnist_cnn": 8, "resnet20": 2,
                   "wideresnet40_4": 2}
 LOGPROB_BAND = 1e-5
@@ -1911,7 +1955,92 @@ GRAD_BAND = {"cifar10_cnn": 1e-5, "mnist_cnn": 1e-5, "resnet20": 1e-5,
              "wideresnet40_4": 2e-2}
 
 
-def check_deliver(exp, model, failures, weights=None):
+def kink_adjudication(exp, w, xs, ys, band, gated):
+    """Whether a deliver gradient reading out of ``band`` is ReLU kinks
+    alone.  ``gated``: the card's and the CPU's fp32 gradients and the
+    fp64 one, as the gate read them (``deliver`` on the same ``w``,
+    ``xs``, ``ys``).  Each leg runs the deliver function again,
+    vmap(grad(loss)), with F.relu recording its pre-activations: its
+    gradients must be the gated ones bit for bit.  A pre-activation is
+    near 0 where fp64's is within its layer's largest fp32 error (card
+    or CPU) of 0; its sign flips where an fp32 leg puts it on the other
+    side.  Then every leg runs once more with the derivative at the
+    near pre-activations taken out (their forward value kept): all three
+    readings must be back in band (card against CPU at twice it).
+    Returns (ok, what to print)."""
+    import torch
+    from torch.func import grad, vmap
+    from torch.nn import functional as F
+
+    from attacking_federate_learning_tpu_torch.core.client import (
+        make_loss_fn
+    )
+
+    loss_fn, relu = make_loss_fn(exp.model, exp.flat), F.relu
+
+    def tapped(w_, x, y, keep):
+        taps = []
+
+        def patched(z, inplace=False):
+            out = relu(z)
+            if keep is not None:
+                out = torch.where(keep[len(taps)], out, out.detach())
+            taps.append(z.detach())
+            return out
+
+        F.relu = patched
+        try:
+            return loss_fn(w_, x, y), taps
+        finally:
+            F.relu = relu
+
+    def leg(w_, xs_, ys_, keep=None):
+        fn = vmap(grad(tapped, has_aux=True),
+                  in_dims=(None, 0, 0, None if keep is None else 0))
+        g, taps = fn(w_, xs_, ys_, keep)
+        return g.double().cpu(), [t.double().cpu() for t in taps]
+
+    def rel(a, b, ref):
+        return float(((a - b).norm(dim=1) / ref.norm(dim=1)).max())
+
+    mkldnn = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = True
+    try:
+        cpu_in = (w.cpu(), xs.cpu(), ys.cpu())
+        ref_in = (w.cpu().double(), xs.cpu().double(), ys.cpu())
+        card, t_card = leg(w, xs, ys)
+        cpu32, t_cpu = leg(*cpu_in)
+        ref, t_ref = leg(*ref_in)
+        same = all(torch.equal(a, b) for a, b in zip((card, cpu32, ref),
+                                                       gated))
+        keep, near, flips, total = [], 0, [0, 0], 0
+        for k, z in enumerate(t_ref):
+            close = torch.zeros_like(z, dtype=torch.bool)
+            for i, t in enumerate((t_card, t_cpu)):
+                err = float((t[k] - z).abs().max())
+                close |= z.abs() <= err
+                flips[i] += int(((t[k] > 0) != (z > 0)).sum())
+            keep.append(~close)
+            near += int(close.sum())
+            total += z.numel()
+        card_x = leg(w, xs, ys, [k.to(w.device) for k in keep])[0]
+        cpu_x = leg(*cpu_in, keep)[0]
+        ref_x = leg(*ref_in, keep)[0]
+    finally:
+        torch.backends.mkldnn.enabled = mkldnn
+    out = (rel(card_x, ref_x, ref_x), rel(cpu_x, ref_x, ref_x),
+           rel(card_x, cpu_x, ref_x))
+    ok = (same and near > 0 and sum(flips) > 0
+          and max(out[:2]) <= band and out[2] <= 2 * band)
+    return ok, (f"kinks: reread bit-equal={same}, {near} of {total:,} "
+                f"pre-activations within their layer's fp32 error of 0, "
+                f"signs flipped card/cpu={flips[0]}/{flips[1]}; without "
+                f"their derivative card-fp64={out[0]:.3e} cpu-fp64="
+                f"{out[1]:.3e} card-cpu={out[2]:.3e}; adjudicated={ok}")
+
+
+def check_deliver(exp, model, failures, weights=None, extras=True,
+                  at=None):
     """Two clients' log-probabilities and gradients from the round-0
     batch, on the card and on the CPU in fp32 and fp64 (the same flat
     weights, ``weights`` or else the engine's current ones; cuDNN on one
@@ -1921,7 +2050,11 @@ def check_deliver(exp, model, failures, weights=None):
     the time of one gradient of the mean loss over the same n B images
     without the per-client split (BatchNorm then normalizes over all of
     them: a reference for the convolutions' cost, not the same
-    function)."""
+    function).  ``extras=False`` keeps the gated readings only (no CPU
+    path variants, TF32 or 8-image readings, repeat or timing): the
+    trained-weights reads beside the seeded one.  ``at`` names the
+    weights in the line.  A gradient reading out of its band passes
+    only where kink_adjudication finds it is ReLU kinks alone."""
     import torch
     from torch.func import functional_call, vmap
 
@@ -1965,6 +2098,7 @@ def check_deliver(exp, model, failures, weights=None):
         def rel(a, b):
             return float(((a - b).norm(dim=1) / ref.norm(dim=1)).max())
         out = (rel(card, ref), rel(cpu32, ref), rel(card, cpu32))
+        seen_bits.append((card, cpu32, ref))
         if not variants:
             return out
         seen = {}
@@ -1986,20 +2120,43 @@ def check_deliver(exp, model, failures, weights=None):
         """The engine's own deliver function, at one local step."""
         return exp._client_update(w_, xs[:, None], ys[:, None], 0.0, 1.0)
 
+    seen_bits = []
+    t_read = time.perf_counter()
     images = DELIVER_IMAGES[model]
     lp = readings(lambda w_, xs, ys: log_probs(w_, xs), images)
     band = GRAD_BAND[model]
     cpu_paths = ""
-    if band > LOGPROB_BAND:
+    if band > LOGPROB_BAND and extras:
         gr, seen = readings(deliver, images, variants=True)
         cpu_paths = ("cpu-fp64 by CPU path " + " ".join(
             f"{k}:{v:.3e}" for k, v in seen.items()) + " (gated: "
             "onednn=on) ")
     else:
         gr = readings(deliver, images)
-    at = "trained" if weights is None else "initial"
-    ok = (max(lp[:2]) <= LOGPROB_BAND and max(gr[:2]) <= band
-          and gr[2] <= 2 * band)
+    if at is None:
+        at = "trained" if weights is None else "initial"
+    kinks = ""
+    grads_ok = max(gr[:2]) <= band and gr[2] <= 2 * band
+    if not grads_ok:
+        grads_ok, kinks = kink_adjudication(
+            exp, w, xs0[:2, :images], ys0[:2, :images], band,
+            seen_bits[-1])
+        kinks += " "
+    ok = max(lp[:2]) <= LOGPROB_BAND and grads_ok
+    if not extras:
+        del xs0, ys0
+        print(f"[model] {model:14s} deliver card vs CPU, 2 clients x "
+              f"{images} images, rel_l2: log-probs card-fp64={lp[0]:.3e} "
+              f"cpu-fp64={lp[1]:.3e} card-cpu={lp[2]:.3e} "
+              f"band={LOGPROB_BAND:.0e}; gradients card-fp64={gr[0]:.3e} "
+              f"cpu-fp64={gr[1]:.3e} card-cpu={gr[2]:.3e} band={band:.0e} "
+              f"(card-cpu {2 * band:.0e}) at {at} weights; {kinks}ok={ok} "
+              f"read_s={time.perf_counter() - t_read:.1f}", flush=True)
+        if not ok:
+            failures.append(f"{model} deliver card vs CPU at {images} "
+                            f"images, {at} weights: log-probs {lp}, "
+                            f"gradients {gr} {kinks}")
+        return
     # What the log-prob band would see of a TF32 deliver: the card's
     # reading with TF32 on for this one call (printed, not gated).
     saved = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
@@ -2014,6 +2171,9 @@ def check_deliver(exp, model, failures, weights=None):
         b_card, b_cpu, b_both = readings(deliver, 8)
         beside += (f"; gradients at 8 images card-fp64={b_card:.3e} "
                    f"cpu-fp64={b_cpu:.3e} card-cpu={b_both:.3e}")
+        if max(b_card, b_cpu) > band or b_both > 2 * band:
+            beside += ", " + kink_adjudication(
+                exp, w, xs0[:2, :8], ys0[:2, :8], band, seen_bits[-1])[1]
     beside += ") "
     del xs0, ys0
     g0 = exp.compute_grads(1)
@@ -2028,13 +2188,14 @@ def check_deliver(exp, model, failures, weights=None):
           f"{lp[1]:.3e} card-cpu={lp[2]:.3e} band={LOGPROB_BAND:.0e}; "
           f"gradients card-fp64={gr[0]:.3e} cpu-fp64={gr[1]:.3e} "
           f"card-cpu={gr[2]:.3e} band={band:.0e} (card-cpu "
-          f"{2 * band:.0e}) at {at} weights; ok={ok} {cpu_paths}{beside}"
+          f"{2 * band:.0e}) at {at} weights; {kinks}ok={ok} "
+          f"{cpu_paths}{beside}"
           f"two_full_delivers_bit_equal={same} "
           f"one_grad_of_all_{xs.shape[0]}_images_ms={batched_ms:.3f}",
           flush=True)
     if not ok:
         failures.append(f"{model} deliver card vs CPU at {images} images: "
-                        f"log-probs {lp}, gradients {gr}")
+                        f"log-probs {lp}, gradients {gr} {kinks}")
 
 
 def profile_round(exp, model, top=5, tag="model"):
@@ -2152,7 +2313,24 @@ def run_model_path(ds_mnist, failures):
                   and getattr(exp.model, "batch_stats", False) else None)
         if attack == "backdoor":
             craft_ev = time_crafts(exp.attacker)
-        run = drive(exp, kernels, banned, failures, label)
+        snaps, snap_s = {}, []
+        if w_init is not None:
+            # The weights of round KINK_ROUND, for a deliver read beside
+            # the seeded and the trained ones (the copy's time is taken
+            # off the round's).
+            inner = exp.run_round
+
+            def snap_round(t, inner=inner, exp=exp):
+                state = inner(t)
+                if int(state.round) == KINK_ROUND:
+                    a = time.perf_counter()
+                    snaps[KINK_ROUND] = state.weights.clone()
+                    torch.cuda.synchronize()
+                    snap_s.append(time.perf_counter() - a)
+                return state
+
+            exp.run_round = snap_round
+        run = drive(exp, kernels, banned, failures, label, excluded=snap_s)
         for name, count in run["launches"].items():
             totals[name] += count
         TWINS[("model", model, attack, defense, faulted)] = twin_record(
@@ -2189,10 +2367,18 @@ def run_model_path(ds_mnist, failures):
         if model not in checked:
             checked.add(model)
             check_deliver(exp, model, failures, w_init)
+            if w_init is not None:
+                # The BatchNorm models again at round KINK_ROUND's weights
+                # and at the weights the run trained (cuDNN's backward
+                # repeats: deterministic).
+                check_deliver(exp, model, failures, snaps[KINK_ROUND],
+                              extras=False, at=f"round {KINK_ROUND}")
+                check_deliver(exp, model, failures, extras=False,
+                              at=f"trained (round {int(exp.state.round)})")
             profile_round(exp, model)
         # The timing wrappers hold the experiment in a reference cycle:
         # collect it, so that the next run's peak is its own.
-        del exp, run, w_init
+        del exp, run, w_init, snaps
         gc.collect()
         torch.cuda.empty_cache()
     return totals
@@ -7642,6 +7828,510 @@ def run_mesh_path(ds, failures, smi):
     return totals
 
 
+# -- phase 21: the rest of the mesh --------------------------------------------
+# (a): the split Gram's entry points at (n, d) split over m model positions.
+P21_SPLITS = ((N_MAIN, D_MLP, 2, "float32"), (N_MAIN, D_MLP, 2, "bfloat16"),
+              (N_MAIN, D_MNIST_CNN, 4, "float32"))
+P21_FIVE = ("NoDefense", "Krum", "TrimmedMean", "Bulyan", "Median")
+P21_ROUNDS = 3          # (b), (c): rounds from the unsharded twin's state
+P21_HIER_ROUNDS = 2     # (d)
+P21_PROC_ROUNDS = 5     # (e)
+P21_CHILD_S = 300       # (e): each child's timeout
+# What a model-axis round launches a round (True: once at each of the m
+# model positions, False: once), beside the unsplit route's kernels it
+# must not launch.
+P21_SPLIT_KERNELS = {
+    "NoDefense": ({}, ()),
+    "Krum": ({"gram_partials": True, "gram_epilogue": False,
+              "krum_rows": False}, ("krum_scores", "pairwise_distances")),
+    "TrimmedMean": ({"trimmed_mean": True}, ()),
+    "Bulyan": ({"gram_partials": True, "gram_epilogue": False,
+                "trimmed_mean": True}, ("krum_scores", "pairwise_distances")),
+    "Median": ({"median": True}, ()),
+}
+
+
+def model_plan(c, m):
+    """A (c, m) plan, every position on cuda:0."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.parallel.mesh import make_plan
+
+    return make_plan((c, m), [torch.device("cuda", 0)] * (c * m))
+
+
+def p21_kernels(peaks, failures, smi):
+    """Phase 21 (a): the four new entry points against their plain
+    versions and the fused kernels.  Returns the kernels line's entries."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.ops import defense_kernels as DK
+    from attacking_federate_learning_tpu_torch.ops import distances as DI
+
+    flops_peak, bytes_peak, bf16_peak = peaks
+    entries = {}
+
+    def bound(cost):
+        rate = bf16_peak if cost.unit == "bf16" else flops_peak
+        t_b, t_o = cost.bytes / bytes_peak * 1e3, cost.flops / rate * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    def entry(name, source, replaces, err, ms, pms, lms, cost, shape):
+        b_ms, b_by = bound(cost)
+        entries[name] = {
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+            "replaces": f"attacking_federate_learning_tpu/{replaces}",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lms,
+            "shape": shape}
+
+    for n, d, m, dt in P21_SPLITS:
+        dtype = getattr(torch, dt)
+        G = torch.from_numpy(cohort(n, d, F_MAIN, "alie", 2)).cuda().to(
+            dtype).contiguous()
+        blocks = [b.contiguous() for b in torch.tensor_split(G, m, dim=1)]
+        parts = [DI.gram_partials(b) for b in blocks]
+        D = DI.gram_epilogue(parts)
+        grams = [DI.gram_partials_plain(b) for b in blocks]
+        plain = DI.gram_epilogue_plain(grams)
+        fused = DI.pairwise_distances(G)
+        band = p20_band(G.float())
+        d2 = (D.double() ** 2 - fused.double() ** 2).abs()
+        in_band = bool((d2 <= band).all())
+        err = float((D - plain).abs().max())
+        rel = err / float(plain.abs().max())
+        zero = bool((D[:F_MAIN, :F_MAIN] == 0).all()) and bool(
+            (torch.diagonal(D) == 0).all())
+        comp = DK.krum_complement(n, F_MAIN)
+        s, r = DK.krum_rows(D, comp)
+        sp, rp = DK.krum_rows_plain(D, comp)
+        sf, _ = DK.krum_scores(G, F_MAIN)
+        s_rel = float((s - sp).abs().max() / sp.abs().max())
+        pick, pick_f = int(torch.argmin(s)), int(torch.argmin(sf))
+        pick_ok = pick == pick_f or (pick < F_MAIN and pick_f < F_MAIN)
+        ok = in_band and rel <= 1e-5 and zero and s_rel <= 1e-5 and pick_ok
+        if not ok:
+            failures.append(f"model axis (a) ({n}, {d}) m={m} {dt}: d2 vs "
+                            f"fused in band {in_band}, vs plain rel "
+                            f"{rel:.3e}, identical rows 0 {zero}, krum_rows "
+                            f"rel {s_rel:.3e}, pick {pick} vs fused {pick_f}")
+        b0 = blocks[0]
+        part_name = DI.gram_route("gram_partials", b0)
+        p_ms = time_ms(lambda: DI.gram_partials(b0), 20)
+        p_pms = time_ms(lambda: DI.gram_partials_plain(b0), 20)
+        mm = (mm_f32_out(b0) if dtype == torch.bfloat16
+              else (lambda: torch.mm(b0, b0.T)))
+        p_lms = None if mm is None else time_ms(mm, 20)
+        e_ms = time_ms(lambda: DI.gram_epilogue(parts), 20)
+        e_pms = time_ms(lambda: DI.gram_epilogue_plain(grams), 20)
+        r_ms = time_ms(lambda: DK.krum_rows(D, comp), 20)
+        r_pms = time_ms(lambda: DK.krum_rows_plain(D, comp), 20)
+        f_ms = time_ms(lambda: DI.pairwise_distances(G), 20)
+        s_ms = time_ms(lambda: DI.gram_epilogue(
+            [DI.gram_partials(b) for b in blocks]), 20)
+        # Stage 1 alone: the first block's slices summed (one 128 x 128
+        # tile at n <= 128) against its plain Gram, on and above the
+        # diagonal (what the kernel writes).
+        p_err = err
+        if n <= DI.TILE:
+            tile = parts[0].ws[:parts[0].slices * DI.TILE ** 2].view(
+                parts[0].slices, DI.TILE, DI.TILE).sum(0)[:n, :n]
+            upper = torch.triu(torch.ones(n, n, dtype=torch.bool,
+                                          device=G.device))
+            p_err = float((tile - grams[0])[upper].abs().max())
+        p_cost = DI.gram_partials_cost(n, b0.shape[1],
+                                       dtype == torch.bfloat16)
+        e_cost = DI.gram_epilogue_cost(n, m)
+        r_cost = DK.krum_rows_cost(n)
+        print(f"[model axis] (a) ({n}, {d:,}) {dt} m={m}: split D vs plain "
+              f"max_abs={err:.3e} rel={rel:.3e}, d2 vs fused "
+              f"pairwise_distances in phase 3's band={in_band}, ALIE rows "
+              f"and diagonal exactly 0={zero}, krum_rows vs plain rel="
+              f"{s_rel:.3e}, pick {pick} (fused {pick_f}) ok={ok}; "
+              f"{part_name}_ms={p_ms:.4f} (plain {p_pms:.4f}, library "
+              f"{'n/a' if p_lms is None else f'{p_lms:.4f}'}, bound "
+              f"{bound(p_cost)[0]:.4f}) x {m} blocks, gram_epilogue_ms="
+              f"{e_ms:.4f} over {sum(p.slices for p in parts)} partials "
+              f"of {m} Grams (plain {e_pms:.4f}, bound from the {m} "
+              f"Grams {bound(e_cost)[0]:.6f}), "
+              f"krum_rows_ms={r_ms:.4f} (plain {r_pms:.4f}, bound "
+              f"{bound(r_cost)[0]:.4f}); all m blocks + epilogue "
+              f"{s_ms:.4f} vs fused pairwise_distances {f_ms:.4f} "
+              f"(CUDA events) on {smi}", flush=True)
+        if (n, d, m) == (N_MAIN, D_MLP, 2):
+            shape = [n, d // m]
+            entry(part_name, "pairwise_distances.cu",
+                  "ops/pallas_distances.py:92", p_err, p_ms, p_pms, p_lms,
+                  p_cost, shape)
+            if dtype == torch.float32:
+                entry("gram_epilogue", "pairwise_distances.cu",
+                      "ops/pallas_distances.py:92", err, e_ms, e_pms, None,
+                      e_cost, [m, n, n])
+                entry("krum_rows", "krum_scores.cu",
+                      "ops/pallas_defense.py:214",
+                      float((s - sp).abs().max()), r_ms, r_pms, None, r_cost,
+                      [n, n])
+        del G, blocks, parts, D, grams, plain, fused, band, d2
+        torch.cuda.empty_cache()
+    return entries
+
+
+def p21_round_pair(cfg, ds, shape, label, failures, smi, add, rounds):
+    """A model-axis engine beside its unsharded twin, each round from the
+    twin's state: the mesh's deliver within the JAX package's band of the
+    twin's (phase 20 (b)'s check), then the rest of the round on the
+    twin's matrix, so that what the model axis does is held alone: its
+    launches counted (the split kernels' at each of m positions), the
+    weights within the band of the twin's, and Krum's and Bulyan's picks
+    over the split matrix against the fused route's on the same matrix
+    (p20_pick_verdict)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.defenses.kernels import (
+        bulyan_select, distances_for, krum_select
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.parallel import (
+        model_axis as MA
+    )
+    from attacking_federate_learning_tpu_torch.parallel.mesh import (
+        PerPosition
+    )
+
+    atol, rtol = P20_BAND
+    ref = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda")
+    plan = model_plan(*shape)
+    exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                              device="cuda", shardings=plan)
+    split = isinstance(exp._state.weights, PerPosition)
+    seen = []
+    inner = exp._model_agg
+    if inner is not None:
+        def spy(plan_, grads, n, f, **kw):
+            seen.append((grads.clone(), n, f))
+            return inner(plan_, grads, n, f, **kw)
+        exp._model_agg = spy
+    launches = {k: 0 for k in _build.LAUNCHES}
+    errs, g_errs, verdicts, ms = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rest = torch.cuda.memory_allocated()
+    for t in range(rounds):
+        exp.state = ref.state
+        g_ref = ref.compute_grads(t)
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        a = time.perf_counter()
+        g_errs.append(close(exp.compute_grads(t), g_ref, atol, rtol))
+        exp.compute_grads = lambda *a_, g=g_ref, **k_: g.clone()
+        exp.run_round(t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - a))
+        for k, v in _build.LAUNCHES.items():
+            launches[k] += v - before[k]
+        del exp.compute_grads
+        ref.compute_grads = lambda *a_, g=g_ref, **k_: g.clone()
+        ref.run_round(t)
+        del ref.compute_grads
+        errs.append(close(exp.state.weights, ref.state.weights, atol, rtol))
+        for grads, n, f in seen:
+            if cfg.defense not in ("Krum", "Bulyan"):
+                continue
+            blocks = plan.split_cols(grads)
+            D = MA.split_distances(plan, blocks, torch.float32)
+            D_ref = distances_for(grads)
+            if cfg.defense == "Krum":
+                got = [int(krum_select(grads, n, f, D=D))]
+                want = [int(krum_select(grads, n, f, method="fused"))]
+            else:
+                got = bulyan_select(D, n, f).cpu().numpy()
+                want = bulyan_select(D_ref, n, f).cpu().numpy()
+            verdicts.append(p20_pick_verdict(grads.float(), got, want, n, f,
+                                             exp.m_mal)[0])
+        seen.clear()
+    peak = torch.cuda.max_memory_allocated() - rest
+    add({"launches": launches})
+    m = plan.model_parts if split else 1
+    want, banned = P21_SPLIT_KERNELS[cfg.defense] if (
+        exp._model_agg is not None) else ({}, ())
+    if cfg.distance_dtype == "bfloat16" and "gram_partials" in want:
+        want = {("gram_partials[bf16]" if k == "gram_partials" else k): v
+                for k, v in want.items()}
+    launched = {k: v for k, v in launches.items() if v}
+    kern_ok = (all(launches[k] == rounds * (m if per else 1)
+                   for k, per in want.items())
+               and not any(launches[k] for k in banned))
+    in_band = all(ok for _, ok in errs + g_errs)
+    err = max(e for e, _ in errs)
+    g_err = max(e for e, _ in g_errs)
+    picks_ok = all(v != "differ" for v in verdicts)
+    finite = bool(torch.isfinite(exp.state.weights).all())
+    blocks_b = ([2 * b.numel() * b.element_size()
+                 for b in exp._state.weights] if split else
+                [2 * exp.state.weights.numel() * 4])
+    ok = kern_ok and in_band and picks_ok and finite
+    if not ok:
+        failures.append(f"model axis {label} {shape}: launches {launched} "
+                        f"(want {want} x m, none of {banned}), deliver vs "
+                        f"the unsharded twin's max |dg| {g_err:.3e}, "
+                        f"weights on its matrix max |dw| {err:.3e}, in band "
+                        f"{in_band}, picks {verdicts}, finite {finite}")
+    print(f"[model axis] {label:22s} {shape} d={exp.flat.dim:,} "
+          f"split={split} launches/round="
+          f"{ {k: v // rounds for k, v in launched.items()} } "
+          f"round_ms={statistics.median(ms):.3f} vs the unsharded twin: "
+          f"deliver max_abs={g_err:.3e}, weights on the twin's matrix "
+          f"max_abs={err:.3e}, in_band={in_band} (atol {atol}, rtol {rtol})"
+          f" picks={verdicts or 'n/a'} state bytes per model position="
+          f"{blocks_b} peak_above_rest_GiB={peak / 2 ** 30:.3f} ok={ok} "
+          f"on {smi}", flush=True)
+    del exp, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def p21_hier(ds, failures, smi, add):
+    """Phase 21 (d): phase 13's n = 1,000 round at (2, 2), bit-equal to
+    its (2, 1) twin (only the server step is split, per coordinate)."""
+    import torch
+
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.ops import _build
+    from attacking_federate_learning_tpu_torch.parallel.mesh import (
+        PerPosition
+    )
+
+    cfg = hier_config("Krum", "Krum", "spread", n=N_HIER,
+                      epochs=P21_HIER_ROUNDS, test_step=1,
+                      synth_train=len(ds.train_y))
+    states = []
+    for shape in ((2, 1), (2, 2)):
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda",
+                                  shardings=model_plan(*shape))
+        launches = {k: 0 for k in _build.LAUNCHES}
+        before = dict(_build.LAUNCHES)
+        a = time.perf_counter()
+        for t in range(P21_HIER_ROUNDS):
+            exp.run_round(t)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - a) / P21_HIER_ROUNDS
+        for k, v in _build.LAUNCHES.items():
+            launches[k] += v - before[k]
+        if shape[1] == 2:
+            add({"launches": launches})
+        states.append((exp.state.weights.clone(), exp.state.velocity.clone(),
+                       isinstance(exp._state.weights, PerPosition), ms,
+                       {k: v for k, v in launches.items() if v}))
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+    (w1, v1, _, ms1, l1), (w2, v2, split, ms2, l2) = states
+    bit = bool(torch.equal(w1, w2)) and bool(torch.equal(v1, v2))
+    ok = bit and split and l1 == l2
+    if not ok:
+        failures.append(f"model axis (d) hier (2, 2): bit-equal to (2, 1) "
+                        f"{bit}, state split {split}, launches {l2} vs {l1}")
+    print(f"[model axis] (d) hier Krum/Krum n={N_HIER:,} S=10 (2, 2) vs "
+          f"(2, 1), {P21_HIER_ROUNDS} rounds: bit_equal={bit} "
+          f"state_split={split} launches {l2} (twin {l1}) round_ms="
+          f"{ms2:.1f} (twin {ms1:.1f}) ok={ok} on {smi}", flush=True)
+
+
+def p21_worker(argv) -> int:
+    """Phase 21 (e)'s child: ``--p21-worker DIR RANK``.  Rank 0 first runs
+    the one-process references (the ring Krum at (100, 79,510) over a
+    (4, 1) plan on cuda:0, and P21_PROC_ROUNDS flat Krum rounds over it);
+    then both ranks join a gloo group through DIR/store and run the same
+    over one (4, 1) mesh of two positions each, all on cuda:0, and gather
+    their round counters.  Rank 0 writes DIR/result.json."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from attacking_federate_learning_tpu_torch import config as C
+    from attacking_federate_learning_tpu_torch.attacks import DriftAttack
+    from attacking_federate_learning_tpu_torch.core.engine import (
+        FederatedExperiment
+    )
+    from attacking_federate_learning_tpu_torch.data.datasets import (
+        load_dataset
+    )
+    from attacking_federate_learning_tpu_torch.defenses.kernels import krum
+    from attacking_federate_learning_tpu_torch.parallel import (
+        distances as PD
+    )
+    from attacking_federate_learning_tpu_torch.parallel import multihost
+    from attacking_federate_learning_tpu_torch.parallel.mesh import make_plan
+
+    import dataclasses
+
+    root, rank = argv[0], int(argv[1])
+    cuda0 = torch.device("cuda", 0)
+    G = torch.from_numpy(cohort(N_MAIN, D_MLP, F_MAIN, "alie", 3)).cuda()
+    ds = load_dataset(C.SYNTH_MNIST, seed=0, synth_train=60_000,
+                      synth_test=10_000)
+    cfg = dataclasses.replace(main_config("Krum", 0.24),
+                              epochs=P21_PROC_ROUNDS)
+
+    def rounds(plan):
+        exp = FederatedExperiment(cfg, DriftAttack(cfg.num_std), ds,
+                                  device="cuda", shardings=plan)
+        out = []
+        for t in range(P21_PROC_ROUNDS):
+            exp.run_round(t)
+            out.append(exp.state.weights.clone())
+        return out, int(exp.state.round)
+
+    res = {}
+    if rank == 0:
+        one = make_plan((4, 1), [cuda0] * 4)
+        D1 = PD.pairwise_distances_ring(G, one)
+        k1 = krum(G, N_MAIN, F_MAIN, D=D1)
+        w1, _ = rounds(one)
+    assert multihost.initialize(init_method=f"file://{root}/store",
+                                world_size=2, rank=rank,
+                                backend="gloo") is True
+    plan = make_plan((4, 1), [cuda0] * 2)
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    D = PD.pairwise_distances_ring(G, plan)
+    torch.cuda.synchronize()
+    res["ring_ms"] = 1e3 * (time.perf_counter() - a)
+    w, at = rounds(plan)
+    # Every rank's round counter, which the primary's broadcast state sets.
+    counters = [torch.zeros(1, dtype=torch.int64) for _ in range(2)]
+    torch.distributed.all_gather(counters, torch.tensor([at]))
+    torch.distributed.barrier()
+    if rank == 0:
+        k = krum(G, N_MAIN, F_MAIN, D=D)
+        res.update(
+            ring_bit_equal=bool(torch.equal(D, D1)),
+            krum_bit_equal=bool(torch.equal(k, k1)),
+            krum_vs_kernel=float((k - krum(G, N_MAIN, F_MAIN,
+                                           method="fused")).abs().max()),
+            rounds_bit_equal=[bool(torch.equal(a_, b_))
+                              for a_, b_ in zip(w, w1)],
+            round_counters=[int(c) for c in counters],
+            processes=plan.processes, positions=plan.clients_parts)
+        with open(os.path.join(root, "result.json"), "w") as fh:
+            json.dump(res, fh)
+    torch.distributed.destroy_process_group()
+    print("P21_WORKER_OK", flush=True)
+    return 0
+
+
+def p21_processes(failures, smi):
+    """Phase 21 (e): two processes on cuda:0 over gloo (p21_worker), each
+    with a timeout; a failed or hung child fails the phase."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="p21_")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--p21-worker", root,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=ROOT) for r in range(2)]
+    logs, bad = [], []
+    a = time.perf_counter()
+    for r, p in enumerate(procs):
+        try:
+            logs.append(p.communicate(
+                timeout=max(1.0, P21_CHILD_S - (time.perf_counter() - a)))[0])
+        except subprocess.TimeoutExpired:
+            bad.append(f"rank {r} hung past {P21_CHILD_S} s")
+            p.kill()
+            logs.append(p.communicate()[0])
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0 or "P21_WORKER_OK" not in log:
+            bad.append(f"rank {r} exited {p.returncode}: {log[-2000:]}")
+    res = {}
+    path = os.path.join(root, "result.json")
+    if os.path.exists(path):
+        with open(path) as fh:
+            res = json.load(fh)
+    shutil.rmtree(root, ignore_errors=True)
+    ok = (not bad and res.get("ring_bit_equal") and res.get("krum_bit_equal")
+          and res.get("rounds_bit_equal") == [True] * P21_PROC_ROUNDS
+          and res.get("round_counters") == [P21_PROC_ROUNDS] * 2
+          and res.get("krum_vs_kernel", 1.0) <= 1e-5)
+    if not ok:
+        failures.append(f"model axis (e) two processes: {bad or res}")
+    print(f"[model axis] (e) two processes x 2 positions on cuda:0 over "
+          f"gloo (CUDA tensors staged through pinned host memory): ring "
+          f"distances (100, 79,510) bit_equal_one_process="
+          f"{res.get('ring_bit_equal')} ring_ms={res.get('ring_ms', 0):.1f}"
+          f", Krum on them bit_equal={res.get('krum_bit_equal')} "
+          f"max_abs_vs_fused_kernel={res.get('krum_vs_kernel', -1):.3e}; "
+          f"{P21_PROC_ROUNDS} flat Krum rounds at n=100 each bit_equal="
+          f"{res.get('rounds_bit_equal')}, round counters by rank "
+          f"{res.get('round_counters')} wall_s="
+          f"{time.perf_counter() - a:.1f} ok={bool(ok)} on {smi}",
+          flush=True)
+
+
+def run_model_axis_path(ds, failures, smi, peaks):
+    """Phase 21: the rest of the mesh.  Returns (the four new entry
+    points' kernels-line entries, launches per kernel summed over the
+    runs)."""
+    import dataclasses
+
+    from attacking_federate_learning_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in _build.LAUNCHES}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            totals[k] += v
+
+    a = time.perf_counter()
+    entries = p21_kernels(peaks, failures, smi)
+    t_a = time.perf_counter() - a
+    a = time.perf_counter()
+    for shape in ((1, 2), (2, 2)):
+        for defense in P21_FIVE:
+            cfg = dataclasses.replace(main_config(defense, 0.24),
+                                      epochs=P21_ROUNDS)
+            p21_round_pair(cfg, ds, shape, f"(b) {defense}", failures, smi,
+                           add, P21_ROUNDS)
+    cfg = dataclasses.replace(main_config("Krum", 0.24,
+                                          distance_dtype="bfloat16"),
+                              epochs=P21_ROUNDS)
+    p21_round_pair(cfg, ds, (1, 2), "(b) Krum bf16 distances", failures,
+                   smi, add, P21_ROUNDS)
+    t_b = time.perf_counter() - a
+    a = time.perf_counter()
+    for defense in ("Krum", "Bulyan"):
+        cfg = dataclasses.replace(main_config(defense, 0.24,
+                                              model="mnist_cnn"),
+                                  epochs=P21_ROUNDS)
+        p21_round_pair(cfg, ds, (1, 4), f"(c) mnist_cnn {defense}",
+                       failures, smi, add, P21_ROUNDS)
+    t_c = time.perf_counter() - a
+    a = time.perf_counter()
+    p21_hier(ds, failures, smi, add)
+    t_d = time.perf_counter() - a
+    a = time.perf_counter()
+    p21_processes(failures, smi)
+    t_e = time.perf_counter() - a
+    for name in entries:
+        if not totals[name]:
+            failures.append(f"model axis: {name} never launched on the "
+                            f"phase's runs")
+    print(f"[model axis] phase 21 took {time.perf_counter() - t_phase:.1f} "
+          f"s: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}, "
+          f"(e) {t_e:.1f}", flush=True)
+    return entries, totals
+
+
 def main() -> int:
     import torch
 
@@ -7720,12 +8410,15 @@ def main() -> int:
     remat_totals = run_remat_bench_path(ds, failures, smi)
     # -- 20. the device mesh -------------------------------------------------
     mesh_totals = run_mesh_path(ds, failures, smi)
+    # -- 21. the rest of the mesh ----------------------------------------------
+    axis_entries, axis_totals = run_model_axis_path(ds, failures, smi, peaks)
+    entries.update(axis_entries)
     for name, e in entries.items():
         e["launches"] = sum(t[name] for t in (
             totals, attack_totals, model_totals, knob_totals, life_totals,
             async_totals, defense_totals, traffic_totals, hier_totals,
             secagg_totals, observe_totals, walls_totals, host_totals,
-            campaign_totals, remat_totals, mesh_totals))
+            campaign_totals, remat_totals, mesh_totals, axis_totals))
 
     if failures:
         for msg in failures:
@@ -7741,4 +8434,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--p21-worker"]:
+        sys.exit(p21_worker(sys.argv[2:]))
     sys.exit(main())

@@ -66,6 +66,18 @@ KW = dict(dataset=C.SYNTH_MNIST_HARD, users_count=N, mal_prop=MAL_PROP,
           batch_size=B, epochs=ROUNDS, mal_batch_size=64, **SIZES)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The port on two intra-op threads, for speed: beside the other test
+    workers, a machine's every core per worker spins more than it
+    computes.  The comparisons at the last bits take one thread
+    (:func:`one_thread`); the others hold a band."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def datasets():
     return (jax_load_dataset(JC.SYNTH_MNIST_HARD, seed=0, **SIZES),

@@ -91,10 +91,16 @@ def _base(tmp_path, **kw):
 # The cells the port alone refuses: (overrides, message fragment).
 PORT_ONLY = [
     (dict(backend="cpu"), "unexpected keyword argument 'backend'"),
-    (dict(mesh_shape=[2, 2]), "model axis"),
-    (dict(mesh_shape=[1, 4], defense="Krum"), "model axis"),
-    (dict(mesh_shape=[2, 4], aggregation="hierarchical", users_count=16,
-          megabatch=4, defense="Median"), "model axis"),
+]
+
+# Mesh cells with a model axis: refused by the port until it ran the
+# model axis, now expanded (and skipped or not) as the JAX package
+# expands them.
+MODEL_AXIS_CELLS = [
+    dict(mesh_shape=[2, 2]),
+    dict(mesh_shape=[1, 4], defense="Krum"),
+    dict(mesh_shape=[2, 4], aggregation="hierarchical", users_count=16,
+         megabatch=4, defense="Median"),
 ]
 
 # The known-invalid matrix's cells that are port-only refusals too (none
@@ -122,13 +128,14 @@ def test_one_spec_expands_alike_in_both_packages(tmp_path):
                dict(faults=dict(dropout=0.2), defense="Median"),
                dict(faults=dict(dropout=0.2), defense="DnC"),
                dict(remat=True, defense="Krum")]
+        + [dict(o) for o in MODEL_AXIS_CELLS]
         + [dict(o) for o, _ in PORT_ONLY],
         priorities={"defense=Krum": 2})
     text = json.dumps(blob)
     port, jax_spec = CampaignSpec.from_json(text), JSpec.from_json(text)
     assert port.campaign_id == jax_spec.campaign_id
     got, want = port.expand(), jax_spec.expand()
-    common = 24 + 5
+    common = 24 + 5 + len(MODEL_AXIS_CELLS)
     assert len(got) == len(want) == common + len(PORT_ONLY)
     assert [(c.overrides, c.attack, c.priority, c.index) for c in got] == [
         (c.overrides, c.attack, c.priority, c.index) for c in want]
@@ -140,7 +147,9 @@ def test_one_spec_expands_alike_in_both_packages(tmp_path):
         else:
             assert g.skip == w.skip
         assert g.cell_id != w.cell_id or g.cfg is None
-    assert got[common - 1].skip is None and got[common - 1].cfg.remat
+    assert got[28].skip is None and got[28].cfg.remat
+    for c, o in zip(got[29:common], MODEL_AXIS_CELLS):
+        assert c.skip is None and c.cfg.mesh_shape == tuple(o["mesh_shape"])
     assert _partition(got[:common]) == _partition(want[:common])
     for mode in ("grouped", "spec", "shuffled"):
         a = order_cells(got[:common], mode, port.campaign_id)

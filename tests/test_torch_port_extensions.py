@@ -117,6 +117,18 @@ def _jkey(k):
     return jax.random.wrap_key_data(jnp.asarray(k))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The port on two intra-op threads, for speed: beside the other test
+    workers, a machine's every core per worker spins more than it
+    computes.  Each comparison here is with JAX within a band, or bit
+    for bit within one process."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ---------------------------------------------------------------------------
 # the draws
 

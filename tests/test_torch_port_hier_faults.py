@@ -196,6 +196,18 @@ def test_init_hier_fault_state_shapes():
 # ---------------------------------------------------------------------------
 # faulted rounds through the engines
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The port on two intra-op threads, for speed: beside the other test
+    workers, a machine's every core per worker spins more than it
+    computes.  Each round here is held to a band against the JAX engine,
+    or bit for bit against the port at the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def datasets():
     return (jax_load_dataset(JC.SYNTH_MNIST, seed=0, **SIZES),

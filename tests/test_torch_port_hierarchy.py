@@ -53,6 +53,9 @@ from attacking_federate_learning_tpu.defenses.kernels import (
     TIER2_DEFENSES as JTIER2
 )
 from attacking_federate_learning_tpu.ops import federated as JFD
+from attacking_federate_learning_tpu.parallel.mesh import (
+    make_plan as jax_make_plan
+)
 from attacking_federate_learning_tpu_torch import cli
 from attacking_federate_learning_tpu_torch import config as C
 from attacking_federate_learning_tpu_torch.attacks import (
@@ -63,14 +66,20 @@ from attacking_federate_learning_tpu_torch.core.engine import (
     FederatedExperiment
 )
 from attacking_federate_learning_tpu_torch.core.server import (
-    init_server_state
+    ServerState, init_server_state
 )
 from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
 from attacking_federate_learning_tpu_torch.defenses import DEFENSES
 from attacking_federate_learning_tpu_torch.defenses.kernels import (
-    TIER2_DEFENSES, check_tier2_args
+    TIER2_DEFENSES, bulyan_select, check_tier2_args, distances_for
 )
 from attacking_federate_learning_tpu_torch.ops import federated as FD
+from attacking_federate_learning_tpu_torch.utils.numerics import (
+    TIE_BAND_ULPS
+)
+from attacking_federate_learning_tpu_torch.parallel.mesh import (
+    PerPosition, make_plan
+)
 from attacking_federate_learning_tpu_torch.utils.weights import (
     from_jax_params
 )
@@ -283,13 +292,12 @@ def test_check_tier2_args_is_jax_s(name, S, f2):
 
 @pytest.fixture(scope="module", autouse=True)
 def two_threads():
-    """The port on two intra-op threads: beside the other test workers,
-    a machine's every core per worker spins more than it computes.  The
-    weights are bit for bit those of eight threads (measured on every
-    round test here); four or six split some reductions otherwise and
-    move the Bulyan/TrimmedMean 'concentrated' round to a tier-1 near-tie
-    on the other side (rel L2 3.7e-4), so the count is fixed, not the
-    machine's."""
+    """The port on two intra-op threads, for speed only: beside the other
+    test workers, a machine's every core per worker spins more than it
+    computes.  The rounds hold their band at 1, 2, 4, 6 and 8 threads:
+    the one decision the thread count moves, a near-tie of a trimmed
+    mean in the Bulyan/TrimmedMean 'concentrated' round, is adjudicated
+    in fp64 (:func:`_check_rounds`)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
@@ -356,15 +364,81 @@ def rel_l2(got, want):
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
+def _trim_calls(texp):
+    """Spies on the port engine's two tiers: each round's trimmed means as
+    (X, keep) pairs, X the rows a trimmed mean ranks (a Bulyan tier's
+    selection, by the port's own selection on the same rows)."""
+    calls = []
+
+    def spy(fn, name):
+        def wrapped(grads, n, f, *a, **kw):
+            G = grads.float().clone()
+            if name == "TrimmedMean":
+                calls.append((G, n - f - 1))
+            elif name == "Bulyan" and kw.get("alive_counts") is None:
+                sel = bulyan_select(distances_for(G), n, f)
+                calls.append((G[sel], n - 4 * f - 1))
+            return fn(grads, n, f, *a, **kw)
+        return wrapped
+
+    texp.defense_fn = spy(texp.defense_fn, texp.cfg.defense)
+    texp._tier2_fn = spy(texp._tier2_fn, texp._tier2_name)
+    return calls
+
+
+def _trim_near_ties(calls, d):
+    """(d,) bool: the coordinates at which one of the round's trimmed
+    means decides at an fp64 near-tie: ranked by |x - median| in fp64,
+    the first value it drops and the last it keeps lie within
+    TIE_BAND_ULPS f32 ulp (at the column's scale) of each other, and
+    differ (a tie between equal values decides nothing)."""
+    tied = np.zeros(d, bool)
+    for X, keep in calls:
+        if keep >= X.shape[0]:
+            continue
+        x = X.double().numpy()
+        key = np.abs(x - np.median(x, axis=0))
+        order = np.argsort(key, axis=0, kind="stable")
+        k = np.take_along_axis(key, order[keep - 1:keep + 1], axis=0)
+        v = np.take_along_axis(x, order[keep - 1:keep + 1], axis=0)
+        scale = np.abs(x).max(axis=0).astype(np.float32)
+        band = TIE_BAND_ULPS * np.spacing(scale).astype(np.float64)
+        tied |= (k[1] - k[0] <= band) & (v[1] != v[0])
+    return tied
+
+
 def _check_rounds(jexp, texp, rounds=ROUNDS):
+    """Rounds of both engines, each held to the band.  A round whose
+    weights or velocity leave it passes only where taking out its most
+    deviant coordinates, one at a time, brings the rest back within the
+    band before it reaches one that is not at an fp64 near-tie of one of
+    the round's trimmed means (:func:`_trim_near_ties`; the evaluation
+    order of the port's deliver moves with the thread count, and such a
+    tie may go either way); the port then continues from the JAX
+    engine's state."""
+    calls = _trim_calls(texp)
     for t in range(rounds):
+        calls.clear()
         jexp.run_round(t)
         texp.run_round(t)
         assert texp.state.round == t + 1
-    w = np.asarray(jexp.state.weights)
-    assert rel_l2(texp.state.weights.numpy(), w) <= REL_L2
-    assert rel_l2(texp.state.velocity.numpy(),
-                  np.asarray(jexp.state.velocity)) <= REL_L2
+        w, v = np.asarray(jexp.state.weights), np.asarray(
+            jexp.state.velocity)
+        tw, tv = texp.state.weights.numpy(), texp.state.velocity.numpy()
+        if rel_l2(tw, w) <= REL_L2 and rel_l2(tv, v) <= REL_L2:
+            continue
+        tied = _trim_near_ties(calls, w.shape[0])
+        dev = np.maximum(np.abs(tw - w) / np.linalg.norm(w),
+                         np.abs(tv - v) / np.linalg.norm(v))
+        rest = np.ones(w.shape, bool)
+        for j in np.argsort(-dev):
+            if (rel_l2(tw[rest], w[rest]) <= REL_L2
+                    and rel_l2(tv[rest], v[rest]) <= REL_L2):
+                break
+            assert tied[j], (t, int(j), float(dev[j]))
+            rest[j] = False
+        texp.state = ServerState(torch.from_numpy(w.copy()),
+                                 torch.from_numpy(v.copy()), t + 1)
 
 
 @pytest.mark.parametrize("placement", ["spread", "concentrated"])
@@ -532,13 +606,23 @@ def test_engine_messages_are_jax_s(kw, datasets):
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("knob,value,word", [
-    ("mesh_shape", (1, 2), "model axis")])
-def test_what_is_not_ported_is_refused(knob, value, word, datasets):
-    cfg = ExperimentConfig(**_base(defense="Krum"))
-    setattr(cfg, knob, value)
-    with pytest.raises(ValueError, match=word):
-        FederatedExperiment(cfg, DriftAttack(1.0), datasets[1], device="cpu")
+@pytest.mark.parametrize("shape", [(1, 2)])
+def test_a_model_axis_round_runs_as_jax_s(shape, datasets):
+    """Refused until the port ran the model axis: a hierarchical round
+    over a (1, 2) mesh, the server state in column blocks, within the
+    band of the JAX engine's round over the same mesh."""
+    base = _base(defense="Krum", mesh_shape=shape)
+    k = shape[0] * shape[1]
+    jexp = JExperiment(JConfig(**base, aggregation_impl="xla"),
+                       attacker=JDrift(1.0), dataset=datasets[0],
+                       shardings=jax_make_plan(shape, jax.devices()[:k]))
+    texp = FederatedExperiment(ExperimentConfig(**base), DriftAttack(1.0),
+                               datasets[1], device="cpu",
+                               shardings=make_plan(shape, ["cpu"] * k))
+    params = jax.tree.map(np.asarray, jexp.flat.unravel(jexp.state.weights))
+    texp.state = init_server_state(from_jax_params(params))
+    assert isinstance(texp._state.weights, PerPosition)
+    _check_rounds(jexp, texp)
 
 
 _FLAGS = ("aggregation", "megabatch", "tier2_defense", "mal_placement",

@@ -322,6 +322,18 @@ def test_margin_series_and_drift():
     assert M.MARGIN_KEYS == JM.MARGIN_KEYS
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The port on two intra-op threads, for speed: beside the other test
+    workers, a machine's every core per worker spins more than it
+    computes.  Each engine pair here runs at the same setting, and the
+    margins are held to JAX's within bands."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def ds():
     return O.datasets()

@@ -11,13 +11,12 @@ the 8 virtual CPU devices of tests/conftest.py:
 - the mesh: ``make_mesh``'s refusal is JAX's message, every position
   holds its own buffers, ``split_rows`` is ``torch.tensor_split``'s
   blocks, ``all_gather`` is position-major, ``ppermute`` zero-fills what
-  nothing is sent to, the model axis is refused;
+  nothing is sent to, the model axis is laid as JAX lays it;
 - ``mesh_shape`` in the config and ``--mesh-shape`` in the CLI: JAX's
-  validation messages, normalization, flag and parse; the model axis
-  refused by the port alone;
+  validation messages, normalization, flag and parse;
 - ``multihost``: a no-op on one process, half-set variables refused, a
-  world-size-1 ``gloo`` group through a ``file://`` store, and no mesh
-  over a group of more than one process.
+  world-size-1 ``gloo`` group through a ``file://`` store, whose mesh
+  is JAX's (tests/test_torch_port_processes.py runs two processes).
 """
 
 import dataclasses
@@ -37,7 +36,7 @@ from attacking_federate_learning_tpu.ops.distances import (
 )
 from attacking_federate_learning_tpu.parallel import distances as JPD
 from attacking_federate_learning_tpu.parallel.mesh import (
-    make_mesh as jax_make_mesh
+    make_mesh as jax_make_mesh, make_plan as jax_make_plan
 )
 from attacking_federate_learning_tpu_torch import cli
 from attacking_federate_learning_tpu_torch.config import ExperimentConfig
@@ -186,12 +185,17 @@ def test_ppermute_is_lax_s_rule():
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 4)])
-def test_the_model_axis_is_refused(shape):
-    with pytest.raises(ValueError, match="model axis"):
-        make_plan(shape, [CPU] * (shape[0] * shape[1]))
-    with pytest.raises(ValueError, match="model axis"):
-        ExperimentConfig(mesh_shape=shape)
-    JConfig(mesh_shape=shape)                     # the JAX package's runs
+def test_the_model_axis_is_laid_as_jax_lays_it(shape):
+    """Refused until the port ran the model axis: now the plan, the config
+    and the split of d (79,510 splits at m = 2, not at 4) are JAX's."""
+    c, m = shape
+    plan = make_plan(shape, [CPU] * (c * m))
+    jplan = jax_make_plan(shape, jax.devices()[:c * m])
+    assert plan.mesh.shape == dict(jplan.mesh.shape)
+    assert (plan.clients_parts, plan.model_parts) == shape
+    assert plan.splits(79_510) == (jplan.weights_spec(79_510)[0] == MODEL)
+    assert ExperimentConfig(mesh_shape=shape).mesh_shape == JConfig(
+        mesh_shape=shape).mesh_shape == shape
 
 
 # ---------------------------------------------------------------------------
@@ -273,10 +277,13 @@ def test_a_world_of_one_joins_through_a_file_store(tmp_path, monkeypatch):
         torch.distributed.all_reduce(x)
         assert torch.equal(x, torch.ones(3))
         plan = make_plan((2, 1), [CPU] * 2)          # world size 1: fine
-        assert plan.clients_parts == 2
-        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(ValueError, match="mesh over processes"):
-            make_plan((2, 1), [CPU] * 2)
+        assert plan.clients_parts == 2 and plan.group is None
+        # A group of more than one process lays one mesh over every
+        # process's positions (tests/test_torch_port_processes.py runs
+        # two); its grid is JAX's over the same devices.
+        jplan = jax_make_plan((2, 1), jax.devices()[:2])
+        assert plan.mesh.shape == dict(jplan.mesh.shape)
+        assert plan.is_primary and plan.processes == 1
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()

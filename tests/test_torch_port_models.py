@@ -72,6 +72,32 @@ SHALLOW_WRN = "wrn10_2_test"
 
 
 @pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The port on two intra-op threads, for speed: beside the other test
+    workers, a machine's every core per worker spins more than it
+    computes.  Each comparison here is with JAX or fp64 within a band, or
+    within one process, but one (:func:`machine_threads`)."""
+    threads = _MACHINE_THREADS[0] = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+# The machine's intra-op thread count, kept by :func:`two_threads`.
+_MACHINE_THREADS = [None]
+
+
+@pytest.fixture
+def machine_threads():
+    """The machine's thread count for one test whose bits (one client
+    alone against the same client in a batch of two, atol 1e-7) move by
+    an ulp at two threads."""
+    torch.set_num_threads(_MACHINE_THREADS[0])
+    yield
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def shallow_wrn():
     """The test-only shallow WRN in both registries while this module's
     tests run; taken out again after them, since other modules compare
@@ -217,7 +243,7 @@ def test_wideresnet40_4_log_probs_hold_fp64_across_relu_kinks():
     assert _rel_l2(grads(w, xs, ys).numpy(), ref).max() <= KINK_BAND
 
 
-def test_batch_norm_is_biased_batch_statistics():
+def test_batch_norm_is_biased_batch_statistics(machine_threads):
     """Each client's statistics come from its own images: a client's
     gradient does not depend on what the other clients hold."""
     model, params, tmodel, flat = _carry(SHALLOW_WRN)

@@ -71,6 +71,18 @@ MODEL_NAMES = ("mnist_mlp", "mnist_cnn", "cifar10_cnn", "resnet20",
 
 
 @pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """The port on two intra-op threads, for speed: beside the other test
+    workers, a machine's every core per worker spins more than it
+    computes.  The remat and plain steps run at the same setting, so
+    their bytes are compared at two threads as at any other count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def shallow_wrn():
     """tests/test_torch_port_models.py's shallow WRN (depth 10, widen 2)
     in the port's registry while this module runs."""

@@ -28,11 +28,11 @@ from attacking_federate_learning_tpu_torch.core.engine import (
 from attacking_federate_learning_tpu_torch.data.datasets import load_dataset
 from attacking_federate_learning_tpu_torch.ops import _build
 from attacking_federate_learning_tpu_torch.ops.defense_kernels import (
-    krum_scores, masked_median, masked_trimmed_mean, median_of,
+    krum_rows, krum_scores, masked_median, masked_trimmed_mean, median_of,
     trimmed_mean_of
 )
 from attacking_federate_learning_tpu_torch.ops.distances import (
-    pairwise_distances
+    GramPartials, gram_epilogue, gram_partials, pairwise_distances
 )
 from attacking_federate_learning_tpu_torch.ops.threefry_bits import (
     threefry_bits
@@ -285,6 +285,8 @@ _WRAPPERS = {
     "median": lambda G: median_of(G),
     "masked_trimmed_mean": lambda G: masked_trimmed_mean(G, _CudaMask(), 2),
     "masked_median": lambda G: masked_median(G, _CudaMask()),
+    "gram_partials": lambda G: gram_partials(G),
+    "krum_rows": lambda G: krum_rows(G, 2),
 }
 
 
@@ -297,7 +299,23 @@ class _CudaBf16Matrix(_CudaMatrix):
 _BF16_WRAPPERS = {
     "pairwise_distances[bf16]": lambda G: pairwise_distances(G),
     "krum_scores[bf16]": lambda G: krum_scores(G, 2),
+    "gram_partials[bf16]": lambda G: gram_partials(G),
 }
+
+
+class _CudaPartials(_CudaMatrix):
+    """Stands in for one position's (flat) f32 CUDA workspace of Gram
+    partials."""
+
+    shape = (4 * 128 * 128 + 128,)
+
+    def dim(self):
+        return 1
+
+
+# The split Gram's epilogue takes the positions' partials.
+_EPILOGUE = {"gram_epilogue": lambda W: gram_epilogue(
+    [GramPartials(W, 4, 1), GramPartials(W, 4, 1)])}
 
 
 @pytest.mark.parametrize("name", sorted(_BF16_WRAPPERS))
@@ -345,6 +363,23 @@ def test_the_gram_sources_build_both_routes_into_one_library():
     tile = (_build.CSRC / "gram_tile.cuh").read_text()
     assert "template <int KG, int VEC>" in tile
     assert "typename T" not in tile and "uint16_t" not in tile
+
+
+def test_the_epilogue_raises_for_cuda_without_a_kernel(tmp_path,
+                                                       monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setenv("NVCC", str(tmp_path / "no-nvcc"))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="no nvcc found"):
+        _EPILOGUE["gram_epilogue"](_CudaPartials())
+    assert _build.LAUNCHES == before
+
+    class Double(_CudaPartials):
+        dtype = torch.float64
+
+    with pytest.raises(ValueError, match="contiguous float32 partials"):
+        _EPILOGUE["gram_epilogue"](Double())
 
 
 @pytest.mark.parametrize("name", sorted(_WRAPPERS))
@@ -399,7 +434,7 @@ _SECAGG_KERNELS = ("secagg_deltas", "secagg_residue", "secagg_unmask_sum")
 
 def test_every_kernel_has_a_source_and_a_counter():
     assert sorted(_build.KERNELS) == sorted(_build.LAUNCHES) == sorted(
-        {**_WRAPPERS, **_BF16_WRAPPERS, **_KEY_WRAPPERS,
+        {**_WRAPPERS, **_BF16_WRAPPERS, **_KEY_WRAPPERS, **_EPILOGUE,
          **dict.fromkeys(_SECAGG_KERNELS)})
     for name, (source, symbol, _) in _build.KERNELS.items():
         text = (_build.CSRC / source).read_text()
