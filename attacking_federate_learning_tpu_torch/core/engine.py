@@ -1891,9 +1891,8 @@ class FederatedExperiment:
         model = {}
         if self._model_split:
             model["model_parts"] = self.shardings.model_parts
-            model["partial_tiles"] = (
-                MA.partial_tiles(cfg, self.shardings, self.m, self.flat.dim)
-                if self._model_agg is not None else 0)
+            model["gram_rows"] = (MA.gram_rows(cfg, self.m)
+                                  if self._model_agg is not None else 0)
         return wire_ledger(
             cohort=self.m, dim=self.flat.dim,
             grad_bytes=self.grad_dtype.itemsize,

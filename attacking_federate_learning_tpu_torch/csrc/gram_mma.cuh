@@ -321,11 +321,8 @@ __host__ __device__ constexpr uint32_t raw_row_bytes(int stage_k) {
     return (uint32_t)(stage_k / 8 + 1) * 16;
 }
 
-// Stage 1.  Grid: tiles * S blocks, block = s * tiles + tile; WGS * 128
-// threads.  ws: (S, tiles, 128, 128) f32, then dg: (S, nt * 128); only
-// the rows inside n of each warpgroup's outputs are written.  stage_k:
-// KS * 256 where KS > 1, else a power of two in [64, 256].  Dynamic
-// shared memory: ring_smem(n, stage_k).
+// Stage 1 for one block of WGS * 128 threads.  stage_k: KS * 256 where
+// KS > 1, else a power of two in [64, 256].
 //
 // KS > 1 (n <= 32, one tile): the stage's KS chains are stacked as KS
 // groups of 64 / KS rows of one m64n64 instruction, each group's rows the
@@ -336,10 +333,18 @@ __host__ __device__ constexpr uint32_t raw_row_bytes(int stage_k) {
 // the chains are added in chain order through shared memory by group 0's
 // warps.  One instruction reads a 64-row operand pair of four chains
 // where an m64n16 would read 64 rows, 54 of them dead, for one.
-template <int WGS, int N, int KS>
-__global__ void __launch_bounds__(WGS * 128, 1)
-gram_mma_kernel(const uint16_t* __restrict__ G, int n, long long d, int nt,
-                int cps, int stage_k, float* __restrict__ ws) {
+//
+// The body is shared with the split route's kernel (gram_split.cuh,
+// SPLIT true): there block = tile * S + s, slice s is split_slice's run
+// of chains of chain_steps k16 steps (a whole number of stages; 256 k
+// where chains are stacked; cps unused), and the partial goes to a
+// [128][128] f32 tile at the start of the block's shared memory, which
+// the ring no longer needs, instead of ws.  Returns that tile (nullptr
+// on the fused route).
+template <int WGS, int N, int KS, bool SPLIT>
+__device__ __forceinline__ float* mma_tile_partial(
+        const uint16_t* __restrict__ G, int n, long long d, int nt, int cps,
+        int stage_k, float* __restrict__ ws, int S, int chain_steps) {
     constexpr int kThreadsM = WGS * 128;
     constexpr int kRegs = N / 2;
     constexpr int kR = 64 / KS;                  // rows of a chain group
@@ -352,8 +357,8 @@ gram_mma_kernel(const uint16_t* __restrict__ G, int n, long long d, int nt,
     const uint32_t base = (smem_addr(smem_raw) + kAlign - 1) & ~(kAlign - 1);
 
     const int tiles = nt * (nt + 1) / 2;
-    const int tile = blockIdx.x % tiles;
-    const int s = blockIdx.x / tiles;
+    const int tile = SPLIT ? blockIdx.x / S : blockIdx.x % tiles;
+    const int s = SPLIT ? blockIdx.x % S : blockIdx.x / tiles;
     int ti, tj;
     tile_coords(tile, nt, ti, tj);
     const bool diag = ti == tj;
@@ -371,9 +376,14 @@ gram_mma_kernel(const uint16_t* __restrict__ G, int n, long long d, int nt,
     const int qrow = stage_k / 8;                  // 16-byte chunks a row
     const int lgq = __ffs(qrow) - 1;
     const int lgg = lgq - (KS == 4 ? 2 : KS == 2 ? 1 : 0);  // a group's
-    const long long k0 = (long long)s * cps * kChainK;
-    const long long kend = k0 + (long long)cps * kChainK;
-    const long long k1 = kend < d ? kend : d;
+    long long k0, k1;
+    if constexpr (SPLIT) {
+        split_slice(d, chain_steps * kStepK, S, s, k0, k1);
+    } else {
+        k0 = (long long)s * cps * kChainK;
+        const long long kend = k0 + (long long)cps * kChainK;
+        k1 = kend < d ? kend : d;
+    }
     const int nchunks = (int)((k1 - k0 + stage_k - 1) / stage_k);
     const unsigned long long gbase = reinterpret_cast<unsigned long long>(G);
 
@@ -535,7 +545,7 @@ gram_mma_kernel(const uint16_t* __restrict__ G, int n, long long d, int nt,
             else
                 mma_steps<N, 4>(acc, st, line_bytes, a_off, b_off, t == 0);
             t += stage_k / kStepK;
-            if (t == kChainSteps || c + 1 == nchunks) {
+            if (t == (SPLIT ? chain_steps : kChainSteps) || c + 1 == nchunks) {
                 pend = 1;
                 t = 0;
             }
@@ -543,13 +553,23 @@ gram_mma_kernel(const uint16_t* __restrict__ G, int n, long long d, int nt,
     }
     settle();
     cp_async_wait<0>();
+    float* staged_tile = nullptr;
+    if constexpr (SPLIT) {
+        // Every warpgroup has waited for its last group and every copy has
+        // landed: the ring is free for the partial tile.
+        __syncthreads();
+        fence_proxy_async();
+        staged_tile = reinterpret_cast<float*>(
+            smem_raw + (base - smem_addr(smem_raw)));
+    }
 
     // Register i of thread (warp w, lane l) of the warpgroup holds row
     // 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4) + i % 2
     // of its 64 x N outputs; with stacked chains, group 0's warps hold the
     // partial in their first kBlockRegs registers.
-    if (KS > 1 && warp >= kGroupWarps) return;
-    float* out = ws + ((long long)s * tiles + tile) * (kT * kT);
+    if (KS > 1 && warp >= kGroupWarps) return staged_tile;
+    float* out = SPLIT ? staged_tile
+                       : ws + ((long long)s * tiles + tile) * (kT * kT);
     float* dg = ws + (long long)gridDim.x * (kT * kT)
                 + (long long)s * nt * kT + row0;
     const int rbase = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
@@ -561,25 +581,42 @@ gram_mma_kernel(const uint16_t* __restrict__ G, int n, long long d, int nt,
         if (row < ra) {
             *reinterpret_cast<float2*>(out + row * kT + col) =
                 make_float2(part[i], part[i + 1]);
-            if (diag && row == col) dg[row] = part[i];
-            if (diag && row == col + 1) dg[row] = part[i + 1];
+            if (!SPLIT && diag && row == col) dg[row] = part[i];
+            if (!SPLIT && diag && row == col + 1) dg[row] = part[i + 1];
         }
     }
+    return staged_tile;
 }
 
-// Checks a plan from the wrapper: S slices of cps chains cover [0, d),
-// the last one not empty; stage_k one chain a group where chains are
-// stacked, else a power of two in [64, 256], its stages fitting a
-// block's shared memory.
-inline bool mma_plan_ok(int n, long long d, int S, int cps, int stage_k) {
-    if (n <= 0 || d <= 0 || S <= 0 || cps <= 0) return false;
+// Stage 1 of the fused bf16 route (mma_tile_partial's note): grid tiles *
+// S blocks, block = s * tiles + tile; ws: (S, tiles, 128, 128) f32, then
+// dg: (S, nt * 128); only the rows inside n of each warpgroup's outputs
+// are written.  Dynamic shared memory: ring_smem(n, stage_k).
+template <int WGS, int N, int KS>
+__global__ void __launch_bounds__(WGS * 128, 1)
+gram_mma_kernel(const uint16_t* __restrict__ G, int n, long long d, int nt,
+                int cps, int stage_k, float* __restrict__ ws) {
+    mma_tile_partial<WGS, N, KS, false>(G, n, d, nt, cps, stage_k, ws, 0,
+                                        0);
+}
+
+// stage_k one chain a group where chains are stacked, else a power of two
+// in [64, 256], its stages fitting a block's shared memory.
+inline bool stage_ok(int n, int stage_k) {
     if (stage_k < kMinStageK || stage_k > kMaxStageK
         || (stage_k & (stage_k - 1)))
         return false;
     if (mma_groups(n) > 1 ? stage_k != mma_groups(n) * kChainK
                            : stage_k > kChainK)
         return false;
-    if (ring_smem(n, stage_k) > (size_t)kMaxSmem) return false;
+    return ring_smem(n, stage_k) <= (size_t)kMaxSmem;
+}
+
+// Checks a plan from the wrapper: S slices of cps chains cover [0, d),
+// the last one not empty; stage_k as stage_ok allows.
+inline bool mma_plan_ok(int n, long long d, int S, int cps, int stage_k) {
+    if (n <= 0 || d <= 0 || S <= 0 || cps <= 0) return false;
+    if (!stage_ok(n, stage_k)) return false;
     const long long per = (long long)cps * kChainK;
     return (long long)S * per >= d && (long long)(S - 1) * per < d;
 }

@@ -64,6 +64,15 @@
 // (x + x) - 2x is exactly 0 (ALIE's crafted rows), not the square root of
 // cancellation noise.  Partials are combined in a fixed order, never by
 // float atomics, so two launches on the same input give the same bits.
+//
+// The split route over a mesh's model axis (gram_split.cuh) runs the same
+// main loop (gram_tile_partial, SPLIT true) with chains of 64, 128 or 256
+// products, a slice's chains added in order into a partial tile in the
+// block's shared memory; then its cluster tail: the C partials of a
+// cluster summed in rank order through distributed shared memory, the
+// R = S / C cluster sums in order (gram_tail_kernel), and, in the
+// epilogue, the m positions' Grams in position order
+// (ops/distances.py:SplitPlan.rounding_chain counts stage 1's roundings).
 
 #pragma once
 
@@ -90,7 +99,7 @@ static_assert(kChainProducts % kBK == 0, "chains are whole chunks");
 // Shared memory of stage 1: the ring, and the k groups' exchange of their
 // chain sums, [KG - 1][64 entries][256 / KG threads] f32.
 template <int KG>
-constexpr size_t stage1_smem() {
+__host__ __device__ constexpr size_t stage1_smem() {
     return (kStages * kStageFloats
             + (KG - 1) * kTT * kTT * (kThreads / KG)) * sizeof(float);
 }
@@ -151,17 +160,36 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage 1.  Grid: tiles * S blocks, block = s * tiles + tile.  The block's
-// threads form KG k groups of 256 / KG; group g takes k [32g/KG,
-// 32(g+1)/KG) of every chunk.  ws: (S, tiles, 128, 128) f32, then dg:
-// (S, nt * 128); only the entries of computed thread tiles are written.
-// Every tile of a launch must have at most 256 / KG live thread tiles.
-// Copies move VEC floats (G's base and row stride must allow 4 VEC-byte
-// copies).  Dynamic shared memory: stage1_smem<KG>().
-template <int KG, int VEC>
-__global__ void __launch_bounds__(kThreads, 1)
-gram_partials_kernel(const float* __restrict__ G, int n, long long d,
-                     int nt, int cps, float* __restrict__ ws) {
+// The k range [k0, k1) of slice s of S on the split route: the d / chain
+// chains (the last one short) dealt out in S runs as even as they go,
+// slice s taking chains [s T / S, (s + 1) T / S); none is empty where
+// S <= T.
+__host__ __device__ __forceinline__ void split_slice(long long d, int chain,
+                                                     int S, int s,
+                                                     long long& k0,
+                                                     long long& k1) {
+    const long long T = (d + chain - 1) / chain;
+    k0 = (long long)s * T / S * chain;
+    const long long kend = (long long)(s + 1) * T / S * chain;
+    k1 = kend < d ? kend : d;
+}
+
+// Stage 1 for one block.  The block's threads form KG k groups of 256 /
+// KG; group g takes k [32g/KG, 32(g+1)/KG) of every chunk.  Every tile of
+// a launch must have at most 256 / KG live thread tiles.  Copies move VEC
+// floats (G's base and row stride must allow 4 VEC-byte copies).
+//
+// Fused (SPLIT false, gram_partials_kernel): grid tiles * S blocks, block
+// = s * tiles + tile, slice s cps chains of 256; ws: (S, tiles, 128, 128)
+// f32, then dg: (S, nt * 128); only the entries of computed thread tiles
+// are written.  Split (SPLIT true, gram_split.cuh): grid tiles * S
+// blocks, block = tile * S + s, slice s split_slice's run of chains of
+// cpc chunks (cps unused); ws is the block's partial tile in its own
+// shared memory, [128][128], and nothing goes to device memory here.
+template <int KG, int VEC, bool SPLIT>
+__device__ __forceinline__ void gram_tile_partial(
+        const float* __restrict__ G, int n, long long d, int nt, int cps,
+        float* __restrict__ ws, int S, int cpc) {
     constexpr int kPer = kThreads / KG;      // threads per k group
     constexpr int kQ = kBK / 4 / KG;         // k quads per group per chunk
     constexpr int kRowCopies = kBK / VEC;    // copies per staged row
@@ -171,16 +199,23 @@ gram_partials_kernel(const float* __restrict__ G, int n, long long d,
     float* smem = reinterpret_cast<float*>(smem4);
     float* xch = smem + kStages * kStageFloats;
     const int tiles = nt * (nt + 1) / 2;
-    const int tile = blockIdx.x % tiles;
-    const int s = blockIdx.x / tiles;
+    const int tile = SPLIT ? blockIdx.x / S : blockIdx.x % tiles;
+    const int s = SPLIT ? blockIdx.x % S : blockIdx.x / tiles;
     int ti, tj;
     tile_coords(tile, nt, ti, tj);
     const bool diag = ti == tj;
     const int row0 = ti * kT, col0 = tj * kT;
-    const long long k0 = (long long)s * cps * kChainProducts;
-    const long long kend = k0 + (long long)cps * kChainProducts;
-    const long long k1 = kend < d ? kend : d;
+    long long k0, k1;
+    if constexpr (SPLIT) {
+        split_slice(d, cpc * kBK, S, s, k0, k1);
+    } else {
+        k0 = (long long)s * cps * kChainProducts;
+        const long long kend = k0 + (long long)cps * kChainProducts;
+        k1 = kend < d ? kend : d;
+    }
     const int nchunks = (int)((k1 - k0 + kBK - 1) / kBK);
+    // Chunks per chain.
+    const int chain_chunks = SPLIT ? cpc : kChunksPerChain;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -244,7 +279,7 @@ gram_partials_kernel(const float* __restrict__ G, int n, long long d,
 #pragma unroll
         for (int j = 0; j < kTT; ++j) acc[i][j] = 0.f;
 
-    float* out = ws + ((long long)s * tiles + tile) * (kT * kT);
+    float* out = SPLIT ? ws : ws + ((long long)s * tiles + tile) * (kT * kT);
     float* dg = ws + (long long)gridDim.x * (kT * kT)
                 + (long long)s * nt * kT + row0;
     const int sa = (a & 7) << 2, sb = (b & 7) << 2;   // staged() swizzle
@@ -288,7 +323,7 @@ gram_partials_kernel(const float* __restrict__ G, int n, long long d,
         // A chain ends (block-uniform): add the k groups' chains in group
         // order, add that to the slice's partial (the first chain is
         // stored), and restart from 0.
-        if ((c + 1) % kChunksPerChain == 0 || c + 1 == nchunks) {
+        if ((c + 1) % chain_chunks == 0 || c + 1 == nchunks) {
             if (KG > 1) {
                 if (g > 0 && thread_live) {
 #pragma unroll
@@ -312,7 +347,7 @@ gram_partials_kernel(const float* __restrict__ G, int n, long long d,
                 }
             }
             if (g == 0 && thread_live) {
-                const bool first = c < kChunksPerChain;
+                const bool first = c < chain_chunks;
 #pragma unroll
                 for (int i = 0; i < kTT; ++i) {
                     float4* p = reinterpret_cast<float4*>(
@@ -331,7 +366,7 @@ gram_partials_kernel(const float* __restrict__ G, int n, long long d,
                     p[0] = lo;
                     p[1] = hi;
                 }
-                if (diag && a == b) {
+                if (!SPLIT && diag && a == b) {
                     // The same sums again, beside the other slices'.
 #pragma unroll
                     for (int i = 0; i < kTT; ++i) {
@@ -347,6 +382,16 @@ gram_partials_kernel(const float* __restrict__ G, int n, long long d,
         }
     }
     cp_async_wait<0>();
+}
+
+// Stage 1 of the fused route (gram_tile_partial's note): the S slices'
+// partial tiles and their diagonals into ws.  Dynamic shared memory:
+// stage1_smem<KG>().
+template <int KG, int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+gram_partials_kernel(const float* __restrict__ G, int n, long long d,
+                     int nt, int cps, float* __restrict__ ws) {
+    gram_tile_partial<KG, VEC, false>(G, n, d, nt, cps, ws, 0, 0);
 }
 
 // The sums over partials [s0, s1), in order, of p0[s * st0], p1[s * st1]
@@ -424,15 +469,19 @@ gram_epilogue_kernel(const float* __restrict__ ws, int n, int nt, int S,
     D[(long long)j * n + i] = val;
 }
 
-// Checks a plan from the wrapper: S slices of cps chains cover [0, d),
-// the last one not empty; k groups only where the Gram is one tile with
-// at most 256 / kg live thread tiles.
-inline bool plan_ok(int n, long long d, int S, int cps, int kg) {
-    if (n <= 0 || d <= 0 || S <= 0 || cps <= 0) return false;
+// k groups only where the Gram is one tile with at most 256 / kg live
+// thread tiles.
+inline bool kgroups_ok(int n, int kg) {
     if (kg != 1 && kg != 2 && kg != 4) return false;
     const int mr = (n + kTT - 1) / kTT;
-    if (kg > 1 && (n > kT || mr * (mr + 1) / 2 > kThreads / kg))
-        return false;
+    return kg == 1 || (n <= kT && mr * (mr + 1) / 2 <= kThreads / kg);
+}
+
+// Checks a plan from the wrapper: S slices of cps chains cover [0, d),
+// the last one not empty; k groups as kgroups_ok allows.
+inline bool plan_ok(int n, long long d, int S, int cps, int kg) {
+    if (n <= 0 || d <= 0 || S <= 0 || cps <= 0) return false;
+    if (!kgroups_ok(n, kg)) return false;
     const long long per = (long long)cps * kChainProducts;
     return (long long)S * per >= d && (long long)(S - 1) * per < d;
 }

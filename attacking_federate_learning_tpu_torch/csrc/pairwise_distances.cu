@@ -28,19 +28,19 @@
 // at 989 TFLOP/s dense bf16).
 //
 // The model axis of the mesh (parallel/mesh.py) splits d over its
-// positions, so the two stages are entry points of their own too:
-// fl_gram_partials (and _bf16) runs stage 1 on one position's (n, d_j)
-// column block into that position's workspace; fl_gram_epilogue runs
-// stage 2 on the positions' workspaces laid end to end in position order
-// (every position's partial tiles, then every position's diagonals), so
-// the sum runs over the partials in position order and, within a
-// position, in slice order, and the norms come from the summed diagonal:
+// positions, so the Gram has entry points of its own there
+// (gram_split.cuh): fl_gram_partials (and _bf16) runs stage 1 on one
+// position's (n, d_j) column block and leaves that block's (n, n) f32
+// Gram, its slices summed on the card in thread block clusters;
+// fl_gram_epilogue reads the m positions' Grams where they lie and sums
+// them in position order, the norms from the summed diagonal, so
 // identical rows stay exactly 0 apart across positions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gram_mma.cuh"
+#include "gram_split.cuh"
 #include "gram_tile.cuh"
 
 // G: (n, d) f32 row-major on the device; ws: f32 scratch of
@@ -70,32 +70,53 @@ extern "C" int fl_pairwise_distances_bf16(const uint16_t* G, int n,
                                         static_cast<cudaStream_t>(stream));
 }
 
-// Stage 1 alone: G (n, d) f32 (one model position's column block) into
-// ws, S * (tiles * 128 * 128 + nt * 128) floats.  Plan as for
-// fl_pairwise_distances.
+// Stage 1 of the split route: G (n, d) f32 (one model position's column
+// block) into its Gram, gram (n, n) f32.  The plan
+// (ops/distances.py:split_plan): S slices of chains of `chain` k in
+// clusters of `cluster` blocks, kg k groups; mid: f32 scratch of
+// tiles * S / cluster * 128 * 128 floats where S > cluster (else unused).
 extern "C" int fl_gram_partials(const float* G, int n, long long d, int S,
-                                int cps, int kg, float* ws, void* stream) {
-    if (!fl::plan_ok(n, d, S, cps, kg)) return (int)cudaErrorInvalidValue;
-    return (int)fl::gram_partials(G, n, d, S, cps, kg, ws,
-                                  static_cast<cudaStream_t>(stream));
-}
-
-// Stage 1 alone on the bf16 route: G (n, d) bf16 into ws (the same
-// layout); plan as for fl_pairwise_distances_bf16.
-extern "C" int fl_gram_partials_bf16(const uint16_t* G, int n, long long d,
-                                     int S, int cps, int stage_k, float* ws,
-                                     void* stream) {
-    if (!fl::mma::mma_plan_ok(n, d, S, cps, stage_k))
+                                int chain, int cluster, int kg, float* mid,
+                                float* gram, void* stream) {
+    if (!fl::split_plan_ok(n, d, S, chain, cluster) || chain % fl::kBK
+        || chain > fl::kChainProducts || !fl::kgroups_ok(n, kg))
         return (int)cudaErrorInvalidValue;
-    return (int)fl::gram_partials_bf16(G, n, d, S, cps, stage_k, ws,
-                                       static_cast<cudaStream_t>(stream));
+    return (int)fl::gram_split(G, n, d, S, chain, cluster, kg, mid, gram,
+                               static_cast<cudaStream_t>(stream));
 }
 
-// Stage 2 alone: ws holds S partials of an n-row Gram (S * tiles partial
-// tiles, then S diagonals of nt * 128 floats), D (n, n) out.
-extern "C" int fl_gram_epilogue(const float* ws, int n, int S, float* D,
-                                void* stream) {
-    if (n <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-    return (int)fl::gram_epilogue(ws, n, S, D,
-                                  static_cast<cudaStream_t>(stream));
+// Stage 1 of the split route on the bf16 operands (their 16-bit words),
+// as fl_gram_partials; stage_k k a pipeline stage, chains of a whole
+// number of stages (256 k where chains are stacked, n <= 32).
+extern "C" int fl_gram_partials_bf16(const uint16_t* G, int n, long long d,
+                                     int S, int chain, int cluster,
+                                     int stage_k, float* mid, float* gram,
+                                     void* stream) {
+    const int groups = fl::mma::mma_groups(n);
+    if (!fl::split_plan_ok(n, d, S, chain, cluster)
+        || !fl::mma::stage_ok(n, stage_k)
+        || (groups > 1 ? chain != fl::mma::kChainK
+                       : chain % stage_k || chain > fl::mma::kChainK)
+        || fl::split_mma_smem(n, stage_k) > (size_t)fl::mma::kMaxSmem)
+        return (int)cudaErrorInvalidValue;
+    return (int)fl::gram_split_bf16(G, n, d, S, chain, cluster, stage_k,
+                                    mid, gram,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// Stage 2 of the split route: grams, a host array of the m model
+// positions' (n, n) f32 Grams on the device (at most fl::kMaxGrams), in
+// position order; D (n, n) out.
+extern "C" int fl_gram_epilogue(const float* const* grams, int m, int n,
+                                float* D, void* stream) {
+    if (n <= 0 || m <= 0 || m > fl::kMaxGrams)
+        return (int)cudaErrorInvalidValue;
+    return (int)fl::gram_sum_epilogue(grams, m, n, D,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `cluster` blocks of a split stage 1 the card holds
+// at once (one block an SM), or minus the CUDA error.
+extern "C" int fl_cluster_slots(int cluster) {
+    return fl::cluster_slots(cluster);
 }

@@ -92,11 +92,14 @@ KERNELS = {
     # The distance kernel's two stages apart, for the model axis' split
     # Gram (ops/distances.py: gram_partials, gram_epilogue), and the Krum
     # kernel's per-row selection on a given D (krum_rows).
+    # (G, n, d, slices, chain, cluster, kgroups or stage_k, mid, gram,
+    # stream); the epilogue (grams, m, n, D, stream), grams a host array
+    # of the m Grams' device pointers.
     "gram_partials": ("pairwise_distances.cu", "fl_gram_partials",
-                      (_P, _I, _LL, _I, _I, _I, _P, _P)),
+                      (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P)),
     "gram_partials[bf16]": ("pairwise_distances.cu",
                             "fl_gram_partials_bf16",
-                            (_P, _I, _LL, _I, _I, _I, _P, _P)),
+                            (_P, _I, _LL, _I, _I, _I, _I, _P, _P, _P)),
     "gram_epilogue": ("pairwise_distances.cu", "fl_gram_epilogue",
                       (_P, _I, _I, _P, _P)),
     "krum_rows": ("krum_scores.cu", "fl_krum_rows",
@@ -316,11 +319,8 @@ def load_host_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry_point(name: str):
-    """Kernel ``name``'s C entry point with its argument types declared,
-    building and loading the library first if needed; under a profiler
-    capture each call is a ``record_function`` range named by the entry
-    point."""
+def library(name: str) -> ctypes.CDLL:
+    """Kernel ``name``'s library, built and loaded first if needed."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
@@ -331,6 +331,15 @@ def entry_point(name: str):
                 build_all([name])
             lib = ctypes.CDLL(str(path))
             _LOADED[name] = lib
+    return lib
+
+
+def entry_point(name: str):
+    """Kernel ``name``'s C entry point with its argument types declared,
+    building and loading the library first if needed; under a profiler
+    capture each call is a ``record_function`` range named by the entry
+    point."""
+    lib = library(name)
     _, symbol, argtypes = KERNELS[name]
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)

@@ -17,18 +17,21 @@ FMA units) into tiles and d into slices for a card with a given SM count,
 and :func:`mma_plan` the bf16 route's (csrc/gram_mma.cuh, on the tensor
 cores); the fused Krum-score kernel shares both.
 
-Over the model axis of a mesh (parallel/mesh.py) the two stages run
-apart: :func:`gram_partials` on each model position's (n, d_j) column
-block, :func:`gram_epilogue` on the positions' partials in position
-order (parallel/model_axis.py:split_distances).  Their
-plain versions are a block Gram accumulated in f32 and the epilogue of
-the summed Gram.
+Over the model axis of a mesh (parallel/mesh.py) the Gram is split over
+d (csrc/gram_split.cuh, parallel/model_axis.py:split_distances):
+:func:`gram_partials` leaves each model position's (n, n) f32 Gram of
+its (n, d_j) column block on its device, its slices summed on the card
+in thread block clusters as :func:`split_plan` lays them out, and
+:func:`gram_epilogue` reads the positions' Grams where they lie and sums
+them in position order.  Their plain versions are a block Gram
+accumulated in f32 and the epilogue of the summed Gram.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -280,6 +283,185 @@ def mma_plan(n: int, d: int, sms: int) -> MmaPlan:
                    live, rows, stage_k)
 
 
+# The split route's stage 1 (csrc/gram_split.cuh).
+CLUSTERS = (1, 2, 4, 8, 16)   # cluster sizes (16: non-portable)
+SPLIT_CHAINS = (256, 128, 64)  # k per chain
+# The split plan's model, in seconds, fitted to stage 1 under forced plans
+# on an H100 SXM (tools/split_gram_ab.py sweep, NVIDIA H100 80GB HBM3,
+# 700 W, at n = 100, d = 39,755): an f32 block runs a chain of c k in
+# c / 6.8e10 s per FMA of its live thread tiles (22.8 us for 256 k of
+# the 91 at n = 100, 30 % of the 67 TFLOP/s peak) plus CHAIN_END; a
+# bf16 block in 1.95 times mma_plan's model (1.96 us for 128 k); each
+# wave of clusters BLOCK_START more (the ring's prologue and the cluster
+# sum); the tail TAIL_LAUNCH, and each cluster sum that reaches device
+# memory TAIL_RUN (written by its cluster, read by the tail: 0.12 us a
+# sum at d = 39,755, 132 clusters of 1 against 7 of 16 at 3 chains a
+# block, 0.2 at d = 5,460, 43 of 2 against 3 of 16).
+SPLIT_F32_RATE = 6.8e10
+SPLIT_BF16_SLOWDOWN = 1.95
+CHAIN_END = 0.8e-6
+BLOCK_START = 6.5e-6
+TAIL_LAUNCH = 2.5e-6
+TAIL_RUN = 0.16e-6
+TILE_BYTES = 4 * TILE * TILE
+SPLIT_WAVES = 4         # the most waves of clusters a plan considers
+
+
+class SplitPlan(NamedTuple):
+    """The split route's stage 1 on an (n, d) block: the ``tiles`` 128 x
+    128 tiles on or above the diagonal (the f32 route's block with
+    ``kgroups`` k groups, or the bf16 route's with the tensor cores'
+    ``stage_k``), d in ``chains`` chains of ``chain`` k (the last may be
+    short) dealt out over ``slices`` slices of at most ``cps`` chains,
+    the slices run in clusters of ``cluster`` blocks whose partial tiles
+    are summed on chip; the ``runs`` cluster sums a tile goes to device
+    memory, and the tail sums them into the Gram (no tail where runs =
+    1)."""
+
+    n: int
+    d: int
+    bf16: bool
+    tiles: int
+    chain: int
+    chains: int
+    cps: int
+    slices: int
+    cluster: int
+    kgroups: int
+    stage_k: int
+
+    @property
+    def launch_args(self):
+        """What the split entry points take after (G, n, d)."""
+        return (self.slices, self.chain, self.cluster,
+                self.stage_k if self.bf16 else self.kgroups)
+
+    @property
+    def runs(self) -> int:
+        return self.slices // self.cluster
+
+    @property
+    def mid_floats(self) -> int:
+        """The cluster sums' scratch, (tiles, runs, 128, 128) f32 where
+        runs > 1."""
+        return self.tiles * self.runs * TILE * TILE if self.runs > 1 else 0
+
+    @property
+    def rounding_chain(self) -> int:
+        """Longest sequential chain of roundings in one Gram output: a
+        chain (on the f32 route a k group's FMA chain over its share of
+        the chain's products, then the other groups' chains; on the bf16
+        route its wgmma k16 steps), the slice's other chains, the other
+        partials of its cluster, then the other runs' sums."""
+        head = (self.chain // MMA_STEP if self.bf16 else
+                self.chain // self.kgroups + self.kgroups - 1)
+        return head + (self.cps - 1) + (self.cluster - 1) + (self.runs - 1)
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's dynamic shared memory: the f32 route's ring and k
+        group exchange and the partial tile, or the bf16 route's ring,
+        which the partial tile reuses."""
+        if self.bf16:
+            base = mma_plan(self.n, self.d, 1)
+            return max(_mma_smem(base.live, base.rows, self.stage_k,
+                                 base.groups), TILE_BYTES + MMA_ALIGN)
+        return _f32_smem(self.kgroups) + TILE_BYTES
+
+
+def _f32_smem(kgroups: int) -> int:
+    """The f32 stage 1's ring of three stages of 32 k of two 128-row
+    operands, and its k groups' exchange (gram_tile.cuh: stage1_smem)."""
+    return 4 * (3 * 2 * TILE * 32
+                + (kgroups - 1) * THREAD_TILE ** 2 * (THREADS // kgroups))
+
+
+def default_cluster_slots(sms: int) -> tuple:
+    """Clusters of each size in CLUSTERS a card with ``sms`` SMs holds at
+    once, one block an SM, where the card is not asked
+    (:func:`cluster_slots` asks it)."""
+    return tuple(sms // c for c in CLUSTERS)
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(n: int, d: int, sms: int, bf16: bool = False,
+               slots: Optional[tuple] = None) -> SplitPlan:
+    """The split route's stage 1 on an (n, d) block for a card with
+    ``sms`` SMs that holds ``slots[i]`` clusters of ``CLUSTERS[i]`` blocks
+    at once (default :func:`default_cluster_slots`).
+
+    The block's instruction shape is the fused route's: the f32 route's
+    k groups (:func:`gram_plan`), the bf16 route's warpgroups and stage
+    (:func:`mma_plan`).  Among chains of 256, 128 or 64 k (a whole number
+    of the bf16 route's stages; 256 where its chains are stacked),
+    clusters of 1 to 16 and S = cluster x runs slices, S no more than the
+    chains (no slice is empty) and at most SPLIT_WAVES waves of clusters,
+    the one with the least estimated time wins (ties: fewer slices, then
+    longer chains).  The estimate, in seconds on an H100 SXM: each wave
+    of clusters (``tiles`` x runs clusters, ``slots`` a wave) takes its
+    busiest block's chains (cps of them, each its k at the block's rate
+    plus CHAIN_END) and BLOCK_START; then, where runs > 1, the tail,
+    TAIL_LAUNCH and TAIL_RUN a cluster sum.
+
+    On an H100 SXM (slots 132, 66, 30, 15, 7), at n = 100, d = 39,755,
+    both routes: chains of 128, 112 slices in clusters of 16 (7 clusters,
+    one wave, 3 chains a block); f32 at d = 5,460: chains of 64, 48
+    slices in clusters of 16, 2 chains a block."""
+    if n < 1 or d < 1 or sms < 1:
+        raise ValueError(f"split_plan needs n, d, sms >= 1, got {n}, {d}, "
+                         f"{sms}")
+    slots = default_cluster_slots(sms) if slots is None else tuple(slots)
+    nt = -(-n // TILE)
+    tiles = nt * (nt + 1) // 2
+    if bf16:
+        base = mma_plan(n, d, sms)
+        kgroups = 1
+        chains = ((CHAIN,) if base.groups > 1 else
+                  tuple(c for c in SPLIT_CHAINS if c >= base.stage_k))
+    else:
+        kgroups = gram_plan(n, d, sms).kgroups
+        chains = SPLIT_CHAINS
+    stage_k = base.stage_k if bf16 else 0
+    best = None
+    for chain in chains:
+        total = -(-d // chain)
+        for cluster, slot in zip(CLUSTERS, slots):
+            if slot < 1:
+                continue
+            most = min(total // cluster,
+                       max(1, SPLIT_WAVES * slot // tiles))
+            for runs in range(1, most + 1):
+                slices = cluster * runs
+                plan = SplitPlan(n, d, bf16, tiles, chain, total,
+                                 -(-total // slices), slices, cluster,
+                                 kgroups, stage_k)
+                key = (split_estimate(plan, sms, slots), slices, -chain)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    return best[1]
+
+
+def split_estimate(plan: SplitPlan, sms: int, slots: tuple) -> float:
+    """:func:`split_plan`'s estimate of ``plan``'s time in seconds on a
+    card with ``sms`` SMs and ``slots`` clusters of each size."""
+    n = plan.n
+    if plan.bf16:
+        base = mma_plan(n, plan.d, sms)
+        ops = 2 * MMA_ROWS * base.warpgroups * base.cols / base.groups
+        t_k = SPLIT_BF16_SLOWDOWN * max(
+            ops / SM_TENSOR_RATE, 2 * min(n, 2 * TILE) / SM_BYTES_RATE)
+    else:
+        mr = -(-n // THREAD_TILE)
+        busy = mr * (mr + 1) // 2 if n <= TILE else THREADS
+        t_k = busy * THREAD_TILE ** 2 / SPLIT_F32_RATE
+    slot = slots[CLUSTERS.index(plan.cluster)]
+    waves = -(-plan.tiles * plan.runs // slot)
+    cost = waves * (plan.cps * (plan.chain * t_k + CHAIN_END) + BLOCK_START)
+    if plan.runs > 1:
+        cost += TAIL_LAUNCH + TAIL_RUN * plan.runs
+    return cost
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -370,17 +552,45 @@ def pairwise_distances(G: torch.Tensor) -> torch.Tensor:
     return D
 
 
-# --- the two stages apart: the Gram split over d across the model axis ----
+# --- the Gram split over d across the model axis --------------------------
+
+# The most model positions the epilogue reads in one launch (their Grams'
+# pointers travel by value: csrc/gram_split.cuh kMaxGrams).
+EPILOGUE_MAX_POSITIONS = 32
+
 
 class GramPartials(NamedTuple):
     """Stage 1's output for one model position's (n, d_j) column block:
-    on the card its workspace, ``slices`` partial tiles and their
-    diagonals in gram_tile.cuh's layout; on the CPU the block's (n, n)
-    f32 Gram as one slice."""
+    the block's (n, n) f32 Gram, on the position's device, as one
+    slice."""
 
     ws: torch.Tensor
     n: int
     slices: int
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(index: int) -> tuple:
+    """Clusters of each size in CLUSTERS card ``index`` holds at once, one
+    block of the split stage 1 an SM (cudaOccupancyMaxActiveClusters)."""
+    fn = _build.library("gram_partials").fl_cluster_slots
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(index):
+        slots = tuple(fn(c) for c in CLUSTERS)
+    if min(slots) < 0:
+        raise RuntimeError(f"cluster_slots: the card refused the query "
+                           f"(cudaError_t {-min(slots)})")
+    return slots
+
+
+def device_split_plan(G: torch.Tensor) -> SplitPlan:
+    """:func:`split_plan` for G on its card."""
+    n, d = G.shape
+    index = (G.device.index if G.device.index is not None
+             else torch.cuda.current_device())
+    return split_plan(n, d, _sm_count(index), G.dtype == torch.bfloat16,
+                      cluster_slots(index))
 
 
 def gram_partials_plain(G: torch.Tensor) -> torch.Tensor:
@@ -406,63 +616,45 @@ def gram_epilogue_plain(grams) -> torch.Tensor:
 
 def gram_partials_cost(n: int, d: int, bf16: bool = False) -> KernelCost:
     """Stage 1's work on an (n, d) block: the Gram's and the norms'
-    operations, the block read once and its (n, n) f32 Gram written once
-    (what the partials must hold at the least)."""
+    operations, the block read once and its (n, n) f32 Gram written
+    once."""
     return KernelCost(gram_operations(n, d),
                       (2 if bf16 else 4) * n * d + 4 * n * n,
                       "bf16" if bf16 else "fp32")
 
 
 def gram_epilogue_cost(n: int, m: int) -> KernelCost:
-    """What stage 2 must do from the m model positions' (n, n) Grams: an
-    add an entry a position and the epilogue's five operations an entry,
-    each position's Gram read once and the distances written once.  The
-    slices that stage 1's plan leaves in each block are the plan's cost,
-    not the function's, so they are not priced here."""
+    """Stage 2's work from the m model positions' (n, n) Grams: an add an
+    entry a position and the epilogue's five operations an entry, each
+    position's Gram read once and the distances written once."""
     return KernelCost((m + 5) * n * n, 4 * n * n * (m + 1))
 
 
-@counted_kernel(lambda G: gram_route("gram_partials", G),
-                lambda G: gram_partials_cost(*G.shape,
-                                             G.dtype == torch.bfloat16))
-def gram_partials(G: torch.Tensor) -> GramPartials:
-    """Stage 1 of the distance kernel on one model position's (n, d_j)
-    f32 or bf16 column block, on its device."""
+@counted_kernel(lambda G, plan=None: gram_route("gram_partials", G),
+                lambda G, plan=None: gram_partials_cost(
+                    *G.shape, G.dtype == torch.bfloat16))
+def gram_partials(G: torch.Tensor,
+                  plan: Optional[SplitPlan] = None) -> GramPartials:
+    """Stage 1 of the split Gram on one model position's (n, d_j) f32 or
+    bf16 column block, on its device: the block's (n, n) f32 Gram.
+    ``plan`` forces a :class:`SplitPlan` on the card (default
+    :func:`device_split_plan`)."""
     n, d = G.shape
     if G.device.type == "cpu":
         return GramPartials(gram_partials_plain(G), n, 1)
     name = gram_route("gram_partials", G)
     _build.check_cuda_matrix(G, name)
     fn = _build.entry_point(name)
-    plan = device_gram_plan(G)
-    ws = gram_workspace(G, plan)
-    status = fn(G.data_ptr(), n, d, *plan.launch_args, ws.data_ptr(),
+    plan = device_split_plan(G) if plan is None else plan
+    # One allocation: the Gram's n rows, then the cluster sums' scratch.
+    rows = n + -(-plan.mid_floats // n)
+    out = torch.empty((rows, n), dtype=torch.float32, device=G.device)
+    at = out.data_ptr()
+    status = fn(G.data_ptr(), n, d, *plan.launch_args, at + 4 * n * n, at,
                 _build.stream_handle(G))
     _build.check_status(name, status)
     _build.LAUNCHES[name] += 1
-    return GramPartials(ws, n, plan.slices)
-
-
-def gathered_workspace(parts, device) -> torch.Tensor:
-    """The positions' workspaces laid end to end on ``device`` as stage 2
-    reads them: every position's partial tiles in position order, then
-    every position's diagonals."""
-    n = parts[0].n
-    nt = -(-n // TILE)
-    tile_el = nt * (nt + 1) // 2 * TILE * TILE
-    diag_el = nt * TILE
-    total = sum(p.slices for p in parts)
-    ws = torch.empty(total * (tile_el + diag_el), dtype=torch.float32,
-                     device=device)
-    at, dg = 0, total * tile_el
-    for p in parts:
-        k = p.slices
-        ws[at:at + k * tile_el].copy_(p.ws[:k * tile_el])
-        ws[dg:dg + k * diag_el].copy_(
-            p.ws[k * tile_el:k * (tile_el + diag_el)])
-        at += k * tile_el
-        dg += k * diag_el
-    return ws
+    return GramPartials(out.narrow(0, 0, n) if rows > n else out, n, 1)
 
 
 @counted_kernel("gram_epilogue",
@@ -471,25 +663,36 @@ def gathered_workspace(parts, device) -> torch.Tensor:
 def gram_epilogue(parts, device=None) -> torch.Tensor:
     """Stage 2 on ``device`` (default: the first part's): the (n, n) f32
     distances, exact zero diagonal, from the :class:`GramPartials` of
-    every model position, in position order."""
-    dev = parts[0].ws.device if device is None else torch.device(device)
-    kinds = {p.ws.device.type for p in parts} | {dev.type}
+    every model position, in position order, read where they lie (a Gram
+    on another card is copied over first)."""
+    if len(parts) > EPILOGUE_MAX_POSITIONS:
+        raise ValueError(f"gram_epilogue: {len(parts)} model positions, "
+                         f"above the epilogue's cap of "
+                         f"EPILOGUE_MAX_POSITIONS = "
+                         f"{EPILOGUE_MAX_POSITIONS}")
+    grams = [p.ws for p in parts]
+    dev = grams[0].device if device is None else torch.device(device)
+    kinds = {g.device.type for g in grams} | {dev.type}
     if kinds == {"cpu"}:
-        return gram_epilogue_plain([p.ws for p in parts])
+        return gram_epilogue_plain(grams)
     if kinds != {"cuda"}:
         raise ValueError(f"gram_epilogue: the partials and the device must "
                          f"all be CUDA or all CPU, got {sorted(kinds)}")
-    for p in parts:
-        if p.ws.dtype != torch.float32 or not p.ws.is_contiguous():
-            raise ValueError(f"gram_epilogue: expected contiguous float32 "
-                             f"partials, got {p.ws.dtype} "
-                             f"contiguous={p.ws.is_contiguous()}")
-    fn = _build.entry_point("gram_epilogue")
     n = parts[0].n
-    ws = gathered_workspace(parts, dev)
+    for g in grams:
+        if (g.dtype != torch.float32 or not g.is_contiguous()
+                or g.shape != (n, n)):
+            raise ValueError(f"gram_epilogue: expected contiguous float32 "
+                             f"partials of ({n}, {n}), got {g.dtype} "
+                             f"{tuple(g.shape)} "
+                             f"contiguous={g.is_contiguous()}")
+    fn = _build.entry_point("gram_epilogue")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    grams = [g if g.device == dev else g.to(dev) for g in grams]
+    ptrs = (ctypes.c_void_p * len(grams))(*[g.data_ptr() for g in grams])
     D = torch.empty((n, n), dtype=torch.float32, device=dev)
-    status = fn(ws.data_ptr(), n, sum(p.slices for p in parts),
-                D.data_ptr(), _build.stream_handle(ws))
+    status = fn(ptrs, len(grams), n, D.data_ptr(), _build.stream_handle(D))
     _build.check_status("gram_epilogue", status)
     _build.LAUNCHES["gram_epilogue"] += 1
     return D

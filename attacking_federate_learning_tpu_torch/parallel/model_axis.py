@@ -11,9 +11,10 @@ blocks to the model positions, and
   weights, their masked kernels 5 and 6, run on each block on its
   position;
 - Krum and Bulyan take their distances from the Gram split over d: each
-  position runs stage 1 of the distance kernel on its block
-  (ops/distances.py:gram_partials), the partials gather to the primary
-  and stage 2 sums them in position order (gram_epilogue).  The
+  position runs stage 1 on its block (ops/distances.py:gram_partials),
+  which leaves the block's (n, n) f32 Gram on the position, and stage 2
+  on the primary reads the m Grams and sums them in position order
+  (gram_epilogue).  The
   selection runs on the primary: Krum's scores by kernel 2's per-row
   selection under the cancellation guard, the exact sort of the same
   matrix where the guard fails (defenses/kernels.py:guarded_scores_of),
@@ -38,7 +39,7 @@ from attacking_federate_learning_tpu_torch.defenses.kernels import (
     DEFENSES, bulyan_select, bulyan_trim, guarded_scores_of, sort_scores
 )
 from attacking_federate_learning_tpu_torch.ops.distances import (
-    gram_epilogue, gram_partials, gram_plan, mma_plan
+    gram_epilogue, gram_partials
 )
 from attacking_federate_learning_tpu_torch.parallel.mesh import (
     MeshPlan, PerPosition
@@ -141,20 +142,8 @@ def split_defense(cfg, plan: Optional[MeshPlan], d: int
     return _coordinatewise(cfg.defense)
 
 
-# The SM count the wire ledger plans the partials for: an H100 SXM's.
-LEDGER_SMS = 132
-
-
-def partial_tiles(cfg, plan: MeshPlan, m: int, d: int) -> int:
-    """The 128 x 128 partial tiles one model position sends to the primary
-    a round for Krum's or Bulyan's distances (its slices times its tiles,
-    planned for an H100's 132 SMs on its (m, d / parts) block); 0 for the
-    coordinate-wise defenses."""
-    if cfg.defense not in ("Krum", "Bulyan"):
-        return 0
-    cols = d // plan.model_parts
-    bf16 = (cfg.distance_dtype == "bfloat16"
-            or (cfg.defense == "Krum" and cfg.distance_dtype == "float32"
-                and cfg.grad_dtype == "bfloat16"))
-    gp = (mma_plan if bf16 else gram_plan)(m, cols, LEDGER_SMS)
-    return gp.slices * gp.tiles
+def gram_rows(cfg, m: int) -> int:
+    """The rows n of the (n, n) f32 Gram each model position sends to the
+    primary a round for Krum's or Bulyan's distances (its block's Gram,
+    4 n^2 bytes): the cohort m; 0 for the coordinate-wise defenses."""
+    return m if cfg.defense in ("Krum", "Bulyan") else 0

@@ -351,7 +351,7 @@ def wire_ledger(*, cohort: int, dim: int, grad_bytes: int = 4,
                 dropped: int = 0,
                 async_buffer: Optional[int] = None,
                 model_parts: int = 1,
-                partial_tiles: int = 0) -> dict:
+                gram_rows: int = 0) -> dict:
     """Bytes-per-round on every protocol seam, priced from the topology
     parameters alone (f32 model wire; ``grad_bytes`` prices a quantized
     client→server leg).
@@ -369,11 +369,11 @@ def wire_ledger(*, cohort: int, dim: int, grad_bytes: int = 4,
 
     The port's model axis (``model_parts`` m > 1 positions splitting d)
     adds two seams the JAX package's ledger leaves to XLA:
-    ``model_partials``, the Gram partials every position sends to the
-    primary for Krum's and Bulyan's distances, m * ``partial_tiles`` 64
-    KB tiles (a position's slices times its 128 x 128 tiles; 0 for the
-    other defenses), and ``model_state``, the d * 4 bytes of the weights'
-    column blocks gathered for deliver once a round."""
+    ``model_partials``, the block Grams every position sends to the
+    primary for Krum's and Bulyan's distances, m (n, n) f32 Grams of
+    4 * ``gram_rows``**2 bytes (n the cohort; 0 for the other defenses),
+    and ``model_state``, the d * 4 bytes of the weights' column blocks
+    gathered for deliver once a round."""
     seams: dict = {}
     seams["broadcast"] = {"bytes": cohort * dim * 4}
     seams["client_update"] = {"bytes": cohort * dim * grad_bytes}
@@ -395,7 +395,7 @@ def wire_ledger(*, cohort: int, dim: int, grad_bytes: int = 4,
             "bytes": async_buffer * dim * grad_bytes}
     if model_parts > 1:
         seams["model_partials"] = {
-            "bytes": model_parts * partial_tiles * 128 * 128 * 4,
+            "bytes": model_parts * 4 * gram_rows * gram_rows,
             "collective": True}
         seams["model_state"] = {"bytes": dim * 4, "collective": True}
     return {

@@ -19,9 +19,13 @@ success):
                instantiation of the Gram's stage 1 on both routes
                (gram_partials_kernel<KG, VEC>, f32; gram_mma_kernel<WGS,
                N, KS>, bf16 on the tensor cores, where a stack frame or a
-               spill fails too), and the HGMMA and HMMA instructions in
-               gram_mma_kernel's SASS (cuobjdump -sass; none fails, and a
-               toolkit without cuobjdump is said so on the line).
+               spill fails too), those of the split route's kernels
+               (gram_split_kernel<KG, VEC> reported as the f32 stage 1
+               is; gram_mma_split_kernel<WGS, N, KS>, the tail and the
+               epilogue, where a stack frame or a spill fails), and the
+               HGMMA and HMMA instructions in gram_mma_kernel's SASS
+               (cuobjdump -sass; none fails, and a toolkit without
+               cuobjdump is said so on the line).
 3. kernels  -- hold each CUDA kernel against its plain PyTorch version on
                the card, on seeded numpy cohorts: the main path's shapes
                (mnist_mlp, d = 79,510, n = 100, f = 24), an ALIE cohort of
@@ -490,10 +494,16 @@ success):
                (gram_partials, gram_partials[bf16], gram_epilogue,
                krum_rows) at (100, 79,510) f32 and bf16 over m = 2 and
                (100, 21,840) over m = 4, against their plain versions
-               (rel 1e-5), the fused pairwise_distances in phase 3's
-               squared-distance band, ALIE's identical rows exactly 0
-               apart, krum_rows' pick the fused krum_scores'; CUDA-event
-               ms, plain and library ms, bounds.  (b) phase 5's mnist_mlp
+               (rel 1e-5: each position's (n, n) Gram, symmetric bit for
+               bit, and the split D), the fused pairwise_distances in
+               phase 3's squared-distance band, ALIE's identical rows and
+               the diagonal exactly 0, two launches bit-equal,
+               krum_rows' pick the fused krum_scores'; one split route's
+               launches (m stage-1 calls and one epilogue, no copies; the
+               counters and torch.profiler); CUDA-event ms, plain and
+               library ms, bounds, and a [split] line of device us for
+               each stage, the route, the fused kernel and torch.mm.
+               (b) phase 5's mnist_mlp
                runs (n = 100, f = 24) under the five defenses at (1, 2)
                and (2, 2), and Krum on bf16 distances at (1, 2), each
                round from its unsharded twin's state: the mesh's deliver
@@ -819,6 +829,8 @@ def gram_route_build(failures):
         if found != 4:
             failures.append(f"{name}: {found} ptxas reports of "
                             f"gram_mma_kernel, want 4")
+        if name == "pairwise_distances":
+            split_route_build(_build.ptxas_log(name), failures)
         counts = tensor_core_count(_build.library_path(name))
         if counts is None:
             print(f"[build] {name:19s} gram_mma_kernel SASS: not counted, "
@@ -829,6 +841,48 @@ def gram_route_build(failures):
         if counts[0] + counts[1] == 0:
             failures.append(f"{name}: no tensor-core instruction in "
                             f"gram_mma_kernel's SASS")
+
+
+# The split route's kernels (csrc/gram_split.cuh), in pairwise_distances.cu
+# only: stage 1 in clusters on both routes, its tail, the epilogue over the
+# positions' Grams: (label, mangled-name pattern, instantiations, whether
+# a stack frame or a spill fails it).  The f32 stage 1 is reported as the
+# fused one is (its VEC = 1 main loop spills a few bytes on both routes);
+# the bf16 stage 1 must keep its accumulators in registers.
+SPLIT_KERNELS = (("gram_split_kernel", r"gram_split_kernelILi(\d)ELi(\d)EE",
+                  9, False),
+                 ("gram_mma_split_kernel",
+                  r"gram_mma_split_kernelILi(\d)ELi(\d+)ELi(\d)EE", 4,
+                  True),
+                 ("gram_tail_kernel", r"gram_tail_kernel", 1, True),
+                 ("gram_sum_epilogue_kernel", r"gram_sum_epilogue_kernel",
+                  1, True))
+
+
+def split_route_build(log, failures):
+    """Phase 2's report on the split route's kernels: registers, stack
+    frame and spills of each instantiation, and their count."""
+    import re
+
+    for label, pattern, want, strict in SPLIT_KERNELS:
+        found = 0
+        for entry, regs, frame, stores, loads in ptxas_entries(log):
+            m = re.search(pattern, entry)
+            if not m:
+                continue
+            found += 1
+            ok = frame == stores == loads == 0 or not strict
+            args = f"<{', '.join(m.groups())}>" if m.groups() else ""
+            print(f"[build] pairwise_distances  {label}{args}: {regs} "
+                  f"registers, {frame} bytes stack frame, {stores} bytes "
+                  f"spill stores, {loads} bytes spill loads ok={ok}",
+                  flush=True)
+            if not ok:
+                failures.append(f"pairwise_distances {label}{args}: stack "
+                                f"frame or spills")
+        if found != want:
+            failures.append(f"pairwise_distances: {found} ptxas reports of "
+                            f"{label}, want {want}")
 
 
 def route_of(plan):
@@ -7860,11 +7914,35 @@ def model_plan(c, m):
     return make_plan((c, m), [torch.device("cuda", 0)] * (c * m))
 
 
+def device_us(fn, reps=20, tries=3):
+    """Device time (us) of the kernels and copies one call of ``fn``
+    launches, mean over ``reps`` calls, from torch.profiler, and
+    {name: launches a call}.  A capture that lost events (a count not a
+    multiple of ``reps``) is taken again; (None, {}) where none of
+    ``tries`` saw every event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+        if rows and all(e.count % reps == 0 for e in rows):
+            return (sum(e.device_time_total for e in rows) / reps,
+                    {e.key: e.count // reps for e in rows})
+    return None, {}
+
+
 def p21_kernels(peaks, failures, smi):
-    """Phase 21 (a): the four new entry points against their plain
+    """Phase 21 (a): the split Gram's entry points against their plain
     versions and the fused kernels.  Returns the kernels line's entries."""
     import torch
 
+    from attacking_federate_learning_tpu_torch.ops import _build
     from attacking_federate_learning_tpu_torch.ops import defense_kernels as DK
     from attacking_federate_learning_tpu_torch.ops import distances as DI
 
@@ -7876,14 +7954,20 @@ def p21_kernels(peaks, failures, smi):
         t_b, t_o = cost.bytes / bytes_peak * 1e3, cost.flops / rate * 1e3
         return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
-    def entry(name, source, replaces, err, ms, pms, lms, cost, shape):
+    def entry(name, source, replaces, err, ms, pms, lms, cost, shape, us):
         b_ms, b_by = bound(cost)
         entries[name] = {
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
             "replaces": f"attacking_federate_learning_tpu/{replaces}",
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": pms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lms,
-            "shape": shape}
+            "shape": shape, "device_us": us}
+
+    def fmt(us):
+        return "not measured" if us is None else f"{us:.1f}"
+
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
     for n, d, m, dt in P21_SPLITS:
         dtype = getattr(torch, dt)
@@ -7892,6 +7976,11 @@ def p21_kernels(peaks, failures, smi):
         blocks = [b.contiguous() for b in torch.tensor_split(G, m, dim=1)]
         parts = [DI.gram_partials(b) for b in blocks]
         D = DI.gram_epilogue(parts)
+        torch.cuda.synchronize()
+        # A second launch of every call: the same bits.
+        again = [DI.gram_partials(b) for b in blocks]
+        bits = (all(same_bits(p.ws, q.ws) for p, q in zip(parts, again))
+                and same_bits(DI.gram_epilogue(again), D))
         grams = [DI.gram_partials_plain(b) for b in blocks]
         plain = DI.gram_epilogue_plain(grams)
         fused = DI.pairwise_distances(G)
@@ -7902,6 +7991,14 @@ def p21_kernels(peaks, failures, smi):
         rel = err / float(plain.abs().max())
         zero = bool((D[:F_MAIN, :F_MAIN] == 0).all()) and bool(
             (torch.diagonal(D) == 0).all())
+        # Stage 1 alone: each position's Gram against its plain Gram, and
+        # symmetric bit for bit.
+        p_err = max(float((p.ws - g).abs().max()) for p, g in
+                    zip(parts, grams))
+        p_rel = max(float((p.ws - g).abs().max() / g.abs().max())
+                    for p, g in zip(parts, grams))
+        shaped = all(p.slices == 1 and tuple(p.ws.shape) == (n, n)
+                     and torch.equal(p.ws, p.ws.T) for p in parts)
         comp = DK.krum_complement(n, F_MAIN)
         s, r = DK.krum_rows(D, comp)
         sp, rp = DK.krum_rows_plain(D, comp)
@@ -7909,14 +8006,38 @@ def p21_kernels(peaks, failures, smi):
         s_rel = float((s - sp).abs().max() / sp.abs().max())
         pick, pick_f = int(torch.argmin(s)), int(torch.argmin(sf))
         pick_ok = pick == pick_f or (pick < F_MAIN and pick_f < F_MAIN)
-        ok = in_band and rel <= 1e-5 and zero and s_rel <= 1e-5 and pick_ok
+        # Launches of one split route: m stage-1 calls and one epilogue,
+        # counted by the wrappers and seen by the profiler (no copies).
+        part_name = DI.gram_route("gram_partials", blocks[0])
+        plan = DI.device_split_plan(blocks[0])
+        before = dict(_build.LAUNCHES)
+
+        def route():
+            return DI.gram_epilogue([DI.gram_partials(b) for b in blocks])
+
+        route()
+        counted = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                   if v != before[k]}
+        r_us, r_kernels = device_us(route)
+        copies = sorted(k for k in r_kernels if "memcpy" in k.lower()
+                        or "memset" in k.lower())
+        per_route = sum(r_kernels.values())
+        want_kernels = m * (2 if plan.runs > 1 else 1) + 1
+        launches_ok = (counted == {part_name: m, "gram_epilogue": 1}
+                       and not copies
+                       and (r_us is None or per_route == want_kernels))
+        ok = (in_band and rel <= 1e-5 and zero and s_rel <= 1e-5 and pick_ok
+              and bits and shaped and p_rel <= 1e-5 and launches_ok)
         if not ok:
             failures.append(f"model axis (a) ({n}, {d}) m={m} {dt}: d2 vs "
                             f"fused in band {in_band}, vs plain rel "
                             f"{rel:.3e}, identical rows 0 {zero}, krum_rows "
-                            f"rel {s_rel:.3e}, pick {pick} vs fused {pick_f}")
+                            f"rel {s_rel:.3e}, pick {pick} vs fused {pick_f}, "
+                            f"two launches bit-equal {bits}, Grams (n, n) "
+                            f"and symmetric {shaped}, Gram vs plain rel "
+                            f"{p_rel:.3e}, launches {counted}, kernels a "
+                            f"route {r_kernels}")
         b0 = blocks[0]
-        part_name = DI.gram_route("gram_partials", b0)
         p_ms = time_ms(lambda: DI.gram_partials(b0), 20)
         p_pms = time_ms(lambda: DI.gram_partials_plain(b0), 20)
         mm = (mm_f32_out(b0) if dtype == torch.bfloat16
@@ -7927,18 +8048,12 @@ def p21_kernels(peaks, failures, smi):
         r_ms = time_ms(lambda: DK.krum_rows(D, comp), 20)
         r_pms = time_ms(lambda: DK.krum_rows_plain(D, comp), 20)
         f_ms = time_ms(lambda: DI.pairwise_distances(G), 20)
-        s_ms = time_ms(lambda: DI.gram_epilogue(
-            [DI.gram_partials(b) for b in blocks]), 20)
-        # Stage 1 alone: the first block's slices summed (one 128 x 128
-        # tile at n <= 128) against its plain Gram, on and above the
-        # diagonal (what the kernel writes).
-        p_err = err
-        if n <= DI.TILE:
-            tile = parts[0].ws[:parts[0].slices * DI.TILE ** 2].view(
-                parts[0].slices, DI.TILE, DI.TILE).sum(0)[:n, :n]
-            upper = torch.triu(torch.ones(n, n, dtype=torch.bool,
-                                          device=G.device))
-            p_err = float((tile - grams[0])[upper].abs().max())
+        s_ms = time_ms(route, 20)
+        p_us, p_kernels = device_us(lambda: DI.gram_partials(b0))
+        e_us, _ = device_us(lambda: DI.gram_epilogue(parts))
+        k_us, _ = device_us(lambda: DK.krum_rows(D, comp))
+        f_us, _ = device_us(lambda: DI.pairwise_distances(G))
+        l_us = None if mm is None else device_us(mm)[0]
         p_cost = DI.gram_partials_cost(n, b0.shape[1],
                                        dtype == torch.bfloat16)
         e_cost = DI.gram_epilogue_cost(n, m)
@@ -7946,32 +8061,42 @@ def p21_kernels(peaks, failures, smi):
         print(f"[model axis] (a) ({n}, {d:,}) {dt} m={m}: split D vs plain "
               f"max_abs={err:.3e} rel={rel:.3e}, d2 vs fused "
               f"pairwise_distances in phase 3's band={in_band}, ALIE rows "
-              f"and diagonal exactly 0={zero}, krum_rows vs plain rel="
-              f"{s_rel:.3e}, pick {pick} (fused {pick_f}) ok={ok}; "
-              f"{part_name}_ms={p_ms:.4f} (plain {p_pms:.4f}, library "
+              f"and diagonal exactly 0={zero}, two launches bit-equal="
+              f"{bits}, each position's Gram ({n}, {n}) symmetric="
+              f"{shaped} vs plain rel={p_rel:.3e}, krum_rows vs plain rel="
+              f"{s_rel:.3e}, pick {pick} (fused {pick_f}); a route "
+              f"launched {counted} (copies {copies}) ok={ok}; plan chains "
+              f"of {plan.chain} x {plan.cps}, {plan.slices} slices in "
+              f"clusters of {plan.cluster}, {plan.runs} runs, rounding "
+              f"chain {plan.rounding_chain}; {part_name}_ms={p_ms:.4f} "
+              f"(plain {p_pms:.4f}, library "
               f"{'n/a' if p_lms is None else f'{p_lms:.4f}'}, bound "
               f"{bound(p_cost)[0]:.4f}) x {m} blocks, gram_epilogue_ms="
-              f"{e_ms:.4f} over {sum(p.slices for p in parts)} partials "
-              f"of {m} Grams (plain {e_pms:.4f}, bound from the {m} "
-              f"Grams {bound(e_cost)[0]:.6f}), "
-              f"krum_rows_ms={r_ms:.4f} (plain {r_pms:.4f}, bound "
-              f"{bound(r_cost)[0]:.4f}); all m blocks + epilogue "
-              f"{s_ms:.4f} vs fused pairwise_distances {f_ms:.4f} "
-              f"(CUDA events) on {smi}", flush=True)
+              f"{e_ms:.4f} over {m} Grams (plain {e_pms:.4f}, bound "
+              f"{bound(e_cost)[0]:.6f}), krum_rows_ms={r_ms:.4f} (plain "
+              f"{r_pms:.4f}, bound {bound(r_cost)[0]:.4f}); all m blocks "
+              f"+ epilogue {s_ms:.4f} vs fused pairwise_distances "
+              f"{f_ms:.4f} (CUDA events) on {smi}", flush=True)
+        print(f"[split] model axis ({n}, {d:,}) {dt} m={m}: {part_name} "
+              f"{fmt(p_us)} us ({p_kernels}), gram_epilogue {fmt(e_us)} "
+              f"us, krum_rows {fmt(k_us)} us, the split route "
+              f"{fmt(r_us)} us ({per_route:g} kernels), fused "
+              f"pairwise_distances {fmt(f_us)} us, torch.mm on a block "
+              f"{fmt(l_us)} us (torch.profiler) on {smi}", flush=True)
         if (n, d, m) == (N_MAIN, D_MLP, 2):
             shape = [n, d // m]
             entry(part_name, "pairwise_distances.cu",
                   "ops/pallas_distances.py:92", p_err, p_ms, p_pms, p_lms,
-                  p_cost, shape)
+                  p_cost, shape, p_us)
             if dtype == torch.float32:
                 entry("gram_epilogue", "pairwise_distances.cu",
                       "ops/pallas_distances.py:92", err, e_ms, e_pms, None,
-                      e_cost, [m, n, n])
+                      e_cost, [m, n, n], e_us)
                 entry("krum_rows", "krum_scores.cu",
                       "ops/pallas_defense.py:214",
                       float((s - sp).abs().max()), r_ms, r_pms, None, r_cost,
-                      [n, n])
-        del G, blocks, parts, D, grams, plain, fused, band, d2
+                      [n, n], k_us)
+        del G, blocks, parts, again, D, grams, plain, fused, band, d2
         torch.cuda.empty_cache()
     return entries
 

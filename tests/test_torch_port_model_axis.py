@@ -7,7 +7,11 @@ on the 8 virtual CPU devices of tests/conftest.py:
 - the plain versions of the four new entry points (``gram_partials``,
   its bf16 route, ``gram_epilogue``, ``krum_rows``) on split column
   blocks against the plain fused versions (rel 1e-5), identical rows
-  exactly 0 apart;
+  exactly 0 apart; the epilogue's refusals (mixed devices, more model
+  positions than its cap);
+- the split route's stage-1 plan (``split_plan``): d covered exactly by
+  non-empty slices of whole chains in clusters, a block's shared memory,
+  one wave where the tiles fit, and its rounding chain from the order;
 - the mesh: column blocks, their gather, the sum over the model axis
   (the epilogue's) in position order, the
   state placed as column blocks where m divides d and whole where not
@@ -177,6 +181,124 @@ def test_the_epilogue_refuses_mixed_devices():
     part = DI.GramPartials(torch.zeros(3, 3), 3, 1)
     with pytest.raises(ValueError, match="all be CUDA or all CPU"):
         DI.gram_epilogue([part], device="cuda")
+    with pytest.raises(ValueError, match="all be CUDA or all CPU"):
+        DI.gram_epilogue([part, part], device="cuda")
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_the_epilogue_refuses_m_above_its_cap(device):
+    cap = DI.EPILOGUE_MAX_POSITIONS
+    part = DI.GramPartials(torch.eye(3), 3, 1)
+    assert DI.gram_epilogue([part] * cap).shape == (3, 3)
+    with pytest.raises(ValueError, match=f"{cap + 1} model positions, "
+                       f"above the epilogue's cap of "
+                       f"EPILOGUE_MAX_POSITIONS = {cap}"):
+        DI.gram_epilogue([part] * (cap + 1), device=device)
+
+
+# ---------------------------------------------------------------------------
+# the split route's stage-1 plan (csrc/gram_split.cuh)
+
+SPLIT_SHAPES = [(100, 39_755), (100, 5_460), (1_000, 39_755)]
+
+
+def _split_slices(plan):
+    """Each slice's k range as csrc/gram_tile.cuh:split_slice deals the
+    chains out."""
+    T, S, c = -(-plan.d // plan.chain), plan.slices, plan.chain
+    return [(s * T // S * c, min((s + 1) * T // S * c, plan.d))
+            for s in range(S)]
+
+
+@pytest.mark.parametrize("n,d", SPLIT_SHAPES)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_split_plan_covers_d_fits_and_fills_the_card(n, d, bf16):
+    sms = 132
+    slots = DI.default_cluster_slots(sms)
+    plan = DI.split_plan(n, d, sms, bf16)
+    assert plan.tiles == -(-n // 128) * (-(-n // 128) + 1) // 2
+    # d exactly, in S non-empty runs of whole chains, S a multiple of the
+    # cluster.
+    ranges = _split_slices(plan)
+    assert ranges[0][0] == 0 and ranges[-1][1] == d
+    assert all(a < b and a % plan.chain == 0 for a, b in ranges)
+    assert all(x[1] == y[0] for x, y in zip(ranges, ranges[1:]))
+    assert plan.cluster in DI.CLUSTERS and plan.slices % plan.cluster == 0
+    assert plan.chains == -(-d // plan.chain)
+    assert plan.cps == max(-(-(b - a) // plan.chain) for a, b in ranges)
+    if bf16:
+        base = DI.mma_plan(n, d, sms)
+        assert plan.chain % plan.stage_k == 0 or base.groups > 1
+        assert plan.stage_k <= base.stage_k
+    else:
+        assert plan.chain % 32 == 0
+        assert plan.kgroups == DI.gram_plan(n, d, sms).kgroups
+    assert plan.smem_bytes <= 232_448
+    assert plan.mid_floats == (plan.tiles * plan.runs * 128 * 128
+                               if plan.runs > 1 else 0)
+    # No short last wave of clusters; where the tiles fit one wave, one
+    # wave, and the card is filled as far as the chains allow: for every
+    # cluster size and chain, the one-wave layout with the most slices is
+    # estimated no faster (it may run fewer chains a block, but adds more
+    # cluster sums to the tail).
+    slot = slots[DI.CLUSTERS.index(plan.cluster)]
+    clusters = plan.tiles * plan.runs
+    waves = -(-clusters // slot)
+    assert waves == 1 or clusters - (waves - 1) * slot >= slot / 2
+    if plan.tiles == 1:
+        assert waves == 1
+        mine = DI.split_estimate(plan, sms, slots)
+        for cluster, most in zip(DI.CLUSTERS, slots):
+            for chain in (plan.chain, 256):
+                total = -(-d // chain)
+                slices = min(total, cluster * most)
+                slices -= slices % cluster
+                if slices < 1:
+                    continue
+                full = plan._replace(chain=chain, chains=total,
+                                     cluster=cluster, slices=slices,
+                                     cps=-(-total // slices))
+                assert mine <= DI.split_estimate(full, sms, slots)
+
+
+def test_split_plan_leaves_no_second_wave_and_no_idle_card():
+    # The fused route's plan (gram_plan) at (100, 39,755): 156 blocks, a
+    # second wave of 24 on 132 SMs; at mnist_cnn's (100, 5,460): 22.
+    for slots in (None, (132, 66, 30, 15, 7)):
+        plan = DI.split_plan(100, 39_755, 132, False, slots)
+        assert plan.tiles * plan.slices <= 132
+        assert plan.cps * plan.chain <= 2 * 256
+        small = DI.split_plan(100, 5_460, 132, False, slots)
+        assert small.tiles * small.slices > 22
+        assert small.cps * small.chain < 256
+    # A card that holds fewer clusters of 16 takes another plan.
+    fewer = DI.split_plan(100, 39_755, 132, False, (132, 66, 33, 16, 7))
+    slot = (132, 66, 33, 16, 7)[DI.CLUSTERS.index(fewer.cluster)]
+    assert fewer.runs <= slot
+
+
+@pytest.mark.parametrize("n,d", SPLIT_SHAPES + [(17, 300), (1, 1),
+                                               (10, 8_972_340)])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_split_plan_rounding_chain_is_its_order(n, d, bf16):
+    plan = DI.split_plan(n, d, 132, bf16)
+    ranges = _split_slices(plan)
+    cps = max(-(-(b - a) // plan.chain) for a, b in ranges)
+    # A chain (the k groups' FMA chains then their sums in group order;
+    # or the chain's wgmma k16 steps), the slice's chains in order, the
+    # cluster's partials in rank order, the runs' sums in order.
+    head = (plan.chain // 16 if bf16 else
+            plan.chain // plan.kgroups + plan.kgroups - 1)
+    want = head + (cps - 1) + (plan.cluster - 1) + (plan.slices
+                                                    // plan.cluster - 1)
+    assert plan.rounding_chain == want
+    # Within the chain phase 3's band allows for kernel 1 on all of d.
+    assert plan.rounding_chain <= 256 + -(-d // 256) + 16
+
+
+def test_split_plan_refuses_empty_shapes():
+    with pytest.raises(ValueError, match="split_plan needs"):
+        DI.split_plan(0, 10, 132)
 
 
 # ---------------------------------------------------------------------------
@@ -398,15 +520,15 @@ def test_a_model_axis_checkpoint_is_unsharded_and_resumes_bit_for_bit(
     assert torch.equal(resumed.state.velocity, whole.state.velocity)
 
 
-@pytest.mark.parametrize("defense,tiles", [("Krum", True),
+@pytest.mark.parametrize("defense,grams", [("Krum", True),
                                            ("TrimmedMean", False)])
-def test_the_wire_ledger_prices_the_model_axis(defense, tiles, datasets):
+def test_the_wire_ledger_prices_the_model_axis(defense, grams, datasets):
     exp = _flat_run(datasets[1], cpu_plan(2, 2), rounds=0, defense=defense,
                     users_count=100, mal_prop=0.24)
     seams = exp.wire_ledger()["seams"]
     assert seams["model_state"]["bytes"] == D_MLP * 4
-    plan = DI.gram_plan(100, D_MLP // 2, MA.LEDGER_SMS)
-    want = 2 * plan.slices * plan.tiles * 128 * 128 * 4 if tiles else 0
+    # Each of the 2 model positions sends its block's (100, 100) f32 Gram.
+    want = 2 * 4 * 100 * 100 if grams else 0
     assert seams["model_partials"]["bytes"] == want
     unsplit = _flat_run(datasets[1], None, rounds=0, defense=defense)
     assert "model_state" not in unsplit.wire_ledger()["seams"]

@@ -304,13 +304,9 @@ _BF16_WRAPPERS = {
 
 
 class _CudaPartials(_CudaMatrix):
-    """Stands in for one position's (flat) f32 CUDA workspace of Gram
-    partials."""
+    """Stands in for one position's (4, 4) f32 CUDA Gram."""
 
-    shape = (4 * 128 * 128 + 128,)
-
-    def dim(self):
-        return 1
+    shape = (4, 4)
 
 
 # The split Gram's epilogue takes the positions' partials.
